@@ -1,0 +1,125 @@
+"""Execution backends behind one entry point: ``coded_matmul``.
+
+Counterpart of ``repro.cdmm.backends`` with the ``local`` backend: encode,
+all N worker products (one batched kernel launch on the card), response
+gather, any-R decode from the first R live workers.  Every registered scheme
+is integer-exact, so the result equals ``A @ B`` bit for bit whatever the
+live set.  The shard/elastic/pool backends and the tracing spans come in
+later slices.
+"""
+from __future__ import annotations
+
+from typing import Optional, Tuple, Union
+
+import numpy as np
+import torch
+
+from ..core.galois import from_numpy
+from ..core.straggler import select_workers
+from ..device import resolve_device
+from .api import CdmmScheme
+from .planner import Plan
+
+__all__ = [
+    "LocalSimBackend",
+    "coded_matmul",
+    "get_backend",
+    "live_indices",
+    "encode_all",
+    "decode_from",
+]
+
+
+def live_indices(scheme: CdmmScheme, mask: Optional[torch.Tensor]) -> torch.Tensor:
+    """First-R live worker indices under ``mask`` (all-live when None)."""
+    device = scheme.code.device
+    if mask is None:
+        return torch.arange(scheme.R, device=device)
+    return select_workers(torch.as_tensor(mask, dtype=torch.bool, device=device), scheme.R)
+
+
+def encode_all(
+    scheme: CdmmScheme, A: torch.Tensor, B: torch.Tensor
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Master-side encode of both operands: (N, ...) share stacks."""
+    return scheme.encode_a(A), scheme.encode_b(B)
+
+
+def decode_from(scheme: CdmmScheme, H: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """Any-R decode from the responses of workers ``idx`` (rows of ``H``
+    indexed by worker, i.e. the full (N, ...) response stack)."""
+    return scheme.decode(H.index_select(0, idx), idx)
+
+
+class LocalSimBackend:
+    """Simulate all N workers locally; decode from the first R responsive
+    workers under ``mask``."""
+
+    name = "local"
+
+    def __call__(
+        self,
+        scheme: CdmmScheme,
+        A: torch.Tensor,
+        B: torch.Tensor,
+        mask: Optional[torch.Tensor] = None,
+    ) -> torch.Tensor:
+        FA, GB = encode_all(scheme, A, B)
+        H = scheme.worker_compute(FA, GB)
+        return decode_from(scheme, H, live_indices(scheme, mask))
+
+
+_BACKENDS: dict = {"local": LocalSimBackend}
+
+
+def get_backend(backend: Union[None, str, object]):
+    """Normalize a backend argument: instance, name, or None (local)."""
+    if backend is None:
+        return LocalSimBackend()
+    if isinstance(backend, str):
+        try:
+            return _BACKENDS[backend]()
+        except KeyError:
+            raise ValueError(
+                f"unknown backend {backend!r}; one of {sorted(_BACKENDS)}"
+            ) from None
+    return backend
+
+
+def _as_operand(x, scheme: CdmmScheme, device: torch.device) -> torch.Tensor:
+    if isinstance(x, np.ndarray):
+        return from_numpy(x, scheme.base, device)
+    if x.device != device:
+        raise ValueError(f"operand on {x.device}, scheme on {device}")
+    return x
+
+
+def coded_matmul(
+    A: torch.Tensor,
+    B: torch.Tensor,
+    plan: Union[Plan, CdmmScheme],
+    *,
+    backend: Union[None, str, object] = None,
+    mask: Optional[torch.Tensor] = None,
+    device=None,
+) -> torch.Tensor:
+    """Execute a planned coded matmul: ``C = A @ B`` over ``plan.spec.ring``.
+
+    ``plan`` is a :class:`Plan` (its best candidate is instantiated on
+    ``device`` and memoized) or an already-built scheme (then its device
+    is used).  ``device`` None means CUDA; without a card it raises unless
+    ``device="cpu"``.  Single schemes take ``(t, r, D0)`` x ``(r, s, D0)``;
+    batch schemes ``(n, t, r, D0)`` x ``(n, r, s, D0)``; numpy uint32
+    operands are moved to the device.  ``mask`` is an (N,) bool liveness
+    vector; dead workers' responses are never read by the any-R decode.
+    """
+    if isinstance(plan, Plan):
+        scheme = plan.instantiate(device=device)
+    else:
+        scheme = plan
+        if device is not None and resolve_device(device) != scheme.code.device:
+            raise ValueError(f"scheme lives on {scheme.code.device}, not {device}")
+    dev = scheme.code.device
+    A = _as_operand(A, scheme, dev)
+    B = _as_operand(B, scheme, dev)
+    return get_backend(backend)(scheme, A, B, mask)

@@ -1,0 +1,203 @@
+"""Cost-model planner: enumerate registered schemes x partitions, rank them.
+
+Counterpart of ``repro.cdmm.planner`` on the analytic proxy.  ``plan(spec,
+objective)`` walks every registered family and every EP partition (u, v, w)
+the straggler budget admits (R = uvw + w - 1 bounds u, v by R and w by
+(R+1)/2), plus RMFE packing factors n <= MAX_PACKING for the single-DMM
+variants, scores the analytic cost models and returns a ranked
+:class:`Plan`.  Enumeration never builds a scheme; only
+``Plan.instantiate()`` pays the host-side Vandermonde / RMFE setup.
+
+Objectives: ``"threshold"`` (R), ``"download"``, ``"upload"``,
+``"latency"`` (encode + worker + decode ops + upload + download elements)
+and ``"amortized"`` (the same proxy compared across batch arities: a
+batched spec also admits the single families, priced per request).
+
+Not ported yet: ``"time_to_R"`` (it samples the straggler latency model)
+raises ValueError, and no measured calibration is read — the JAX package's
+``benchmarks/calibration.json`` holds CPU/JAX coefficients, so the port
+always ranks as the reference does under ``REPRO_CALIBRATION=off``.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass, field
+from typing import Dict, Iterable, List, Optional, Sequence, Tuple
+
+from ..core.ep_codes import EPCosts
+from ..device import resolve_device
+from .api import CdmmScheme, ProblemSpec, get_scheme, registered_schemes
+
+__all__ = ["plan", "Plan", "PlanCandidate", "OBJECTIVES", "MAX_PACKING"]
+
+
+def _latency_proxy(c: EPCosts) -> float:
+    return c.encode_ops + c.worker_ops + c.decode_ops + c.upload + c.download
+
+
+OBJECTIVES: Dict[str, callable] = {
+    "threshold": lambda c: float(c.R),
+    "download": lambda c: c.download,
+    "upload": lambda c: c.upload,
+    "latency": _latency_proxy,
+    # per-request cost at batch fill: batch families' costs are already
+    # amortized over the n products one execution carries
+    "amortized": _latency_proxy,
+}
+
+_NOT_PORTED = {"time_to_R": "needs the straggler latency model, not ported yet"}
+
+
+@dataclass(frozen=True)
+class PlanCandidate:
+    """One feasible (scheme, partition, packing) configuration, scored."""
+
+    scheme: str
+    u: int
+    v: int
+    w: int
+    n: int  # packing/batch factor handed to the family's build
+    costs: EPCosts
+    score: float
+
+    def instantiate(self, spec: ProblemSpec, device=None) -> CdmmScheme:
+        return get_scheme(self.scheme).build(
+            spec, self.u, self.v, self.w, self.n, device=device
+        )
+
+
+@dataclass(frozen=True)
+class Plan:
+    """Ranked feasible configurations for one ProblemSpec."""
+
+    spec: ProblemSpec
+    objective: str
+    candidates: Tuple[PlanCandidate, ...]
+    _cache: dict = field(default_factory=dict, repr=False, compare=False)
+
+    @property
+    def best(self) -> PlanCandidate:
+        return self.candidates[0]
+
+    def instantiate(self, rank: int = 0, device=None) -> CdmmScheme:
+        """Build (and memoize per device) the executable scheme at ``rank``;
+        its tables live on ``device`` (None: CUDA)."""
+        dev = resolve_device(device)
+        key = (rank, str(dev))
+        if key not in self._cache:
+            self._cache[key] = self.candidates[rank].instantiate(self.spec, dev)
+        return self._cache[key]
+
+    def summary(self, limit: int = 8) -> str:
+        lines = [
+            f"Plan[{self.objective}] for {self.spec.n}x "
+            f"({self.spec.t}x{self.spec.r})@({self.spec.r}x{self.spec.s}) "
+            f"over {self.spec.ring}, N={self.spec.N} "
+            f"(straggler budget {self.spec.straggler_budget}"
+            + (f", privacy_t={self.spec.privacy_t}" if self.spec.privacy_t else "")
+            + "):"
+        ]
+        for i, c in enumerate(self.candidates[:limit]):
+            lines.append(
+                f"  #{i} {c.scheme:<14} (u,v,w)=({c.u},{c.v},{c.w}) n={c.n} "
+                f"R={c.costs.R} m_eff={c.costs.m_eff:.1f} "
+                f"up={c.costs.upload:.3g} down={c.costs.download:.3g} "
+                f"score={c.score:.3g}"
+            )
+        return "\n".join(lines)
+
+
+MAX_PACKING = 8  # RMFE packing factors searched for single-DMM variants
+
+
+def _divisors(x: int, cap: int) -> List[int]:
+    return [d for d in range(1, min(x, cap) + 1) if x % d == 0]
+
+
+def _packing_candidates(spec: ProblemSpec, fam) -> Iterable[int]:
+    if fam.batched:
+        return (spec.n,)
+    # internal packing factors for the single-DMM RMFE variants; n=1 covers
+    # the unpacked families (their predicts reject n != 1 / n < 2 anyway)
+    dims = (set(_divisors(spec.r, cap=MAX_PACKING))
+            | set(_divisors(spec.s, cap=MAX_PACKING)))
+    return sorted(dims)
+
+
+def plan(
+    spec: ProblemSpec,
+    objective: str = "latency",
+    schemes: Optional[Sequence[str]] = None,
+    top_k: Optional[int] = None,
+) -> Plan:
+    """Rank every feasible (scheme, u, v, w, n) configuration for ``spec``.
+
+    ``schemes`` restricts the search to the named families (default: all
+    registered families matching the spec's batch arity); ``top_k`` caps the
+    ranking.  Raises ``ValueError`` when no configuration satisfies
+    R <= N - straggler_budget (always, for now, when ``privacy_t > 0``).
+    """
+    spec.validate()
+    if objective in _NOT_PORTED:
+        raise ValueError(f"objective {objective!r}: {_NOT_PORTED[objective]}")
+    if objective not in OBJECTIVES:
+        raise ValueError(
+            f"unknown objective {objective!r}; one of {sorted(OBJECTIVES)}"
+        )
+    score_fn = OBJECTIVES[objective]
+
+    requested = registered_schemes()
+    if schemes is not None:
+        requested = {name: get_scheme(name) for name in schemes}
+    # single families serve n=1 specs, batch families n>1; "amortized" also
+    # admits the single families for a batched spec
+    if objective == "amortized":
+        families = {
+            name: fam for name, fam in requested.items()
+            if spec.n > 1 or not fam.batched
+        }
+    else:
+        families = {
+            name: fam for name, fam in requested.items()
+            if fam.batched == (spec.n > 1)
+        }
+    if not families:
+        kind = "a batched" if spec.n > 1 else "a single-product"
+        serving = sorted(
+            name for name, fam in registered_schemes().items()
+            if fam.batched == (spec.n > 1)
+        )
+        raise ValueError(
+            f"none of the schemes {sorted(requested)} serves {kind} spec "
+            f"(n={spec.n}); families that do: {serving}"
+        )
+
+    budgeted_R = spec.N - spec.straggler_budget
+    found: List[PlanCandidate] = []
+    for name, fam in sorted(families.items()):
+        for n in _packing_candidates(spec, fam):
+            for u in _divisors(spec.t, cap=budgeted_R):
+                for v in _divisors(spec.s, cap=budgeted_R):
+                    for w in _divisors(spec.r, cap=(budgeted_R + 1) // 2):
+                        costs = fam.predict(spec, u, v, w, n)
+                        if costs is None or costs.R > budgeted_R:
+                            continue
+                        if costs.privacy_t < spec.privacy_t:
+                            continue  # never hand back an insecure scheme
+                        found.append(PlanCandidate(
+                            name, u, v, w, n, costs, score_fn(costs)
+                        ))
+
+    if not found:
+        privacy = (
+            f" meeting privacy_t={spec.privacy_t} (secure schemes need "
+            f"R >= 2*privacy_t + 1 and N + 1 exceptional points)"
+            if spec.privacy_t > 0 else ""
+        )
+        raise ValueError(
+            f"no feasible scheme for {spec}: every registered configuration"
+            f"{privacy} needs R > N - straggler_budget = {budgeted_R}"
+        )
+    found.sort(key=lambda c: (c.score, c.costs.R, c.scheme, c.u, c.v, c.w, c.n))
+    if top_k is not None:
+        found = found[:top_k]
+    return Plan(spec, objective, tuple(found))

@@ -1,0 +1,32 @@
+"""Core: CDMM over Galois rings via RMFE, in PyTorch (counterpart of
+``repro.core``; the secure and GCSA families are not ported yet)."""
+from .galois import (
+    Ring,
+    find_irreducible_gfp,
+    from_numpy,
+    is_irreducible_gfp,
+    make_ring,
+    to_numpy,
+)
+from .rmfe import BasicRMFE, ConcatRMFE, build_rmfe
+from .ep_codes import (
+    EPCode,
+    EPCosts,
+    PlainCDMM,
+    ep_cost_model,
+    secure_recovery_threshold,
+    smallest_embedding_ext,
+)
+from .batch_rmfe import BatchEPRMFE
+from .single_rmfe import EPRMFE_I, EPRMFE_II
+from .straggler import select_workers
+
+__all__ = [
+    "Ring", "make_ring", "find_irreducible_gfp", "is_irreducible_gfp",
+    "to_numpy", "from_numpy",
+    "BasicRMFE", "ConcatRMFE", "build_rmfe",
+    "EPCode", "PlainCDMM", "ep_cost_model", "EPCosts",
+    "secure_recovery_threshold", "smallest_embedding_ext",
+    "BatchEPRMFE", "EPRMFE_I", "EPRMFE_II",
+    "select_workers",
+]

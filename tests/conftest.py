@@ -24,6 +24,9 @@ def pytest_configure(config):
     config.addinivalue_line(
         "markers", "slow: multi-process / serving smokes skipped by ci.sh --fast"
     )
+    config.addinivalue_line(
+        "markers", "cuda: needs a CUDA device; skips on CPU-only machines"
+    )
 
 
 @pytest.fixture(autouse=True, scope="module")

@@ -1,0 +1,84 @@
+"""repro_torch on the card: the CUDA kernel against its plain version and the
+main path through it.  Every test here needs a CUDA device and skips
+without one; on a machine with a card run
+
+    PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_card.py
+
+This file imports no JAX, so it also runs where only PyTorch is installed.
+"""
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.cdmm import ProblemSpec, coded_matmul, plan
+from repro_torch.core import make_ring
+from repro_torch.kernels import counters, gr_matmul, gr_matmul_ref
+from repro_torch.kernels.gr_matmul import gr_matmul_planar
+
+pytestmark = pytest.mark.cuda
+
+RING_SPECS = [(2, 32, ()), (2, 32, (3,)), (2, 32, (4,)), (2, 16, (5,)), (2, 8, (2, 3)),
+              (2, 32, (16,)), (2, 32, (3, 5))]
+SHAPES = [(8, 8, 8), (16, 32, 8), (128, 128, 128), (7, 13, 5), (1, 64, 1), (130, 17, 129)]
+
+
+@pytest.fixture
+def cuda():
+    # decided at run time, never at import: every xdist worker collects alike
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
+    return "cuda"
+
+
+@pytest.mark.parametrize("spec", RING_SPECS, ids=str)
+def test_kernel_matches_plain(cuda, spec):
+    ring = make_ring(*spec)
+    rng = np.random.default_rng(7)
+    for lead in [(), (3,)]:
+        for t, r, s in SHAPES:
+            A = ring.random(rng, lead + (t, r), device=cuda)
+            B = ring.random(rng, lead + (r, s), device=cuda)
+            counters.reset()
+            out = gr_matmul(A, B, ring)
+            assert (counters.launches, counters.ref_calls) == (1, 0)
+            assert torch.equal(out, gr_matmul_ref(A, B, ring)), (lead, t, r, s)
+
+
+def test_kernel_wrapper_rejects_what_it_does_not_take(cuda):
+    ring = make_ring(2, 32, (3,))
+    A = ring.random(np.random.default_rng(0), (4, 4), device=cuda).movedim(-1, 0)
+    with pytest.raises(ValueError, match="contiguous"):
+        gr_matmul_planar(A.transpose(1, 2), A.contiguous(), ring)
+    with pytest.raises(ValueError, match="int32"):
+        gr_matmul_planar(A.contiguous().to(torch.int64), A.contiguous(), ring)
+
+
+def test_ring_outside_envelope_takes_plain_version(cuda):
+    ring = make_ring(2, 32, (17,))  # D = 17 > MAX_D
+    A = ring.random(np.random.default_rng(1), (3, 4), device=cuda)
+    B = ring.random(np.random.default_rng(2), (4, 2), device=cuda)
+    counters.reset()
+    out = ring.matmul(A, B)
+    assert (counters.launches, counters.ref_calls) == (0, 1)
+    cpu = ring.matmul(A.cpu(), B.cpu())
+    assert torch.equal(out.cpu(), cpu)
+
+
+@pytest.mark.parametrize("name", ["ep", "plain", "ep_rmfe1", "ep_rmfe2", "batch_ep_rmfe"])
+def test_main_path_through_kernel(cuda, name):
+    ring = make_ring(2, 32, (3,)) if name == "ep" else make_ring(2, 32, ())
+    n = 2 if name == "batch_ep_rmfe" else 1
+    p = plan(ProblemSpec(64, 64, 64, n=n, ring=ring, N=8, straggler_budget=2), schemes=[name])
+    rng = np.random.default_rng(3)
+    lead = (n,) if n > 1 else ()
+    A, B = ring.random(rng, lead + (64, 64), device=cuda), ring.random(rng, lead + (64, 64), device=cuda)
+    mask = torch.tensor([True, False, True, True, False, True, True, True], device=cuda)
+    counters.reset()
+    C = coded_matmul(A, B, p, backend="local", mask=mask)
+    launches, ref_calls = counters.launches, counters.ref_calls
+    assert launches > 0 and ref_calls == 0
+    # the same run on the CPU (plain version throughout) gives the same bits
+    C_cpu = coded_matmul(A.cpu(), B.cpu(), p, backend="local", mask=mask.cpu(), device="cpu")
+    assert torch.equal(C.cpu(), C_cpu)
+    direct = torch.stack([ring.matmul(A[i], B[i]) for i in range(n)]) if n > 1 else ring.matmul(A, B)
+    assert torch.equal(C, direct)

@@ -1,0 +1,82 @@
+"""repro_torch stands alone: it imports neither JAX nor the JAX package, and
+its entry points run on CUDA unless asked for the CPU."""
+import os
+import pkgutil
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+import repro_torch
+
+SRC = Path(__file__).resolve().parents[1] / "src"
+
+
+def _modules():
+    return sorted(
+        m.name for m in pkgutil.walk_packages(repro_torch.__path__, "repro_torch.")
+    )
+
+
+def test_every_module_imports_without_jax_or_repro():
+    mods = ["repro_torch"] + _modules()
+    assert "repro_torch.kernels.gr_matmul" in mods and "repro_torch.cdmm.backends" in mods
+    code = (
+        "import sys, importlib\n"
+        "sys.modules['jax'] = None\n"
+        "sys.modules['repro'] = None\n"
+        f"for m in {mods!r}:\n"
+        "    importlib.import_module(m)\n"
+        "bad = sorted(k for k in sys.modules if k.split('.')[0] in ('jax', 'jaxlib', 'repro')"
+        " and sys.modules[k] is not None)\n"
+        "assert not bad, bad\n"
+        "print('ok')\n"
+    )
+    res = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                         env={**os.environ, "PYTHONPATH": str(SRC)}, timeout=120)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.strip() == "ok"
+
+
+def _without_cuda(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+
+
+def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch):
+    _without_cuda(monkeypatch)
+    from repro_torch.cdmm import BatchRMFEAdapter, ProblemSpec, coded_matmul, plan
+    from repro_torch.core import EPCode, make_ring
+
+    Z = make_ring(2, 32, ())
+    rng = np.random.default_rng(0)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        Z.random(rng, (2, 2))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        Z.ones((2,))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        EPCode(make_ring(2, 32, (3,)), 8, 2, 2, 1)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        BatchRMFEAdapter(Z, 2, 8, 2, 2, 1)
+    p = plan(ProblemSpec(8, 8, 8, ring=Z, N=8, straggler_budget=2))
+    A = Z.random(rng, (8, 8), device="cpu")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        coded_matmul(A, A, p)
+    # the same call with device="cpu" runs
+    assert torch.equal(coded_matmul(A, A, p, device="cpu"), Z.matmul(A, A))
+
+
+def test_chip_smoke_refuses_without_a_card(tmp_path):
+    """chip_smoke.py exits non-zero and prints no result without CUDA, and
+    when it stands alone outside the repository."""
+    script = Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    env = {**os.environ, "CUDA_VISIBLE_DEVICES": ""}
+    for path in (script, tmp_path / "chip_smoke.py"):
+        if path != script:
+            path.write_text(script.read_text())
+        res = subprocess.run([sys.executable, str(path)], capture_output=True, text=True,
+                             env=env, timeout=120)
+        assert res.returncode != 0
+        assert '"ok"' not in res.stdout
