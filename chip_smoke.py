@@ -6,17 +6,30 @@
 Phases (any mismatch fails the run with a non-zero exit):
 
 1. environment and build: torch/CUDA versions, the card's name and power
-   limit, the kernel built from ``src/repro_torch/kernels/csrc`` with nvcc
-   (``-Xptxas -v`` registers and spills per instantiation);
-2. the ``gr_matmul`` kernel against its plain PyTorch version on the card,
-   bit for bit, on the rings and shapes of ``tests/test_kernels.py`` plus
-   K = 31 and K = 45 towers and every shape the main path hands the kernel;
+   limit, the kernels built from ``src/repro_torch/kernels/csrc`` with nvcc
+   (``-Xptxas -v`` registers and spills per instantiation of every route),
+   and the Python mirrors of each route's tiles and instantiations held
+   against the library;
+2. every route of ``gr_matmul`` (``simt``, ``tc``, ``skinny``) and the tc
+   route's limb pre-pass against their plain PyTorch versions on the card,
+   bit for bit, on seven rings (K up to 45) at the shapes each route takes,
+   batched and unbatched, and at every shape the main path hands the
+   kernels; there each shape's route is timed in turns with ``simt``
+   (replayed from CUDA graphs, so without the wrappers' host time), and
+   every route at the edges of the dispatch rule is held and timed the same
+   way.  The int8 yardstick (``torch._int_mm``, never called by the port) is
+   timed from a CUDA graph too;
 3. the main path through the user entry points: ``batch_ep_rmfe`` (n = 2,
    N = 8, u = v = 2, w = 1) over Z_2^32 at t = r = s = 2048 with two
    non-prefix stragglers, then ``ep``, ``plain``, ``ep_rmfe1`` and
-   ``ep_rmfe2`` at 1024^3 through ``plan``; every output must equal the
-   direct product computed by the plain version.  Kernel launch counts are
-   zeroed before each path and read after it.
+   ``ep_rmfe2`` at 1024^3 through ``plan``, and a small ``ep`` request at
+   96^3; every output must equal the direct product computed by the plain
+   version.  Launch counts per route are zeroed before each path, read after
+   it and held against the expected ones.  Stage device times are kept per
+   run (5 warm runs each);
+4. every route at every distinct (ring, shape) that phase 3 handed it,
+   recorded as the paths ran, against the plain version on fresh operands of
+   that shape, bit for bit (all batch slices of a worker launch included).
 
 The second-to-last line is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.  The full report (ptxas usage, every
@@ -27,6 +40,7 @@ non-zero and prints no result.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import re
 import subprocess
@@ -38,25 +52,41 @@ ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
 
 # H100 SXM peaks (NVIDIA data sheet, at the 700 W limit): HBM3 bandwidth,
-# and uint32 multiply-adds on the CUDA cores (INT32 is half of the 128 FP32
-# lanes per SM: 132 SMs * 64 lanes * 1.98 GHz)
+# dense int8 tensor-core operations, and uint32 multiply-adds on the CUDA
+# cores (INT32 is half of the 128 FP32 lanes per SM: 132 SMs * 64 * 1.98 GHz)
 HBM_BYTES_PER_S = 3.35e12
+INT8_OPS_PER_S = 1.979e15
 INT32_MAD_PER_S = 132 * 64 * 1.98e9
 
 SEED = 0
 MAIN_SIZE = 2048
 SINGLE_SIZE = 1024
+SMALL_SIZE = 96
 # dead workers 2 and 5: the first R = 4 live workers are (0, 1, 3, 4), not a prefix
 MASK = [True, True, False, True, True, False, True, True]
-# in-envelope ring matmuls per coded_matmul: phi/psi packs, two encodes, one
-# batched worker launch, one decode
+ROUTES = ("simt", "tc", "skinny")
+# launches per route for one coded_matmul of each path (limbs: the tc
+# route's pre-pass, two per tc launch); the ring matmuls of a round are the
+# phi/psi packs, two encodes, one batched worker launch and one decode
 EXPECTED_LAUNCHES = {
-    "batch_ep_rmfe": 7,  # phi(A), phi(B), encode a/b, workers, decode, psi
-    "ep": 4,             # encode a/b, workers, decode
-    "plain": 4,          # embedding is a copy, not a matmul
-    "ep_rmfe1": 7,       # phi(A blocks), phi(B blocks), encode a/b, workers, decode, psi
-    "ep_rmfe2": 6,       # A embedded; phi1(B), encode a/b, workers, decode, psi1
+    # phi(A), phi(B), encode a/b, decode, psi -> skinny; workers -> tc
+    "batch_ep_rmfe": {"simt": 0, "tc": 1, "skinny": 6, "limbs": 2},
+    "ep": {"simt": 0, "tc": 1, "skinny": 3, "limbs": 2},
+    "plain": {"simt": 0, "tc": 1, "skinny": 3, "limbs": 2},  # embedding is a copy
+    "ep_rmfe1": {"simt": 0, "tc": 1, "skinny": 6, "limbs": 2},
+    "ep_rmfe2": {"simt": 0, "tc": 1, "skinny": 5, "limbs": 2},  # A embedded, not packed
+    # 96^3: worker blocks of 48 rows are below the tc threshold
+    "ep_small": {"simt": 1, "tc": 0, "skinny": 3, "limbs": 0},
 }
+RING_SPECS = [(2, 32, ()), (2, 32, (3,)), (2, 32, (4,)), (2, 16, (5,)), (2, 8, (2, 3)),
+              (2, 32, (16,)), (2, 32, (3, 5))]
+# the shapes of tests/test_kernels.py, then extra shapes for the new routes:
+# t, s >= 64 and an r that crosses the tc route's 256-deep flush chunk; and
+# t, r <= 16 with ragged s for the skinny route
+SHAPES = [(8, 8, 8), (16, 32, 8), (128, 128, 128), (7, 13, 5), (1, 64, 1), (130, 17, 129)]
+TC_SHAPES = [(64, 64, 64), (96, 300, 160), (70, 520, 97)]
+SKINNY_SHAPES = [(8, 2, 4099), (16, 16, 333), (4, 4, 1000), (2, 3, 12345)]
+BATCHED = {"simt": (3, 9, 20, 11), "tc": (3, 33, 280, 65), "skinny": (3, 4, 5, 77)}
 
 
 def log(*a):
@@ -74,6 +104,8 @@ def u32(x):
 
 
 def max_abs_err(a, b) -> int:
+    if a.shape != b.shape:
+        fail(f"shape {tuple(a.shape)} != {tuple(b.shape)}")
     return int((u32(a) - u32(b)).abs().max().item()) if a.numel() else 0
 
 
@@ -92,15 +124,75 @@ def cuda_ms(fn, iters: int = 1, warmup: int = 0) -> float:
     return start.elapsed_time(end) / iters
 
 
+def cuda_runs_ms(fn, runs: int, warmup: int = 1) -> list:
+    """Device time of each of ``runs`` runs of ``fn``, from CUDA events."""
+    for _ in range(warmup):
+        fn()
+    return [cuda_ms(fn) for _ in range(runs)]
+
+
+def graph_ms(fn, iters: int = 10) -> float:
+    """Mean device time of ``fn`` replayed from a CUDA graph of ``iters``
+    calls: the wrappers' host time (Python, ctypes; tens of µs) stays out of
+    the measurement, which matters for kernels that take about as long."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):  # warm up off the capture, as graphs require
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    ms = cuda_ms(graph.replay, iters=3) / iters
+    del graph
+    torch.cuda.empty_cache()
+    return ms
+
+
+def host_us(fn, iters: int = 20) -> float:
+    """Host time per call of ``fn`` (launch overhead), without waiting for
+    the device."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    dt = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return 1e6 * dt / iters
+
+
 # ---------------------------------------------------------------------------
 # phase 1
 # ---------------------------------------------------------------------------
 
+# ptxas entry names -> (route, template arguments)
+_ENTRY = re.compile(r"Compiling entry function '.*?(gr_matmul_kernel|gr_matmul_tc_kernel|"
+                    r"gr_matmul_skinny_kernel|limbs_rows_kernel|limbs_cols_kernel)ILi(\d+)E(?:Li(\d+)E)?")
+_ROUTE_OF = {"gr_matmul_kernel": "simt", "gr_matmul_tc_kernel": "tc",
+             "gr_matmul_skinny_kernel": "skinny", "limbs_rows_kernel": "limbs_rows",
+             "limbs_cols_kernel": "limbs_cols"}
+
 
 def phase_env_build(report: dict) -> None:
+    import ctypes
+
     import torch
 
-    from repro_torch.kernels.build import BUILD_DIR, build_info, load_library
+    from repro_torch.core import make_ring
+    from repro_torch.kernels.build import BUILD_DIR, SOURCES, build_info, load_library
+    from repro_torch.kernels.gr_matmul import (
+        TC_TILE,
+        kernel_tile,
+        skinny_cols,
+        tc_instantiated,
+        tower_shape,
+    )
 
     log(f"python {sys.version.split()[0]} torch {torch.__version__} cuda {torch.version.cuda}")
     smi = subprocess.run(
@@ -114,36 +206,51 @@ def phase_env_build(report: dict) -> None:
     info = build_info()
     log(f"kernel library {info['path']} built={info['built']} in {info['seconds']:.2f} s")
     report["build"] = info
-    # registers / spills per instantiation, from nvcc -Xptxas -v
-    ptxas = (BUILD_DIR / "gr_matmul.ptxas.txt")
+    # registers / spills per instantiation, from nvcc -Xptxas -v of each source
     usage, cur = {}, None
-    for line in ptxas.read_text().splitlines() if ptxas.exists() else []:
-        m = re.search(r"Compiling entry function '.*?gr_matmul_kernelILi(\d+)ELi(\d+)E", line)
-        if m:
-            cur = f"({m.group(1)},{m.group(2)})"
-            usage[cur] = {}
-        elif cur:
-            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+    for name in SOURCES:
+        ptxas = BUILD_DIR / f"{name}.ptxas.txt"
+        for line in ptxas.read_text().splitlines() if ptxas.exists() else []:
+            m = _ENTRY.search(line)
             if m:
-                usage[cur]["spill_st"], usage[cur]["spill_ld"] = int(m.group(1)), int(m.group(2))
-            m = re.search(r"Used (\d+) registers", line)
-            if m:
-                usage[cur]["regs"] = int(m.group(1))
+                args = ",".join(g for g in m.group(2, 3) if g)
+                cur = f"{_ROUTE_OF[m.group(1)]}({args})"
+                usage[cur] = {}
+            elif cur:
+                m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+                if m:
+                    usage[cur]["spill_st"], usage[cur]["spill_ld"] = int(m.group(1)), int(m.group(2))
+                m = re.search(r"Used (\d+) registers", line)
+                if m:
+                    usage[cur]["regs"] = int(m.group(1))
     log("ptxas " + json.dumps(usage, separators=(",", ":")))
     report["ptxas"] = usage
-    # the library's own tile choice must match the Python mirror
-    import ctypes
-
-    from repro_torch.core import make_ring
-    from repro_torch.kernels.gr_matmul import kernel_tile, tower_shape
-
-    for deg in [(), (3,), (4,), (5,), (2, 3), (16,), (3, 5)]:
-        ring = make_ring(2, 32, deg)
+    for route in ("simt", "tc", "skinny", "limbs_rows", "limbs_cols"):
+        if not any(k.startswith(route + "(") for k in usage):
+            fail(f"no ptxas report for the {route} kernels")
+    # the library's own tile and instantiation choices must match the mirrors
+    for spec in RING_SPECS:
+        ring = make_ring(*spec)
         bm, bn, bk = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
         if lib.gr_matmul_tile(*tower_shape(ring), bm, bn, bk) != 0:
-            fail(f"no kernel instantiation for {ring}")
+            fail(f"no simt instantiation for {ring}")
         if (bm.value, bn.value, bk.value) != kernel_tile(ring):
-            fail(f"tile mirror {kernel_tile(ring)} != library {(bm.value, bn.value, bk.value)}")
+            fail(f"simt tile mirror {kernel_tile(ring)} != library {(bm.value, bn.value, bk.value)}")
+    towers = [(d, 1) for d in range(1, 17)] + [(2, 3), (2, 5), (2, 7), (3, 2), (3, 4), (3, 5),
+                                                (4, 3), (5, 2), (5, 3), (7, 2)]
+    for d0, d1 in towers:
+        bm, bn, ks = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
+        has_tc = lib.gr_matmul_tc_tile(d0, d1, bm, bn, ks) == 0
+        if has_tc != tc_instantiated(d0, d1) or (has_tc and (bm.value, bn.value, ks.value) != TC_TILE):
+            fail(f"tc mirror disagrees with the library for tower {(d0, d1)}")
+        cols = lib.gr_matmul_skinny_cols(d0, d1)
+        if (cols if cols > 0 else None) != skinny_cols(d0, d1):
+            fail(f"skinny mirror {skinny_cols(d0, d1)} != library {cols} for tower {(d0, d1)}")
+    report["instantiations"] = {
+        "tc": [t for t in towers if tc_instantiated(*t)],
+        "skinny": [t for t in towers if skinny_cols(*t)],
+    }
+    log(f"instantiations {json.dumps(report['instantiations'])}")
     # the library yardstick: PyTorch has no integer GEMM on CUDA
     a = torch.ones((4, 4), dtype=torch.int32, device="cuda")
     try:
@@ -174,69 +281,215 @@ def _main_path_shapes():
     }
 
 
+def _accepts(route: str, ring, t: int, r: int) -> bool:
+    """Whether ``route``'s kernel takes a (t, r) x (r, s) matmul over ``ring``."""
+    from repro_torch.kernels.gr_matmul import (
+        SKINNY_MAX_R,
+        SKINNY_MAX_T,
+        skinny_cols,
+        tc_instantiated,
+        tower_shape,
+    )
+
+    d0, d1 = tower_shape(ring)
+    if route == "tc":
+        return tc_instantiated(d0, d1)
+    if route == "skinny":
+        return bool(skinny_cols(d0, d1)) and 1 <= t <= SKINNY_MAX_T and 1 <= r <= SKINNY_MAX_R
+    return True
+
+
+def _bounds(ring, b, t, r, s):
+    """(bytes_ms, int8_ms, int32_ms): the byte bound (interleaved int32
+    operands read once, result written once) and the operation bounds of the
+    same matmul on the int8 tensor cores (L(L+1)/2 byte products per word
+    product) and as uint32 multiply-adds on the CUDA cores."""
+    from repro_torch.kernels.ref import n_limbs
+
+    L = n_limbs(ring)
+    nbytes = 4 * ring.D * b * (t * r + r * s + t * s)
+    int8_ops = 2 * b * t * s * r * ring.D ** 2 * L * (L + 1) // 2
+    mads = b * t * s * (ring.D * ring.D * r + ring.K * ring.D)
+    return (1e3 * nbytes / HBM_BYTES_PER_S, 1e3 * int8_ops / INT8_OPS_PER_S,
+            1e3 * mads / INT32_MAD_PER_S)
+
+
+def _int8_yardstick_ms(ring, b, t, r, s):
+    """One torch._int_mm (t x r) @ (r x s) int8 product on the card, times the
+    number of limb products the tc route needs (b * D^2 * L(L+1)/2).  A
+    yardstick of speed only: the port never calls torch._int_mm."""
+    import torch
+
+    from repro_torch.kernels.ref import n_limbs
+
+    L = n_limbs(ring)
+    a8 = torch.randint(-128, 127, (t, r), dtype=torch.int8, device="cuda")
+    b8 = torch.randint(-128, 127, (s, r), dtype=torch.int8, device="cuda").t()
+    try:  # replayed from a CUDA graph, like the routes it is set beside
+        one = graph_ms(lambda: torch._int_mm(a8, b8))
+    except RuntimeError as exc:
+        return None, f"torch._int_mm raises: {str(exc).splitlines()[0][:120]}"
+    n = b * ring.D ** 2 * L * (L + 1) // 2
+    return one * n, f"{n} x torch._int_mm ({t}x{r} @ {r}x{s}) at {one:.4f} ms each"
+
+
+def _hold(route, ring, A, B, worst: dict, what: str, plain=None) -> None:
+    """Hold ``route`` on (A, B) against the plain version, bit for bit, and
+    for ``tc`` its limb pre-pass against the pre-pass's plain version; the
+    worst error of each goes into ``worst``."""
+    from repro_torch.kernels import gr_matmul_ref, run_route
+    from repro_torch.kernels.gr_matmul import tc_limbs, tc_padded
+    from repro_torch.kernels.ref import limb_planes_ref
+
+    shape = f"{tuple(A.shape[:-1])} x {tuple(B.shape[:-1])}"
+    if plain is None:
+        plain = gr_matmul_ref(A, B, ring)
+    err = max_abs_err(run_route(route, A, B, ring), plain)
+    worst[route] = max(worst[route], err)
+    if err:
+        fail(f"{route} != plain on {ring} at {shape}{what}: max abs err {err}")
+    if route == "tc":
+        Tp, Rp, Sp = tc_padded(A.shape[-3], A.shape[-2], B.shape[-2])
+        A8, B8 = tc_limbs(A, B, ring)
+        A3, B3 = (A, B) if A.dim() == 4 else (A[None], B[None])
+        err = max(max_abs_err(A8, limb_planes_ref(A3, ring, Tp, Rp)),
+                  max_abs_err(B8, limb_planes_ref(B3, ring, Sp, Rp, transpose=True)))
+        worst["limbs"] = max(worst["limbs"], err)
+        if err:
+            fail(f"limb pre-pass != plain on {ring} at {shape}{what}: max abs err {err}")
+
+
 def phase_kernels(report: dict) -> dict:
     import numpy as np
     import torch
 
     from repro_torch.core import make_ring
-    from repro_torch.kernels import gr_matmul, gr_matmul_ref
+    from repro_torch.kernels import gr_matmul_ref, pick_route, run_route
+    from repro_torch.kernels.gr_matmul import tc_limbs, tc_padded
+    from repro_torch.kernels.ref import limb_planes_ref
 
     rng = np.random.default_rng(SEED)
-    rings = [make_ring(2, 32, ()), make_ring(2, 32, (3,)), make_ring(2, 32, (4,)),
-             make_ring(2, 16, (5,)), make_ring(2, 8, (2, 3)),
-             make_ring(2, 32, (16,)), make_ring(2, 32, (3, 5))]
-    shapes = [(8, 8, 8), (16, 32, 8), (128, 128, 128), (7, 13, 5), (1, 64, 1),
-              (130, 17, 129)]
-    checked, worst = [], 0
-    for ring in rings:
-        for t, r, s in shapes:
-            A = ring.random(rng, (t, r), device="cuda")
-            B = ring.random(rng, (r, s), device="cuda")
-            err = max_abs_err(gr_matmul(A, B, ring), gr_matmul_ref(A, B, ring))
-            worst = max(worst, err)
-            if err:
-                fail(f"kernel != plain on {ring} at {(t, r, s)}: max abs err {err}")
-        # a batched launch (grid z) on every ring too
-        A = ring.random(rng, (3, 9, 20), device="cuda")
-        B = ring.random(rng, (3, 20, 11), device="cuda")
-        err = max_abs_err(gr_matmul(A, B, ring), gr_matmul_ref(A, B, ring))
-        worst = max(worst, err)
-        if err:
-            fail(f"batched kernel != plain on {ring}: max abs err {err}")
-        checked.append(f"{ring.degrees}:K={ring.K}")
-    log(f"kernel == plain on {len(rings)} rings x {len(shapes) + 1} shapes: {checked}")
+    worst = dict.fromkeys(ROUTES + ("limbs",), 0)
+    checked = {r: [] for r in ROUTES}
+
+    def check(route, ring, lead, t, r, s, what=""):
+        A = ring.random(rng, lead + (t, r), device="cuda")
+        B = ring.random(rng, lead + (r, s), device="cuda")
+        _hold(route, ring, A, B, worst, what)
+
+    for spec in RING_SPECS:
+        ring = make_ring(*spec)
+        for route in ROUTES:
+            extra = {"tc": TC_SHAPES, "skinny": SKINNY_SHAPES}.get(route, [])
+            shapes = [x for x in SHAPES + extra if _accepts(route, ring, x[0], x[1])]
+            if not shapes:
+                continue
+            for t, r, s in shapes:
+                check(route, ring, (), t, r, s)
+            nb, t, r, s = BATCHED[route]
+            check(route, ring, (nb,), t, r, s, " (batched)")
+            checked[route].append(f"{ring.degrees}:K={ring.K}:{len(shapes) + 1} shapes")
+    for route in ROUTES:
+        log(f"{route} == plain: {checked[route]}")
 
     timings = {}
     for name, (deg, nb, t, r, s) in _main_path_shapes().items():
         ring = make_ring(2, 32, deg)
         lead = (nb,) if nb else ()
+        b = nb or 1
+        route = pick_route(ring, t, r, s)
         A = ring.random(rng, lead + (t, r), device="cuda")
         B = ring.random(rng, lead + (r, s), device="cuda")
-        out = gr_matmul(A, B, ring)
-        plain_holder = {}
-        plain_ms = cuda_ms(lambda: plain_holder.__setitem__("C", gr_matmul_ref(A, B, ring)))
-        err = max_abs_err(out, plain_holder.pop("C"))
-        worst = max(worst, err)
-        if err:
-            fail(f"kernel != plain at main-path shape {name}: max abs err {err}")
-        ms = cuda_ms(lambda: gr_matmul(A, B, ring), iters=10, warmup=2)
-        b = nb or 1
-        mads = b * t * s * (ring.D * ring.D * r + ring.K * ring.D)
-        nbytes = 4 * ring.D * b * (t * r + r * s + t * s)
-        t_ops, t_bytes = 1e3 * mads / INT32_MAD_PER_S, 1e3 * nbytes / HBM_BYTES_PER_S
-        timings[name] = {
-            "ring": str(ring.degrees), "batch": b, "t": t, "r": r, "s": s,
-            "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": max(t_ops, t_bytes),
-            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+        holder = {}
+        plain_ms = cuda_ms(lambda: holder.__setitem__("C", gr_matmul_ref(A, B, ring)))
+        plain = holder.pop("C")
+        for rt in dict.fromkeys(("simt", route)):
+            _hold(rt, ring, A, B, worst, f" (main-path shape {name})", plain=plain)
+        del plain
+        # the route and simt in turns: simt, route, route, simt
+        turns = [(rt, graph_ms(lambda rt=rt: run_route(rt, A, B, ring)))
+                 for rt in ("simt", route, route, "simt")]
+        simt_ms = [m for rt, m in turns if rt == "simt"]
+        route_ms = [m for rt, m in turns if rt == route]
+        bytes_ms, int8_ms, int32_ms = _bounds(ring, b, t, r, s)
+        row = {
+            "ring": str(ring.degrees), "batch": b, "t": t, "r": r, "s": s, "route": route,
+            "ms": sum(route_ms) / 2, "simt_ms": sum(simt_ms) / 2, "turns": turns,
+            "plain_ms": plain_ms,
+            # launched from Python in a loop: bounded below by the host time
+            "eager_ms": cuda_ms(lambda: run_route(route, A, B, ring), iters=10, warmup=2),
+            "host_us": host_us(lambda: run_route(route, A, B, ring)),
+            "bound_ms": max(bytes_ms, int8_ms),
+            "bound_by": "operations" if int8_ms >= bytes_ms else "bytes",
+            "bytes_bound_ms": bytes_ms, "int8_bound_ms": int8_ms, "int32_bound_ms": int32_ms,
         }
-        log(f"main-path shape {name}: {json.dumps(timings[name])}")
-        del A, B, out
+        if route == "tc":
+            Tp, Rp, Sp = tc_padded(t, r, s)
+            from repro_torch.kernels.ref import n_limbs
+
+            L = n_limbs(ring)
+            row["limbs_ms"] = graph_ms(lambda: tc_limbs(A, B, ring))
+            limb_bytes = 4 * ring.D * b * (t * r + r * s) + b * ring.D * L * (Tp + Sp) * Rp
+            row["limbs_bound_ms"] = 1e3 * limb_bytes / HBM_BYTES_PER_S
+            A3, B3 = (A, B) if lead else (A[None], B[None])
+            row["limbs_plain_ms"] = cuda_ms(lambda: (
+                limb_planes_ref(A3, ring, Tp, Rp), limb_planes_ref(B3, ring, Sp, Rp, transpose=True)))
+            row["int8_yardstick_ms"], row["int8_yardstick"] = _int8_yardstick_ms(ring, b, t, r, s)
+        timings[name] = row
+        log(f"main-path shape {name}: {json.dumps(row)}")
+        del A, B
         torch.cuda.empty_cache()
     report["kernel_checks"] = checked
     report["kernel_max_abs_err"] = worst
     report["kernel_timings"] = timings
+    report["thresholds"] = _threshold_timings(rng, worst)
     return timings
+
+
+# shapes at the edges of the dispatch rule (ops.pick_route), over GR(2^32, 3):
+# (batch, t, r, s); every route whose kernel takes the shape is timed
+EDGE_SHAPES = {
+    "skinny_t16": (None, 16, 16, 1 << 16),
+    "simt_t17": (None, 17, 2, 1 << 20),
+    "simt_t48": (8, 48, 96, 32),           # the worker product of ep at 96^3
+    "tc_t64": (8, 64, 1024, 64),
+    "tc_t128": (8, 128, 512, 128),
+}
+
+
+def _threshold_timings(rng, worst: dict) -> dict:
+    """Each accepting route at each edge shape, held against the plain
+    version and then timed in turns (a, b, ..., b, a), so that the
+    thresholds of ops.pick_route rest on this run's numbers."""
+    from repro_torch.core import make_ring
+    from repro_torch.kernels import gr_matmul_ref, pick_route, run_route
+
+    ring = make_ring(2, 32, (3,))
+    out = {}
+    for name, (nb, t, r, s) in EDGE_SHAPES.items():
+        lead = (nb,) if nb else ()
+        A = ring.random(rng, lead + (t, r), device="cuda")
+        B = ring.random(rng, lead + (r, s), device="cuda")
+        routes = [rt for rt in ROUTES if _accepts(rt, ring, t, r)]
+        plain = gr_matmul_ref(A, B, ring)
+        for rt in routes:
+            _hold(rt, ring, A, B, worst, f" (edge shape {name})", plain=plain)
+        del plain
+        order = routes + routes[::-1]
+        ms = {rt: 0.0 for rt in routes}
+        eager = {rt: 0.0 for rt in routes}
+        for rt in order:
+            fn = lambda rt=rt: run_route(rt, A, B, ring)
+            ms[rt] += graph_ms(fn) / 2
+            eager[rt] += cuda_ms(fn, iters=10, warmup=2) / 2
+        # device time decides where a kernel dominates; eager time (launched
+        # from Python, host overhead included) is what a small call costs
+        row = {"shape": [nb or 1, t, r, s], "picked": pick_route(ring, t, r, s), "ms": ms,
+               "eager_ms": eager, "fastest": min(ms, key=ms.get),
+               "fastest_eager": min(eager, key=eager.get)}
+        out[name] = row
+        log(f"threshold {name}: {json.dumps(row)}")
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -255,7 +508,27 @@ def _direct(As, Bs, ring):
     return gr_matmul_ref(As, Bs, ring)
 
 
-def _run_path(name, scheme_or_plan, A, B, mask, report):
+@contextlib.contextmanager
+def _recording_routes(calls: list):
+    """Append (route, ring, A's shape, B's shape) of every ring matmul that
+    ``ops.gr_matmul`` sends to a kernel to ``calls``, so that the kernels can
+    be held against the plain version at exactly the shapes a path gave them."""
+    from repro_torch.kernels import ops
+
+    inner = ops.run_route
+
+    def run_route(route, A, B, ring):
+        calls.append((route, ring, tuple(A.shape), tuple(B.shape)))
+        return inner(route, A, B, ring)
+
+    ops.run_route = run_route
+    try:
+        yield
+    finally:
+        ops.run_route = inner
+
+
+def _run_path(name, family, scheme_or_plan, A, B, mask, report, calls):
     import torch
 
     from repro_torch.cdmm import coded_matmul, decode_from, encode_all, live_indices
@@ -263,41 +536,53 @@ def _run_path(name, scheme_or_plan, A, B, mask, report):
     from repro_torch.kernels import counters
 
     torch.cuda.synchronize()
+    path_calls = []
     counters.reset()
     t0 = time.perf_counter()
-    C = coded_matmul(A, B, scheme_or_plan, backend="local", mask=mask, device="cuda")
+    with _recording_routes(path_calls):
+        C = coded_matmul(A, B, scheme_or_plan, backend="local", mask=mask, device="cuda")
     torch.cuda.synchronize()
     wall_ms = 1e3 * (time.perf_counter() - t0)
-    launches, ref_calls = counters.launches, counters.ref_calls
+    by_route, ref_calls = dict(counters.launches_by_route), counters.ref_calls
     if ref_calls != 0:
         fail(f"{name}: {ref_calls} ring matmuls went to the plain version on the card")
-    if launches != EXPECTED_LAUNCHES[name]:
-        fail(f"{name}: {launches} kernel launches, expected {EXPECTED_LAUNCHES[name]}")
+    if by_route != EXPECTED_LAUNCHES[name]:
+        fail(f"{name}: launches per route {by_route}, expected {EXPECTED_LAUNCHES[name]}")
+    recorded = {rt: sum(c[0] == rt for c in path_calls) for rt in ROUTES}
+    if any(recorded[rt] != by_route[rt] for rt in ROUTES):
+        fail(f"{name}: recorded ring matmuls {recorded} != launches {by_route}")
+    calls.extend(path_calls)
     scheme = (scheme_or_plan.instantiate(device="cuda")
               if isinstance(scheme_or_plan, Plan) else scheme_or_plan)
     expect = _direct(A, B, scheme.base)
     err = max_abs_err(C, expect)
-    if C.shape != expect.shape or err:
-        fail(f"{name}: coded result != direct product (shape {tuple(C.shape)}, err {err})")
-    # stage times (second run, warm): the same helpers the local backend uses
+    if err:
+        fail(f"{name}: coded result != direct product (err {err})")
+    # stage device times of 5 warm runs each (mean, and every run), through
+    # the helpers the local backend uses
     idx = live_indices(scheme, torch.tensor(MASK, device="cuda"))
-    stages = {}
     st = {}
-    stages["encode_ms"] = cuda_ms(lambda: st.__setitem__("enc", encode_all(scheme, A, B)))
-    stages["compute_ms"] = cuda_ms(lambda: st.__setitem__("H", scheme.worker_compute(*st["enc"])))
-    stages["decode_ms"] = cuda_ms(lambda: st.__setitem__("C", decode_from(scheme, st["H"], idx)))
+    stages = {}
+    for stage, fn in [
+        ("encode", lambda: st.__setitem__("enc", encode_all(scheme, A, B))),
+        ("compute", lambda: st.__setitem__("H", scheme.worker_compute(*st["enc"]))),
+        ("decode", lambda: st.__setitem__("C", decode_from(scheme, st["H"], idx))),
+    ]:
+        runs = cuda_runs_ms(fn, 5)
+        stages[f"{stage}_ms"] = sum(runs) / len(runs)
+        stages[f"{stage}_runs_ms"] = runs
     if max_abs_err(st["C"], expect):
         fail(f"{name}: staged run != direct product")
-    row = {"scheme": name, "partition": list(scheme.partition), "ring": str(scheme.ring),
-           "R": scheme.R, "live": idx.tolist(), "shape": list(A.shape),
-           "launches": launches, "ref_calls": ref_calls,
+    row = {"path": name, "scheme": family, "partition": list(scheme.partition),
+           "ring": str(scheme.ring), "R": scheme.R, "live": idx.tolist(), "shape": list(A.shape),
+           "launches_by_route": by_route, "ref_calls": ref_calls,
            "first_call_wall_ms": wall_ms, **stages}
     log(f"path {json.dumps(row)}")
     report.setdefault("paths", []).append(row)
-    return launches
+    return by_route
 
 
-def phase_main_path(report: dict) -> int:
+def phase_main_path(report: dict) -> dict:
     import numpy as np
     import torch
 
@@ -307,24 +592,90 @@ def phase_main_path(report: dict) -> int:
     rng = np.random.default_rng(SEED)
     Z32 = make_ring(2, 32, ())
     mask = torch.tensor(MASK, device="cuda")
+    totals = dict.fromkeys(ROUTES + ("limbs",), 0)
+    calls: list = []
+
+    def add(by_route):
+        for k, v in by_route.items():
+            totals[k] += v
+
     As = Z32.random(rng, (2, MAIN_SIZE, MAIN_SIZE), device="cuda")
     Bs = Z32.random(rng, (2, MAIN_SIZE, MAIN_SIZE), device="cuda")
     scheme = BatchRMFEAdapter(Z32, n=2, N=8, u=2, v=2, w=1, device="cuda")
-    main_launches = _run_path("batch_ep_rmfe", scheme, As, Bs, mask, report)
+    add(_run_path("batch_ep_rmfe", "batch_ep_rmfe", scheme, As, Bs, mask, report, calls))
     del As, Bs
     torch.cuda.empty_cache()
 
-    for name, ring in [("ep", make_ring(2, 32, (3,))), ("plain", Z32),
-                       ("ep_rmfe1", Z32), ("ep_rmfe2", Z32)]:
-        spec = ProblemSpec(SINGLE_SIZE, SINGLE_SIZE, SINGLE_SIZE, n=1, ring=ring,
-                           N=8, straggler_budget=2)
-        p = plan(spec, schemes=[name])
-        A = ring.random(rng, (SINGLE_SIZE, SINGLE_SIZE), device="cuda")
-        B = ring.random(rng, (SINGLE_SIZE, SINGLE_SIZE), device="cuda")
-        _run_path(name, p, A, B, mask, report)
+    for name, family, ring, size in [("ep", "ep", make_ring(2, 32, (3,)), SINGLE_SIZE),
+                                     ("plain", "plain", Z32, SINGLE_SIZE),
+                                     ("ep_rmfe1", "ep_rmfe1", Z32, SINGLE_SIZE),
+                                     ("ep_rmfe2", "ep_rmfe2", Z32, SINGLE_SIZE),
+                                     ("ep_small", "ep", make_ring(2, 32, (3,)), SMALL_SIZE)]:
+        spec = ProblemSpec(size, size, size, n=1, ring=ring, N=8, straggler_budget=2)
+        p = plan(spec, schemes=[family])
+        A = ring.random(rng, (size, size), device="cuda")
+        B = ring.random(rng, (size, size), device="cuda")
+        add(_run_path(name, family, p, A, B, mask, report, calls))
         del A, B
         torch.cuda.empty_cache()
-    return main_launches
+    report["main_path_launches"] = totals
+    return totals, calls
+
+
+def phase_path_calls(report: dict, calls: list) -> None:
+    """Hold each route at every distinct (ring, shape) that phase 3 gave it,
+    on fresh random operands of that shape, bit for bit: this covers every
+    batch slice of a worker launch, the dead workers' ones too, which the
+    end-to-end check cannot see because decode never reads them."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(SEED + 1)
+    worst = report["kernel_max_abs_err"]
+    seen = {}
+    for route, ring, a_shape, b_shape in calls:
+        seen.setdefault((route, ring.p, ring.e, ring.degrees, a_shape, b_shape), ring)
+    for (route, _, _, _, a_shape, b_shape), ring in seen.items():
+        A = ring.random(rng, a_shape[:-1], device="cuda")
+        B = ring.random(rng, b_shape[:-1], device="cuda")
+        _hold(route, ring, A, B, worst, " (a phase-3 call)")
+        del A, B
+        torch.cuda.empty_cache()
+    report["path_calls_checked"] = [f"{k[0]} {k[3]} {k[4][:-1]} x {k[5][:-1]}" for k in seen]
+    log(f"phase-3 calls == plain: {len(calls)} launches at {len(seen)} distinct "
+        f"(route, ring, shape): {report['path_calls_checked']}")
+
+
+def _kernel_rows(report: dict, totals: dict) -> list:
+    """The ``{"kernels": [...]}`` rows: one per route and one for the
+    pre-pass, each at its representative main-path shape."""
+    t = report["kernel_timings"]
+    w, enc = t["workers"], t["encode_a"]
+    shape = lambda row: (f"{row['batch']} x ({row['t']}x{row['r']} @ {row['r']}x{row['s']}) "
+                         f"over GR(2^32) degrees {row['ring']}")
+    base = {"route": "cuda", "replaces": "src/repro/kernels/gr_matmul.py:40", "library_ms": None,
+            "tolerance": 0}  # integer-exact: each kernel and its plain version agree bit for bit
+    src = "src/repro_torch/kernels/csrc/"
+    return [
+        {**base, "name": "gr_matmul_simt", "source": src + "gr_matmul.cu",
+         "launches": totals["simt"], "max_abs_err": report["kernel_max_abs_err"]["simt"],
+         "ms": w["simt_ms"], "plain_ms": w["plain_ms"], "bound_ms": w["bound_ms"],
+         "bound_by": w["bound_by"], "int32_bound_ms": w["int32_bound_ms"], "shape": shape(w)},
+        {**base, "name": "gr_matmul_tc", "source": src + "gr_matmul_tc.cu",
+         "launches": totals["tc"], "max_abs_err": report["kernel_max_abs_err"]["tc"],
+         "ms": w["ms"], "plain_ms": w["plain_ms"], "bound_ms": w["bound_ms"],
+         "bound_by": w["bound_by"], "int8_yardstick_ms": w["int8_yardstick_ms"],
+         "simt_ms": w["simt_ms"], "shape": shape(w)},
+        {**base, "name": "gr_matmul_tc_limbs", "source": src + "gr_matmul_tc.cu",
+         "launches": totals["limbs"], "max_abs_err": report["kernel_max_abs_err"]["limbs"],
+         "ms": w["limbs_ms"], "plain_ms": w["limbs_plain_ms"], "bound_ms": w["limbs_bound_ms"],
+         "bound_by": "bytes", "shape": shape(w)},
+        {**base, "name": "gr_matmul_skinny", "source": src + "gr_matmul_skinny.cu",
+         "launches": totals["skinny"], "max_abs_err": report["kernel_max_abs_err"]["skinny"],
+         "ms": enc["ms"], "plain_ms": enc["plain_ms"], "bound_ms": enc["bound_ms"],
+         "bound_by": enc["bound_by"], "simt_ms": enc["simt_ms"], "shape": shape(enc),
+         "per_shape_ms": {k: v["ms"] for k, v in t.items() if v["route"] == "skinny"}},
+    ]
 
 
 def main() -> int:
@@ -332,7 +683,8 @@ def main() -> int:
     ap.add_argument("--report", type=Path, default=ROOT / "build" / "chip_smoke.json",
                     help="where to write the full JSON report")
     args = ap.parse_args()
-    if not (SRC / "repro_torch" / "kernels" / "csrc" / "gr_matmul.cu").is_file():
+    csrc = SRC / "repro_torch" / "kernels" / "csrc"
+    if not all((csrc / f).is_file() for f in ("gr_matmul.cu", "gr_matmul_tc.cu", "gr_matmul_skinny.cu")):
         print(f"chip_smoke: the port's sources are not under {SRC}", file=sys.stderr)
         return 2
     import torch
@@ -344,27 +696,14 @@ def main() -> int:
     report: dict = {}
     t0 = time.perf_counter()
     phase_env_build(report)
-    timings = phase_kernels(report)
-    main_launches = phase_main_path(report)
+    phase_kernels(report)
+    totals, calls = phase_main_path(report)
+    for route in ROUTES + ("limbs",):
+        if totals[route] == 0:
+            fail(f"the main path never launched the {route} kernel")
+    phase_path_calls(report, calls)
     report["seconds"] = time.perf_counter() - t0
-
-    w = timings["workers"]
-    kernels = [{
-        "name": "gr_matmul",
-        "route": "cuda",
-        "source": "src/repro_torch/kernels/csrc/gr_matmul.cu",
-        "replaces": "src/repro/kernels/gr_matmul.py:40",
-        "launches": main_launches,
-        "max_abs_err": report["kernel_max_abs_err"],
-        "tolerance": 0,  # integer-exact: kernel and plain version must agree bit for bit
-        "ms": w["ms"],
-        "plain_ms": w["plain_ms"],
-        "bound_ms": w["bound_ms"],
-        "bound_by": w["bound_by"],
-        "library_ms": None,
-        "shape": f"{w['batch']} x ({w['t']}x{w['r']} @ {w['r']}x{w['s']}) over GR(2^32,3)",
-        "checked": report["kernel_checks"],
-    }]
+    kernels = _kernel_rows(report, totals)
     args.report.parent.mkdir(parents=True, exist_ok=True)
     args.report.write_text(json.dumps(report, indent=1, default=str))
     log(f"total {report['seconds']:.1f} s; report in {args.report}")

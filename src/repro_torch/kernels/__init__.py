@@ -1,7 +1,9 @@
 """Hand-written Hopper kernels for the CDMM hot paths, with plain versions.
 
-gr_matmul: planar Galois-ring matmul (worker compute, encode, decode, RMFE
-phi/psi), CUDA C++ in ``csrc/gr_matmul.cu``, built at first use.
+gr_matmul: Galois-ring matmul (worker compute, encode, decode, RMFE
+phi/psi) in three routes, CUDA C++ under ``csrc/`` built at first use:
+``simt`` (``gr_matmul.cu``), ``tc`` (``gr_matmul_tc.cu``, int8 tensor
+cores) and ``skinny`` (``gr_matmul_skinny.cu``); ``ops.pick_route`` picks.
 """
 from .gr_matmul import MAX_D, counters, gr_matmul_planar
 from .ops import (
@@ -10,8 +12,10 @@ from .ops import (
     kernel_auto_enabled,
     kernel_supported,
     pick_blocks,
+    pick_route,
+    run_route,
 )
-from .ref import gr_matmul_planar_ref, gr_matmul_ref
+from .ref import gr_matmul_limbs_ref, gr_matmul_planar_ref, gr_matmul_ref
 
 __all__ = [
     "MAX_D",
@@ -22,6 +26,9 @@ __all__ = [
     "kernel_supported",
     "kernel_auto_enabled",
     "pick_blocks",
+    "pick_route",
+    "run_route",
     "gr_matmul_ref",
+    "gr_matmul_limbs_ref",
     "gr_matmul_planar_ref",
 ]

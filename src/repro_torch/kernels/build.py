@@ -1,10 +1,12 @@
 """Build the CUDA kernels at first use and load them with ctypes.
 
-``nvcc`` compiles ``csrc/gr_matmul.cu`` (plain C interface, no PyTorch
-headers) for ``sm_90a`` into ``build/kernels/`` at the repository root.  The
-library's file name carries a hash of the source and flags, so an edited
+``nvcc`` compiles every source in ``SOURCES`` (plain C interface, no
+PyTorch headers) for ``sm_90a``, all at once in parallel, and links them
+into one library in ``build/kernels/`` at the repository root.  The
+library's file name carries a hash of every source and flag, so an edited
 source is never served by a stale build.  ``-Xptxas -v`` output (registers,
-shared memory, spills) is kept beside the library as ``<name>.ptxas.txt``.
+shared memory, spills) is kept beside the library as
+``<source>.ptxas.txt``, one file per source.
 
 Nothing here runs at import time: the CPU tests import this module on
 machines without ``nvcc``.
@@ -25,7 +27,10 @@ __all__ = ["BUILD_DIR", "CSRC_DIR", "load_library", "build_info"]
 CSRC_DIR = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
-NVCC_FLAGS = ["-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+NVCC_FLAGS = ["-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+# the general (simt), tensor-core (tc) and bandwidth (skinny) routes
+SOURCES = ("gr_matmul", "gr_matmul_tc", "gr_matmul_skinny")
+LIB_NAME = "gr_matmul"
 
 _lock = threading.Lock()
 _libs: dict = {}
@@ -43,54 +48,79 @@ def _nvcc() -> str:
 
 
 def _declare(lib: ctypes.CDLL) -> None:
-    vp, ci = ctypes.c_void_p, ctypes.c_int
-    lib.gr_matmul_planar_u32.argtypes = [
-        vp, vp, vp, ci, ci, ci, ci, ci, ci,
-        ctypes.POINTER(ctypes.c_uint32), ctypes.c_uint32, vp,
-    ]
-    lib.gr_matmul_planar_u32.restype = ci
+    vp, ci, u32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32
+    fold = ctypes.POINTER(ctypes.c_uint32)
     ip = ctypes.POINTER(ctypes.c_int)
+    lib.gr_matmul_planar_u32.argtypes = [vp, vp, vp, ci, ci, ci, ci, ci, ci, fold, u32, vp]
     lib.gr_matmul_tile.argtypes = [ci, ci, ip, ip, ip]
-    lib.gr_matmul_tile.restype = ci
+    lib.gr_matmul_tc_limbs.argtypes = [vp, vp, ci, ci, ci, ci, ci, ci, ci, ci, vp]
+    lib.gr_matmul_tc_u32.argtypes = [vp, vp, vp, ci, ci, ci, ci, ci, ci, ci, ci, ci, fold, u32, vp]
+    lib.gr_matmul_tc_tile.argtypes = [ci, ci, ip, ip, ip]
+    lib.gr_matmul_skinny_u32.argtypes = [vp, vp, vp, ci, ci, ci, ci, ci, ci, fold, u32, vp]
+    lib.gr_matmul_skinny_cols.argtypes = [ci, ci]
+    for fn in ("gr_matmul_planar_u32", "gr_matmul_tile", "gr_matmul_tc_limbs",
+               "gr_matmul_tc_u32", "gr_matmul_tc_tile", "gr_matmul_skinny_u32",
+               "gr_matmul_skinny_cols"):
+        getattr(lib, fn).restype = ci
+
+
+def _compile(nvcc: str, so: Path) -> None:
+    """One nvcc per source, all started together, then one link."""
+    tmp = so.with_suffix(f".{os.getpid()}.tmp")
+    objs, procs = [], []
+    for name in SOURCES:
+        obj = tmp.with_name(f"{name}.{os.getpid()}.o")
+        cmd = [nvcc, *ARCH_FLAGS, *NVCC_FLAGS, "-c", "-o", str(obj), str(CSRC_DIR / f"{name}.cu")]
+        procs.append((name, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                             stderr=subprocess.STDOUT, text=True)))
+        objs.append(obj)
+    failed = []
+    for name, proc in procs:
+        out, _ = proc.communicate()
+        (BUILD_DIR / f"{name}.ptxas.txt").write_text(out)
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed ({proc.returncode}) for {name}.cu:\n{out[-4000:]}")
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    res = subprocess.run([nvcc, *ARCH_FLAGS, "-shared", "-o", str(tmp), *map(str, objs)],
+                         capture_output=True, text=True)
+    for obj in objs:
+        obj.unlink(missing_ok=True)
+    if res.returncode != 0:
+        raise RuntimeError(f"nvcc link failed ({res.returncode}):\n{res.stderr[-4000:]}")
+    os.replace(tmp, so)  # atomic: a concurrent loader sees all or nothing
 
 
 def load_library() -> ctypes.CDLL:
-    """Compile (once per source hash) and load ``csrc/gr_matmul.cu``."""
-    name = "gr_matmul"
+    """Compile (once per source hash) and load the kernels of ``SOURCES``."""
+    lib = _libs.get(LIB_NAME)
+    if lib is not None:
+        return lib
     with _lock:
-        if name in _libs:
-            return _libs[name]
-        src = CSRC_DIR / f"{name}.cu"
+        if LIB_NAME in _libs:
+            return _libs[LIB_NAME]
         nvcc = _nvcc()
-        digest = hashlib.sha256(
-            src.read_bytes() + " ".join(ARCH_FLAGS + NVCC_FLAGS).encode()
-        ).hexdigest()[:16]
+        h = hashlib.sha256(" ".join(ARCH_FLAGS + NVCC_FLAGS).encode())
+        for name in SOURCES:
+            h.update((CSRC_DIR / f"{name}.cu").read_bytes())
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        so = BUILD_DIR / f"lib{name}-{digest}.so"
+        so = BUILD_DIR / f"lib{LIB_NAME}-{h.hexdigest()[:16]}.so"
         t0 = time.perf_counter()
-        built = False
-        if not so.exists():
-            tmp = so.with_suffix(f".{os.getpid()}.tmp")
-            cmd = [nvcc, *ARCH_FLAGS, *NVCC_FLAGS, "-o", str(tmp), str(src)]
-            res = subprocess.run(cmd, capture_output=True, text=True)
-            (BUILD_DIR / f"{name}.ptxas.txt").write_text(res.stdout + res.stderr)
-            if res.returncode != 0:
-                raise RuntimeError(
-                    f"nvcc failed ({res.returncode}) for {src}:\n{res.stderr[-4000:]}"
-                )
-            os.replace(tmp, so)  # atomic: a concurrent loader sees all or nothing
-            built = True
+        built = not so.exists()
+        if built:
+            _compile(nvcc, so)
         lib = ctypes.CDLL(str(so))
         _declare(lib)
-        _libs[name] = lib
-        _info[name] = {
+        _libs[LIB_NAME] = lib
+        _info[LIB_NAME] = {
             "path": str(so),
             "built": built,
             "seconds": time.perf_counter() - t0,
+            "sources": [f"{name}.cu" for name in SOURCES],
         }
         return lib
 
 
 def build_info() -> dict:
     """Where the library came from and how long loading (and building) took."""
-    return dict(_info.get("gr_matmul", {}))
+    return dict(_info.get(LIB_NAME, {}))

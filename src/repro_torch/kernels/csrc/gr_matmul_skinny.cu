@@ -1,0 +1,257 @@
+// Skinny Galois-ring matmul over GR(2^e, D), e <= 32, for sm_90a: the
+// bandwidth route of the port's gr_matmul, for T <= 16 and R <= 16.
+//
+// Replaces the Pallas TPU kernel src/repro/kernels/gr_matmul.py:_kernel
+// (launched by gr_matmul_planar) for the skinny calls of a CDMM round: RMFE
+// phi/psi (2x2 @ 2x4M, 2x3 @ 3x4M), the Vandermonde encodes (8x2 @ 2x2M)
+// and the Lagrange decode (4x4 @ 4x1M).  Same function, in the port's
+// interleaved layout end to end:
+//
+//   A (batch, T, R, D) x B (batch, R, S, D) -> C (batch, T, S, D), uint32,
+//   conv[CONVPOS(i, j)] += A[.., i] * B[.., j]   (wrapping mod 2^32)
+//   C[.., d] = (sum_c FOLD[c, d] * conv[c]) & mask
+//
+// What bounds it: bytes.  A is at most 16 x 16 x D words; B and C are
+// R x S x D and T x S x D words with S in the millions, and each column of C
+// costs T * R * D^2 multiply-adds, far below the card's byte rate times its
+// INT32 rate.  So the design moves each byte of B and C once, with no padded
+// rows (the general kernel in gr_matmul.cu tiles T by 64 and wastes most of
+// the tile here):
+//  * A block stages A (all of it) and its slab of B (all R rows, NB columns)
+//    in shared memory with 16-byte loads, then each thread owns CPT
+//    consecutive columns (CPT * D words, a whole number of 16-byte vectors)
+//    and computes all T rows for them from shared memory: K conv
+//    accumulators per column in registers, fold, mask, and 16-byte stores of
+//    C.  Grid x covers S, grid y the batch.
+//  * The tower shape (D0, D1) is a template parameter, so CONVPOS(i, j) and
+//    the accumulator indices are compile-time constants.  Instantiated where
+//    the K x CPT accumulators fit comfortably in registers (K * CPT <= 64).
+//  * Ragged columns, and operands whose rows are not 16-byte aligned, take
+//    4-byte loads and stores in the same kernel.
+//
+// C interface (loaded with ctypes); the functions return cudaGetLastError().
+#include <cuda_runtime.h>
+#include <stdint.h>
+#include <string.h>
+
+namespace {
+
+constexpr int kMaxD = 16;
+constexpr int kMaxK = 45;
+constexpr int kMaxT = 16;
+constexpr int kMaxR = 16;
+// dynamic shared memory a launch may ask for (above 48 KB needs the attribute)
+constexpr int kSmemCap = 100 * 1024;
+constexpr int kMaxDevices = 64;
+
+struct FoldTable {
+  uint32_t f[kMaxK * kMaxD];
+};
+
+__host__ __device__ constexpr int convpos(int i, int j, int d0) {
+  return (i / d0 + j / d0) * (2 * d0 - 1) + (i % d0 + j % d0);
+}
+
+template <int D0, int D1>
+struct Skinny {
+  static constexpr int D = D0 * D1;
+  static constexpr int K = (2 * D0 - 1) * (2 * D1 - 1);
+  // columns per thread: CPT * D words make whole 16-byte vectors
+  static constexpr int CPT = (D % 4 == 0) ? 1 : (D % 2 == 0) ? 2 : 4;
+  static constexpr int W = CPT * D;  // words per thread per row
+};
+
+template <int D0, int D1>
+__global__ void __launch_bounds__(128)
+    gr_matmul_skinny_kernel(const uint32_t* __restrict__ A,
+                            const uint32_t* __restrict__ B,
+                            uint32_t* __restrict__ C, int T, int R, int S,
+                            const FoldTable fold, uint32_t mask, int vec) {
+  using G = Skinny<D0, D1>;
+  constexpr int D = G::D, K = G::K, CPT = G::CPT, W = G::W;
+  static_assert(K * CPT <= 64, "accumulators would spill");
+  extern __shared__ uint4 smem4[];
+  uint32_t* As = reinterpret_cast<uint32_t*>(smem4);
+  const int a_words = (T * R * D + 3) & ~3;
+  uint32_t* Bs = As + a_words;  // [r][NB * D]
+
+  const int tid = threadIdx.x;
+  const int NB = blockDim.x * CPT;
+  const int row_words = NB * D;
+  const int64_t z = blockIdx.y;
+  const int s0 = blockIdx.x * NB;
+  const int ncols = min(NB, S - s0);
+  const uint32_t* Ab = A + z * T * R * D;
+  const uint32_t* Bb = B + z * R * (int64_t)S * D;
+  uint32_t* Cb = C + z * T * (int64_t)S * D;
+
+  for (int idx = tid; idx < T * R * D; idx += blockDim.x) As[idx] = Ab[idx];
+  if (vec && ncols == NB) {
+    const int row_vecs = row_words / 4;
+#pragma unroll 4
+    for (int idx = tid; idx < R * row_vecs; idx += blockDim.x) {
+      const int r = idx / row_vecs, v = idx - r * row_vecs;
+      const uint4* src =
+          reinterpret_cast<const uint4*>(Bb + ((int64_t)r * S + s0) * D);
+      reinterpret_cast<uint4*>(Bs + r * row_words)[v] = __ldg(src + v);
+    }
+  } else {
+    const int valid = ncols * D;
+    for (int idx = tid; idx < R * row_words; idx += blockDim.x) {
+      const int r = idx / row_words, w = idx - r * row_words;
+      Bs[idx] = w < valid ? Bb[((int64_t)r * S + s0) * D + w] : 0u;
+    }
+  }
+  __syncthreads();
+
+  const int c0 = tid * CPT;  // first column of this thread within the slab
+  if (c0 >= ncols) return;
+  const bool full = vec && c0 + CPT <= ncols;
+  for (int t = 0; t < T; ++t) {
+    uint32_t acc[K][CPT];
+#pragma unroll
+    for (int c = 0; c < K; ++c)
+#pragma unroll
+      for (int n = 0; n < CPT; ++n) acc[c][n] = 0u;
+    for (int r = 0; r < R; ++r) {
+      uint32_t b[W];
+      const uint4* bs = reinterpret_cast<const uint4*>(Bs + r * row_words + c0 * D);
+#pragma unroll
+      for (int q = 0; q < W / 4; ++q) {
+        const uint4 v = bs[q];
+        b[4 * q] = v.x;
+        b[4 * q + 1] = v.y;
+        b[4 * q + 2] = v.z;
+        b[4 * q + 3] = v.w;
+      }
+      const uint32_t* a = As + (t * R + r) * D;
+#pragma unroll
+      for (int i = 0; i < D; ++i) {
+        const uint32_t ai = a[i];
+#pragma unroll
+        for (int j = 0; j < D; ++j) {
+          const int c = convpos(i, j, D0);
+#pragma unroll
+          for (int n = 0; n < CPT; ++n) acc[c][n] += ai * b[n * D + j];
+        }
+      }
+    }
+    uint32_t out[W];
+#pragma unroll
+    for (int n = 0; n < CPT; ++n) {
+#pragma unroll
+      for (int d = 0; d < D; ++d) {
+        uint32_t v = 0u;
+#pragma unroll
+        for (int c = 0; c < K; ++c) v += fold.f[c * D + d] * acc[c][n];
+        out[n * D + d] = v & mask;
+      }
+    }
+    uint32_t* dst = Cb + ((int64_t)t * S + s0 + c0) * D;
+    if (full) {
+#pragma unroll
+      for (int q = 0; q < W / 4; ++q)
+        reinterpret_cast<uint4*>(dst)[q] =
+            make_uint4(out[4 * q], out[4 * q + 1], out[4 * q + 2], out[4 * q + 3]);
+    } else {
+#pragma unroll
+      for (int n = 0; n < CPT; ++n) {
+        if (c0 + n < ncols) {
+#pragma unroll
+          for (int d = 0; d < D; ++d) dst[n * D + d] = out[n * D + d];
+        }
+      }
+    }
+  }
+}
+
+template <int D0, int D1>
+int launch(const uint32_t* A, const uint32_t* B, uint32_t* C, int batch, int T,
+           int R, int S, const FoldTable& fold, uint32_t mask,
+           cudaStream_t stream) {
+  using G = Skinny<D0, D1>;
+  const size_t a_words = (T * R * G::D + 3) & ~3;
+  int threads = 128;
+  auto smem_for = [&](int th) {
+    return 4 * (a_words + (size_t)R * th * G::W);
+  };
+  while (threads > 32 && smem_for(threads) > (size_t)kSmemCap) threads /= 2;
+  const size_t smem = smem_for(threads);
+  if (smem > (size_t)kSmemCap) return (int)cudaErrorInvalidValue;
+  if (smem > 48 * 1024) {
+    // once per device (the attribute persists): launches may be captured
+    // in a CUDA graph
+    static bool raised[kMaxDevices] = {};
+    int dev = 0;
+    cudaError_t e = cudaGetDevice(&dev);
+    if (e != cudaSuccess) return (int)e;
+    if (dev >= kMaxDevices) return (int)cudaErrorInvalidDevice;
+    if (!raised[dev]) {
+      e = cudaFuncSetAttribute(gr_matmul_skinny_kernel<D0, D1>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemCap);
+      if (e != cudaSuccess) return (int)e;
+      raised[dev] = true;
+    }
+  }
+  // 16-byte paths need every row of B and C to start on a 16-byte boundary
+  const int vec = ((int64_t)S * G::D) % 4 == 0 &&
+                  ((uintptr_t)B | (uintptr_t)C) % 16 == 0;
+  const int nb = threads * G::CPT;
+  dim3 grid((S + nb - 1) / nb, batch);
+  gr_matmul_skinny_kernel<D0, D1><<<grid, threads, smem, stream>>>(
+      A, B, C, T, R, S, fold, mask, vec);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// Tower shapes with K * CPT <= 64 (see Skinny): the Python mirror is
+// repro_torch.kernels.gr_matmul.skinny_cols.
+#define SKINNY_TOWERS(X)                                                    \
+  X(1, 1) X(2, 1) X(3, 1) X(4, 1) X(5, 1) X(6, 1) X(7, 1) X(8, 1) X(10, 1)  \
+  X(12, 1) X(14, 1) X(16, 1) X(2, 3) X(2, 5) X(3, 2) X(3, 4) X(4, 3) X(5, 2)
+
+extern "C" {
+
+// A (batch, T, R, D), B (batch, R, S, D) -> C (batch, T, S, D), all uint32
+// words, contiguous.  Returns cudaGetLastError() after the launch, and
+// cudaErrorInvalidValue for a tower without an instantiation or T, R > 16.
+int gr_matmul_skinny_u32(const void* A, const void* B, void* C, int batch,
+                         int T, int R, int S, int d0, int d1,
+                         const uint32_t* fold_host, uint32_t mask,
+                         void* stream) {
+  const int D = d0 * d1, K = (2 * d0 - 1) * (2 * d1 - 1);
+  if (D > kMaxD || K > kMaxK || T > kMaxT || R > kMaxR || T < 1 || R < 1)
+    return (int)cudaErrorInvalidValue;
+  FoldTable fold;
+  memset(&fold, 0, sizeof(fold));
+  memcpy(fold.f, fold_host, sizeof(uint32_t) * K * D);
+  const uint32_t* a = static_cast<const uint32_t*>(A);
+  const uint32_t* b = static_cast<const uint32_t*>(B);
+  uint32_t* c = static_cast<uint32_t*>(C);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (d0 * 32 + d1) {
+#define SKINNY_LAUNCH(x, y) \
+  case x * 32 + y:          \
+    return launch<x, y>(a, b, c, batch, T, R, S, fold, mask, st);
+    SKINNY_TOWERS(SKINNY_LAUNCH)
+#undef SKINNY_LAUNCH
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+}
+
+// Columns per thread of the instantiation for a tower shape; -1 if none.
+int gr_matmul_skinny_cols(int d0, int d1) {
+  switch (d0 * 32 + d1) {
+#define SKINNY_COLS(x, y) \
+  case x * 32 + y:        \
+    return Skinny<x, y>::CPT;
+    SKINNY_TOWERS(SKINNY_COLS)
+#undef SKINNY_COLS
+    default:
+      return -1;
+  }
+}
+
+}  // extern "C"

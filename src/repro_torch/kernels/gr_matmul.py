@@ -1,45 +1,91 @@
-"""Hopper kernel wrapper: planar Galois-ring matmul over GR(2^e, D).
+"""Hopper kernel wrappers: the three routes of the Galois-ring matmul over
+GR(2^e, D).
 
-Replaces the Pallas TPU kernel ``src/repro/kernels/gr_matmul.py:_kernel``
-(launched by ``gr_matmul_planar``).  The kernel itself is hand-written CUDA
-C++ in ``csrc/gr_matmul.cu`` (its header notes the design and what bounds
-it); this module validates the operands, launches it on PyTorch's current
-stream through ctypes, and counts launches.
+All three replace the Pallas TPU kernel
+``src/repro/kernels/gr_matmul.py:_kernel`` (launched by
+``gr_matmul_planar``); each is hand-written CUDA C++ under ``csrc/`` whose
+header notes its design and what bounds it:
+
+* ``simt`` (``csrc/gr_matmul.cu``): planar layout, uint32 multiply-adds on
+  the CUDA cores; every tower with D <= 16, every shape.
+* ``tc`` (``csrc/gr_matmul_tc.cu``): interleaved layout, a limb pre-pass
+  (counted as ``limbs``) into u8 planes, then int8 tensor-core MMAs;
+  single-level towers with D <= 4.
+* ``skinny`` (``csrc/gr_matmul_skinny.cu``): interleaved layout, a
+  bandwidth kernel for T, R <= 16.
+
+This module validates the operands, launches on PyTorch's current stream
+through ctypes, and counts launches.  Which route a ring matmul takes is
+decided in ``ops.pick_route``.
 
 Envelope: p = 2, e <= 32, D <= MAX_D = 16 (the reference's).  Towers of at
-most two coprime levels cover every D <= 16; the kernel is instantiated for
-each such (degrees[0], degrees[1]).
+most two coprime levels cover every D <= 16.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 from functools import lru_cache
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
 
 from .build import load_library
+from .ref import n_limbs
 
-__all__ = ["MAX_D", "counters", "gr_matmul_planar", "tower_shape", "kernel_tile"]
+__all__ = [
+    "MAX_D",
+    "ROUTES",
+    "SKINNY_MAX_T",
+    "SKINNY_MAX_R",
+    "TC_TILE",
+    "counters",
+    "gr_matmul_planar",
+    "gr_matmul_skinny",
+    "gr_matmul_tc",
+    "kernel_tile",
+    "skinny_cols",
+    "tc_instantiated",
+    "tc_limbs",
+    "tc_padded",
+    "tower_shape",
+]
 
 MAX_D = 16
+ROUTES = ("simt", "tc", "skinny")
+# the skinny kernel keeps A (T x R x D words) in shared memory
+SKINNY_MAX_T = SKINNY_MAX_R = 16
+# (BM, BN, KS) of the tc kernel: its block tile, and the multiples of T, S
+# and R its limb planes are padded to (mirrors csrc/gr_matmul_tc.cu)
+TC_TILE = (32, 32, 64)
 
 
 class KernelCounters:
     """Plain counts that let a run show it went through the kernel.
 
-    ``launches``: kernel launches by :func:`gr_matmul_planar`.
+    ``launches_by_route``: launches of each route's matmul kernel (``simt``,
+    ``tc``, ``skinny``) and of the tc route's limb pre-pass (``limbs``, two
+    per tc matmul: one per operand).
+    ``launches``: matmul kernel launches of all routes, one per ring matmul
+    on the card (the pre-pass not included).
     ``ref_calls``: CUDA ring matmuls that went to the plain version because
-    the ring lies outside the kernel's envelope.
+    the ring lies outside the kernels' envelope.
     """
 
     def __init__(self):
         self.reset()
 
     def reset(self) -> None:
-        self.launches = 0
+        self.launches_by_route = dict.fromkeys(ROUTES + ("limbs",), 0)
         self.ref_calls = 0
+
+    @property
+    def launches(self) -> int:
+        return sum(self.launches_by_route[r] for r in ROUTES)
+
+    def count(self, route: str) -> None:
+        self.launches_by_route[route] += 1
 
 
 counters = KernelCounters()
@@ -51,6 +97,27 @@ def tower_shape(ring) -> Tuple[int, int]:
     if len(deg) > 2:
         raise ValueError(f"{ring}: the kernel takes towers of at most two levels")
     return (deg[0] if deg else 1, deg[1] if len(deg) == 2 else 1)
+
+
+def tc_instantiated(d0: int, d1: int) -> bool:
+    """Whether the tc kernel has an instantiation for the tower (d0, d1);
+    mirrors ``TC_TOWERS`` in ``csrc/gr_matmul_tc.cu``."""
+    return d1 == 1 and 1 <= d0 <= 4
+
+
+def skinny_cols(d0: int, d1: int) -> Optional[int]:
+    """Columns per thread of the skinny kernel for the tower (d0, d1), None
+    without an instantiation; mirrors ``Skinny`` and ``SKINNY_TOWERS`` in
+    ``csrc/gr_matmul_skinny.cu`` (instantiated where K * CPT <= 64)."""
+    D, K = d0 * d1, (2 * d0 - 1) * (2 * d1 - 1)
+    cpt = 1 if D % 4 == 0 else 2 if D % 2 == 0 else 4
+    return cpt if D <= MAX_D and K * cpt <= 64 else None
+
+
+def tc_padded(t: int, r: int, s: int) -> Tuple[int, int, int]:
+    """(Tp, Rp, Sp): the shape the tc route's limb planes are padded to."""
+    bm, bn, ks = TC_TILE
+    return -(-t // bm) * bm, -(-r // ks) * ks, -(-s // bn) * bn
 
 
 def kernel_tile(ring) -> Tuple[int, int, int]:
@@ -65,16 +132,19 @@ def kernel_tile(ring) -> Tuple[int, int, int]:
 
 
 @lru_cache(maxsize=None)
-def _check_layout(ring) -> np.ndarray:
+def _check_layout(ring):
     """The kernel hard-codes conv positions from the tower shape; make sure
-    the ring's CONVPOS is that layout.  Returns FOLD as (K*D,) uint32."""
+    the ring's CONVPOS is that layout.  Returns FOLD as (K*D,) uint32 and a
+    ctypes pointer to it (cached: building the pointer costs microseconds
+    on every launch otherwise)."""
     d0, _ = tower_shape(ring)
     i = np.arange(ring.D)[:, None]
     j = np.arange(ring.D)[None, :]
     expect = (i // d0 + j // d0) * (2 * d0 - 1) + (i % d0 + j % d0)
     if not np.array_equal(expect, ring.CONVPOS):
         raise ValueError(f"{ring}: CONVPOS does not match the kernel's tower layout")
-    return np.ascontiguousarray(ring.FOLD_U32.reshape(-1))
+    fold = np.ascontiguousarray(ring.FOLD_U32.reshape(-1))
+    return fold, fold.ctypes.data_as(ctypes.POINTER(ctypes.c_uint32))
 
 
 def _check_operand(x: torch.Tensor, name: str) -> None:
@@ -87,8 +157,9 @@ def _check_operand(x: torch.Tensor, name: str) -> None:
 
 
 def gr_matmul_planar(A: torch.Tensor, B: torch.Tensor, ring) -> torch.Tensor:
-    """Planar GR matmul on the card: A (b, D, T, R), B (b, D, R, S) ->
-    C (b, D, T, S); the batch axis b is optional (then 3-D in, 3-D out).
+    """The general route (``simt``) on the card: planar A (b, D, T, R),
+    B (b, D, R, S) -> C (b, D, T, S); the batch axis b is optional (then
+    3-D in, 3-D out).
 
     Launches the CUDA kernel or raises; it never falls back.
     """
@@ -109,7 +180,7 @@ def gr_matmul_planar(A: torch.Tensor, B: torch.Tensor, ring) -> torch.Tensor:
     _check_operand(B, "B")
     if A.device != B.device:
         raise ValueError(f"A on {A.device}, B on {B.device}")
-    fold = _check_layout(ring)
+    _, fold = _check_layout(ring)
     if -(-T // kernel_tile(ring)[0]) > 65535 or nb > 65535 or max(T, R, S) >= 2**31 - 256:
         raise ValueError(f"shape {tuple(A.shape)} x {tuple(B.shape)} exceeds the launch grid")
     C = torch.empty((nb, D, T, S), dtype=torch.int32, device=A.device)
@@ -117,14 +188,131 @@ def gr_matmul_planar(A: torch.Tensor, B: torch.Tensor, ring) -> torch.Tensor:
         return C[0] if squeeze else C
     lib = load_library()
     d0, d1 = tower_shape(ring)
-    mask = (2**ring.e - 1) if ring.e < 32 else 0xFFFFFFFF
-    with torch.cuda.device(A.device):
-        stream = torch.cuda.current_stream().cuda_stream
+    ctx, stream = _stream(A.device)
+    with ctx:
         err = lib.gr_matmul_planar_u32(
             A.data_ptr(), B.data_ptr(), C.data_ptr(), nb, T, R, S, d0, d1,
-            fold.ctypes.data_as(ctypes.POINTER(ctypes.c_uint32)), mask, stream,
+            fold, _mask(ring), stream,
         )
+    _check_launch(err, "simt")
+    counters.count("simt")
+    return C[0] if squeeze else C
+
+
+def _check_launch(err: int, what: str) -> None:
     if err != 0:
-        raise RuntimeError(f"gr_matmul kernel launch failed: cudaError {err}")
-    counters.launches += 1
+        raise RuntimeError(f"gr_matmul {what} kernel launch failed: cudaError {err}")
+
+
+def _interleaved(A: torch.Tensor, B: torch.Tensor, ring):
+    """Validate interleaved operands (b?, t, r, D) x (b?, r, s, D); returns
+    them with a batch axis, whether to drop it again, and (b, t, r, s)."""
+    if ring.p != 2 or ring.e > 32 or ring.D > MAX_D:
+        raise ValueError(f"{ring} lies outside the kernels' envelope (p=2, e<=32, D<=16)")
+    _check_operand(A, "A")
+    _check_operand(B, "B")
+    if A.device != B.device:
+        raise ValueError(f"A on {A.device}, B on {B.device}")
+    squeeze = A.dim() == 3
+    if squeeze:
+        A, B = A.unsqueeze(0), B.unsqueeze(0)
+    if A.dim() != 4 or B.dim() != 4:
+        raise ValueError(f"expected (b, t, r, D) x (b, r, s, D), got {A.shape} x {B.shape}")
+    nb, T, R, D = A.shape
+    if (B.shape[0], B.shape[1], B.shape[3]) != (nb, R, D) or D != ring.D:
+        raise ValueError(f"shape mismatch {tuple(A.shape)} x {tuple(B.shape)} for {ring}")
+    S = B.shape[2]
+    if nb > 65535 or max(T, R, S) >= 2**31 - 256:
+        raise ValueError(f"shape {tuple(A.shape)} x {tuple(B.shape)} exceeds the launch grid")
+    return A, B, squeeze, (nb, T, R, S)
+
+
+def _mask(ring) -> int:
+    return (2**ring.e - 1) if ring.e < 32 else 0xFFFFFFFF
+
+
+def _stream(device: torch.device):
+    """PyTorch's current stream on ``device``, entering the device only when
+    it is not the current one (the kernels launch on the current device)."""
+    if device.index == torch.cuda.current_device():
+        return contextlib.nullcontext(), torch.cuda.current_stream(device).cuda_stream
+    return torch.cuda.device(device), torch.cuda.current_stream(device).cuda_stream
+
+
+def gr_matmul_skinny(A: torch.Tensor, B: torch.Tensor, ring) -> torch.Tensor:
+    """The bandwidth route on the card: A (b?, t, r, D) x B (b?, r, s, D) ->
+    C (b?, t, s, D), interleaved int32, for t, r <= 16.
+
+    Launches the CUDA kernel or raises; it never falls back.
+    """
+    A, B, squeeze, (nb, T, R, S) = _interleaved(A, B, ring)
+    d0, d1 = tower_shape(ring)
+    if skinny_cols(d0, d1) is None:
+        raise ValueError(f"{ring}: the skinny kernel has no instantiation for tower {(d0, d1)}")
+    if not (1 <= T <= SKINNY_MAX_T and 1 <= R <= SKINNY_MAX_R):
+        raise ValueError(f"the skinny kernel takes 1 <= t, r <= 16, got t={T}, r={R}")
+    _, fold = _check_layout(ring)
+    C = torch.empty((nb, T, S, ring.D), dtype=torch.int32, device=A.device)
+    if C.numel():
+        lib = load_library()
+        ctx, stream = _stream(A.device)
+        with ctx:
+            err = lib.gr_matmul_skinny_u32(A.data_ptr(), B.data_ptr(), C.data_ptr(), nb, T, R, S,
+                                           d0, d1, fold, _mask(ring), stream)
+        _check_launch(err, "skinny")
+        counters.count("skinny")
+    return C[0] if squeeze else C
+
+
+def tc_limbs(A: torch.Tensor, B: torch.Tensor, ring):
+    """The tc route's limb pre-pass on the card: two launches, counted as
+    ``limbs``.  Returns (A8, B8): A8 (b, D, L, Tp, Rp) and B8 (b, D, L, Sp,
+    Rp) uint8, K-major and zero-padded (``tc_padded``); the plain version is
+    ``ref.limb_planes_ref``."""
+    A, B, _, (nb, T, R, S) = _interleaved(A, B, ring)
+    d0, d1 = tower_shape(ring)
+    if not tc_instantiated(d0, d1):
+        raise ValueError(f"{ring}: the tc kernel has no instantiation for tower {(d0, d1)}")
+    Tp, Rp, Sp = tc_padded(T, R, S)
+    L = n_limbs(ring)
+    A8 = torch.empty((nb, ring.D, L, Tp, Rp), dtype=torch.uint8, device=A.device)
+    B8 = torch.empty((nb, ring.D, L, Sp, Rp), dtype=torch.uint8, device=A.device)
+    lib = load_library()
+    ctx, stream = _stream(A.device)
+    with ctx:
+        for X, Y, rows, cols, rows_p, cols_p, tr in ((A, A8, T, R, Tp, Rp, 0),
+                                                     (B, B8, R, S, Rp, Sp, 1)):
+            if Y.numel() == 0:
+                continue
+            err = lib.gr_matmul_tc_limbs(X.data_ptr(), Y.data_ptr(), nb, rows, cols, ring.D, L,
+                                         rows_p, cols_p, tr, stream)
+            _check_launch(err, "limb pre-pass")
+            counters.count("limbs")
+    return A8, B8
+
+
+def gr_matmul_tc(A: torch.Tensor, B: torch.Tensor, ring) -> torch.Tensor:
+    """The tensor-core route on the card: A (b?, t, r, D) x B (b?, r, s, D)
+    -> C (b?, t, s, D), interleaved int32.  Runs the limb pre-pass
+    (:func:`tc_limbs`), then the int8 MMA kernel.
+
+    Launches the CUDA kernels or raises; it never falls back.
+    """
+    A, B, squeeze, (nb, T, R, S) = _interleaved(A, B, ring)
+    _, fold = _check_layout(ring)
+    if -(-T // TC_TILE[0]) > 65535:
+        raise ValueError(f"t={T} exceeds the tc kernel's launch grid")
+    C = torch.empty((nb, T, S, ring.D), dtype=torch.int32, device=A.device)
+    if C.numel() == 0:
+        return C[0] if squeeze else C
+    A8, B8 = tc_limbs(A, B, ring)
+    Tp, Rp, Sp = tc_padded(T, R, S)
+    d0, d1 = tower_shape(ring)
+    lib = load_library()
+    ctx, stream = _stream(A.device)
+    with ctx:
+        err = lib.gr_matmul_tc_u32(A8.data_ptr(), B8.data_ptr(), C.data_ptr(), nb, T, S, Tp, Sp,
+                                   Rp, n_limbs(ring), d0, d1, fold, _mask(ring), stream)
+    _check_launch(err, "tc")
+    counters.count("tc")
     return C[0] if squeeze else C

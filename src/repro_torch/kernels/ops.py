@@ -1,17 +1,23 @@
-"""Dispatch around the Galois-ring matmul kernel.
+"""Dispatch around the Galois-ring matmul kernels.
 
-Counterpart of ``repro.kernels.ops``: converts between the interleaved
-(t, r, D) and planar (D, t, r) layouts and picks the path.  Every ring
-matmul of the port comes through :func:`gr_matmul`:
+Counterpart of ``repro.kernels.ops``: picks the path of every ring matmul
+of the port, which all come through :func:`gr_matmul`:
 
 * CPU tensors take the plain PyTorch version (``ref.gr_matmul_ref``);
 * CUDA tensors of a ring inside the envelope (``kernel_supported``) launch
-  the hand-written kernel, or raise;
+  one of three hand-written kernels, or raise.  :func:`pick_route` decides
+  which, before any launch, from the ring and the shape alone:
+  ``skinny`` for t, r <= 16 (the RMFE packs, encode and decode of a CDMM
+  round), ``tc`` for t, s >= 64 on towers it is instantiated for (the worker
+  products), ``simt`` for everything else;
 * CUDA tensors of a ring outside it take the plain version, decided before
   any launch as the reference decides (``repro/kernels/ops.py:66``), and are
   counted in ``counters.ref_calls``.
 
-The kernel masks ragged edges itself, so no operand is padded here.
+``tc`` and ``skinny`` take the interleaved (t, r, D) layout as it is;
+``simt`` takes planar (D, t, r) copies.  The kernels mask ragged edges
+themselves (``tc`` pads inside its limb pre-pass), so nothing is padded
+here.
 """
 from __future__ import annotations
 
@@ -19,11 +25,32 @@ from typing import Tuple
 
 import torch
 
-from .gr_matmul import MAX_D, counters, gr_matmul_planar, kernel_tile
+from .gr_matmul import (
+    MAX_D,
+    SKINNY_MAX_R,
+    SKINNY_MAX_T,
+    counters,
+    gr_matmul_planar,
+    gr_matmul_skinny,
+    gr_matmul_tc,
+    kernel_tile,
+    skinny_cols,
+    tc_instantiated,
+    tower_shape,
+)
 from .ref import gr_matmul_ref
 
+# the tc route needs at least this many rows and columns.  Below it (a
+# 48-row worker product, say) tc can still be faster on the device, but the
+# host time of its limb pre-pass launches makes the call slower end to end
+# (chip_smoke.py's thresholds block times both)
+TC_MIN_TS = 64
+
 __all__ = [
+    "TC_MIN_TS",
     "gr_matmul",
+    "pick_route",
+    "run_route",
     "coded_encode",
     "kernel_supported",
     "kernel_auto_enabled",
@@ -47,6 +74,34 @@ def kernel_auto_enabled(ring, x: torch.Tensor) -> bool:
     return x.is_cuda and kernel_supported(ring)
 
 
+def pick_route(ring, t: int, r: int, s: int) -> str:
+    """The route of a (t, r) x (r, s) matmul over ``ring`` on the card:
+    ``skinny``, ``tc``, ``simt``, or ``plain`` outside the envelope."""
+    if not kernel_supported(ring):
+        return "plain"
+    d0, d1 = tower_shape(ring)
+    if 1 <= t <= SKINNY_MAX_T and 1 <= r <= SKINNY_MAX_R and skinny_cols(d0, d1):
+        return "skinny"
+    if t >= TC_MIN_TS and s >= TC_MIN_TS and tc_instantiated(d0, d1):
+        return "tc"
+    return "simt"
+
+
+def run_route(route: str, A: torch.Tensor, B: torch.Tensor, ring) -> torch.Tensor:
+    """Launch ``route`` on contiguous CUDA operands (b?, t, r, D) x
+    (b?, r, s, D) -> (b?, t, s, D); raises where the route's kernel does not
+    take them."""
+    if route == "skinny":
+        return gr_matmul_skinny(A, B, ring)
+    if route == "tc":
+        return gr_matmul_tc(A, B, ring)
+    if route == "simt":
+        Ap = A.movedim(-1, -3).contiguous()
+        Bp = B.movedim(-1, -3).contiguous()
+        return gr_matmul_planar(Ap, Bp, ring).movedim(-3, -1)
+    raise ValueError(f"unknown route {route!r}")
+
+
 def gr_matmul(A: torch.Tensor, B: torch.Tensor, ring) -> torch.Tensor:
     """Ring matmul (..., t, r, D) x (..., r, s, D) -> (..., t, s, D).
 
@@ -60,9 +115,8 @@ def gr_matmul(A: torch.Tensor, B: torch.Tensor, ring) -> torch.Tensor:
     if A.device != B.device:
         raise ValueError(f"A on {A.device}, B on {B.device}")
     if kernel_auto_enabled(ring, A):
-        Ap = A.movedim(-1, -3).contiguous()
-        Bp = B.movedim(-1, -3).contiguous()
-        return gr_matmul_planar(Ap, Bp, ring).movedim(-3, -1)
+        route = pick_route(ring, A.shape[-3], A.shape[-2], B.shape[-2])
+        return run_route(route, A.contiguous(), B.contiguous(), ring)
     if A.is_cuda:
         counters.ref_calls += 1
     return gr_matmul_ref(A, B, ring)

@@ -16,8 +16,17 @@ every sum exact.
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
-__all__ = ["gr_matmul_ref", "gr_matmul_planar_ref", "to_i32", "u32_to_signed"]
+__all__ = [
+    "gr_matmul_ref",
+    "gr_matmul_planar_ref",
+    "gr_matmul_limbs_ref",
+    "limb_planes_ref",
+    "n_limbs",
+    "to_i32",
+    "u32_to_signed",
+]
 
 _U32 = 0xFFFFFFFF
 # int64 elements of one broadcast-multiply chunk (2^26 * 8 B = 512 MiB)
@@ -56,20 +65,13 @@ def _dot(a: torch.Tensor, b: torch.Tensor, ring) -> torch.Tensor:
     return acc
 
 
-def gr_matmul_planar_ref(A: torch.Tensor, B: torch.Tensor, ring) -> torch.Tensor:
-    """Planar layout: (..., D, t, r) x (..., D, r, s) -> (..., D, t, s)."""
-    D, K = ring.D, ring.K
-    assert A.shape[-3] == B.shape[-3] == D and A.shape[-1] == B.shape[-2]
-    conv = [None] * K
-    for i in range(D):
-        for j in range(D):
-            c = int(ring.CONVPOS[i, j])
-            p = _dot(A[..., i, :, :], B[..., j, :, :], ring)
-            conv[c] = p if conv[c] is None else conv[c] + p
+def _fold(conv, ring) -> torch.Tensor:
+    """out[d] = sum_c FOLD[c, d] * conv[c], reduced and masked; conv: list of
+    K int64 planes (..., t, s) -> (..., D, t, s) in the ring's storage."""
     planes = []
-    for d in range(D):
+    for d in range(ring.D):
         acc = None
-        for c in range(K):
+        for c in range(ring.K):
             f = int(ring.FOLD_U32[c, d])
             if f == 0:
                 continue
@@ -89,7 +91,82 @@ def gr_matmul_planar_ref(A: torch.Tensor, B: torch.Tensor, ring) -> torch.Tensor
     return out % ring.q
 
 
+def gr_matmul_planar_ref(A: torch.Tensor, B: torch.Tensor, ring) -> torch.Tensor:
+    """Planar layout: (..., D, t, r) x (..., D, r, s) -> (..., D, t, s)."""
+    D, K = ring.D, ring.K
+    assert A.shape[-3] == B.shape[-3] == D and A.shape[-1] == B.shape[-2]
+    conv = [None] * K
+    for i in range(D):
+        for j in range(D):
+            c = int(ring.CONVPOS[i, j])
+            p = _dot(A[..., i, :, :], B[..., j, :, :], ring)
+            conv[c] = p if conv[c] is None else conv[c] + p
+    return _fold(conv, ring)
+
+
 def gr_matmul_ref(A: torch.Tensor, B: torch.Tensor, ring) -> torch.Tensor:
     """Interleaved layout: (..., t, r, D) x (..., r, s, D) -> (..., t, s, D)."""
     C = gr_matmul_planar_ref(A.movedim(-1, -3), B.movedim(-1, -3), ring)
     return C.movedim(-3, -1)
+
+
+# -- the tensor-core route's arithmetic, in plain PyTorch ----------------------
+
+
+def n_limbs(ring) -> int:
+    """L = ceil(e / 8): unsigned 8-bit limbs per element of GR(2^e, D)."""
+    return -(-ring.e // 8)
+
+
+def limb_planes_ref(X: torch.Tensor, ring, rows: int, cols: int,
+                    transpose: bool = False) -> torch.Tensor:
+    """Plain version of the ``tc`` route's limb pre-pass.
+
+    X (..., x, y, D) int32 -> (..., D, L, rows, cols) uint8: plane (d, l)
+    holds byte l of coefficient d, as (x, y) or, with ``transpose``, (y, x),
+    zero-padded to (rows, cols).  A (t, r, D) gives its K-major planes
+    without ``transpose``, B (r, s, D) with it.
+    """
+    P = X.movedim(-1, -3)
+    if transpose:
+        P = P.transpose(-1, -2)
+    P = P.to(torch.int64) & _U32
+    L = n_limbs(ring)
+    planes = torch.stack([(P >> (8 * l)) & 0xFF for l in range(L)], dim=-3)
+    planes = F.pad(planes, (0, cols - planes.shape[-1], 0, rows - planes.shape[-2]))
+    return planes.to(torch.uint8)
+
+
+def gr_matmul_limbs_ref(A: torch.Tensor, B: torch.Tensor, ring,
+                        chunk: int = 256) -> torch.Tensor:
+    """The ``tc`` route's algorithm on the CPU (int64 matmuls stand in for
+    the int8 MMAs): (..., t, r, D) x (..., r, s, D) -> (..., t, s, D).
+
+    Each operand is split into L = ceil(e/8) unsigned bytes, so mod 2^e
+    ``a * b = sum_{x+y<L} 2^(8(x+y)) a_x b_y``.  Over each ``chunk`` of r, the
+    limb products of every (i, j, x, y) with CONVPOS[i, j] = c and x + y = s
+    are chained into one fragment; the fragment must stay below 2^31 (the
+    int32 accumulator of the MMA) and is flushed as
+    ``acc[c] += frag << 8s (mod 2^32)``.  Then fold and mask as the plain
+    version does.  Only for p = 2, e <= 32.
+    """
+    assert ring.p == 2 and ring.e <= 32, ring
+    t, r = A.shape[-3], A.shape[-2]
+    s = B.shape[-2]
+    L = n_limbs(ring)
+    A8 = limb_planes_ref(A, ring, t, r).to(torch.int64)  # (..., D, L, t, r)
+    B8 = limb_planes_ref(B, ring, s, r, transpose=True).to(torch.int64)  # (..., D, L, s, r)
+    acc = [torch.zeros(A.shape[:-3] + (t, s), dtype=torch.int64) for _ in range(ring.K)]
+    for k0 in range(0, r, chunk):
+        frag = {}
+        for i in range(ring.D):
+            for j in range(ring.D):
+                c = int(ring.CONVPOS[i, j])
+                for x in range(L):
+                    for y in range(L - x):
+                        p = A8[..., i, x, :, k0:k0 + chunk] @ B8[..., j, y, :, k0:k0 + chunk].transpose(-1, -2)
+                        frag[c, x + y] = frag[c, x + y] + p if (c, x + y) in frag else p
+        for (c, sh), f in frag.items():
+            assert int(f.max()) < 2**31, "limb fragment overflows int32"
+            acc[c] = (acc[c] + (f << (8 * sh))) & _U32
+    return _fold(acc, ring).movedim(-3, -1)

@@ -1,5 +1,6 @@
-"""repro_torch on the card: the CUDA kernel against its plain version and the
-main path through it.  Every test here needs a CUDA device and skips
+"""repro_torch on the card: the three CUDA routes of the ring matmul
+(``simt``, ``tc``, ``skinny``) against their plain version, and the main path
+through them.  Every test here needs a CUDA device and skips
 without one; on a machine with a card run
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_card.py
@@ -12,14 +13,26 @@ import torch
 
 from repro_torch.cdmm import ProblemSpec, coded_matmul, plan
 from repro_torch.core import make_ring
-from repro_torch.kernels import counters, gr_matmul, gr_matmul_ref
-from repro_torch.kernels.gr_matmul import gr_matmul_planar
+from repro_torch.kernels import counters, gr_matmul, gr_matmul_ref, pick_route, run_route
+from repro_torch.kernels.gr_matmul import (
+    gr_matmul_planar,
+    gr_matmul_skinny,
+    gr_matmul_tc,
+    skinny_cols,
+    tc_instantiated,
+    tower_shape,
+)
 
 pytestmark = pytest.mark.cuda
 
 RING_SPECS = [(2, 32, ()), (2, 32, (3,)), (2, 32, (4,)), (2, 16, (5,)), (2, 8, (2, 3)),
               (2, 32, (16,)), (2, 32, (3, 5))]
 SHAPES = [(8, 8, 8), (16, 32, 8), (128, 128, 128), (7, 13, 5), (1, 64, 1), (130, 17, 129)]
+# t, s >= 64 and an r across the tc route's 256-deep flush chunk; t, r <= 16
+# with ragged s for the skinny route
+ROUTE_SHAPES = {"simt": SHAPES, "tc": SHAPES + [(64, 64, 64), (96, 300, 160)],
+                "skinny": [x for x in SHAPES if x[0] <= 16 and x[1] <= 16]
+                + [(8, 2, 4099), (16, 16, 333), (2, 3, 12345)]}
 
 
 @pytest.fixture
@@ -40,8 +53,43 @@ def test_kernel_matches_plain(cuda, spec):
             B = ring.random(rng, lead + (r, s), device=cuda)
             counters.reset()
             out = gr_matmul(A, B, ring)
-            assert (counters.launches, counters.ref_calls) == (1, 0)
+            route = pick_route(ring, t, r, s)
+            expect = {"simt": 0, "tc": 0, "skinny": 0, "limbs": 2 if route == "tc" else 0}
+            expect[route] = 1
+            assert counters.launches_by_route == expect and counters.ref_calls == 0
             assert torch.equal(out, gr_matmul_ref(A, B, ring)), (lead, t, r, s)
+
+
+def _takes(route, ring):
+    d0, d1 = tower_shape(ring)
+    return {"simt": True, "tc": tc_instantiated(d0, d1), "skinny": bool(skinny_cols(d0, d1))}[route]
+
+
+@pytest.mark.parametrize("route", ["simt", "tc", "skinny"])
+@pytest.mark.parametrize("spec", RING_SPECS, ids=str)
+def test_route_matches_plain(cuda, spec, route):
+    ring = make_ring(*spec)
+    rng = np.random.default_rng(11)
+    if not _takes(route, ring):  # a ring without an instantiation raises, never falls back
+        A = ring.random(rng, (8, 8), device=cuda)
+        with pytest.raises(ValueError, match="no instantiation"):
+            run_route(route, A, A, ring)
+        return
+    for lead in [(), (2,)]:
+        for t, r, s in ROUTE_SHAPES[route]:
+            A = ring.random(rng, lead + (t, r), device=cuda)
+            B = ring.random(rng, lead + (r, s), device=cuda)
+            assert torch.equal(run_route(route, A, B, ring), gr_matmul_ref(A, B, ring)), (lead, t, r, s)
+
+
+@pytest.mark.parametrize("wrapper", [gr_matmul_tc, gr_matmul_skinny], ids=["tc", "skinny"])
+def test_new_route_wrappers_reject_what_they_do_not_take(cuda, wrapper):
+    ring = make_ring(2, 32, (3,))
+    A = ring.random(np.random.default_rng(0), (8, 8), device=cuda)
+    with pytest.raises(ValueError, match="contiguous"):
+        wrapper(A.transpose(0, 1), A, ring)
+    with pytest.raises(ValueError, match="int32"):
+        wrapper(A.to(torch.int64), A, ring)
 
 
 def test_kernel_wrapper_rejects_what_it_does_not_take(cuda):

@@ -97,6 +97,7 @@ def test_routing_on_cpu_never_launches():
     counters.reset()
     gr_matmul(A, A, ring)
     assert (counters.launches, counters.ref_calls) == (0, 0)
+    assert not any(counters.launches_by_route.values())
     assert not kernel_auto_enabled(ring, A)
     # the kernel wrapper itself takes CUDA tensors only: it launches or raises
     with pytest.raises(ValueError, match="CUDA"):

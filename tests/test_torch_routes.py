@@ -1,0 +1,171 @@
+"""The tensor-core route's arithmetic and the route picker, on the CPU.
+
+The ``tc`` and ``skinny`` CUDA kernels run only on the card
+(tests/test_torch_card.py, marker ``cuda``).  Here their plain versions
+are held against repro (JAX on the CPU), and so are the dispatch rules
+around them:
+
+* ``gr_matmul_limbs_ref`` computes the ring matmul the ``tc`` way: byte
+  limbs, integer matmuls, the chunked shift-and-add flush, the fold.  It
+  must equal repro's ``Ring.matmul`` bit for bit;
+* ``pick_route`` picks a route from the ring and the shape alone;
+* the Python mirrors of the kernels' instantiations match the CUDA sources.
+"""
+import re
+from functools import lru_cache
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+from repro.core.galois import make_ring as jmake
+from repro_torch.core.galois import from_numpy, make_ring, to_numpy
+from repro_torch.kernels import counters, gr_matmul_limbs_ref, gr_matmul_ref, pick_route
+from repro_torch.kernels.gr_matmul import (
+    MAX_D,
+    TC_TILE,
+    gr_matmul_skinny,
+    gr_matmul_tc,
+    skinny_cols,
+    tc_instantiated,
+    tc_limbs,
+    tc_padded,
+)
+from repro_torch.kernels.ref import limb_planes_ref, n_limbs
+
+CSRC = Path(__file__).resolve().parents[1] / "src" / "repro_torch" / "kernels" / "csrc"
+# the seven rings of tests/test_torch_kernels.py, by tower degrees
+DEGREES = [(), (3,), (4,), (5,), (2, 3), (16,), (3, 5)]
+
+
+def _inputs(spec, shape, seed):
+    """Uniform ring elements made with numpy: every coefficient below 2^e."""
+    jr = jmake(*spec)
+    t, r, s = shape
+    rng = np.random.default_rng(seed)
+    draw = lambda *dims: rng.integers(0, 2**spec[1], size=dims + (jr.D,), dtype=np.uint64).astype(np.uint32)
+    return jr, draw(t, r), draw(r, s)
+
+
+@lru_cache(maxsize=None)
+def _reference(deg):
+    """Inputs over GR(2^32, deg) and repro's product of them (one XLA
+    compile per ring: the cost of this file)."""
+    jr, a, b = _inputs((2, 32, deg), (5, 37, 6), seed=len(deg))
+    return jr, a, b, np.asarray(jr.matmul(a, b))
+
+
+@pytest.mark.parametrize("e", [8, 16, 32])
+@pytest.mark.parametrize("deg", DEGREES, ids=str)
+def test_limbs_ref_matches_reference(deg, e):
+    # repro's GR(2^e, deg) has GR(2^32, deg)'s tables mod 2^e, so reducing
+    # mod 2^e maps one ring onto the other: the product of the reduced
+    # inputs over GR(2^e) is repro's GR(2^32) product reduced
+    jr32, a, b, ref = _reference(deg)
+    jr = jmake(2, e, deg)
+    assert np.array_equal(jr.CONVPOS, jr32.CONVPOS)
+    assert np.array_equal(jr.FOLD % 2**e, jr32.FOLD % 2**e)
+    mask = np.uint32(2**e - 1)
+    ring = make_ring(2, e, deg)
+    A, B = from_numpy(a & mask, ring, "cpu"), from_numpy(b & mask, ring, "cpu")
+    # r = 37 crosses a 16-deep flush chunk twice
+    got = gr_matmul_limbs_ref(A, B, ring, chunk=16)
+    np.testing.assert_array_equal(to_numpy(got), ref & mask)
+
+
+def test_limbs_ref_batched_and_extreme_values():
+    # a batch of (A, B) and (A with rows reversed, B with columns reversed),
+    # whose products are repro's product and that product reversed both ways
+    _, a, b, ref = _reference((3,))
+    ring = make_ring(2, 32, (3,))
+    A = from_numpy(np.stack([a, a[::-1]]), ring, "cpu")
+    B = from_numpy(np.stack([b, b[:, ::-1]]), ring, "cpu")
+    got = to_numpy(gr_matmul_limbs_ref(A, B, ring, chunk=8))
+    np.testing.assert_array_equal(got, np.stack([ref, ref[::-1, ::-1]]))
+    # every limb 0xFF: the largest fragments a 256-deep chunk can build stay
+    # below 2^31 (checked inside), and the flush stays exact mod 2^32
+    A = torch.full((3, 300, ring.D), -1, dtype=torch.int32)
+    B = torch.full((300, 2, ring.D), -1, dtype=torch.int32)
+    assert torch.equal(gr_matmul_limbs_ref(A, B, ring), gr_matmul_ref(A, B, ring))
+
+
+@pytest.mark.parametrize("transpose", [False, True])
+def test_limb_planes_layout(transpose):
+    ring = make_ring(2, 20, (3,))  # L = 3
+    X = ring.random(np.random.default_rng(2), (2, 5, 7), device="cpu")  # (b, x, y, D)
+    P = limb_planes_ref(X, ring, 32, 64, transpose=transpose)
+    assert P.dtype == torch.uint8 and P.shape == (2, ring.D, n_limbs(ring), 32, 64)
+    want = X.movedim(-1, -3)  # (b, D, x, y)
+    if transpose:
+        want = want.transpose(-1, -2)
+    rows, cols = want.shape[-2:]
+    words = sum(P[:, :, l].to(torch.int64) << (8 * l) for l in range(n_limbs(ring)))
+    assert torch.equal(words[..., :rows, :cols], want.to(torch.int64) & 0xFFFFFFFF)
+    assert not words[..., rows:, :].any() and not words[..., :, cols:].any()
+
+
+def test_tc_padding_follows_the_tile():
+    bm, bn, ks = TC_TILE
+    assert tc_padded(1024, 2048, 1024) == (1024, 2048, 1024)
+    assert tc_padded(70, 300, 97) == (96, 320, 128)
+    assert all(x % m == 0 for x, m in zip(tc_padded(33, 1, 65), (bm, ks, bn)))
+
+
+# (ring degrees, t, r, s, route): the main path's calls (batch_ep_rmfe at
+# 2048^3: phi, encode a/b, workers, decode, psi) and the edges of the rule
+ROUTE_CASES = [
+    ((), 2, 2, 4194304, "skinny"),
+    ((3,), 8, 2, 2097152, "skinny"),
+    ((3,), 1024, 2048, 1024, "tc"),
+    ((3,), 4, 4, 1048576, "skinny"),
+    ((), 2, 3, 4194304, "skinny"),
+    ((3,), 16, 16, 100, "skinny"),
+    ((3,), 17, 2, 1048576, "simt"),     # t > 16 and t < 64
+    ((3,), 8, 17, 1048576, "simt"),     # r > 16
+    ((3,), 16, 0, 100, "simt"),         # nothing to reduce: not the skinny kernel
+    ((3,), 64, 2048, 64, "tc"),
+    ((3,), 63, 2048, 1024, "simt"),
+    ((3,), 1024, 2048, 63, "simt"),
+    ((5,), 1024, 2048, 1024, "simt"),   # no tc instantiation for D = 5
+    ((3, 5), 4, 4, 1048576, "simt"),    # no skinny instantiation for (3, 5)
+    ((17,), 4, 4, 1048576, "plain"),    # D > MAX_D: outside the envelope
+]
+
+
+@pytest.mark.parametrize("deg,t,r,s,route", ROUTE_CASES, ids=str)
+def test_pick_route(deg, t, r, s, route):
+    assert pick_route(make_ring(2, 32, deg), t, r, s) == route
+
+
+def test_pick_route_outside_envelope():
+    assert pick_route(make_ring(3, 2, (2,)), 4, 4, 100) == "plain"
+    assert make_ring(2, 32, (17,)).D > MAX_D
+
+
+def _towers(source: str, macro: str):
+    body = re.search(rf"#define {macro}\(X\)(.*?)\n\n", (CSRC / source).read_text(), re.S).group(1)
+    return sorted((int(a), int(b)) for a, b in re.findall(r"X\((\d+), (\d+)\)", body))
+
+
+def test_instantiation_mirrors_match_the_sources():
+    towers = _towers("gr_matmul.cu", "GR_TOWERS")
+    assert len(towers) == 26
+    assert _towers("gr_matmul_tc.cu", "TC_TOWERS") == [t for t in towers if tc_instantiated(*t)]
+    assert _towers("gr_matmul_skinny.cu", "SKINNY_TOWERS") == [t for t in towers if skinny_cols(*t)]
+    tile = re.findall(r"constexpr int (BM|BN|KS) = (\d+);", (CSRC / "gr_matmul_tc.cu").read_text())
+    assert tuple(int(v) for _, v in tile) == TC_TILE
+
+
+def test_route_wrappers_take_cuda_tensors_only():
+    ring = make_ring(2, 32, (3,))
+    A = ring.random(np.random.default_rng(0), (4, 4), device="cpu")
+    counters.reset()
+    for wrapper in (gr_matmul_tc, gr_matmul_skinny, tc_limbs):
+        with pytest.raises(ValueError, match="CUDA"):
+            wrapper(A, A, ring)
+    assert counters.launches == 0 and not any(counters.launches_by_route.values())
+    counters.count("tc")
+    counters.count("limbs")
+    assert counters.launches == 1 and counters.launches_by_route["limbs"] == 1
+    counters.reset()
