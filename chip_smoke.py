@@ -23,13 +23,23 @@ Phases (any mismatch fails the run with a non-zero exit):
    N = 8, u = v = 2, w = 1) over Z_2^32 at t = r = s = 2048 with two
    non-prefix stragglers, then ``ep``, ``plain``, ``ep_rmfe1`` and
    ``ep_rmfe2`` at 1024^3 through ``plan``, and a small ``ep`` request at
-   96^3; every output must equal the direct product computed by the plain
-   version.  Launch counts per route are zeroed before each path, read after
-   it and held against the expected ones.  Stage device times are kept per
-   run (5 warm runs each);
+   96^3; then the GCSA and secure families over GR(2^32, 4) through
+   ``plan(spec, schemes=[name])``: ``gcsa`` (n = 2) and ``ep_rmfe_secure``
+   (n = 2, privacy_t = 1) at 2048^3, ``ep_secure`` (privacy_t = 1) and
+   ``gcsa_general`` (n = 4) at 1024^3.  Every output must equal the direct
+   product computed by the plain version.  Launch counts per route are
+   zeroed before each path, read after it and held against the expected
+   ones.  Stage device times are kept per run (5 warm runs each).  For the
+   secure paths the keyed encode is checked on the card: a worker's own
+   share equals its row of the master encode, a second key gives other
+   shares and the same product, and the top bit of the drawn mask words is
+   set in 50% +- 1% of them;
 4. every route at every distinct (ring, shape) that phase 3 handed it,
    recorded as the paths ran, against the plain version on fresh operands of
-   that shape, bit for bit (all batch slices of a worker launch included).
+   that shape, bit for bit (all batch slices of a worker launch included);
+   the shapes of the GR(2^32, 4) paths are also timed as phase 2 times the
+   main path's: the route in turns with ``simt`` from CUDA graphs, beside
+   its bound, the plain version and, for ``tc``, the int8 yardstick.
 
 The second-to-last line is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.  The full report (ptxas usage, every
@@ -77,7 +87,20 @@ EXPECTED_LAUNCHES = {
     "ep_rmfe2": {"simt": 0, "tc": 1, "skinny": 5, "limbs": 2},  # A embedded, not packed
     # 96^3: worker blocks of 48 rows are below the tc threshold
     "ep_small": {"simt": 1, "tc": 0, "skinny": 3, "limbs": 0},
+    # over GR(2^32, 4): encode a/b (one batched launch each for the kappa
+    # groups of gcsa_general) and the one-matrix decode on skinny; masks are
+    # drawn by torch.randint, not a ring matmul; embedding is a copy
+    "gcsa": {"simt": 0, "tc": 1, "skinny": 3, "limbs": 2},
+    "ep_rmfe_secure": {"simt": 0, "tc": 1, "skinny": 6, "limbs": 2},
+    "ep_secure": {"simt": 0, "tc": 1, "skinny": 3, "limbs": 2},
+    "gcsa_general": {"simt": 0, "tc": 1, "skinny": 3, "limbs": 2},
 }
+# the paths of the GCSA and secure families: (name, batch n, size,
+# privacy_t), each planned with plan(spec, schemes=[name]); their kernel
+# shapes are timed in phase 4
+SLICE3_PATHS = [("gcsa", 2, MAIN_SIZE, 0), ("ep_rmfe_secure", 2, MAIN_SIZE, 1),
+                ("ep_secure", 1, SINGLE_SIZE, 1), ("gcsa_general", 4, SINGLE_SIZE, 0)]
+KEY = 20251017  # the secure paths' mask key; KEY + 1 is the second key
 RING_SPECS = [(2, 32, ()), (2, 32, (3,)), (2, 32, (4,)), (2, 16, (5,)), (2, 8, (2, 3)),
               (2, 32, (16,)), (2, 32, (3, 5))]
 # the shapes of tests/test_kernels.py, then extra shapes for the new routes:
@@ -359,14 +382,51 @@ def _hold(route, ring, A, B, worst: dict, what: str, plain=None) -> None:
             fail(f"limb pre-pass != plain on {ring} at {shape}{what}: max abs err {err}")
 
 
+def _timing_row(ring, A, B, route: str, plain_ms: float) -> dict:
+    """Time ``route`` on (A, B) in turns with ``simt`` (simt, route, route,
+    simt; replayed from CUDA graphs), eagerly and on the host, beside its
+    bounds; for ``tc`` also its limb pre-pass and the int8 yardstick."""
+    from repro_torch.kernels import run_route
+    from repro_torch.kernels.gr_matmul import tc_limbs, tc_padded
+    from repro_torch.kernels.ref import limb_planes_ref, n_limbs
+
+    lead = A.dim() == 4
+    b = A.shape[0] if lead else 1
+    t, r, s = A.shape[-3], A.shape[-2], B.shape[-2]
+    turns = [(rt, graph_ms(lambda rt=rt: run_route(rt, A, B, ring)))
+             for rt in ("simt", route, route, "simt")]
+    simt_ms = [m for rt, m in turns if rt == "simt"]
+    route_ms = [m for rt, m in turns if rt == route]
+    bytes_ms, int8_ms, int32_ms = _bounds(ring, b, t, r, s)
+    row = {
+        "route": route, "ms": sum(route_ms) / 2, "simt_ms": sum(simt_ms) / 2, "turns": turns,
+        "plain_ms": plain_ms,
+        # launched from Python in a loop: bounded below by the host time
+        "eager_ms": cuda_ms(lambda: run_route(route, A, B, ring), iters=10, warmup=2),
+        "host_us": host_us(lambda: run_route(route, A, B, ring)),
+        "bound_ms": max(bytes_ms, int8_ms),
+        "bound_by": "operations" if int8_ms >= bytes_ms else "bytes",
+        "bytes_bound_ms": bytes_ms, "int8_bound_ms": int8_ms, "int32_bound_ms": int32_ms,
+    }
+    if route == "tc":
+        Tp, Rp, Sp = tc_padded(t, r, s)
+        L = n_limbs(ring)
+        row["limbs_ms"] = graph_ms(lambda: tc_limbs(A, B, ring))
+        limb_bytes = 4 * ring.D * b * (t * r + r * s) + b * ring.D * L * (Tp + Sp) * Rp
+        row["limbs_bound_ms"] = 1e3 * limb_bytes / HBM_BYTES_PER_S
+        A3, B3 = (A, B) if lead else (A[None], B[None])
+        row["limbs_plain_ms"] = cuda_ms(lambda: (
+            limb_planes_ref(A3, ring, Tp, Rp), limb_planes_ref(B3, ring, Sp, Rp, transpose=True)))
+        row["int8_yardstick_ms"], row["int8_yardstick"] = _int8_yardstick_ms(ring, b, t, r, s)
+    return row
+
+
 def phase_kernels(report: dict) -> dict:
     import numpy as np
     import torch
 
     from repro_torch.core import make_ring
-    from repro_torch.kernels import gr_matmul_ref, pick_route, run_route
-    from repro_torch.kernels.gr_matmul import tc_limbs, tc_padded
-    from repro_torch.kernels.ref import limb_planes_ref
+    from repro_torch.kernels import gr_matmul_ref, pick_route
 
     rng = np.random.default_rng(SEED)
     worst = dict.fromkeys(ROUTES + ("limbs",), 0)
@@ -406,35 +466,8 @@ def phase_kernels(report: dict) -> dict:
         for rt in dict.fromkeys(("simt", route)):
             _hold(rt, ring, A, B, worst, f" (main-path shape {name})", plain=plain)
         del plain
-        # the route and simt in turns: simt, route, route, simt
-        turns = [(rt, graph_ms(lambda rt=rt: run_route(rt, A, B, ring)))
-                 for rt in ("simt", route, route, "simt")]
-        simt_ms = [m for rt, m in turns if rt == "simt"]
-        route_ms = [m for rt, m in turns if rt == route]
-        bytes_ms, int8_ms, int32_ms = _bounds(ring, b, t, r, s)
-        row = {
-            "ring": str(ring.degrees), "batch": b, "t": t, "r": r, "s": s, "route": route,
-            "ms": sum(route_ms) / 2, "simt_ms": sum(simt_ms) / 2, "turns": turns,
-            "plain_ms": plain_ms,
-            # launched from Python in a loop: bounded below by the host time
-            "eager_ms": cuda_ms(lambda: run_route(route, A, B, ring), iters=10, warmup=2),
-            "host_us": host_us(lambda: run_route(route, A, B, ring)),
-            "bound_ms": max(bytes_ms, int8_ms),
-            "bound_by": "operations" if int8_ms >= bytes_ms else "bytes",
-            "bytes_bound_ms": bytes_ms, "int8_bound_ms": int8_ms, "int32_bound_ms": int32_ms,
-        }
-        if route == "tc":
-            Tp, Rp, Sp = tc_padded(t, r, s)
-            from repro_torch.kernels.ref import n_limbs
-
-            L = n_limbs(ring)
-            row["limbs_ms"] = graph_ms(lambda: tc_limbs(A, B, ring))
-            limb_bytes = 4 * ring.D * b * (t * r + r * s) + b * ring.D * L * (Tp + Sp) * Rp
-            row["limbs_bound_ms"] = 1e3 * limb_bytes / HBM_BYTES_PER_S
-            A3, B3 = (A, B) if lead else (A[None], B[None])
-            row["limbs_plain_ms"] = cuda_ms(lambda: (
-                limb_planes_ref(A3, ring, Tp, Rp), limb_planes_ref(B3, ring, Sp, Rp, transpose=True)))
-            row["int8_yardstick_ms"], row["int8_yardstick"] = _int8_yardstick_ms(ring, b, t, r, s)
+        row = {"ring": str(ring.degrees), "batch": b, "t": t, "r": r, "s": s,
+               **_timing_row(ring, A, B, route, plain_ms)}
         timings[name] = row
         log(f"main-path shape {name}: {json.dumps(row)}")
         del A, B
@@ -528,7 +561,10 @@ def _recording_routes(calls: list):
         ops.run_route = inner
 
 
-def _run_path(name, family, scheme_or_plan, A, B, mask, report, calls):
+def _run_path(name, family, scheme_or_plan, A, B, mask, report, calls, key=None):
+    """Drive one path through ``coded_matmul`` with the counts zeroed just
+    before and read just after; returns (launches by route, the scheme, the
+    direct product)."""
     import torch
 
     from repro_torch.cdmm import coded_matmul, decode_from, encode_all, live_indices
@@ -540,7 +576,7 @@ def _run_path(name, family, scheme_or_plan, A, B, mask, report, calls):
     counters.reset()
     t0 = time.perf_counter()
     with _recording_routes(path_calls):
-        C = coded_matmul(A, B, scheme_or_plan, backend="local", mask=mask, device="cuda")
+        C = coded_matmul(A, B, scheme_or_plan, backend="local", mask=mask, key=key, device="cuda")
     torch.cuda.synchronize()
     wall_ms = 1e3 * (time.perf_counter() - t0)
     by_route, ref_calls = dict(counters.launches_by_route), counters.ref_calls
@@ -551,7 +587,7 @@ def _run_path(name, family, scheme_or_plan, A, B, mask, report, calls):
     recorded = {rt: sum(c[0] == rt for c in path_calls) for rt in ROUTES}
     if any(recorded[rt] != by_route[rt] for rt in ROUTES):
         fail(f"{name}: recorded ring matmuls {recorded} != launches {by_route}")
-    calls.extend(path_calls)
+    calls.extend((name,) + c for c in path_calls)
     scheme = (scheme_or_plan.instantiate(device="cuda")
               if isinstance(scheme_or_plan, Plan) else scheme_or_plan)
     expect = _direct(A, B, scheme.base)
@@ -564,7 +600,7 @@ def _run_path(name, family, scheme_or_plan, A, B, mask, report, calls):
     st = {}
     stages = {}
     for stage, fn in [
-        ("encode", lambda: st.__setitem__("enc", encode_all(scheme, A, B))),
+        ("encode", lambda: st.__setitem__("enc", encode_all(scheme, A, B, key=key))),
         ("compute", lambda: st.__setitem__("H", scheme.worker_compute(*st["enc"]))),
         ("decode", lambda: st.__setitem__("C", decode_from(scheme, st["H"], idx))),
     ]:
@@ -577,9 +613,43 @@ def _run_path(name, family, scheme_or_plan, A, B, mask, report, calls):
            "ring": str(scheme.ring), "R": scheme.R, "live": idx.tolist(), "shape": list(A.shape),
            "launches_by_route": by_route, "ref_calls": ref_calls,
            "first_call_wall_ms": wall_ms, **stages}
+    if getattr(scheme, "kappa", None):
+        row["kappa"] = scheme.kappa
     log(f"path {json.dumps(row)}")
     report.setdefault("paths", []).append(row)
-    return by_route
+    return by_route, scheme, expect
+
+
+def _secure_checks(name, scheme, A, B, expect, report) -> None:
+    """The keyed encode on the card: worker i's own share is row i of the
+    master encode (both sides), a second key gives other shares and the
+    same product, and the mask words are uniform in their top bit."""
+    import torch
+
+    from repro_torch.cdmm import coded_matmul, live_indices
+
+    mask = torch.tensor(MASK, device="cuda")
+    i = int(live_indices(scheme, mask)[2])  # a live worker, not worker 0
+    FA, GB = scheme.encode_a(A, key=KEY), scheme.encode_b(B, key=KEY)
+    if max_abs_err(scheme.encode_a_at(A, i, key=KEY), FA[i]) or \
+            max_abs_err(scheme.encode_b_at(B, i, key=KEY), GB[i]):
+        fail(f"{name}: encode_*_at(.., {i}, key) != row {i} of encode_*(.., key)")
+    if torch.equal(scheme.encode_a(A, key=KEY + 1), FA) or \
+            torch.equal(scheme.encode_b(B, key=KEY + 1), GB):
+        fail(f"{name}: two keys gave the same shares")
+    del FA, GB
+    if max_abs_err(coded_matmul(A, B, scheme, mask=mask, key=KEY + 1, device="cuda"), expect):
+        fail(f"{name}: the second key's product != direct product")
+    code = scheme.code
+    t, r = A.shape[-3], A.shape[-2]  # (n?, t, r, D0)
+    Z = code.masks_a(KEY, t // code.u, r // code.w)
+    words = Z.numel()
+    top = (Z < 0).sum().item() / words  # int32 bit patterns: sign bit = word's top bit
+    row = {"path": name, "worker": i, "mask_words": words, "mask_top_bit_share": top}
+    if words < 10**6 or abs(top - 0.5) > 0.01:
+        fail(f"{name}: mask top bit set in {top:.4f} of {words} words, not 0.5 +- 0.01")
+    log(f"secure checks {json.dumps(row)}")
+    report.setdefault("secure_checks", []).append(row)
 
 
 def phase_main_path(report: dict) -> dict:
@@ -602,7 +672,7 @@ def phase_main_path(report: dict) -> dict:
     As = Z32.random(rng, (2, MAIN_SIZE, MAIN_SIZE), device="cuda")
     Bs = Z32.random(rng, (2, MAIN_SIZE, MAIN_SIZE), device="cuda")
     scheme = BatchRMFEAdapter(Z32, n=2, N=8, u=2, v=2, w=1, device="cuda")
-    add(_run_path("batch_ep_rmfe", "batch_ep_rmfe", scheme, As, Bs, mask, report, calls))
+    add(_run_path("batch_ep_rmfe", "batch_ep_rmfe", scheme, As, Bs, mask, report, calls)[0])
     del As, Bs
     torch.cuda.empty_cache()
 
@@ -615,8 +685,25 @@ def phase_main_path(report: dict) -> dict:
         p = plan(spec, schemes=[family])
         A = ring.random(rng, (size, size), device="cuda")
         B = ring.random(rng, (size, size), device="cuda")
-        add(_run_path(name, family, p, A, B, mask, report, calls))
+        add(_run_path(name, family, p, A, B, mask, report, calls)[0])
         del A, B
+        torch.cuda.empty_cache()
+
+    for name, n, size, privacy_t in SLICE3_PATHS:
+        spec = ProblemSpec(size, size, size, n=n, ring=Z32, N=8, straggler_budget=2,
+                           privacy_t=privacy_t)
+        p = plan(spec, schemes=[name])
+        lead = (n,) if n > 1 else ()
+        A = Z32.random(rng, lead + (size, size), device="cuda")
+        B = Z32.random(rng, lead + (size, size), device="cuda")
+        key = KEY if privacy_t else None
+        by_route, scheme, expect = _run_path(name, name, p, A, B, mask, report, calls, key=key)
+        add(by_route)
+        if scheme.ring.degrees != (4,):
+            fail(f"{name}: planned over {scheme.ring}, expected GR(2^32, 4)")
+        if privacy_t:
+            _secure_checks(name, scheme, A, B, expect, report)
+        del A, B, expect
         torch.cuda.empty_cache()
     report["main_path_launches"] = totals
     return totals, calls
@@ -626,33 +713,56 @@ def phase_path_calls(report: dict, calls: list) -> None:
     """Hold each route at every distinct (ring, shape) that phase 3 gave it,
     on fresh random operands of that shape, bit for bit: this covers every
     batch slice of a worker launch, the dead workers' ones too, which the
-    end-to-end check cannot see because decode never reads them."""
+    end-to-end check cannot see because decode never reads them.  The
+    shapes of the GCSA and secure paths are timed as well (``_timing_row``),
+    with the plain version's time from the same call that holds them."""
     import numpy as np
     import torch
 
+    from repro_torch.kernels import gr_matmul_ref
+
     rng = np.random.default_rng(SEED + 1)
     worst = report["kernel_max_abs_err"]
+    slice3 = {name for name, *_ in SLICE3_PATHS}
     seen = {}
-    for route, ring, a_shape, b_shape in calls:
-        seen.setdefault((route, ring.p, ring.e, ring.degrees, a_shape, b_shape), ring)
-    for (route, _, _, _, a_shape, b_shape), ring in seen.items():
+    for path, route, ring, a_shape, b_shape in calls:
+        key = (route, ring.p, ring.e, ring.degrees, a_shape, b_shape)
+        seen.setdefault(key, (ring, []))[1].append(path)
+    timings = []
+    for (route, _, _, _, a_shape, b_shape), (ring, paths) in seen.items():
         A = ring.random(rng, a_shape[:-1], device="cuda")
         B = ring.random(rng, b_shape[:-1], device="cuda")
-        _hold(route, ring, A, B, worst, " (a phase-3 call)")
+        holder = {}
+        plain_ms = cuda_ms(lambda: holder.__setitem__("C", gr_matmul_ref(A, B, ring)))
+        plain = holder.pop("C")
+        timed = bool(slice3.intersection(paths))
+        for rt in dict.fromkeys(("simt", route) if timed else (route,)):
+            _hold(rt, ring, A, B, worst, " (a phase-3 call)", plain=plain)
+        del plain
+        if timed:
+            row = {"paths": sorted(set(paths)), "ring": str(ring.degrees),
+                   "a": list(a_shape[:-1]), "b": list(b_shape[:-1]),
+                   **_timing_row(ring, A, B, route, plain_ms)}
+            timings.append(row)
+            log(f"GR(2^32, 4) shape: {json.dumps(row)}")
         del A, B
         torch.cuda.empty_cache()
     report["path_calls_checked"] = [f"{k[0]} {k[3]} {k[4][:-1]} x {k[5][:-1]}" for k in seen]
+    report["slice3_kernel_timings"] = timings
     log(f"phase-3 calls == plain: {len(calls)} launches at {len(seen)} distinct "
         f"(route, ring, shape): {report['path_calls_checked']}")
 
 
 def _kernel_rows(report: dict, totals: dict) -> list:
     """The ``{"kernels": [...]}`` rows: one per route and one for the
-    pre-pass, each at its representative main-path shape."""
+    pre-pass, each at its representative main-path shape, with the times of
+    every other timed shape of the route in ``per_shape_ms``."""
     t = report["kernel_timings"]
     w, enc = t["workers"], t["encode_a"]
     shape = lambda row: (f"{row['batch']} x ({row['t']}x{row['r']} @ {row['r']}x{row['s']}) "
                          f"over GR(2^32) degrees {row['ring']}")
+    d4 = lambda route: {f"{'+'.join(x['paths'])} {x['a']} @ {x['b']} degrees {x['ring']}": x["ms"]
+                        for x in report["slice3_kernel_timings"] if x["route"] == route}
     base = {"route": "cuda", "replaces": "src/repro/kernels/gr_matmul.py:40", "library_ms": None,
             "tolerance": 0}  # integer-exact: each kernel and its plain version agree bit for bit
     src = "src/repro_torch/kernels/csrc/"
@@ -665,7 +775,7 @@ def _kernel_rows(report: dict, totals: dict) -> list:
          "launches": totals["tc"], "max_abs_err": report["kernel_max_abs_err"]["tc"],
          "ms": w["ms"], "plain_ms": w["plain_ms"], "bound_ms": w["bound_ms"],
          "bound_by": w["bound_by"], "int8_yardstick_ms": w["int8_yardstick_ms"],
-         "simt_ms": w["simt_ms"], "shape": shape(w)},
+         "simt_ms": w["simt_ms"], "shape": shape(w), "per_shape_ms": d4("tc")},
         {**base, "name": "gr_matmul_tc_limbs", "source": src + "gr_matmul_tc.cu",
          "launches": totals["limbs"], "max_abs_err": report["kernel_max_abs_err"]["limbs"],
          "ms": w["limbs_ms"], "plain_ms": w["limbs_plain_ms"], "bound_ms": w["limbs_bound_ms"],
@@ -674,7 +784,8 @@ def _kernel_rows(report: dict, totals: dict) -> list:
          "launches": totals["skinny"], "max_abs_err": report["kernel_max_abs_err"]["skinny"],
          "ms": enc["ms"], "plain_ms": enc["plain_ms"], "bound_ms": enc["bound_ms"],
          "bound_by": enc["bound_by"], "simt_ms": enc["simt_ms"], "shape": shape(enc),
-         "per_shape_ms": {k: v["ms"] for k, v in t.items() if v["route"] == "skinny"}},
+         "per_shape_ms": {**{k: v["ms"] for k, v in t.items() if v["route"] == "skinny"},
+                          **d4("skinny")}},
     ]
 
 

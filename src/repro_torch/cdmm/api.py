@@ -1,16 +1,21 @@
 """Unified CDMM scheme API: one protocol, one registry — counterpart of
-``repro.cdmm.api`` for the five non-secure families (``ep``, ``plain``,
-``ep_rmfe1``, ``ep_rmfe2``, ``batch_ep_rmfe``).
+``repro.cdmm.api`` for all nine families: ``ep``, ``plain``, ``ep_rmfe1``,
+``ep_rmfe2``, ``batch_ep_rmfe``, the GCSA batch codes ``gcsa`` and
+``gcsa_general``, and the T-private ``ep_secure`` and ``ep_rmfe_secure``.
 
 Every adapter exposes the same master/worker surface:
 
-    encode_a(A) -> (N, ...)     per-worker A shares (master-side)
-    encode_b(B) -> (N, ...)     per-worker B shares
-    encode_a_at(A, i)           worker i's share only
-    encode_b_at(B, i)
-    worker_compute(FA, GB)      all N block products (one batched launch)
-    decode(H, idx)              recover C from ANY R responses
-    costs(spec) -> EPCosts      the analytic Table-1 cost model
+    encode_a(A, key=None) -> (N, ...)   per-worker A shares (master-side)
+    encode_b(B, key=None) -> (N, ...)   per-worker B shares
+    encode_a_at(A, i, key=None)         worker i's share only
+    encode_b_at(B, i, key=None)
+    worker_compute(FA, GB)              all N block products (one batched launch)
+    decode(H, idx)                      recover C from ANY R responses
+    costs(spec) -> EPCosts              the analytic Table-1 cost model
+
+``key`` is the masked-randomness seam: secure schemes (``privacy_t > 0``)
+derive their masks from it, a non-negative int, and raise without it; the
+other schemes accept and ignore it.
 
 Shapes: ``batch == 1`` schemes take ``A (t, r, D0), B (r, s, D0)``; batch
 schemes take ``As (n, t, r, D0), Bs (n, r, s, D0)``.  ``scheme.ring`` is the
@@ -18,16 +23,23 @@ codeword ring workers compute in, ``scheme.base`` the data ring.  Adapters
 keep their tables on ``device`` (None: CUDA).
 
 Families register with an analytic ``predict`` (the planner ranks with it
-without building anything) and a ``build``.  The secure and GCSA families
-are not registered yet, so a spec with ``privacy_t > 0`` has no feasible
-scheme.
+without building anything) and a ``build``.  A spec with ``privacy_t > 0``
+is served only by the secure families.
 """
 from __future__ import annotations
 
 from collections import OrderedDict
 from dataclasses import dataclass
 from math import ceil, gcd, log
-from typing import Callable, Dict, Optional, Protocol, Tuple, runtime_checkable
+from typing import (
+    Callable,
+    Dict,
+    Iterable,
+    Optional,
+    Protocol,
+    Tuple,
+    runtime_checkable,
+)
 
 import torch
 
@@ -38,8 +50,12 @@ from ..core.ep_codes import (
     PlainCDMM,
     ep_cost_model,
     secure_recovery_threshold,
+    smallest_embedding_ext,
 )
 from ..core.galois import Ring
+from ..core.gcsa import CSACode, GCSACode, gcsa_cost_model
+from ..core.polyops import DECODE_CACHE_SIZE
+from ..core.secure import SecureBatchEPRMFE, SecureEP
 from ..core.single_rmfe import EPRMFE_I, EPRMFE_II
 
 __all__ = [
@@ -55,6 +71,10 @@ __all__ = [
     "EPRMFE1Adapter",
     "EPRMFE2Adapter",
     "BatchRMFEAdapter",
+    "CSAAdapter",
+    "GCSAGeneralAdapter",
+    "SecureEPAdapter",
+    "SecureBatchRMFEAdapter",
 ]
 
 
@@ -115,13 +135,14 @@ class CdmmScheme(Protocol):
     batch: int  # products consumed per execution (1 = single DMM)
     privacy_t: int  # collusion tolerance (0 = no privacy)
 
-    def encode_a(self, A: torch.Tensor) -> torch.Tensor: ...
+    # ``key``: mask randomness, required by secure schemes, ignored by the rest
+    def encode_a(self, A: torch.Tensor, key: Optional[int] = None) -> torch.Tensor: ...
 
-    def encode_b(self, B: torch.Tensor) -> torch.Tensor: ...
+    def encode_b(self, B: torch.Tensor, key: Optional[int] = None) -> torch.Tensor: ...
 
-    def encode_a_at(self, A: torch.Tensor, i: int) -> torch.Tensor: ...
+    def encode_a_at(self, A: torch.Tensor, i: int, key: Optional[int] = None) -> torch.Tensor: ...
 
-    def encode_b_at(self, B: torch.Tensor, i: int) -> torch.Tensor: ...
+    def encode_b_at(self, B: torch.Tensor, i: int, key: Optional[int] = None) -> torch.Tensor: ...
 
     def worker_compute(self, FA: torch.Tensor, GB: torch.Tensor) -> torch.Tensor: ...
 
@@ -137,10 +158,11 @@ class DecodeOpsMixin:
 
     ``decode_op((3, 5, 6))`` returns ``dec(H_subset) -> C`` where
     ``H_subset`` stacks the responses of workers 3, 5, 6 in that order.
-    Closures are LRU-cached per scheme instance by the index tuple.
+    Closures are LRU-cached per scheme instance by the index tuple, with
+    the bound of the codes' per-live-set decode matrices.
     """
 
-    DECODE_OP_CACHE_SIZE = 64
+    DECODE_OP_CACHE_SIZE = DECODE_CACHE_SIZE
     privacy_t = 0  # non-secure default
 
     def decode_op(self, idx: Tuple[int, ...]) -> Callable[[torch.Tensor], torch.Tensor]:
@@ -155,10 +177,10 @@ class DecodeOpsMixin:
         cache = self.__dict__.setdefault("_decode_ops", OrderedDict())
         op = cache.pop(idx, None)
         if op is None:
-            iarr = torch.tensor(idx, dtype=torch.int64, device=self.code.device)
 
-            def op(H, _iarr=iarr):
-                return self.decode(H, _iarr)
+            def op(H, _idx=idx):
+                # the live set stays a host tuple: no device read per call
+                return self.decode(H, _idx)
 
             while len(cache) >= self.DECODE_OP_CACHE_SIZE:
                 cache.popitem(last=False)
@@ -183,16 +205,16 @@ class EPSchemeAdapter(DecodeOpsMixin):
         self.N, self.R, self.batch = N, self.code.R, 1
         self.partition = (u, v, w)
 
-    def encode_a(self, A):
+    def encode_a(self, A, key=None):
         return self.code.encode_a(A)
 
-    def encode_b(self, B):
+    def encode_b(self, B, key=None):
         return self.code.encode_b(B)
 
-    def encode_a_at(self, A, i):
+    def encode_a_at(self, A, i, key=None):
         return self.code.encode_a_at(A, i)
 
-    def encode_b_at(self, B, i):
+    def encode_b_at(self, B, i, key=None):
         return self.code.encode_b_at(B, i)
 
     def worker_compute(self, FA, GB):
@@ -218,16 +240,16 @@ class PlainCDMMAdapter(DecodeOpsMixin):
         self.N, self.R, self.batch = N, self.inner.R, 1
         self.partition = (u, v, w)
 
-    def encode_a(self, A):
+    def encode_a(self, A, key=None):
         return self.code.encode_a(self.ring.embed_base(A, self.base))
 
-    def encode_b(self, B):
+    def encode_b(self, B, key=None):
         return self.code.encode_b(self.ring.embed_base(B, self.base))
 
-    def encode_a_at(self, A, i):
+    def encode_a_at(self, A, i, key=None):
         return self.code.encode_a_at(self.ring.embed_base(A, self.base), i)
 
-    def encode_b_at(self, B, i):
+    def encode_b_at(self, B, i, key=None):
         return self.code.encode_b_at(self.ring.embed_base(B, self.base), i)
 
     def worker_compute(self, FA, GB):
@@ -261,16 +283,16 @@ class EPRMFE1Adapter(DecodeOpsMixin):
     def _pack_b(self, B):
         return self.inner.batch.pack(self.inner.split_b(B))
 
-    def encode_a(self, A):
+    def encode_a(self, A, key=None):
         return self.code.encode_a(self._pack_a(A))
 
-    def encode_b(self, B):
+    def encode_b(self, B, key=None):
         return self.code.encode_b(self._pack_b(B))
 
-    def encode_a_at(self, A, i):
+    def encode_a_at(self, A, i, key=None):
         return self.code.encode_a_at(self._pack_a(A), i)
 
-    def encode_b_at(self, B, i):
+    def encode_b_at(self, B, i, key=None):
         return self.code.encode_b_at(self._pack_b(B), i)
 
     def worker_compute(self, FA, GB):
@@ -304,16 +326,16 @@ class EPRMFE2Adapter(DecodeOpsMixin):
         self.N, self.R, self.batch = N, self.inner.R, 1
         self.partition = (u, v, w)
 
-    def encode_a(self, A):
+    def encode_a(self, A, key=None):
         return self.code.encode_a(self.inner.pack_a(A))
 
-    def encode_b(self, B):
+    def encode_b(self, B, key=None):
         return self.code.encode_b(self.inner.pack_b(B))
 
-    def encode_a_at(self, A, i):
+    def encode_a_at(self, A, i, key=None):
         return self.code.encode_a_at(self.inner.pack_a(A), i)
 
-    def encode_b_at(self, B, i):
+    def encode_b_at(self, B, i, key=None):
         return self.code.encode_b_at(self.inner.pack_b(B), i)
 
     def worker_compute(self, FA, GB):
@@ -341,17 +363,171 @@ class BatchRMFEAdapter(DecodeOpsMixin):
         self.batch = self.inner.rmfe.n  # actual packed batch (>= requested n)
         self.partition = (u, v, w)
 
-    def encode_a(self, As):
+    def encode_a(self, As, key=None):
         return self.code.encode_a(self.inner.pack(As))
 
-    def encode_b(self, Bs):
+    def encode_b(self, Bs, key=None):
         return self.code.encode_b(self.inner.pack(Bs))
 
-    def encode_a_at(self, As, i):
+    def encode_a_at(self, As, i, key=None):
         return self.code.encode_a_at(self.inner.pack(As), i)
 
-    def encode_b_at(self, Bs, i):
+    def encode_b_at(self, Bs, i, key=None):
         return self.code.encode_b_at(self.inner.pack(Bs), i)
+
+    def worker_compute(self, FA, GB):
+        return self.code.worker_compute(FA, GB)
+
+    def decode(self, H, idx):
+        return self.inner.decode(H, idx)
+
+    def costs(self, spec: ProblemSpec) -> EPCosts:
+        return self.inner.costs(spec.t, spec.r, spec.s)
+
+
+class CSAAdapter(DecodeOpsMixin):
+    """Executable GCSA point (u=v=w=1, kappa=n): the CSA batch code, run
+    over the smallest embedding extension with >= n + N exceptional points."""
+
+    name = "gcsa"
+
+    def __init__(self, base: Ring, n: int, N: int, device=None):
+        ext = smallest_embedding_ext(base, n + N)
+        self.base, self.ring = base, ext
+        self.code = CSACode(ext, L=n, N=N, device=device)
+        self.N, self.R, self.batch = N, self.code.R, n
+        self.partition = (1, 1, 1)
+
+    def encode_a(self, As, key=None):
+        return self.code.encode_a(self.ring.embed_base(As, self.base))
+
+    def encode_b(self, Bs, key=None):
+        return self.code.encode_b(self.ring.embed_base(Bs, self.base))
+
+    def encode_a_at(self, As, i, key=None):
+        return self.code.encode_a_at(self.ring.embed_base(As, self.base), i)
+
+    def encode_b_at(self, Bs, i, key=None):
+        return self.code.encode_b_at(self.ring.embed_base(Bs, self.base), i)
+
+    def worker_compute(self, FA, GB):
+        return self.code.worker_compute(FA, GB)
+
+    def decode(self, H, idx):
+        return self.code.decode(H, idx)[..., : self.base.D]
+
+    def costs(self, spec: ProblemSpec) -> EPCosts:
+        return self.code.costs(spec)
+
+
+class GCSAGeneralAdapter(DecodeOpsMixin):
+    """Executable general-(u, v, w, kappa) GCSA over the smallest embedding
+    extension with >= n + N exceptional points; R = uvw(n + kappa - 1) +
+    w - 1.  The registry's packing slot carries kappa (any divisor of the
+    batch), so the planner sweeps group sizes."""
+
+    name = "gcsa_general"
+
+    def __init__(
+        self, base: Ring, n: int, N: int, u: int, v: int, w: int, kappa: int, device=None,
+    ):
+        ext = smallest_embedding_ext(base, n + N)
+        self.base, self.ring = base, ext
+        self.code = GCSACode(ext, L=n, N=N, u=u, v=v, w=w, kappa=kappa, device=device)
+        self.N, self.R, self.batch = N, self.code.R, n
+        self.partition = (u, v, w)
+        self.kappa = kappa
+
+    def encode_a(self, As, key=None):
+        return self.code.encode_a(self.ring.embed_base(As, self.base))
+
+    def encode_b(self, Bs, key=None):
+        return self.code.encode_b(self.ring.embed_base(Bs, self.base))
+
+    def encode_a_at(self, As, i, key=None):
+        return self.code.encode_a_at(self.ring.embed_base(As, self.base), i)
+
+    def encode_b_at(self, Bs, i, key=None):
+        return self.code.encode_b_at(self.ring.embed_base(Bs, self.base), i)
+
+    def worker_compute(self, FA, GB):
+        return self.code.worker_compute(FA, GB)
+
+    def decode(self, H, idx):
+        return self.code.decode(H, idx)[..., : self.base.D]
+
+    def costs(self, spec: ProblemSpec) -> EPCosts:
+        return self.code.costs(spec)
+
+
+class SecureEPAdapter(DecodeOpsMixin):
+    """T-private EP code (secure single DMM): the base ring is embedded into
+    the smallest extension with >= N + 1 exceptional points and a masked EP
+    code runs there.  ``encode_*`` REQUIRE an integer key."""
+
+    name = "ep_secure"
+
+    def __init__(self, base: Ring, N: int, u: int, v: int, w: int, T: int, device=None):
+        self.inner = SecureEP(base, N, u, v, w, T, device=device)
+        self.code = self.inner.code
+        self.base = base
+        self.ring = self.inner.ext
+        self.N, self.R, self.batch = N, self.inner.R, 1
+        self.privacy_t = T
+        self.partition = (u, v, w)
+
+    def encode_a(self, A, key=None):
+        return self.code.encode_a(self.inner.embed(A), key=key)
+
+    def encode_b(self, B, key=None):
+        return self.code.encode_b(self.inner.embed(B), key=key)
+
+    def encode_a_at(self, A, i, key=None):
+        return self.code.encode_a_at(self.inner.embed(A), i, key=key)
+
+    def encode_b_at(self, B, i, key=None):
+        return self.code.encode_b_at(self.inner.embed(B), i, key=key)
+
+    def worker_compute(self, FA, GB):
+        return self.code.worker_compute(FA, GB)
+
+    def decode(self, H, idx):
+        return self.inner.decode(H, idx)
+
+    def costs(self, spec: ProblemSpec) -> EPCosts:
+        return self.inner.costs(spec.t, spec.r, spec.s)
+
+
+class SecureBatchRMFEAdapter(DecodeOpsMixin):
+    """T-private Batch-EP_RMFE (secure batch DMM): n products RMFE-packed
+    into one extension-ring product, computed by a masked EP code whose
+    extension carries >= N + 1 exceptional points."""
+
+    name = "ep_rmfe_secure"
+
+    def __init__(
+        self, base: Ring, n: int, N: int, u: int, v: int, w: int, T: int, device=None,
+    ):
+        self.inner = SecureBatchEPRMFE(base, n, N, u, v, w, T, device=device)
+        self.code = self.inner.code
+        self.base = base
+        self.ring = self.inner.ext
+        self.N, self.R = N, self.inner.R
+        self.batch = self.inner.rmfe.n  # actual packed batch (>= requested n)
+        self.privacy_t = T
+        self.partition = (u, v, w)
+
+    def encode_a(self, As, key=None):
+        return self.code.encode_a(self.inner.pack(As), key=key)
+
+    def encode_b(self, Bs, key=None):
+        return self.code.encode_b(self.inner.pack(Bs), key=key)
+
+    def encode_a_at(self, As, i, key=None):
+        return self.code.encode_a_at(self.inner.pack(As), i, key=key)
+
+    def encode_b_at(self, Bs, i, key=None):
+        return self.code.encode_b_at(self.inner.pack(Bs), i, key=key)
 
     def worker_compute(self, FA, GB):
         return self.code.worker_compute(FA, GB)
@@ -467,6 +643,59 @@ def _predict_batch(spec: ProblemSpec, u, v, w, n) -> Optional[EPCosts]:
     )
 
 
+def _predict_gcsa(spec: ProblemSpec, u, v, w, n) -> Optional[EPCosts]:
+    p, D0 = spec.ring.p, spec.ring.D
+    # executable CSA point: (u, v, w) = (1, 1, 1), kappa = n
+    if (u, v, w) != (1, 1, 1) or n != spec.n:
+        return None
+    m_eff = _embed_ext_D(p, D0, spec.N + n) / D0
+    return gcsa_cost_model(spec.t, spec.r, spec.s, 1, 1, 1, n, n, spec.N, m_eff)
+
+
+def _gcsa_packings(spec: ProblemSpec) -> Tuple[int, ...]:
+    """Packing candidates for gcsa_general: the group size kappa, any
+    divisor of the batch (kappa = n recovers the CSA point)."""
+    return tuple(d for d in range(1, spec.n + 1) if spec.n % d == 0)
+
+
+def _predict_gcsa_general(spec: ProblemSpec, u, v, w, n) -> Optional[EPCosts]:
+    p, D0 = spec.ring.p, spec.ring.D
+    kappa = n  # the packing slot carries the group size
+    if spec.n < 2 or kappa < 1 or spec.n % kappa:
+        return None
+    if spec.t % u or spec.r % w or spec.s % v:
+        return None
+    m_eff = _embed_ext_D(p, D0, spec.N + spec.n) / D0
+    return gcsa_cost_model(spec.t, spec.r, spec.s, u, v, w, spec.n, kappa, spec.N, m_eff)
+
+
+def _predict_ep_secure(spec: ProblemSpec, u, v, w, n) -> Optional[EPCosts]:
+    p, D0 = spec.ring.p, spec.ring.D
+    T = spec.privacy_t
+    if T < 1 or n != 1:
+        return None  # secure families only serve privacy_t >= 1 specs
+    if spec.t % u or spec.r % w or spec.s % v:
+        return None
+    # evaluation skips the zero point, so the embedding needs N + 1 points
+    m_eff = _embed_ext_D(p, D0, spec.N + 1) / D0
+    return ep_cost_model(spec.t, spec.r, spec.s, u, v, w, spec.N, m_eff, privacy_t=T)
+
+
+def _predict_rmfe_secure(spec: ProblemSpec, u, v, w, n) -> Optional[EPCosts]:
+    p, D0 = spec.ring.p, spec.ring.D
+    T = spec.privacy_t
+    if T < 1 or n != spec.n:
+        return None
+    if spec.t % u or spec.r % w or spec.s % v:
+        return None
+    extD, actual = _rmfe_ext_D(p, D0, n, _min_m_for_points(p, D0, spec.N + 1))
+    if actual != n or p**extD < spec.N + 1:
+        return None
+    return ep_cost_model(
+        spec.t, spec.r, spec.s, u, v, w, spec.N, extD / D0, batch=n, privacy_t=T,
+    )
+
+
 # ---------------------------------------------------------------------------
 # registry
 # ---------------------------------------------------------------------------
@@ -481,12 +710,19 @@ class SchemeFamily:
     ``predict(spec, u, v, w, n)`` returns the analytic EPCosts or None when
     the configuration is infeasible; ``build(spec, u, v, w, n, device)``
     constructs the executable adapter.
+
+    ``packing`` (optional) enumerates the family's candidate values for the
+    4th build/predict parameter given a spec.  When absent the planner uses
+    its defaults: ``(spec.n,)`` for batched families, divisors of the
+    operand dimensions for single families.  ``gcsa_general`` reads it as
+    the group size kappa and supplies it.
     """
 
     name: str
     batched: bool
     build: Callable[..., CdmmScheme]
     predict: Callable[[ProblemSpec, int, int, int, int], Optional[EPCosts]]
+    packing: Optional[Callable[[ProblemSpec], Iterable[int]]] = None
 
 
 _REGISTRY: Dict[str, SchemeFamily] = {}
@@ -544,4 +780,31 @@ register_scheme(SchemeFamily(
         spec.ring, n, spec.N, u, v, w, device=device
     ),
     _predict_batch,
+))
+register_scheme(SchemeFamily(
+    "gcsa", True,
+    lambda spec, u, v, w, n, device=None: CSAAdapter(spec.ring, n, spec.N, device=device),
+    _predict_gcsa,
+))
+register_scheme(SchemeFamily(
+    "gcsa_general", True,
+    lambda spec, u, v, w, n, device=None: GCSAGeneralAdapter(
+        spec.ring, spec.n, spec.N, u, v, w, n, device=device
+    ),
+    _predict_gcsa_general,
+    packing=_gcsa_packings,
+))
+register_scheme(SchemeFamily(
+    "ep_secure", False,
+    lambda spec, u, v, w, n, device=None: SecureEPAdapter(
+        spec.ring, spec.N, u, v, w, spec.privacy_t, device=device
+    ),
+    _predict_ep_secure,
+))
+register_scheme(SchemeFamily(
+    "ep_rmfe_secure", True,
+    lambda spec, u, v, w, n, device=None: SecureBatchRMFEAdapter(
+        spec.ring, n, spec.N, u, v, w, spec.privacy_t, device=device
+    ),
+    _predict_rmfe_secure,
 ))

@@ -39,10 +39,14 @@ def live_indices(scheme: CdmmScheme, mask: Optional[torch.Tensor]) -> torch.Tens
 
 
 def encode_all(
-    scheme: CdmmScheme, A: torch.Tensor, B: torch.Tensor
+    scheme: CdmmScheme, A: torch.Tensor, B: torch.Tensor, key: Optional[int] = None
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Master-side encode of both operands: (N, ...) share stacks."""
-    return scheme.encode_a(A), scheme.encode_b(B)
+    """Master-side encode of both operands: (N, ...) share stacks.
+
+    ``key`` feeds the masks of secure schemes (each side derives its own
+    from it); the other schemes ignore it.
+    """
+    return scheme.encode_a(A, key=key), scheme.encode_b(B, key=key)
 
 
 def decode_from(scheme: CdmmScheme, H: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
@@ -63,8 +67,9 @@ class LocalSimBackend:
         A: torch.Tensor,
         B: torch.Tensor,
         mask: Optional[torch.Tensor] = None,
+        key: Optional[int] = None,
     ) -> torch.Tensor:
-        FA, GB = encode_all(scheme, A, B)
+        FA, GB = encode_all(scheme, A, B, key=key)
         H = scheme.worker_compute(FA, GB)
         return decode_from(scheme, H, live_indices(scheme, mask))
 
@@ -101,6 +106,7 @@ def coded_matmul(
     *,
     backend: Union[None, str, object] = None,
     mask: Optional[torch.Tensor] = None,
+    key: Optional[int] = None,
     device=None,
 ) -> torch.Tensor:
     """Execute a planned coded matmul: ``C = A @ B`` over ``plan.spec.ring``.
@@ -112,6 +118,11 @@ def coded_matmul(
     batch schemes ``(n, t, r, D0)`` x ``(n, r, s, D0)``; numpy uint32
     operands are moved to the device.  ``mask`` is an (N,) bool liveness
     vector; dead workers' responses are never read by the any-R decode.
+
+    ``key`` (a non-negative int) feeds the masks of secure (``privacy_t >
+    0``) schemes: required by them, ignored by the rest.  The same key
+    gives the same shares on one device type; privacy needs a fresh key
+    per call.
     """
     if isinstance(plan, Plan):
         scheme = plan.instantiate(device=device)
@@ -122,4 +133,4 @@ def coded_matmul(
     dev = scheme.code.device
     A = _as_operand(A, scheme, dev)
     B = _as_operand(B, scheme, dev)
-    return get_backend(backend)(scheme, A, B, mask)
+    return get_backend(backend)(scheme, A, B, mask, key=key)

@@ -114,6 +114,10 @@ def _divisors(x: int, cap: int) -> List[int]:
 
 
 def _packing_candidates(spec: ProblemSpec, fam) -> Iterable[int]:
+    if fam.packing is not None:
+        # family-supplied enumeration of the 4th build/predict parameter
+        # (gcsa_general: group sizes kappa dividing the batch)
+        return tuple(fam.packing(spec))
     if fam.batched:
         return (spec.n,)
     # internal packing factors for the single-DMM RMFE variants; n=1 covers
@@ -134,7 +138,9 @@ def plan(
     ``schemes`` restricts the search to the named families (default: all
     registered families matching the spec's batch arity); ``top_k`` caps the
     ranking.  Raises ``ValueError`` when no configuration satisfies
-    R <= N - straggler_budget (always, for now, when ``privacy_t > 0``).
+    R <= N - straggler_budget.  With ``privacy_t > 0`` only configurations
+    whose costs advertise ``privacy_t >= spec.privacy_t`` (the secure
+    families) are feasible: a plan never downgrades a privacy requirement.
     """
     spec.validate()
     if objective in _NOT_PORTED:

@@ -1,8 +1,10 @@
 """Core: CDMM over Galois rings via RMFE, in PyTorch (counterpart of
-``repro.core``; the secure and GCSA families are not ported yet)."""
+``repro.core``; of ``repro.core.straggler`` only ``select_workers`` is
+ported yet)."""
 from .galois import (
     Ring,
     find_irreducible_gfp,
+    fold_in,
     from_numpy,
     is_irreducible_gfp,
     make_ring,
@@ -19,14 +21,18 @@ from .ep_codes import (
 )
 from .batch_rmfe import BatchEPRMFE
 from .single_rmfe import EPRMFE_I, EPRMFE_II
+from .gcsa import CSACode, GCSACode, gcsa_cost_model, gr_solve
+from .secure import SecureBatchEPRMFE, SecureEP, SecureEPCode, smallest_secure_ext
 from .straggler import select_workers
 
 __all__ = [
     "Ring", "make_ring", "find_irreducible_gfp", "is_irreducible_gfp",
-    "to_numpy", "from_numpy",
+    "fold_in", "to_numpy", "from_numpy",
     "BasicRMFE", "ConcatRMFE", "build_rmfe",
     "EPCode", "PlainCDMM", "ep_cost_model", "EPCosts",
     "secure_recovery_threshold", "smallest_embedding_ext",
     "BatchEPRMFE", "EPRMFE_I", "EPRMFE_II",
+    "CSACode", "GCSACode", "gcsa_cost_model", "gr_solve",
+    "SecureEPCode", "SecureEP", "SecureBatchEPRMFE", "smallest_secure_ext",
     "select_workers",
 ]

@@ -10,20 +10,21 @@ EP code, paper §III-B layout:
 
 Encoding is a ring matmul against a fixed Vandermonde slice; the N worker
 products are one batched ring matmul (one kernel launch on the card);
-decoding interpolates h from ANY R responses, with the live set a device
-tensor.
+decoding interpolates h from ANY R responses: the rows ``exp_c`` of the live
+set's Lagrange coefficient matrix are built exactly on the host, cached per
+live set, and applied with one ring matmul.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Optional
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
 
 from ..device import resolve_device
 from .galois import Ring, from_numpy
-from .polyops import as_u32, lagrange_coeff_matrix, s_vandermonde
+from .polyops import LiveSetCache, as_u32, live_set, s_lagrange_coeff_matrix, s_vandermonde
 
 __all__ = [
     "EPCode",
@@ -118,6 +119,7 @@ class EPCode:
                 f"{ring.p}^{ring.D}; extend the ring"
             )
         pts = ring.exceptional_points(N)
+        self.points_np = pts
         self.points = from_numpy(pts, ring, self.device)
         # exponents (0-indexed i<u, j<w, k<w, l<v)
         self.exp_f = [i * w + j for i in range(u) for j in range(w)]
@@ -130,7 +132,7 @@ class EPCode:
         self.exp_c = np.array(
             [[i * w + (w - 1) + l * u * w for l in range(v)] for i in range(u)]
         )  # (u, v)
-        self._exp_c_idx = torch.as_tensor(self.exp_c.ravel(), device=self.device)
+        self._decode_mats = LiveSetCache(ring, self.device)
 
     # -- partitioning ------------------------------------------------------
 
@@ -187,18 +189,23 @@ class EPCode:
 
     # -- decode ----------------------------------------------------------------
 
+    def decode_matrix(self, live: Tuple[int, ...]) -> torch.Tensor:
+        """(u*v, R, D) on the device: the rows ``exp_c`` of the Lagrange
+        coefficient matrix of the live workers' points, built exactly on the
+        host once per live set (LRU-cached)."""
+        return self._decode_mats.get(live, lambda: s_lagrange_coeff_matrix(
+            self.ring, self.points_np[list(live)])[self.exp_c.ravel()])
+
     def decode(self, H: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
         """Recover C from responses of workers ``idx`` (any R of them).
 
-        H: (R, tb, sb, D) responses; idx: (R,) integer tensor of worker ids.
+        H: (R, tb, sb, D) responses; idx: (R,) worker ids (read on the host).
+        One ring matmul: the coefficients of h read out at ``exp_c``.
         """
-        ring = self.ring
         R, tb, sb, D = H.shape
         assert R == self.R, (R, self.R)
-        pts = self.points.index_select(0, idx.to(self.points.device, torch.int64))
-        M = lagrange_coeff_matrix(ring, pts)  # (R, R, D)
-        coeffs = ring.matmul(M, H.reshape(R, tb * sb, D)).reshape(R, tb, sb, D)
-        cblocks = coeffs.index_select(0, self._exp_c_idx)
+        W = self.decode_matrix(live_set(idx, self.N))
+        cblocks = self.ring.matmul(W, H.reshape(R, tb * sb, D))
         cblocks = cblocks.reshape(self.u, self.v, tb, sb, D)
         return cblocks.permute(0, 2, 1, 3, 4).reshape(self.u * tb, self.v * sb, D)
 

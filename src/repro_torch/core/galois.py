@@ -44,6 +44,7 @@ __all__ = [
     "make_ring",
     "find_irreducible_gfp",
     "is_irreducible_gfp",
+    "fold_in",
     "to_numpy",
     "from_numpy",
 ]
@@ -185,6 +186,41 @@ def _power_reduction_matrix(f: Sequence[int], q: int) -> np.ndarray:
         rows[r] = nxt
         cur = nxt
     return rows
+
+
+# ---------------------------------------------------------------------------
+# integer keys (the port's counterpart of jax.random keys)
+# ---------------------------------------------------------------------------
+
+_M64 = (1 << 64) - 1
+
+
+def _splitmix64(x: int) -> int:
+    """One SplitMix64 output step: a bijective 64-bit mix."""
+    x = (x + 0x9E3779B97F4A7C15) & _M64
+    x = ((x ^ (x >> 30)) * 0xBF58476D1CE4E5B9) & _M64
+    x = ((x ^ (x >> 27)) * 0x94D049BB133111EB) & _M64
+    return x ^ (x >> 31)
+
+
+def _seed64(key: int) -> int:
+    """A non-negative Python int key -> a 64-bit generator seed."""
+    key = int(key)
+    if key < 0:
+        raise ValueError(f"keys are non-negative integers, got {key}")
+    seed = 0
+    while True:  # fold every 64-bit word of a long key
+        seed = _splitmix64(seed ^ (key & _M64))
+        key >>= 64
+        if not key:
+            return seed
+
+
+def fold_in(key: int, data: int) -> int:
+    """A new key from (key, data), as ``jax.random.fold_in`` derives one:
+    ``splitmix64(seed64(key) ^ splitmix64(data))``.  Secure codes seed the
+    A side with ``fold_in(key, 0)`` and the B side with ``fold_in(key, 1)``."""
+    return _splitmix64(_seed64(key) ^ _splitmix64(int(data) & _M64))
 
 
 # ---------------------------------------------------------------------------
@@ -536,6 +572,27 @@ class Ring:
         ``Ring.random`` draws them: the same seed gives the same elements."""
         arr = rng.integers(0, self.q, size=tuple(shape) + (self.D,), dtype=np.uint64)
         return from_numpy(arr.astype(np.uint32), self, device)
+
+    def random_torch(self, key: int, shape: Tuple[int, ...], device=None) -> torch.Tensor:
+        """Uniform elements drawn on ``device`` from a fresh ``torch.Generator``
+        seeded with the integer ``key`` (counterpart of ``Ring.random_jax``).
+
+        The same key gives the same elements on one device type; CPU and
+        CUDA streams differ, and neither reproduces ``jax.random``'s bits.
+        Words are drawn as int64 in [0, 2^32) and wrapped to the int32 bit
+        pattern (no out-of-range cast), then masked to e bits; general-q
+        rings draw in [0, q).
+        """
+        device = resolve_device(device)
+        gen = torch.Generator(device=device)
+        gen.manual_seed(_seed64(key))
+        full = tuple(shape) + (self.D,)
+        if self.p2fast:
+            # q = 2^e divides 2^32: masking uniform 32-bit words stays uniform
+            words = torch.randint(0, 1 << 32, full, dtype=torch.int64, generator=gen,
+                                  device=device)
+            return self._modq(to_i32(words))
+        return torch.randint(0, self.q, full, dtype=torch.int64, generator=gen, device=device)
 
     def random_units(
         self, rng: np.random.Generator, shape: Tuple[int, ...], device=None

@@ -5,18 +5,31 @@ python ints) variants build setup-time constants (RMFE matrices, fixed
 evaluation points).  The torch variants handle *runtime* point sets —
 decoding from whichever R workers responded — as eager code: ``lax.scan``
 becomes a Python loop and the ``vmap`` over basis polynomials a batch axis.
+
+The codes' decoders do not build matrices on the device: a decode matrix
+depends only on the live set (R <= 16 worker indices), so it is built once
+on the host with the exact ``s_*`` ops (``s_inverse``, ``s_matmul``),
+uploaded, kept in a :class:`LiveSetCache`, and applied with one ring matmul.
 """
 from __future__ import annotations
+
+from collections import OrderedDict
+from typing import Callable, Hashable
 
 import numpy as np
 import torch
 
-from .galois import Ring
+from .galois import Ring, from_numpy
 
 __all__ = [
+    "DECODE_CACHE_SIZE",
+    "LiveSetCache",
     "s_vandermonde",
     "s_lagrange_coeff_matrix",
+    "s_matmul",
+    "s_inverse",
     "as_u32",
+    "live_set",
     "vandermonde",
     "eval_poly_horner",
     "lagrange_coeff_matrix",
@@ -77,8 +90,115 @@ def s_lagrange_coeff_matrix(ring: Ring, points: np.ndarray) -> np.ndarray:
     return M
 
 
+def s_matmul(ring: Ring, A: np.ndarray, B: np.ndarray) -> np.ndarray:
+    """Exact ring matmul of object arrays: (n, k, D) x (k, m, D) -> (n, m, D)."""
+    n, k, _ = A.shape
+    m = B.shape[1]
+    C = np.zeros((n, m, ring.D), dtype=object)
+    for i in range(n):
+        for j in range(m):
+            acc = ring.s_zero()
+            for c in range(k):
+                acc = acc + ring.s_mul(A[i, c], B[c, j])
+            C[i, j] = acc % ring.q
+    return C
+
+
+def s_inverse(ring: Ring, M: np.ndarray) -> np.ndarray:
+    """Inverse of an (n, n, D) matrix over the ring, exact on the host.
+
+    Unit-pivot Gauss-Jordan on [M | I], the elimination of the reference's
+    ``gr_solve`` (``repro/core/gcsa.py``): over a local ring M is invertible
+    iff every elimination column holds a unit pivot, so a column without
+    one raises ``ValueError`` with the reference's message.  The inverse of
+    an invertible matrix is unique, so ``s_inverse(M) @ Y`` is bit for bit
+    what the reference's solve returns.
+    """
+    n = M.shape[0]
+    work = np.zeros((n, 2 * n, ring.D), dtype=object)
+    work[:, :n] = np.asarray(M, dtype=object) % ring.q
+    for i in range(n):
+        work[i, n + i] = ring.s_one()
+    for k in range(n):
+        piv = next((i for i in range(k, n) if ring.s_is_unit(work[i, k])), None)
+        if piv is None:
+            raise ValueError(
+                f"gr_solve: singular system over {ring}: no unit pivot "
+                f"in elimination column {k} (matrix not invertible mod "
+                f"p — e.g. a decode live set indexing dependent "
+                f"responses)"
+            )
+        work[[k, piv]] = work[[piv, k]]
+        inv = ring.s_inv(work[k, k])
+        work[k] = np.array([ring.s_mul(inv, x) for x in work[k]], dtype=object).reshape(
+            2 * n, ring.D)
+        for i in range(n):
+            f = work[i, k].copy()  # a view would change as row i does
+            if i == k or not any(f):
+                continue
+            for j in range(2 * n):
+                if any(work[k, j]):
+                    work[i, j] = ring.s_sub(work[i, j], ring.s_mul(f, work[k, j]))
+    return work[:, n:]
+
+
 def as_u32(obj_arr: np.ndarray) -> np.ndarray:
     return np.vectorize(int, otypes=[np.uint64])(obj_arr).astype(np.uint32)
+
+
+# one bound for every per-live-set cache of the port (decode matrices here,
+# decode closures in ``cdmm.api.DecodeOpsMixin``)
+DECODE_CACHE_SIZE = 64
+
+
+class LiveSetCache:
+    """LRU of device decode matrices, keyed by the live set's index tuple.
+
+    ``get(idx, build)`` returns the cached tensor for ``idx`` or uploads
+    ``build()`` (an object array (rows, R, D) of exact ring elements) to
+    ``device`` in ``ring``'s storage, evicting the least recently used
+    entry beyond ``size``.
+    """
+
+    def __init__(self, ring: Ring, device, size: int = DECODE_CACHE_SIZE):
+        self.ring, self.device, self.size = ring, device, size
+        self._entries: "OrderedDict[Hashable, torch.Tensor]" = OrderedDict()
+
+    def __len__(self) -> int:
+        return len(self._entries)
+
+    def __contains__(self, idx) -> bool:
+        return idx in self._entries
+
+    def get(self, idx: Hashable, build: Callable[[], np.ndarray]) -> torch.Tensor:
+        W = self._entries.pop(idx, None)
+        if W is None:
+            W = from_numpy(as_u32(build()), self.ring, self.device)
+            while len(self._entries) >= self.size:
+                self._entries.popitem(last=False)
+        self._entries[idx] = W  # re-insert = mark most-recently-used
+        return W
+
+
+def live_set(idx, N: int) -> tuple:
+    """The live set of a decode as a tuple of Python ints, read on the host
+    (R <= 16 integers of a device tensor), and checked: indices must lie
+    in [0, N), and a duplicate index raises ``ValueError`` as the
+    reference's ``_check_live_set`` (``repro/core/gcsa.py``) does, since
+    repeated responses make the decode system singular."""
+    if isinstance(idx, torch.Tensor):
+        ii = [int(i) for i in idx.reshape(-1).tolist()]
+    else:
+        ii = [int(i) for i in np.asarray(idx).ravel()]
+    if len(set(ii)) != len(ii):
+        raise ValueError(
+            "decode: singular live set — duplicate worker indices "
+            f"{sorted(ii)} (repeated responses carry no new "
+            "information; the decode system is not invertible)"
+        )
+    if not all(0 <= i < N for i in ii):
+        raise ValueError(f"decode: live set {ii} out of range for N={N} workers")
+    return tuple(ii)
 
 
 # ---------------------------------------------------------------------------

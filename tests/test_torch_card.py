@@ -112,21 +112,30 @@ def test_ring_outside_envelope_takes_plain_version(cuda):
     assert torch.equal(out.cpu(), cpu)
 
 
-@pytest.mark.parametrize("name", ["ep", "plain", "ep_rmfe1", "ep_rmfe2", "batch_ep_rmfe"])
+BATCH_N = {"batch_ep_rmfe": 2, "gcsa": 2, "ep_rmfe_secure": 2, "gcsa_general": 4}
+
+
+@pytest.mark.parametrize("name", ["ep", "plain", "ep_rmfe1", "ep_rmfe2", "batch_ep_rmfe", "gcsa",
+                                  "gcsa_general", "ep_secure", "ep_rmfe_secure"])
 def test_main_path_through_kernel(cuda, name):
     ring = make_ring(2, 32, (3,)) if name == "ep" else make_ring(2, 32, ())
-    n = 2 if name == "batch_ep_rmfe" else 1
-    p = plan(ProblemSpec(64, 64, 64, n=n, ring=ring, N=8, straggler_budget=2), schemes=[name])
+    n = BATCH_N.get(name, 1)
+    privacy_t = 1 if name.endswith("secure") else 0
+    p = plan(ProblemSpec(64, 64, 64, n=n, ring=ring, N=8, straggler_budget=2, privacy_t=privacy_t),
+             schemes=[name])
     rng = np.random.default_rng(3)
     lead = (n,) if n > 1 else ()
     A, B = ring.random(rng, lead + (64, 64), device=cuda), ring.random(rng, lead + (64, 64), device=cuda)
     mask = torch.tensor([True, False, True, True, False, True, True, True], device=cuda)
     counters.reset()
-    C = coded_matmul(A, B, p, backend="local", mask=mask)
+    # key: the secure families' masks (CPU and CUDA draw different ones),
+    # ignored by the rest
+    C = coded_matmul(A, B, p, backend="local", mask=mask, key=5)
     launches, ref_calls = counters.launches, counters.ref_calls
     assert launches > 0 and ref_calls == 0
     # the same run on the CPU (plain version throughout) gives the same bits
-    C_cpu = coded_matmul(A.cpu(), B.cpu(), p, backend="local", mask=mask.cpu(), device="cpu")
+    C_cpu = coded_matmul(A.cpu(), B.cpu(), p, backend="local", mask=mask.cpu(), key=5,
+                         device="cpu")
     assert torch.equal(C.cpu(), C_cpu)
     direct = torch.stack([ring.matmul(A[i], B[i]) for i in range(n)]) if n > 1 else ring.matmul(A, B)
     assert torch.equal(C, direct)

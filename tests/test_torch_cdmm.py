@@ -1,6 +1,7 @@
 """repro_torch.cdmm (plan -> coded_matmul) held against repro.cdmm (JAX on
-the CPU): the five non-secure families end to end under a non-prefix
-straggler mask, bit for bit, and the planner's rankings."""
+the CPU): the seven non-secure families end to end under a non-prefix
+straggler mask, bit for bit, and the planner's rankings over all nine
+families (the secure two end to end: tests/test_torch_secure.py)."""
 from dataclasses import astuple
 
 import numpy as np
@@ -17,23 +18,26 @@ from repro_torch.core.galois import make_ring as tmake
 from repro_torch.core.galois import to_numpy
 
 FIVE = ["ep", "plain", "ep_rmfe1", "ep_rmfe2", "batch_ep_rmfe"]
+BATCHED = {"batch_ep_rmfe", "gcsa", "gcsa_general"}
+NINE = FIVE + ["gcsa", "gcsa_general", "ep_secure", "ep_rmfe_secure"]
 # dead workers 1 and 4: the first R = 4 live workers (0, 2, 3, 5) are no prefix
 MASK = [True, False, True, True, False, True, True, True]
 
 
-def _specs(t, r, s, n, ring_spec, budget=2):
-    return (J.ProblemSpec(t, r, s, n=n, ring=jmake(*ring_spec), N=8, straggler_budget=budget),
-            P.ProblemSpec(t, r, s, n=n, ring=tmake(*ring_spec), N=8, straggler_budget=budget))
+def _specs(t, r, s, n, ring_spec, budget=2, privacy_t=0):
+    return tuple(M.ProblemSpec(t, r, s, n=n, ring=make(*ring_spec), N=8, straggler_budget=budget,
+                               privacy_t=privacy_t)
+                 for M, make in ((J, jmake), (P, tmake)))
 
 
 def _ranking(p):
     return [(c.scheme, c.u, c.v, c.w, c.n, c.score, astuple(c.costs)) for c in p.candidates]
 
 
-@pytest.mark.parametrize("name", FIVE)
+@pytest.mark.parametrize("name", FIVE + ["gcsa", "gcsa_general"])
 def test_coded_matmul_matches_reference(name):
     ring_spec = (2, 32, (3,)) if name == "ep" else (2, 32, ())
-    n = 2 if name == "batch_ep_rmfe" else 1
+    n = 2 if name in BATCHED else 1
     jspec, tspec = _specs(4, 4, 4, n, ring_spec)
     jp = J.plan(jspec, "latency", schemes=[name], calibration=False)
     tp = P.plan(tspec, "latency", schemes=[name])
@@ -41,7 +45,9 @@ def test_coded_matmul_matches_reference(name):
     rng = np.random.default_rng(21)
     lead = (n,) if n > 1 else ()
     a, b = jspec.ring.random(rng, lead + (4, 4)), jspec.ring.random(rng, lead + (4, 4))
-    # one jit of the reference pipeline compiles faster than its eager ops
+    # one jit of the reference pipeline compiles faster than its eager ops;
+    # the scheme (and the rings it makes) is built outside the trace
+    jp.instantiate()
     ref = jax.jit(lambda a, b: J.coded_matmul(a, b, jp, backend="local", mask=jnp.asarray(MASK)))
     want = np.asarray(ref(a, b))
     got = P.coded_matmul(np.asarray(a), np.asarray(b), tp, backend="local",
@@ -54,32 +60,42 @@ def test_coded_matmul_matches_reference(name):
 
 
 @pytest.mark.parametrize("objective", ["threshold", "download", "upload", "latency", "amortized"])
-@pytest.mark.parametrize("shape", [(64, 64, 64, 1, (2, 32, ())), (96, 48, 32, 1, (2, 32, (3,))),
-                                   (64, 64, 64, 2, (2, 32, ())), (32, 32, 32, 4, (2, 16, ()))],
+@pytest.mark.parametrize("shape", [(64, 64, 64, 1, (2, 32, ()), 2, 0),
+                                   (96, 48, 32, 1, (2, 32, (3,)), 2, 0),
+                                   (64, 64, 64, 2, (2, 32, ()), 2, 0),
+                                   (32, 32, 32, 4, (2, 16, ()), 2, 0),
+                                   (64, 64, 64, 1, (2, 32, ()), 2, 1),
+                                   (64, 32, 64, 2, (2, 32, ()), 1, 1),
+                                   (32, 32, 32, 4, (2, 16, ()), 3, 2),
+                                   (64, 64, 64, 3, (2, 32, ()), 2, 1)],
                          ids=str)
 def test_plan_rankings_match(shape, objective):
-    t, r, s, n, ring_spec = shape
-    jspec, tspec = _specs(t, r, s, n, ring_spec)
+    """All nine families, batch and privacy_t > 0 specs among them; a spec
+    no family serves raises in both packages with the same message."""
+    t, r, s, n, ring_spec, budget, privacy_t = shape
     try:
-        want = _ranking(J.plan(jspec, objective, schemes=FIVE, calibration=False))
-    except ValueError:
-        with pytest.raises(ValueError):
-            P.plan(tspec, objective, schemes=FIVE)
+        jspec, tspec = _specs(t, r, s, n, ring_spec, budget, privacy_t)
+        want = _ranking(J.plan(jspec, objective, schemes=NINE, calibration=False))
+    except ValueError as exc:
+        with pytest.raises(ValueError) as got:
+            _, tspec = _specs(t, r, s, n, ring_spec, budget, privacy_t)
+            P.plan(tspec, objective, schemes=NINE)
+        assert str(got.value) == str(exc)
         return
-    assert _ranking(P.plan(tspec, objective, schemes=FIVE)) == want
+    assert _ranking(P.plan(tspec, objective, schemes=NINE)) == want
 
 
 def test_registry_and_unported_paths():
-    assert sorted(P.registered_schemes()) == sorted(FIVE)
+    assert sorted(P.registered_schemes()) == sorted(NINE)
+    assert sorted(P.registered_schemes()) == sorted(J.registered_schemes())
     _, tspec = _specs(64, 64, 64, 1, (2, 32, ()))
     with pytest.raises(ValueError, match="time_to_R"):
         P.plan(tspec, "time_to_R")
-    # the secure families are not ported yet: no feasible scheme, as in the
-    # reference when no registered family meets the privacy requirement
-    _, secure = _specs(64, 64, 64, 1, (2, 32, ()), budget=1)
-    with pytest.raises(ValueError, match="no feasible scheme"):
-        P.plan(P.ProblemSpec(64, 64, 64, ring=secure.ring, N=8, straggler_budget=1,
-                             privacy_t=1))
+    # privacy_t = 1 is served by a secure family, as in the reference
+    jsecure, secure = _specs(64, 64, 64, 1, (2, 32, ()), budget=1, privacy_t=1)
+    best = P.plan(secure).best
+    assert best.scheme == J.plan(jsecure, calibration=False).best.scheme == "ep_secure"
+    assert best.costs.privacy_t >= 1
     with pytest.raises(ValueError, match="unknown backend"):
         P.get_backend("shard_map")
 

@@ -23,7 +23,9 @@ def _modules():
 
 def test_every_module_imports_without_jax_or_repro():
     mods = ["repro_torch"] + _modules()
-    assert "repro_torch.kernels.gr_matmul" in mods and "repro_torch.cdmm.backends" in mods
+    for m in ("repro_torch.kernels.gr_matmul", "repro_torch.cdmm.backends",
+              "repro_torch.core.secure", "repro_torch.core.gcsa"):
+        assert m in mods, m
     code = (
         "import sys, importlib\n"
         "sys.modules['jax'] = None\n"
@@ -47,8 +49,17 @@ def _without_cuda(monkeypatch):
 
 def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch):
     _without_cuda(monkeypatch)
-    from repro_torch.cdmm import BatchRMFEAdapter, ProblemSpec, coded_matmul, plan
-    from repro_torch.core import EPCode, make_ring
+    from repro_torch.cdmm import (
+        BatchRMFEAdapter,
+        CSAAdapter,
+        GCSAGeneralAdapter,
+        ProblemSpec,
+        SecureBatchRMFEAdapter,
+        SecureEPAdapter,
+        coded_matmul,
+        plan,
+    )
+    from repro_torch.core import CSACode, EPCode, GCSACode, SecureEPCode, make_ring
 
     Z = make_ring(2, 32, ())
     rng = np.random.default_rng(0)
@@ -60,12 +71,27 @@ def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch):
         EPCode(make_ring(2, 32, (3,)), 8, 2, 2, 1)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         BatchRMFEAdapter(Z, 2, 8, 2, 2, 1)
+    G4 = make_ring(2, 32, (4,))
+    for build in (lambda: Z.random_torch(1, (2, 2)), lambda: CSACode(G4, 2, 8),
+                  lambda: GCSACode(G4, 4, 8, kappa=2), lambda: SecureEPCode(G4, 8, 1, 2, 1, 1),
+                  lambda: CSAAdapter(Z, 2, 8), lambda: GCSAGeneralAdapter(Z, 4, 8, 1, 1, 1, 2),
+                  lambda: SecureEPAdapter(Z, 8, 1, 2, 1, 1),
+                  lambda: SecureBatchRMFEAdapter(Z, 2, 8, 1, 2, 1, 1)):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            build()
     p = plan(ProblemSpec(8, 8, 8, ring=Z, N=8, straggler_budget=2))
     A = Z.random(rng, (8, 8), device="cpu")
     with pytest.raises(RuntimeError, match="device='cpu'"):
         coded_matmul(A, A, p)
     # the same call with device="cpu" runs
     assert torch.equal(coded_matmul(A, A, p, device="cpu"), Z.matmul(A, A))
+    for spec, key in ((ProblemSpec(8, 8, 8, ring=Z, N=8, straggler_budget=2, privacy_t=1), 3),
+                      (ProblemSpec(8, 8, 8, n=2, ring=Z, N=8, straggler_budget=2), None)):
+        ps = plan(spec)
+        As = Z.random(rng, (spec.n, 8, 8) if spec.n > 1 else (8, 8), device="cpu")
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            coded_matmul(As, As, ps, key=key)
+        assert coded_matmul(As, As, ps, key=key, device="cpu").shape == As.shape
 
 
 def test_chip_smoke_refuses_without_a_card(tmp_path):
