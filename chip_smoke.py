@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Run the PyTorch/CUDA port (``src/repro_torch``) on one NVIDIA card.
 
-    python3 chip_smoke.py [--report PATH]
+    python3 chip_smoke.py [--report PATH] [--seed N]
 
 Phases (any mismatch fails the run with a non-zero exit):
 
@@ -12,7 +12,8 @@ Phases (any mismatch fails the run with a non-zero exit):
    against the library;
 2. every route of ``gr_matmul`` (``simt``, ``tc``, ``skinny``) and the tc
    route's limb pre-pass against their plain PyTorch versions on the card,
-   bit for bit, on seven rings (K up to 45) at the shapes each route takes,
+   bit for bit, on eight rings (K up to 65: the (3, 7) tower, D = 21, on
+   ``simt``) at the shapes each route takes,
    batched and unbatched, and at every shape the main path hands the
    kernels; there each shape's route is timed in turns with ``simt``
    (replayed from CUDA graphs, so without the wrappers' host time), and
@@ -34,12 +35,39 @@ Phases (any mismatch fails the run with a non-zero exit):
    share equals its row of the master encode, a second key gives other
    shares and the same product, and the top bit of the drawn mask words is
    set in 50% +- 1% of them;
-4. every route at every distinct (ring, shape) that phase 3 handed it,
-   recorded as the paths ran, against the plain version on fresh operands of
-   that shape, bit for bit (all batch slices of a worker launch included);
-   the shapes of the GR(2^32, 4) paths are also timed as phase 2 times the
-   main path's: the route in turns with ``simt`` from CUDA graphs, beside
-   its bound, the plain version and, for ``tc``, the int8 yardstick.
+4. every route at every distinct (ring, shape) that phases 3 and 5-7
+   handed it, recorded as the paths ran, against the plain version on fresh
+   operands of that shape, bit for bit (all batch slices of a worker launch
+   included); the shapes of the GR(2^32, 4) paths and of phases 5-7 are also
+   timed as phase 2 times the main path's: the route in turns with ``simt``
+   from CUDA graphs, beside its bound, the plain version and, for ``tc``,
+   the int8 yardstick.  It runs last, once phases 5-7 have recorded;
+5. the elastic any-R master (``coded_matmul(..., backend=ElasticBackend)``)
+   on ``batch_ep_rmfe`` at 2048^3: (a) the all-live fast path, equal to
+   ``local`` with ``local``'s launches; (b) the traced event loop under a
+   trace with two slow workers (1, 3) and two dead ones (2, 5): the decode
+   must read the R = 4 fastest, (0, 4, 6, 7), not ``local``'s first-R set,
+   and every dispatched worker runs its own encode and ``tc`` product;
+   (c) the race: the same trace with its latencies simulated at 10x, 5 warm
+   runs, each held under half the barrier of the last responder; (d)
+   ``ep_rmfe_secure`` (T = 1, GR(2^32, 4)) at 1024^3 through the traced path
+   with a key, equal to ``local`` with the same key.  Stage times per worker
+   (encode, compute), ``wait_R``, decode and wall come from the
+   ``repro_torch.obs`` spans of 5 traced runs;
+6. ``ElasticStream``: 8 products of 1024^3 over Z_2^32 in groups of 8
+   workers, stepped at 16, 9 and 24 live workers (re-chunked to (2, 4),
+   (1, 8), (3, 3); the middle step's ring is GR(2^32, (3, 7)), D = 21, on
+   ``simt``), each step equal to the direct products; 7 live raises;
+7. ``CodedQuantMatmul`` at gemma2-2b's FFN width: x (2048, 2304) @
+   w (2304, 9216) float32 from ``--seed`` over N = 16 workers (EP_RMFE-I
+   over GR(2^32, 4)): the exact int32 product under 12 dead workers (a
+   non-prefix live set) equals ``torch._int_mm`` of the int8 operands (an
+   oracle only), and the dequantized output is bit-identical to the run
+   without deaths.
+
+Launch counts per route are zeroed before each path of phases 3 and 5-7, read
+after it (after the elastic backend's straggler tasks have finished) and
+held against ``EXPECTED_LAUNCHES``.
 
 The second-to-last line is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.  The full report (ptxas usage, every
@@ -94,6 +122,25 @@ EXPECTED_LAUNCHES = {
     "ep_rmfe_secure": {"simt": 0, "tc": 1, "skinny": 6, "limbs": 2},
     "ep_secure": {"simt": 0, "tc": 1, "skinny": 3, "limbs": 2},
     "gcsa_general": {"simt": 0, "tc": 1, "skinny": 3, "limbs": 2},
+    # the elastic master on batch_ep_rmfe: the all-live fast path is local's
+    # round; the traced path dispatches all 8 workers (the dead ones join at
+    # 0 too) and each runs phi(A), encode_a_at, phi(B), encode_b_at (t = 1)
+    # on skinny and its own tc product; then one decode and one psi
+    "elastic_all_live": {"simt": 0, "tc": 1, "skinny": 6, "limbs": 2},
+    "elastic_traced": {"simt": 0, "tc": 8, "skinny": 34, "limbs": 16},
+    "elastic_race": {"simt": 0, "tc": 8, "skinny": 34, "limbs": 16},
+    # ep_rmfe_secure traced: the same per-worker rounds (masks are drawn by
+    # torch.randint, not a ring matmul)
+    "elastic_secure": {"simt": 0, "tc": 8, "skinny": 34, "limbs": 16},
+    # ElasticStream steps: gcsa (n = 4) in two chunks; batch_ep_rmfe (n = 8)
+    # over GR(2^32, (3, 7)), D = 21, whose encode a/b, worker and decode
+    # matmuls only simt is instantiated for (the reference leaves this ring
+    # to XLA), while its phi/psi run on skinny; gcsa (n = 3) in three chunks
+    "stream_16": {"simt": 0, "tc": 2, "skinny": 6, "limbs": 4},
+    "stream_9": {"simt": 4, "tc": 0, "skinny": 6, "limbs": 0},
+    "stream_24": {"simt": 0, "tc": 3, "skinny": 9, "limbs": 6},
+    # CodedQuantMatmul: one ep_rmfe1 round (N = 16, GR(2^32, 4))
+    "quantized": {"simt": 0, "tc": 1, "skinny": 6, "limbs": 2},
 }
 # the paths of the GCSA and secure families: (name, batch n, size,
 # privacy_t), each planned with plan(spec, schemes=[name]); their kernel
@@ -101,8 +148,23 @@ EXPECTED_LAUNCHES = {
 SLICE3_PATHS = [("gcsa", 2, MAIN_SIZE, 0), ("ep_rmfe_secure", 2, MAIN_SIZE, 1),
                 ("ep_secure", 1, SINGLE_SIZE, 1), ("gcsa_general", 4, SINGLE_SIZE, 0)]
 KEY = 20251017  # the secure paths' mask key; KEY + 1 is the second key
+# the elastic trace: workers 1 and 3 slow, 2 and 5 dead (MASK); the R = 4
+# fastest responders are (0, 4, 6, 7), not the first R live (0, 1, 3, 4)
+TRACE_COMPUTE_MS = [1, 50, 1, 40, 1, 1, 1, 1]
+RACE_SCALE = 10.0  # simulated latency: 10 ms of wall per model-ms
+# ElasticStream: (live workers, expected (groups, per-group batch))
+STREAM_PRODUCTS = 8
+STREAM_STEPS = [(16, (2, 4)), (9, (1, 8)), (24, (3, 3))]
+# CodedQuantMatmul at gemma2-2b's FFN (src/repro/configs/gemma2_2b.py):
+# (tokens, d_model, d_ff), N workers, and the R live ones (12 dead)
+QUANT_SHAPE = (2048, 2304, 9216)
+QUANT_N = 16
+QUANT_LIVE = (1, 5, 10, 14)
+# paths of phases 5-7, whose kernel shapes phase 4 times
+SLICE4_PATHS = ("elastic_all_live", "elastic_traced", "elastic_race", "elastic_secure",
+                "stream_16", "stream_9", "stream_24", "quantized")
 RING_SPECS = [(2, 32, ()), (2, 32, (3,)), (2, 32, (4,)), (2, 16, (5,)), (2, 8, (2, 3)),
-              (2, 32, (16,)), (2, 32, (3, 5))]
+              (2, 32, (16,)), (2, 32, (3, 5)), (2, 32, (3, 7))]
 # the shapes of tests/test_kernels.py, then extra shapes for the new routes:
 # t, s >= 64 and an r that crosses the tc route's 256-deep flush chunk; and
 # t, r <= 16 with ragged s for the skinny route
@@ -260,7 +322,7 @@ def phase_env_build(report: dict) -> None:
         if (bm.value, bn.value, bk.value) != kernel_tile(ring):
             fail(f"simt tile mirror {kernel_tile(ring)} != library {(bm.value, bn.value, bk.value)}")
     towers = [(d, 1) for d in range(1, 17)] + [(2, 3), (2, 5), (2, 7), (3, 2), (3, 4), (3, 5),
-                                                (4, 3), (5, 2), (5, 3), (7, 2)]
+                                                (4, 3), (5, 2), (5, 3), (7, 2), (3, 7)]
     for d0, d1 in towers:
         bm, bn, ks = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
         has_tc = lib.gr_matmul_tc_tile(d0, d1, bm, bn, ks) == 0
@@ -399,7 +461,8 @@ def _timing_row(ring, A, B, route: str, plain_ms: float) -> dict:
     route_ms = [m for rt, m in turns if rt == route]
     bytes_ms, int8_ms, int32_ms = _bounds(ring, b, t, r, s)
     row = {
-        "route": route, "ms": sum(route_ms) / 2, "simt_ms": sum(simt_ms) / 2, "turns": turns,
+        "route": route, "ms": sum(route_ms) / len(route_ms),
+        "simt_ms": sum(simt_ms) / len(simt_ms), "turns": turns,
         "plain_ms": plain_ms,
         # launched from Python in a loop: bounded below by the host time
         "eager_ms": cuda_ms(lambda: run_route(route, A, B, ring), iters=10, warmup=2),
@@ -561,6 +624,35 @@ def _recording_routes(calls: list):
         ops.run_route = inner
 
 
+def _counted(name, fn, calls):
+    """Run ``fn`` (one path) with the launch counts zeroed just before and
+    read just after, and with every ring matmul it hands a kernel recorded
+    into ``calls``; the counts must equal ``EXPECTED_LAUNCHES[name]`` (a
+    ring matmul on the card that no kernel takes raises, so the plain
+    version never runs there).  Returns (fn's result, launches by route,
+    synchronized wall ms)."""
+    import torch
+
+    from repro_torch.kernels import counters
+
+    torch.cuda.synchronize()
+    path_calls = []
+    counters.reset()
+    t0 = time.perf_counter()
+    with _recording_routes(path_calls):
+        out = fn()
+    torch.cuda.synchronize()
+    wall_ms = 1e3 * (time.perf_counter() - t0)
+    by_route = dict(counters.launches_by_route)
+    if by_route != EXPECTED_LAUNCHES[name]:
+        fail(f"{name}: launches per route {by_route}, expected {EXPECTED_LAUNCHES[name]}")
+    recorded = {rt: sum(c[0] == rt for c in path_calls) for rt in ROUTES}
+    if any(recorded[rt] != by_route[rt] for rt in ROUTES):
+        fail(f"{name}: recorded ring matmuls {recorded} != launches {by_route}")
+    calls.extend((name,) + c for c in path_calls)
+    return out, by_route, wall_ms
+
+
 def _run_path(name, family, scheme_or_plan, A, B, mask, report, calls, key=None):
     """Drive one path through ``coded_matmul`` with the counts zeroed just
     before and read just after; returns (launches by route, the scheme, the
@@ -569,25 +661,9 @@ def _run_path(name, family, scheme_or_plan, A, B, mask, report, calls, key=None)
 
     from repro_torch.cdmm import coded_matmul, decode_from, encode_all, live_indices
     from repro_torch.cdmm.planner import Plan
-    from repro_torch.kernels import counters
 
-    torch.cuda.synchronize()
-    path_calls = []
-    counters.reset()
-    t0 = time.perf_counter()
-    with _recording_routes(path_calls):
-        C = coded_matmul(A, B, scheme_or_plan, backend="local", mask=mask, key=key, device="cuda")
-    torch.cuda.synchronize()
-    wall_ms = 1e3 * (time.perf_counter() - t0)
-    by_route, ref_calls = dict(counters.launches_by_route), counters.ref_calls
-    if ref_calls != 0:
-        fail(f"{name}: {ref_calls} ring matmuls went to the plain version on the card")
-    if by_route != EXPECTED_LAUNCHES[name]:
-        fail(f"{name}: launches per route {by_route}, expected {EXPECTED_LAUNCHES[name]}")
-    recorded = {rt: sum(c[0] == rt for c in path_calls) for rt in ROUTES}
-    if any(recorded[rt] != by_route[rt] for rt in ROUTES):
-        fail(f"{name}: recorded ring matmuls {recorded} != launches {by_route}")
-    calls.extend((name,) + c for c in path_calls)
+    C, by_route, wall_ms = _counted(name, lambda: coded_matmul(
+        A, B, scheme_or_plan, backend="local", mask=mask, key=key, device="cuda"), calls)
     scheme = (scheme_or_plan.instantiate(device="cuda")
               if isinstance(scheme_or_plan, Plan) else scheme_or_plan)
     expect = _direct(A, B, scheme.base)
@@ -611,8 +687,7 @@ def _run_path(name, family, scheme_or_plan, A, B, mask, report, calls, key=None)
         fail(f"{name}: staged run != direct product")
     row = {"path": name, "scheme": family, "partition": list(scheme.partition),
            "ring": str(scheme.ring), "R": scheme.R, "live": idx.tolist(), "shape": list(A.shape),
-           "launches_by_route": by_route, "ref_calls": ref_calls,
-           "first_call_wall_ms": wall_ms, **stages}
+           "launches_by_route": by_route, "first_call_wall_ms": wall_ms, **stages}
     if getattr(scheme, "kappa", None):
         row["kappa"] = scheme.kappa
     log(f"path {json.dumps(row)}")
@@ -710,12 +785,13 @@ def phase_main_path(report: dict) -> dict:
 
 
 def phase_path_calls(report: dict, calls: list) -> None:
-    """Hold each route at every distinct (ring, shape) that phase 3 gave it,
-    on fresh random operands of that shape, bit for bit: this covers every
-    batch slice of a worker launch, the dead workers' ones too, which the
-    end-to-end check cannot see because decode never reads them.  The
-    shapes of the GCSA and secure paths are timed as well (``_timing_row``),
-    with the plain version's time from the same call that holds them."""
+    """Hold each route at every distinct (ring, shape) that phases 3 and 5-7
+    gave it, on fresh random operands of that shape, bit for bit: this
+    covers every batch slice of a worker launch, the dead workers' ones too,
+    which the end-to-end check cannot see because decode never reads them.
+    The shapes of the GCSA and secure paths and of phases 5-7 are timed as
+    well (``_timing_row``), with the plain version's time from the same call
+    that holds them."""
     import numpy as np
     import torch
 
@@ -723,7 +799,7 @@ def phase_path_calls(report: dict, calls: list) -> None:
 
     rng = np.random.default_rng(SEED + 1)
     worst = report["kernel_max_abs_err"]
-    slice3 = {name for name, *_ in SLICE3_PATHS}
+    timed_paths = {name for name, *_ in SLICE3_PATHS} | set(SLICE4_PATHS)
     seen = {}
     for path, route, ring, a_shape, b_shape in calls:
         key = (route, ring.p, ring.e, ring.degrees, a_shape, b_shape)
@@ -735,7 +811,7 @@ def phase_path_calls(report: dict, calls: list) -> None:
         holder = {}
         plain_ms = cuda_ms(lambda: holder.__setitem__("C", gr_matmul_ref(A, B, ring)))
         plain = holder.pop("C")
-        timed = bool(slice3.intersection(paths))
+        timed = bool(timed_paths.intersection(paths))
         for rt in dict.fromkeys(("simt", route) if timed else (route,)):
             _hold(rt, ring, A, B, worst, " (a phase-3 call)", plain=plain)
         del plain
@@ -744,13 +820,300 @@ def phase_path_calls(report: dict, calls: list) -> None:
                    "a": list(a_shape[:-1]), "b": list(b_shape[:-1]),
                    **_timing_row(ring, A, B, route, plain_ms)}
             timings.append(row)
-            log(f"GR(2^32, 4) shape: {json.dumps(row)}")
+            log(f"timed path shape: {json.dumps(row)}")
         del A, B
         torch.cuda.empty_cache()
     report["path_calls_checked"] = [f"{k[0]} {k[3]} {k[4][:-1]} x {k[5][:-1]}" for k in seen]
-    report["slice3_kernel_timings"] = timings
-    log(f"phase-3 calls == plain: {len(calls)} launches at {len(seen)} distinct "
+    report["path_kernel_timings"] = timings
+    log(f"phase-3, 5-7 calls == plain: {len(calls)} launches at {len(seen)} distinct "
         f"(route, ring, shape): {report['path_calls_checked']}")
+
+
+# ---------------------------------------------------------------------------
+# phases 5-7: the elastic master, ElasticStream, CodedQuantMatmul
+# ---------------------------------------------------------------------------
+
+
+def _slow_trace():
+    """Workers 1 and 3 slow, 2 and 5 dead (they leave before joining)."""
+    import numpy as np
+
+    from repro_torch.core import WorkerTrace
+
+    return WorkerTrace(np.zeros(8), np.full(8, np.inf),
+                       np.array(TRACE_COMPUTE_MS, dtype=float)).restrict(MASK)
+
+
+def _span_stages(call, runs: int = 5) -> dict:
+    """Run ``call`` (one traced elastic round, stragglers drained) ``runs``
+    times with ``repro_torch.obs`` tracing on, and read its stages from the
+    spans: the master's encode of each share, each worker's compute (launch
+    to its event, so device time), ``wait_R``, the decode's host time, and
+    the synchronized wall.  Spans time the host side, as in the reference."""
+    import torch
+
+    from repro_torch import obs
+
+    per_run = []
+    obs.set_enabled(True)
+    try:
+        for _ in range(runs):
+            obs.tracer().clear()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            call()
+            torch.cuda.synchronize()
+            wall = 1e3 * (time.perf_counter() - t0)
+            spans = list(obs.tracer()._spans)
+            ms = lambda name, comp: {int(x.tags.get("wid", x.tags.get("share", -1))):  # noqa: E731
+                                     1e3 * x.duration_s for x in spans
+                                     if x.name == name and x.component == comp}
+            one = lambda name: sum(1e3 * x.duration_s for x in spans if x.name == name  # noqa: E731
+                                   and x.component == "elastic")
+            per_run.append({"encode_ms": ms("encode", "elastic"), "compute_ms": ms("compute", "worker"),
+                            "wait_R_ms": one("wait_R"), "decode_ms": one("decode"), "wall_ms": wall})
+    finally:
+        obs.set_enabled(None)
+        obs.tracer().clear()
+    mean = lambda xs: sum(xs) / len(xs)  # noqa: E731
+    return {
+        "encode_per_worker_ms": mean([mean(list(r["encode_ms"].values())) for r in per_run]),
+        "compute_per_worker_ms": mean([mean(list(r["compute_ms"].values())) for r in per_run]),
+        "compute_max_ms": mean([max(r["compute_ms"].values()) for r in per_run]),
+        "wait_R_ms": mean([r["wait_R_ms"] for r in per_run]),
+        "decode_ms": mean([r["decode_ms"] for r in per_run]),
+        "wall_ms": mean([r["wall_ms"] for r in per_run]),
+        "runs": per_run,
+    }
+
+
+def phase_elastic(report: dict, calls: list) -> dict:
+    import numpy as np
+    import torch
+
+    from repro_torch.cdmm import BatchRMFEAdapter, ElasticBackend, ProblemSpec, coded_matmul, plan
+    from repro_torch.core import make_ring
+
+    rng = np.random.default_rng(SEED + 2)
+    Z32 = make_ring(2, 32, ())
+    mask = torch.tensor(MASK, device="cuda")
+    trace = _slow_trace()
+    totals = dict.fromkeys(ROUTES + ("limbs",), 0)
+    rows = {}
+
+    def add(by_route):
+        for k, v in by_route.items():
+            totals[k] += v
+
+    As = Z32.random(rng, (2, MAIN_SIZE, MAIN_SIZE), device="cuda")
+    Bs = Z32.random(rng, (2, MAIN_SIZE, MAIN_SIZE), device="cuda")
+    scheme = BatchRMFEAdapter(Z32, n=2, N=8, u=2, v=2, w=1, device="cuda")
+    expect = _direct(As, Bs, Z32)
+    local = coded_matmul(As, Bs, scheme, backend="local", mask=mask)  # the oracle, not counted
+    if max_abs_err(local, expect):
+        fail("elastic: the local oracle != direct product")
+
+    # (a) all-live fast path: local's round, local's launches
+    eb = ElasticBackend()
+    C, by_route, wall = _counted("elastic_all_live",
+                                 lambda: coded_matmul(As, Bs, scheme, backend=eb), calls)
+    add(by_route)
+    if not eb.last_stats.fast_path or max_abs_err(C, expect):
+        fail(f"elastic_all_live: fast_path={eb.last_stats.fast_path}, output != direct product")
+    rows["elastic_all_live"] = {"launches_by_route": by_route, "first_call_wall_ms": wall}
+
+    # (b) traced: the decode reads the R fastest arrivals
+    eb = ElasticBackend(trace=trace)
+
+    def traced():
+        out = coded_matmul(As, Bs, scheme, backend=eb)
+        eb.drain()  # the slow and dead workers' launches belong to this round
+        return out
+
+    C, by_route, wall = _counted("elastic_traced", traced, calls)
+    add(by_route)
+    st = eb.last_stats
+    if st.live_idx != (0, 4, 6, 7):
+        fail(f"elastic_traced: decoded from {st.live_idx}, expected (0, 4, 6, 7)")
+    if max_abs_err(C, local) or max_abs_err(C, expect):
+        fail("elastic_traced: output != local's / the direct product")
+    rows["elastic_traced"] = {"launches_by_route": by_route, "first_call_wall_ms": wall,
+                              "stats": vars(st), **_span_stages(traced)}
+    eb.close()
+
+    # (c) the race past stragglers: latencies simulated at RACE_SCALE
+    eb = ElasticBackend(trace=trace, simulate_ms_scale=RACE_SCALE)
+
+    def race():
+        out = coded_matmul(As, Bs, scheme, backend=eb)
+        torch.cuda.synchronize()
+        return out
+
+    race()  # warm
+    eb.drain()
+    C, by_route, _ = _counted("elastic_race", lambda: (race(), eb.drain())[0], calls)
+    add(by_route)
+    if max_abs_err(C, expect):
+        fail("elastic_race: output != direct product")
+    walls = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        C = race()
+        walls.append(1e3 * (time.perf_counter() - t0))
+        eb.drain()
+        if max_abs_err(C, expect):
+            fail("elastic_race: output != direct product")
+    st = eb.last_stats
+    # the barrier a synchronous master pays: the last responder's arrival
+    # (time_to_all_ms is inf here: dead workers never respond)
+    barrier_ms = trace.time_to_kth_response(st.n_responders) * RACE_SCALE
+    race_row = {"time_to_R_ms_scaled": st.time_to_R_ms * RACE_SCALE,
+                "time_to_all_ms_scaled": st.time_to_all_ms * RACE_SCALE,
+                "barrier_ms": barrier_ms, "wall_ms_runs": walls,
+                "stats_wall_ms": st.wall_ms, "launches_by_route": by_route}
+    log(f"elastic race: {json.dumps(race_row)}")
+    if max(walls) >= barrier_ms / 2:
+        fail(f"elastic_race: wall {max(walls):.1f} ms >= half the {barrier_ms:.0f} ms barrier")
+    rows["elastic_race"] = race_row
+    eb.close()
+    del As, Bs, expect, local, C
+    torch.cuda.empty_cache()
+
+    # (d) a secure scheme through the traced path, keyed
+    spec = ProblemSpec(SINGLE_SIZE, SINGLE_SIZE, SINGLE_SIZE, n=2, ring=Z32, N=8,
+                       straggler_budget=2, privacy_t=1)
+    sch = plan(spec, schemes=["ep_rmfe_secure"]).instantiate(device="cuda")
+    A = Z32.random(rng, (2, SINGLE_SIZE, SINGLE_SIZE), device="cuda")
+    B = Z32.random(rng, (2, SINGLE_SIZE, SINGLE_SIZE), device="cuda")
+    expect = _direct(A, B, Z32)
+    local = coded_matmul(A, B, sch, backend="local", mask=mask, key=KEY)
+    eb = ElasticBackend(trace=trace)
+
+    def secure():
+        out = coded_matmul(A, B, sch, backend=eb, key=KEY)
+        eb.drain()
+        return out
+
+    C, by_route, wall = _counted("elastic_secure", secure, calls)
+    add(by_route)
+    if sch.ring.degrees != (4,) or max_abs_err(C, local) or max_abs_err(C, expect):
+        fail(f"elastic_secure over {sch.ring}: output != local's (same key) / direct product")
+    rows["elastic_secure"] = {"scheme": sch.name, "partition": list(sch.partition), "R": sch.R,
+                              "launches_by_route": by_route, "first_call_wall_ms": wall,
+                              "stats": vars(eb.last_stats), **_span_stages(secure)}
+    eb.close()
+    for name, row in rows.items():
+        log(f"elastic path {name}: " + json.dumps({k: v for k, v in row.items() if k != "runs"},
+                                                   default=str))
+    report["elastic"] = rows
+    return totals
+
+
+def phase_stream(report: dict, calls: list) -> dict:
+    import numpy as np
+    import torch
+
+    from repro_torch.cdmm import ElasticStream, NotEnoughResponders
+    from repro_torch.core import make_ring
+
+    rng = np.random.default_rng(SEED + 3)
+    Z32 = make_ring(2, 32, ())
+    totals = dict.fromkeys(ROUTES + ("limbs",), 0)
+    As = Z32.random(rng, (STREAM_PRODUCTS, SINGLE_SIZE, SINGLE_SIZE), device="cuda")
+    Bs = Z32.random(rng, (STREAM_PRODUCTS, SINGLE_SIZE, SINGLE_SIZE), device="cuda")
+    expect = _direct(As, Bs, Z32)
+    st = ElasticStream(SINGLE_SIZE, SINGLE_SIZE, SINGLE_SIZE, Z32, group_size=8, device="cuda")
+    rows = []
+    for live, replan in STREAM_STEPS:
+        name = f"stream_{live}"
+        Cs, by_route, wall = _counted(name, lambda: st.step(As, Bs, live=live), calls)
+        for k, v in by_route.items():
+            totals[k] += v
+        sch = st._schemes[st.last_replan[1]]
+        row = {"path": name, "live": live, "replan": list(st.last_replan), "scheme": sch.name,
+               "partition": list(sch.partition), "ring": str(sch.ring), "R": sch.R,
+               "launches_by_route": by_route, "first_call_wall_ms": wall}
+        log(f"stream step {json.dumps(row)}")
+        if st.last_replan != replan:
+            fail(f"{name}: last_replan {st.last_replan}, expected {replan}")
+        if max_abs_err(Cs, expect):
+            fail(f"{name}: outputs != direct products")
+        rows.append(row)
+    try:
+        st.step(As, Bs, live=7)
+        fail("stream: 7 live workers did not raise NotEnoughResponders")
+    except NotEnoughResponders:
+        pass
+    st.backend.close()
+    report["stream"] = rows
+    del As, Bs, expect
+    torch.cuda.empty_cache()
+    return totals
+
+
+def phase_quantized(report: dict, calls: list) -> dict:
+    import torch
+
+    from repro_torch.cdmm import CodedQuantMatmul, decode_from, encode_all, quantize_int8
+    from repro_torch.cdmm.quantized import lift_i8_to_ring
+
+    tokens, d_model, d_ff = QUANT_SHAPE
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED)
+    x = torch.randn((tokens, d_model), generator=gen, device="cuda")
+    w = torch.randn((d_model, d_ff), generator=gen, device="cuda")
+    cq = CodedQuantMatmul(QUANT_N, None, device="cuda")
+    sch = cq.scheme
+    mask = torch.zeros(QUANT_N, dtype=torch.bool, device="cuda")
+    mask[list(QUANT_LIVE)] = True  # N - R dead
+    if int(mask.sum()) != cq.R:
+        fail(f"quantized: R = {cq.R}, expected {len(QUANT_LIVE)}")
+    log(f"CodedQuantMatmul: N = {QUANT_N}, R = {cq.R}, ring {sch.ring}, partition "
+        f"{sch.partition}, live {QUANT_LIVE}")
+    y, by_route, wall = _counted("quantized", lambda: cq(x, w, mask), calls)
+    if not torch.equal(y.view(torch.int32), cq(x, w).view(torch.int32)):
+        fail("quantized: output under dead workers != output without deaths")
+    qx, sx = quantize_int8(x, axis=-1)
+    qw, sw = quantize_int8(w, axis=0)
+    # the card's quantization is the CPU's (the reference's float32 order)
+    for (q, sc), (q_cpu, sc_cpu) in (((qx, sx), quantize_int8(x.cpu(), axis=-1)),
+                                     ((qw, sw), quantize_int8(w.cpu(), axis=0))):
+        if not (torch.equal(q.cpu(), q_cpu) and torch.equal(sc.cpu().view(torch.int32),
+                                                            sc_cpu.view(torch.int32))):
+            fail("quantized: quantize_int8 on the card != on the CPU")
+    acc = cq.exact_int_matmul(qx, qw, mask)
+    qw_cols = qw.t().contiguous().t()  # column-major, the layout cuBLASLt's int8 GEMM takes
+    oracle = torch._int_mm(qx, qw_cols)  # an oracle only: never on the port's path
+    if not torch.equal(acc, oracle):
+        fail("quantized: exact_int_matmul != torch._int_mm of the int8 operands")
+    # and the dequantized output is the reference's float32 product order
+    # (acc * sx * sw), computed on the CPU from the oracle's integers
+    y_cpu = oracle.cpu().to(torch.float32) * sx.cpu() * sw.cpu()
+    if not torch.equal(y.cpu().view(torch.int32), y_cpu.view(torch.int32)):
+        fail("quantized: dequantized output != acc * sx * sw on the CPU")
+    # stage device times of 5 warm runs, through the local backend's helpers
+    A, B = lift_i8_to_ring(qx), lift_i8_to_ring(qw)
+    idx = torch.tensor(QUANT_LIVE, device="cuda")
+    st, stages = {}, {}
+    for stage, fn in [
+        ("encode", lambda: st.__setitem__("enc", encode_all(sch, A, B))),
+        ("compute", lambda: st.__setitem__("H", sch.worker_compute(*st["enc"]))),
+        ("decode", lambda: st.__setitem__("C", decode_from(sch, st["H"], idx))),
+    ]:
+        runs = cuda_runs_ms(fn, 5)
+        stages[f"{stage}_ms"] = sum(runs) / len(runs)
+        stages[f"{stage}_runs_ms"] = runs
+    if not torch.equal(st["C"][..., 0], oracle):
+        fail("quantized: staged run != torch._int_mm")
+    row = {"path": "quantized", "shape": list(QUANT_SHAPE), "N": QUANT_N, "R": cq.R,
+           "ring": str(sch.ring), "partition": list(sch.partition), "live": list(QUANT_LIVE),
+           "launches_by_route": by_route, "first_call_wall_ms": wall, **stages,
+           "int_mm_oracle_ms": cuda_ms(lambda: torch._int_mm(qx, qw_cols), iters=5, warmup=1)}
+    log(f"path {json.dumps(row)}")
+    report["quantized"] = row
+    del x, w, y, y_cpu, qx, qw, qw_cols, acc, oracle, A, B, st
+    torch.cuda.empty_cache()
+    return by_route
 
 
 def _kernel_rows(report: dict, totals: dict) -> list:
@@ -762,7 +1125,7 @@ def _kernel_rows(report: dict, totals: dict) -> list:
     shape = lambda row: (f"{row['batch']} x ({row['t']}x{row['r']} @ {row['r']}x{row['s']}) "
                          f"over GR(2^32) degrees {row['ring']}")
     d4 = lambda route: {f"{'+'.join(x['paths'])} {x['a']} @ {x['b']} degrees {x['ring']}": x["ms"]
-                        for x in report["slice3_kernel_timings"] if x["route"] == route}
+                        for x in report["path_kernel_timings"] if x["route"] == route}
     base = {"route": "cuda", "replaces": "src/repro/kernels/gr_matmul.py:40", "library_ms": None,
             "tolerance": 0}  # integer-exact: each kernel and its plain version agree bit for bit
     src = "src/repro_torch/kernels/csrc/"
@@ -793,7 +1156,9 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--report", type=Path, default=ROOT / "build" / "chip_smoke.json",
                     help="where to write the full JSON report")
+    ap.add_argument("--seed", type=int, default=SEED, help="seed of every operand drawn")
     args = ap.parse_args()
+    globals()["SEED"] = args.seed
     csrc = SRC / "repro_torch" / "kernels" / "csrc"
     if not all((csrc / f).is_file() for f in ("gr_matmul.cu", "gr_matmul_tc.cu", "gr_matmul_skinny.cu")):
         print(f"chip_smoke: the port's sources are not under {SRC}", file=sys.stderr)
@@ -809,9 +1174,13 @@ def main() -> int:
     phase_env_build(report)
     phase_kernels(report)
     totals, calls = phase_main_path(report)
+    for phase in (phase_elastic, phase_stream, phase_quantized):
+        for route, n in phase(report, calls).items():
+            totals[route] += n
     for route in ROUTES + ("limbs",):
         if totals[route] == 0:
             fail(f"the main path never launched the {route} kernel")
+    report["main_path_launches"] = totals
     phase_path_calls(report, calls)
     report["seconds"] = time.perf_counter() - t0
     kernels = _kernel_rows(report, totals)

@@ -1,11 +1,17 @@
 """Execution backends behind one entry point: ``coded_matmul``.
 
-Counterpart of ``repro.cdmm.backends`` with the ``local`` backend: encode,
-all N worker products (one batched kernel launch on the card), response
-gather, any-R decode from the first R live workers.  Every registered scheme
-is integer-exact, so the result equals ``A @ B`` bit for bit whatever the
-live set.  The shard/elastic/pool backends and the tracing spans come in
-later slices.
+Counterpart of ``repro.cdmm.backends``.  ``local``: encode, all N worker
+products (one batched kernel launch on the card), response gather, any-R
+decode from the first R live workers.  ``elastic``
+(``repro_torch.cdmm.elastic``, registered on import of ``repro_torch.cdmm``):
+an event-driven master that dispatches per-worker encode and compute and
+decodes at the R-th arrival.  Every registered scheme is integer-exact, so
+the result equals ``A @ B`` bit for bit whatever the live set.
+
+Both record ``repro_torch.obs`` spans (encode / compute / decode, the
+reference's schema) when tracing is on; with it off the cost is one
+``None`` check per call.  The ``shard_map`` and ``pool`` backends come with
+the ``torch.distributed`` and worker-pool slices.
 """
 from __future__ import annotations
 
@@ -17,17 +23,32 @@ import torch
 from ..core.galois import from_numpy
 from ..core.straggler import select_workers
 from ..device import resolve_device
+from ..obs import trace as obs
 from .api import CdmmScheme
 from .planner import Plan
 
 __all__ = [
     "LocalSimBackend",
+    "check_use_kernel",
     "coded_matmul",
     "get_backend",
+    "register_backend",
     "live_indices",
     "encode_all",
     "decode_from",
 ]
+
+
+def check_use_kernel(scheme: CdmmScheme, use_kernel: Optional[bool]) -> None:
+    """``use_kernel`` is accepted for parity with the reference, which can
+    pin XLA with False.  On the card the ring matmul's only path is the
+    kernel: None and True mean it, and False raises ValueError rather than
+    fall back to the plain version quietly.  On the CPU it is ignored."""
+    if use_kernel is False and scheme.code.device.type == "cuda":
+        raise ValueError(
+            f"{scheme.name}: use_kernel=False on the card; the kernel is the only "
+            "path of a ring matmul there (run on the CPU for the plain version)"
+        )
 
 
 def live_indices(scheme: CdmmScheme, mask: Optional[torch.Tensor]) -> torch.Tensor:
@@ -69,12 +90,30 @@ class LocalSimBackend:
         mask: Optional[torch.Tensor] = None,
         key: Optional[int] = None,
     ) -> torch.Tensor:
-        FA, GB = encode_all(scheme, A, B, key=key)
-        H = scheme.worker_compute(FA, GB)
-        return decode_from(scheme, H, live_indices(scheme, mask))
+        # the reference's span schema, so a "local" trace reads like a pool
+        # trace; spans time the host side of asynchronous launches
+        ctx = obs.maybe_context("local")
+        tracer = obs.tracer()
+        with tracer.span(ctx, "encode", "local", scheme=scheme.name):
+            FA, GB = encode_all(scheme, A, B, key=key)
+        with tracer.span(ctx, "compute", "local", N=int(scheme.N)):
+            H = scheme.worker_compute(FA, GB)
+        with tracer.span(ctx, "decode", "local", scheme=scheme.name):
+            return decode_from(scheme, H, live_indices(scheme, mask))
 
 
 _BACKENDS: dict = {"local": LocalSimBackend}
+
+# backends of the reference that later slices of the port bring
+_LATER: dict = {
+    "pool": "the worker pool (repro.dist) is not ported yet; see ROADMAP Queue 1 item 14",
+    "shard_map": "the torch.distributed backend is not ported yet; see ROADMAP Queue 1 item 16",
+}
+
+
+def register_backend(name: str, factory) -> None:
+    """Register a backend factory under ``name`` (used by coded_matmul)."""
+    _BACKENDS[name] = factory
 
 
 def get_backend(backend: Union[None, str, object]):
@@ -82,6 +121,8 @@ def get_backend(backend: Union[None, str, object]):
     if backend is None:
         return LocalSimBackend()
     if isinstance(backend, str):
+        if backend in _LATER and backend not in _BACKENDS:
+            raise ValueError(f"backend {backend!r}: {_LATER[backend]}")
         try:
             return _BACKENDS[backend]()
         except KeyError:

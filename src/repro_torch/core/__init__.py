@@ -1,6 +1,5 @@
 """Core: CDMM over Galois rings via RMFE, in PyTorch (counterpart of
-``repro.core``; of ``repro.core.straggler`` only ``select_workers`` is
-ported yet)."""
+``repro.core``)."""
 from .galois import (
     Ring,
     find_irreducible_gfp,
@@ -23,7 +22,14 @@ from .batch_rmfe import BatchEPRMFE
 from .single_rmfe import EPRMFE_I, EPRMFE_II
 from .gcsa import CSACode, GCSACode, gcsa_cost_model, gr_solve
 from .secure import SecureBatchEPRMFE, SecureEP, SecureEPCode, smallest_secure_ext
-from .straggler import select_workers
+from .straggler import (
+    MembershipEvents,
+    WorkerTrace,
+    sample_trace,
+    select_workers,
+    simulate_stragglers,
+    straggler_latencies,
+)
 
 __all__ = [
     "Ring", "make_ring", "find_irreducible_gfp", "is_irreducible_gfp",
@@ -34,5 +40,6 @@ __all__ = [
     "BatchEPRMFE", "EPRMFE_I", "EPRMFE_II",
     "CSACode", "GCSACode", "gcsa_cost_model", "gr_solve",
     "SecureEPCode", "SecureEP", "SecureBatchEPRMFE", "smallest_secure_ext",
-    "select_workers",
+    "select_workers", "simulate_stragglers", "straggler_latencies",
+    "MembershipEvents", "WorkerTrace", "sample_trace",
 ]

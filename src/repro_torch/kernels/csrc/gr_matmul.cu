@@ -1,4 +1,5 @@
-// Planar Galois-ring matmul over GR(2^e, D), e <= 32, D <= 16, for sm_90a.
+// Planar Galois-ring matmul over GR(2^e, D), e <= 32, D <= 16 and the
+// two-level (3, 7) tower (D = 21), for sm_90a.
 //
 // Replaces the Pallas TPU kernel src/repro/kernels/gr_matmul.py:_kernel
 // (launched by gr_matmul_planar).  Same function:
@@ -22,7 +23,9 @@
 //    CONVPOS(i, j) is a compile-time constant after unrolling and the
 //    accumulators are indexed statically (no local-memory arrays).
 //  * FOLD (K x D) and the e-bit mask come in as kernel parameters (constant
-//    bank); the fold-and-mask epilogue writes each output once.
+//    bank), the table sized per tower (5460 bytes for (3, 7): parameters
+//    above 4 KB need CUDA 12.1); the fold-and-mask epilogue writes each
+//    output once.
 //  * Ragged edges are masked in the tile loads and the final store: no
 //    padded copies of the operands.
 //
@@ -40,12 +43,11 @@
 
 namespace {
 
-constexpr int kMaxD = 16;
-constexpr int kMaxK = 45;  // (2*3-1)*(2*5-1) for the (3, 5) tower
 constexpr int kThreads = 256;
 
+template <int N>
 struct FoldTable {
-  uint32_t f[kMaxK * kMaxD];  // row-major (K, D); 2880 bytes of parameters
+  uint32_t f[N];  // row-major (K, D)
 };
 
 template <int D0, int D1>
@@ -99,7 +101,9 @@ template <int D0, int D1>
 __global__ void __launch_bounds__(kThreads)
     gr_matmul_kernel(const uint32_t* __restrict__ A,
                      const uint32_t* __restrict__ B, uint32_t* __restrict__ C,
-                     int T, int R, int S, const FoldTable fold, uint32_t mask) {
+                     int T, int R, int S,
+                     const FoldTable<Cfg<D0, D1>::K * Cfg<D0, D1>::D> fold,
+                     uint32_t mask) {
   using G = Cfg<D0, D1>;
   constexpr int D = G::D, K = G::K, TM = G::TM;
   constexpr int BM = G::BM, BN = G::BN, BK = G::BK;
@@ -170,9 +174,11 @@ __global__ void __launch_bounds__(kThreads)
 
 template <int D0, int D1>
 int launch(const uint32_t* A, const uint32_t* B, uint32_t* C, int batch, int T,
-           int R, int S, const FoldTable& fold, uint32_t mask,
+           int R, int S, const uint32_t* fold_host, uint32_t mask,
            cudaStream_t stream) {
   using G = Cfg<D0, D1>;
+  FoldTable<G::K * G::D> fold;
+  memcpy(fold.f, fold_host, sizeof(fold.f));
   dim3 grid((S + G::BN - 1) / G::BN, (T + G::BM - 1) / G::BM, batch);
   gr_matmul_kernel<D0, D1>
       <<<grid, kThreads, 0, stream>>>(A, B, C, T, R, S, fold, mask);
@@ -191,11 +197,14 @@ int tile(int* bm, int* bn, int* bk) {
 }  // namespace
 
 // Every tower shape with D = D0 * D1 <= 16: one level (D1 = 1) or two
-// coprime levels (three coprime levels already need D >= 30).
+// coprime levels (three coprime levels already need D >= 30); and (3, 7),
+// the ring of batch_ep_rmfe at n = 8 over Z_2^32, which ElasticStream
+// plans for a group of eight products (K = 65 accumulators: TM = 1).
 #define GR_TOWERS(X)                                                         \
   X(1, 1) X(2, 1) X(3, 1) X(4, 1) X(5, 1) X(6, 1) X(7, 1) X(8, 1) X(9, 1)    \
   X(10, 1) X(11, 1) X(12, 1) X(13, 1) X(14, 1) X(15, 1) X(16, 1) X(2, 3)     \
-  X(2, 5) X(2, 7) X(3, 2) X(3, 4) X(3, 5) X(4, 3) X(5, 2) X(5, 3) X(7, 2)
+  X(2, 5) X(2, 7) X(3, 2) X(3, 4) X(3, 5) X(4, 3) X(5, 2) X(5, 3) X(7, 2)     \
+  X(3, 7)
 
 extern "C" {
 
@@ -205,11 +214,6 @@ int gr_matmul_planar_u32(const void* A, const void* B, void* C, int batch,
                          int T, int R, int S, int d0, int d1,
                          const uint32_t* fold_host, uint32_t mask,
                          void* stream) {
-  const int D = d0 * d1, K = (2 * d0 - 1) * (2 * d1 - 1);
-  if (D > kMaxD || K > kMaxK) return (int)cudaErrorInvalidValue;
-  FoldTable fold;
-  memset(&fold, 0, sizeof(fold));
-  memcpy(fold.f, fold_host, sizeof(uint32_t) * K * D);
   const uint32_t* a = static_cast<const uint32_t*>(A);
   const uint32_t* b = static_cast<const uint32_t*>(B);
   uint32_t* c = static_cast<uint32_t*>(C);
@@ -217,7 +221,7 @@ int gr_matmul_planar_u32(const void* A, const void* B, void* C, int batch,
   switch (d0 * 32 + d1) {
 #define GR_LAUNCH(x, y) \
   case x * 32 + y:      \
-    return launch<x, y>(a, b, c, batch, T, R, S, fold, mask, st);
+    return launch<x, y>(a, b, c, batch, T, R, S, fold_host, mask, st);
     GR_TOWERS(GR_LAUNCH)
 #undef GR_LAUNCH
     default:

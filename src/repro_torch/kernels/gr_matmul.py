@@ -7,7 +7,8 @@ All three replace the Pallas TPU kernel
 header notes its design and what bounds it:
 
 * ``simt`` (``csrc/gr_matmul.cu``): planar layout, uint32 multiply-adds on
-  the CUDA cores; every tower with D <= 16, every shape.
+  the CUDA cores; every tower with D <= 16 and the towers of
+  ``SIMT_WIDE_TOWERS``, every shape.
 * ``tc`` (``csrc/gr_matmul_tc.cu``): interleaved layout, a limb pre-pass
   (counted as ``limbs``) into u8 planes, then int8 tensor-core MMAs;
   single-level towers with D <= 4.
@@ -18,14 +19,17 @@ This module validates the operands, launches on PyTorch's current stream
 through ctypes, and counts launches.  Which route a ring matmul takes is
 decided in ``ops.pick_route``.
 
-Envelope: p = 2, e <= 32, D <= MAX_D = 16 (the reference's).  Towers of at
-most two coprime levels cover every D <= 16.
+Envelope: p = 2, e <= 32, D <= MAX_D = 16 (the reference's), widened on
+``simt`` by the (3, 7) tower (D = 21), the ring ``batch_ep_rmfe`` takes at
+n = 8 over Z_2^32, which ``ElasticStream`` plans for a group of eight
+products (the reference leaves it to XLA).  Towers of at most two coprime
+levels cover every D <= 16.
 """
 from __future__ import annotations
 
 import contextlib
 import ctypes
-from functools import lru_cache
+import threading
 from typing import Optional, Tuple
 
 import numpy as np
@@ -39,12 +43,14 @@ __all__ = [
     "ROUTES",
     "SKINNY_MAX_T",
     "SKINNY_MAX_R",
+    "SIMT_WIDE_TOWERS",
     "TC_TILE",
     "counters",
     "gr_matmul_planar",
     "gr_matmul_skinny",
     "gr_matmul_tc",
     "kernel_tile",
+    "simt_instantiated",
     "skinny_cols",
     "tc_instantiated",
     "tc_limbs",
@@ -53,6 +59,9 @@ __all__ = [
 ]
 
 MAX_D = 16
+# two-level towers with D > MAX_D that the simt kernel is instantiated for
+# (mirrors the tail of GR_TOWERS in csrc/gr_matmul.cu)
+SIMT_WIDE_TOWERS = ((3, 7),)
 ROUTES = ("simt", "tc", "skinny")
 # the skinny kernel keeps A (T x R x D words) in shared memory
 SKINNY_MAX_T = SKINNY_MAX_R = 16
@@ -69,23 +78,27 @@ class KernelCounters:
     per tc matmul: one per operand).
     ``launches``: matmul kernel launches of all routes, one per ring matmul
     on the card (the pre-pass not included).
-    ``ref_calls``: CUDA ring matmuls that went to the plain version because
-    the ring lies outside the kernels' envelope.
+
+    Worker threads of the elastic backend launch concurrently, so every
+    update takes a lock (an unguarded ``+=`` can lose counts).
     """
 
     def __init__(self):
+        self._lock = threading.Lock()
         self.reset()
 
     def reset(self) -> None:
-        self.launches_by_route = dict.fromkeys(ROUTES + ("limbs",), 0)
-        self.ref_calls = 0
+        with self._lock:
+            self.launches_by_route = dict.fromkeys(ROUTES + ("limbs",), 0)
 
     @property
     def launches(self) -> int:
-        return sum(self.launches_by_route[r] for r in ROUTES)
+        with self._lock:
+            return sum(self.launches_by_route[r] for r in ROUTES)
 
     def count(self, route: str) -> None:
-        self.launches_by_route[route] += 1
+        with self._lock:
+            self.launches_by_route[route] += 1
 
 
 counters = KernelCounters()
@@ -97,6 +110,12 @@ def tower_shape(ring) -> Tuple[int, int]:
     if len(deg) > 2:
         raise ValueError(f"{ring}: the kernel takes towers of at most two levels")
     return (deg[0] if deg else 1, deg[1] if len(deg) == 2 else 1)
+
+
+def simt_instantiated(d0: int, d1: int) -> bool:
+    """Whether the simt kernel has an instantiation for the tower (d0, d1);
+    mirrors ``GR_TOWERS`` in ``csrc/gr_matmul.cu``."""
+    return d0 * d1 <= MAX_D or (d0, d1) in SIMT_WIDE_TOWERS
 
 
 def tc_instantiated(d0: int, d1: int) -> bool:
@@ -131,20 +150,29 @@ def kernel_tile(ring) -> Tuple[int, int, int]:
     return bm, bm, bk
 
 
-@lru_cache(maxsize=None)
+_layouts: dict = {}
+_layouts_lock = threading.Lock()
+
+
 def _check_layout(ring):
     """The kernel hard-codes conv positions from the tower shape; make sure
     the ring's CONVPOS is that layout.  Returns FOLD as (K*D,) uint32 and a
-    ctypes pointer to it (cached: building the pointer costs microseconds
-    on every launch otherwise)."""
-    d0, _ = tower_shape(ring)
-    i = np.arange(ring.D)[:, None]
-    j = np.arange(ring.D)[None, :]
-    expect = (i // d0 + j // d0) * (2 * d0 - 1) + (i % d0 + j % d0)
-    if not np.array_equal(expect, ring.CONVPOS):
-        raise ValueError(f"{ring}: CONVPOS does not match the kernel's tower layout")
-    fold = np.ascontiguousarray(ring.FOLD_U32.reshape(-1))
-    return fold, fold.ctypes.data_as(ctypes.POINTER(ctypes.c_uint32))
+    ctypes pointer to it, cached per ring (building the pointer costs
+    microseconds on every launch otherwise) under a lock, so that concurrent
+    callers share one array and the pointer never outlives it."""
+    with _layouts_lock:
+        hit = _layouts.get(ring)
+        if hit is not None:
+            return hit
+        d0, _ = tower_shape(ring)
+        i = np.arange(ring.D)[:, None]
+        j = np.arange(ring.D)[None, :]
+        expect = (i // d0 + j // d0) * (2 * d0 - 1) + (i % d0 + j % d0)
+        if not np.array_equal(expect, ring.CONVPOS):
+            raise ValueError(f"{ring}: CONVPOS does not match the kernel's tower layout")
+        fold = np.ascontiguousarray(ring.FOLD_U32.reshape(-1))
+        hit = _layouts[ring] = (fold, fold.ctypes.data_as(ctypes.POINTER(ctypes.c_uint32)))
+        return hit
 
 
 def _check_operand(x: torch.Tensor, name: str) -> None:
@@ -165,8 +193,8 @@ def gr_matmul_planar(A: torch.Tensor, B: torch.Tensor, ring) -> torch.Tensor:
     """
     if ring.p != 2 or ring.e > 32:
         raise ValueError("kernel supports the machine-word case p=2, e<=32")
-    if ring.D > MAX_D:
-        raise ValueError(f"D={ring.D} > MAX_D={MAX_D}; use the plain version")
+    if not simt_instantiated(*tower_shape(ring)):
+        raise ValueError(f"{ring}: the simt kernel has no instantiation for its tower")
     squeeze = A.dim() == 3
     if squeeze:
         A, B = A.unsqueeze(0), B.unsqueeze(0)
@@ -207,8 +235,8 @@ def _check_launch(err: int, what: str) -> None:
 def _interleaved(A: torch.Tensor, B: torch.Tensor, ring):
     """Validate interleaved operands (b?, t, r, D) x (b?, r, s, D); returns
     them with a batch axis, whether to drop it again, and (b, t, r, s)."""
-    if ring.p != 2 or ring.e > 32 or ring.D > MAX_D:
-        raise ValueError(f"{ring} lies outside the kernels' envelope (p=2, e<=32, D<=16)")
+    if ring.p != 2 or ring.e > 32:
+        raise ValueError(f"{ring} lies outside the kernels' envelope (p=2, e<=32)")
     _check_operand(A, "A")
     _check_operand(B, "B")
     if A.device != B.device:

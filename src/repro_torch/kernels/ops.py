@@ -10,9 +10,10 @@ of the port, which all come through :func:`gr_matmul`:
   ``skinny`` for t, r <= 16 (the RMFE packs, encode and decode of a CDMM
   round), ``tc`` for t, s >= 64 on towers it is instantiated for (the worker
   products), ``simt`` for everything else;
-* CUDA tensors of a ring outside it take the plain version, decided before
-  any launch as the reference decides (``repro/kernels/ops.py:66``), and are
-  counted in ``counters.ref_calls``.
+* CUDA tensors of a ring outside it raise ValueError: on the card a ring
+  matmul runs on a kernel or not at all (the reference hands such rings to
+  XLA, ``repro/kernels/ops.py:66``).  The envelope is the reference's (p = 2,
+  e <= 32, D <= 16) plus the towers of ``SIMT_WIDE_TOWERS``.
 
 ``tc`` and ``skinny`` take the interleaved (t, r, D) layout as it is;
 ``simt`` takes planar (D, t, r) copies.  The kernels mask ragged edges
@@ -27,9 +28,9 @@ import torch
 
 from .gr_matmul import (
     MAX_D,
+    SIMT_WIDE_TOWERS,
     SKINNY_MAX_R,
     SKINNY_MAX_T,
-    counters,
     gr_matmul_planar,
     gr_matmul_skinny,
     gr_matmul_tc,
@@ -65,7 +66,8 @@ def pick_blocks(ring) -> Tuple[int, int, int]:
 
 
 def kernel_supported(ring) -> bool:
-    return ring.p == 2 and ring.e <= 32 and ring.D <= MAX_D
+    return ring.p == 2 and ring.e <= 32 and (
+        ring.D <= MAX_D or tuple(ring.degrees) in SIMT_WIDE_TOWERS)
 
 
 def kernel_auto_enabled(ring, x: torch.Tensor) -> bool:
@@ -76,7 +78,8 @@ def kernel_auto_enabled(ring, x: torch.Tensor) -> bool:
 
 def pick_route(ring, t: int, r: int, s: int) -> str:
     """The route of a (t, r) x (r, s) matmul over ``ring`` on the card:
-    ``skinny``, ``tc``, ``simt``, or ``plain`` outside the envelope."""
+    ``skinny``, ``tc``, ``simt``, or ``plain`` outside the envelope (which
+    only CPU tensors take: :func:`gr_matmul` raises on the card)."""
     if not kernel_supported(ring):
         return "plain"
     d0, d1 = tower_shape(ring)
@@ -118,7 +121,8 @@ def gr_matmul(A: torch.Tensor, B: torch.Tensor, ring) -> torch.Tensor:
         route = pick_route(ring, A.shape[-3], A.shape[-2], B.shape[-2])
         return run_route(route, A.contiguous(), B.contiguous(), ring)
     if A.is_cuda:
-        counters.ref_calls += 1
+        raise ValueError(f"{ring} lies outside the kernels' envelope: no kernel takes its "
+                         "ring matmuls on the card (run on the CPU for the plain version)")
     return gr_matmul_ref(A, B, ring)
 
 

@@ -1,6 +1,7 @@
 """repro_torch on the card: the three CUDA routes of the ring matmul
 (``simt``, ``tc``, ``skinny``) against their plain version, and the main path
-through them.  Every test here needs a CUDA device and skips
+through them: ``coded_matmul`` for every family, the elastic backend's
+traced path and the coded int8 matmul.  Every test here needs a CUDA device and skips
 without one; on a machine with a card run
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_card.py
@@ -11,8 +12,15 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.cdmm import ProblemSpec, coded_matmul, plan
-from repro_torch.core import make_ring
+from repro_torch.cdmm import (
+    BatchRMFEAdapter,
+    CodedQuantMatmul,
+    ElasticBackend,
+    ProblemSpec,
+    coded_matmul,
+    plan,
+)
+from repro_torch.core import WorkerTrace, make_ring
 from repro_torch.kernels import counters, gr_matmul, gr_matmul_ref, pick_route, run_route
 from repro_torch.kernels.gr_matmul import (
     gr_matmul_planar,
@@ -25,8 +33,9 @@ from repro_torch.kernels.gr_matmul import (
 
 pytestmark = pytest.mark.cuda
 
+# (3, 7): D = 21, beyond the reference's envelope, on simt only
 RING_SPECS = [(2, 32, ()), (2, 32, (3,)), (2, 32, (4,)), (2, 16, (5,)), (2, 8, (2, 3)),
-              (2, 32, (16,)), (2, 32, (3, 5))]
+              (2, 32, (16,)), (2, 32, (3, 5)), (2, 32, (3, 7))]
 SHAPES = [(8, 8, 8), (16, 32, 8), (128, 128, 128), (7, 13, 5), (1, 64, 1), (130, 17, 129)]
 # t, s >= 64 and an r across the tc route's 256-deep flush chunk; t, r <= 16
 # with ragged s for the skinny route
@@ -56,7 +65,7 @@ def test_kernel_matches_plain(cuda, spec):
             route = pick_route(ring, t, r, s)
             expect = {"simt": 0, "tc": 0, "skinny": 0, "limbs": 2 if route == "tc" else 0}
             expect[route] = 1
-            assert counters.launches_by_route == expect and counters.ref_calls == 0
+            assert counters.launches_by_route == expect
             assert torch.equal(out, gr_matmul_ref(A, B, ring)), (lead, t, r, s)
 
 
@@ -101,15 +110,14 @@ def test_kernel_wrapper_rejects_what_it_does_not_take(cuda):
         gr_matmul_planar(A.contiguous().to(torch.int64), A.contiguous(), ring)
 
 
-def test_ring_outside_envelope_takes_plain_version(cuda):
-    ring = make_ring(2, 32, (17,))  # D = 17 > MAX_D
+def test_ring_outside_envelope_raises_on_the_card(cuda):
+    ring = make_ring(2, 32, (17,))  # D = 17 > MAX_D, no simt instantiation
     A = ring.random(np.random.default_rng(1), (3, 4), device=cuda)
     B = ring.random(np.random.default_rng(2), (4, 2), device=cuda)
     counters.reset()
-    out = ring.matmul(A, B)
-    assert (counters.launches, counters.ref_calls) == (0, 1)
-    cpu = ring.matmul(A.cpu(), B.cpu())
-    assert torch.equal(out.cpu(), cpu)
+    with pytest.raises(ValueError, match="outside the kernels' envelope"):
+        ring.matmul(A, B)
+    assert counters.launches == 0
 
 
 BATCH_N = {"batch_ep_rmfe": 2, "gcsa": 2, "ep_rmfe_secure": 2, "gcsa_general": 4}
@@ -131,11 +139,54 @@ def test_main_path_through_kernel(cuda, name):
     # key: the secure families' masks (CPU and CUDA draw different ones),
     # ignored by the rest
     C = coded_matmul(A, B, p, backend="local", mask=mask, key=5)
-    launches, ref_calls = counters.launches, counters.ref_calls
-    assert launches > 0 and ref_calls == 0
+    assert counters.launches > 0
     # the same run on the CPU (plain version throughout) gives the same bits
     C_cpu = coded_matmul(A.cpu(), B.cpu(), p, backend="local", mask=mask.cpu(), key=5,
                          device="cpu")
     assert torch.equal(C.cpu(), C_cpu)
     direct = torch.stack([ring.matmul(A[i], B[i]) for i in range(n)]) if n > 1 else ring.matmul(A, B)
     assert torch.equal(C, direct)
+
+
+def test_elastic_traced_path_on_the_card(cuda):
+    """batch_ep_rmfe at 128^3 (worker blocks of 64 rows: the tc route), two
+    slow and two dead workers: the decode reads (0, 4, 6, 7), not the first R
+    live workers, and equals local's and the direct product."""
+    Z = make_ring(2, 32, ())
+    scheme = BatchRMFEAdapter(Z, 2, 8, 2, 2, 1, device=cuda)
+    rng = np.random.default_rng(9)
+    A, B = Z.random(rng, (2, 128, 128), device=cuda), Z.random(rng, (2, 128, 128), device=cuda)
+    alive = [True, True, False, True, True, False, True, True]
+    trace = WorkerTrace(np.zeros(8), np.full(8, np.inf),
+                        np.array([1, 50, 1, 40, 1, 1, 1, 1.0])).restrict(alive)
+    eb = ElasticBackend(trace=trace)
+    counters.reset()
+    C = eb(scheme, A, B)
+    eb.drain()  # dead and slow workers compute too, after the decode
+    # per dispatched worker (all 8 join at 0): phi(A), encode_a_at, phi(B),
+    # encode_b_at on skinny and one tc product; then decode and psi
+    assert counters.launches_by_route == {"simt": 0, "tc": 8, "skinny": 34, "limbs": 16}
+    assert eb.last_stats.live_idx == (0, 4, 6, 7)
+    direct = torch.stack([Z.matmul(A[i], B[i]) for i in range(2)])
+    assert torch.equal(C, direct)
+    assert torch.equal(C, coded_matmul(A, B, scheme, mask=torch.tensor(alive, device=cuda)))
+    with pytest.raises(ValueError, match="use_kernel=False"):
+        ElasticBackend(trace=trace, use_kernel=False)(scheme, A, B)
+
+
+def test_coded_quant_matmul_on_the_card(cuda):
+    rng = np.random.default_rng(10)
+    x = torch.from_numpy(rng.standard_normal((128, 256)).astype(np.float32))
+    w = torch.from_numpy(rng.standard_normal((256, 128)).astype(np.float32))
+    cq, cq_cpu = CodedQuantMatmul(8, None, device=cuda), CodedQuantMatmul(8, None, device="cpu")
+    dead = torch.tensor([True, False, True, True, False, True, False, True])
+    y = cq(x.to(cuda), w.to(cuda), dead.to(cuda))
+    # the same bits as the CPU run (plain version throughout) and as no deaths
+    assert torch.equal(y.cpu().view(torch.int32), cq_cpu(x, w, dead).view(torch.int32))
+    assert torch.equal(y.view(torch.int32), cq(x.to(cuda), w.to(cuda)).view(torch.int32))
+    qx = torch.randint(-127, 128, (128, 256), dtype=torch.int8)
+    qw = torch.randint(-127, 128, (256, 128), dtype=torch.int8)
+    acc = cq.exact_int_matmul(qx.to(cuda), qw.to(cuda), dead.to(cuda))
+    assert torch.equal(acc.cpu(), (qx.long() @ qw.long()).to(torch.int32))
+    with pytest.raises(ValueError, match="use_kernel=False"):
+        CodedQuantMatmul(8, None, use_kernel=False, device=cuda)

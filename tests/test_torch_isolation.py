@@ -24,7 +24,11 @@ def _modules():
 def test_every_module_imports_without_jax_or_repro():
     mods = ["repro_torch"] + _modules()
     for m in ("repro_torch.kernels.gr_matmul", "repro_torch.cdmm.backends",
-              "repro_torch.core.secure", "repro_torch.core.gcsa"):
+              "repro_torch.core.secure", "repro_torch.core.gcsa",
+              "repro_torch.cdmm.elastic", "repro_torch.cdmm.quantized",
+              "repro_torch.runtime.elastic", "repro_torch.core.straggler",
+              "repro_torch.obs.trace", "repro_torch.obs.metrics", "repro_torch.obs.export",
+              "repro_torch.obs.health", "repro_torch.settings", "repro_torch.stats"):
         assert m in mods, m
     code = (
         "import sys, importlib\n"
@@ -92,6 +96,34 @@ def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             coded_matmul(As, As, ps, key=key)
         assert coded_matmul(As, As, ps, key=key, device="cpu").shape == As.shape
+
+
+def test_elastic_and_quantized_default_to_cuda_and_raise_without_it(monkeypatch):
+    _without_cuda(monkeypatch)
+    from repro_torch.cdmm import (
+        CodedQuantMatmul,
+        ElasticBackend,
+        ElasticStream,
+        ProblemSpec,
+        coded_matmul,
+        plan,
+    )
+    from repro_torch.core import WorkerTrace, make_ring
+
+    Z = make_ring(2, 32, ())
+    p = plan(ProblemSpec(8, 8, 8, ring=Z, N=8, straggler_budget=2))
+    A = Z.random(np.random.default_rng(0), (8, 8), device="cpu")
+    trace = WorkerTrace(np.zeros(8), np.full(8, np.inf), np.arange(1.0, 9.0))
+    for backend in ("elastic", ElasticBackend(), ElasticBackend(trace=trace)):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            coded_matmul(A, A, p, backend=backend)
+        assert torch.equal(coded_matmul(A, A, p, backend=backend, device="cpu"), Z.matmul(A, A))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        ElasticStream(8, 8, 8, Z)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        CodedQuantMatmul(8, None)
+    x = torch.ones((4, 8))
+    assert CodedQuantMatmul(8, None, device="cpu")(x, torch.ones((8, 4))).shape == (4, 4)
 
 
 def test_chip_smoke_refuses_without_a_card(tmp_path):

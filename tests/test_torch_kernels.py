@@ -96,7 +96,7 @@ def test_routing_on_cpu_never_launches():
     A = ring.random(np.random.default_rng(0), (4, 4), device="cpu")
     counters.reset()
     gr_matmul(A, A, ring)
-    assert (counters.launches, counters.ref_calls) == (0, 0)
+    assert counters.launches == 0
     assert not any(counters.launches_by_route.values())
     assert not kernel_auto_enabled(ring, A)
     # the kernel wrapper itself takes CUDA tensors only: it launches or raises
@@ -114,4 +114,9 @@ def test_envelope_and_tiles():
         assert 2 * ring.D * bt * br * 4 <= 48 * 1024
         d0, d1 = tower_shape(ring)
         assert d0 * d1 == ring.D
-    assert not kernel_supported(make_ring(2, 32, (21,)))  # batch_ep_rmfe n=8 over Z32
+    assert not kernel_supported(make_ring(2, 32, (21,)))  # one level, D = 21
+    # the (3, 7) tower of batch_ep_rmfe at n = 8 over Z32: beyond the
+    # reference's envelope, taken by the port's simt kernel (one 16x16 tile)
+    assert kernel_supported(make_ring(2, 32, (3, 7)))
+    assert not j_kernel_supported(jmake(2, 32, (3, 7)))
+    assert kernel_tile(make_ring(2, 32, (3, 7))) == (16, 16, 16)

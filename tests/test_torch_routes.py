@@ -24,9 +24,11 @@ from repro_torch.core.galois import from_numpy, make_ring, to_numpy
 from repro_torch.kernels import counters, gr_matmul_limbs_ref, gr_matmul_ref, pick_route
 from repro_torch.kernels.gr_matmul import (
     MAX_D,
+    SIMT_WIDE_TOWERS,
     TC_TILE,
     gr_matmul_skinny,
     gr_matmul_tc,
+    simt_instantiated,
     skinny_cols,
     tc_instantiated,
     tc_limbs,
@@ -130,6 +132,8 @@ ROUTE_CASES = [
     ((5,), 1024, 2048, 1024, "simt"),   # no tc instantiation for D = 5
     ((3, 5), 4, 4, 1048576, "simt"),    # no skinny instantiation for (3, 5)
     ((17,), 4, 4, 1048576, "plain"),    # D > MAX_D: outside the envelope
+    ((3, 7), 512, 1024, 256, "simt"),   # D = 21: simt's widened envelope
+    ((3, 7), 8, 2, 131072, "simt"),     # no skinny instantiation for D = 21
 ]
 
 
@@ -150,7 +154,9 @@ def _towers(source: str, macro: str):
 
 def test_instantiation_mirrors_match_the_sources():
     towers = _towers("gr_matmul.cu", "GR_TOWERS")
-    assert len(towers) == 26
+    assert len(towers) == 27
+    assert [t for t in towers if t[0] * t[1] > MAX_D] == list(SIMT_WIDE_TOWERS)
+    assert all(simt_instantiated(*t) for t in towers) and not simt_instantiated(17, 1)
     assert _towers("gr_matmul_tc.cu", "TC_TOWERS") == [t for t in towers if tc_instantiated(*t)]
     assert _towers("gr_matmul_skinny.cu", "SKINNY_TOWERS") == [t for t in towers if skinny_cols(*t)]
     tile = re.findall(r"constexpr int (BM|BN|KS) = (\d+);", (CSRC / "gr_matmul_tc.cu").read_text())
@@ -168,4 +174,28 @@ def test_route_wrappers_take_cuda_tensors_only():
     counters.count("tc")
     counters.count("limbs")
     assert counters.launches == 1 and counters.launches_by_route["limbs"] == 1
+    counters.reset()
+
+
+def test_counters_and_layout_cache_are_safe_under_concurrent_callers():
+    """The elastic backend's worker threads launch ring matmuls at once: no
+    count may be lost, and every caller gets the one cached FOLD array."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from repro_torch.kernels.gr_matmul import _check_layout
+
+    ring = make_ring(2, 32, (4,))
+    counters.reset()
+
+    def work(_):
+        for _ in range(2000):
+            counters.count("tc")
+            counters.count("limbs")
+        return _check_layout(ring)
+
+    with ThreadPoolExecutor(8) as pool:
+        layouts = list(pool.map(work, range(16)))
+    assert counters.launches_by_route["tc"] == counters.launches == 16 * 2000
+    assert counters.launches_by_route["limbs"] == 16 * 2000
+    assert all(x is layouts[0] for x in layouts)
     counters.reset()
