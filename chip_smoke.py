@@ -35,13 +35,14 @@ Phases (any mismatch fails the run with a non-zero exit):
    share equals its row of the master encode, a second key gives other
    shares and the same product, and the top bit of the drawn mask words is
    set in 50% +- 1% of them;
-4. every route at every distinct (ring, shape) that phases 3 and 5-7
-   handed it, recorded as the paths ran, against the plain version on fresh
-   operands of that shape, bit for bit (all batch slices of a worker launch
-   included); the shapes of the GR(2^32, 4) paths and of phases 5-7 are also
-   timed as phase 2 times the main path's: the route in turns with ``simt``
-   from CUDA graphs, beside its bound, the plain version and, for ``tc``,
-   the int8 yardstick.  It runs last, once phases 5-7 have recorded;
+4. every route at every distinct (ring, shape) that phases 3 and 5-9
+   handed it, recorded as the paths ran (the pool workers' products from
+   the plan), against the plain version on fresh operands of that shape,
+   bit for bit (all batch slices of a worker launch included); the shapes
+   of the GR(2^32, 4) paths and of phases 5-9 are also timed as phase 2
+   times the main path's: the route in turns with ``simt`` from CUDA
+   graphs, beside its bound, the plain version and, for ``tc``, the int8
+   yardstick.  It runs last, once phases 5-9 have recorded;
 5. the elastic any-R master (``coded_matmul(..., backend=ElasticBackend)``)
    on ``batch_ep_rmfe`` at 2048^3: (a) the all-live fast path, equal to
    ``local`` with ``local``'s launches; (b) the traced event loop under a
@@ -63,11 +64,29 @@ Phases (any mismatch fails the run with a non-zero exit):
    over GR(2^32, 4)): the exact int32 product under 12 dead workers (a
    non-prefix live set) equals ``torch._int_mm`` of the int8 operands (an
    oracle only), and the dequantized output is bit-identical to the run
-   without deaths.
+   without deaths;
+8. the worker pool: a ``LocalPool`` of 8 CUDA worker processes (each
+   worker's hello must name the card) serves ``batch_ep_rmfe`` 2048^3
+   through ``coded_matmul(..., backend=PoolBackend(pool))``: (a) all live,
+   equal to ``local``; (b) ``repro_torch.dist.smoke``'s flow, every worker
+   parked 1 s and 2 SIGKILLed once all shares are sent, still equal to
+   ``local``; the shares of the killed workers are re-dispatched;
+   (c) ``ep_rmfe_secure`` 1024^3 with a key on the 6 survivors, equal to
+   ``local`` with the same key.  Per path: 5 warm requests (wall, time to
+   R, bytes on the wire against the raw bytes, the master's encode, send
+   and decode spans, the workers' compute spans);
+9. the server: a ``ServeScheduler`` (``CoalescePolicy(target_batch_n=4,
+   max_wait_ms=50)``) over a fresh pool of 8 CUDA workers answers 16
+   concurrent 1024^3 requests over Z_2^32; each slice must equal its
+   direct product, the mean fill must exceed 1, and ``/metrics``, scraped
+   once while they run, must carry ``serve_`` and ``pool_`` series.
 
-Launch counts per route are zeroed before each path of phases 3 and 5-7, read
+Launch counts per route are zeroed before each path of phases 3 and 5-9, read
 after it (after the elastic backend's straggler tasks have finished) and
-held against ``EXPECTED_LAUNCHES``.
+held against ``EXPECTED_LAUNCHES``; in phases 8-9 the master's counts are
+this process's, and the workers' come from their heartbeats (a ping after
+the path, so the late products count too), held against
+``POOL_MASTER_LAUNCHES`` and ``POOL_WORKER_LAUNCHES`` (per batch in 9).
 
 The second-to-last line is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.  The full report (ptxas usage, every
@@ -142,6 +161,22 @@ EXPECTED_LAUNCHES = {
     # CodedQuantMatmul: one ep_rmfe1 round (N = 16, GR(2^32, 4))
     "quantized": {"simt": 0, "tc": 1, "skinny": 6, "limbs": 2},
 }
+# phases 8-9, the worker pool: this process (the master) encodes each of the
+# 8 shares on its own (phi(A), encode_a_at, phi(B), encode_b_at on skinny,
+# as the elastic master) and runs the decode and psi; a re-dispatched share
+# is re-sent, not re-encoded.  The worker processes' launches: one tc
+# product (and its two pre-pass launches) per share, counted in the workers
+POOL_MASTER_LAUNCHES = {"simt": 0, "tc": 0, "skinny": 34, "limbs": 0}
+POOL_WORKER_LAUNCHES = {"simt": 0, "tc": 8, "skinny": 0, "limbs": 16}
+POOL_WORKERS = 8
+POOL_KILL = 2  # workers SIGKILLed in the middle of the request
+# every worker parks this long on a task, so the kill lands mid-request: at
+# 2048^3 the master needs ~0.3 s to send the 8 shares (403 MB), and the kill
+# waits for the last send
+POOL_PARK_MS = 1000.0
+WARM_REQUESTS = 5
+SERVE_REQUESTS = 16
+SERVE_POLICY = {"target_batch_n": 4, "max_wait_ms": 50.0}
 # the paths of the GCSA and secure families: (name, batch n, size,
 # privacy_t), each planned with plan(spec, schemes=[name]); their kernel
 # shapes are timed in phase 4
@@ -161,6 +196,7 @@ QUANT_SHAPE = (2048, 2304, 9216)
 QUANT_N = 16
 QUANT_LIVE = (1, 5, 10, 14)
 # paths of phases 5-7, whose kernel shapes phase 4 times
+SLICE5_PATHS = ("pool_all_live", "pool_kill", "pool_secure", "serve")
 SLICE4_PATHS = ("elastic_all_live", "elastic_traced", "elastic_race", "elastic_secure",
                 "stream_16", "stream_9", "stream_24", "quantized")
 RING_SPECS = [(2, 32, ()), (2, 32, (3,)), (2, 32, (4,)), (2, 16, (5,)), (2, 8, (2, 3)),
@@ -624,13 +660,13 @@ def _recording_routes(calls: list):
         ops.run_route = inner
 
 
-def _counted(name, fn, calls):
+def _counted(name, fn, calls, expect=None):
     """Run ``fn`` (one path) with the launch counts zeroed just before and
     read just after, and with every ring matmul it hands a kernel recorded
-    into ``calls``; the counts must equal ``EXPECTED_LAUNCHES[name]`` (a
-    ring matmul on the card that no kernel takes raises, so the plain
-    version never runs there).  Returns (fn's result, launches by route,
-    synchronized wall ms)."""
+    into ``calls``; the counts must equal ``EXPECTED_LAUNCHES[name]``, or
+    ``expect(fn's result)`` when given (a ring matmul on the card that no
+    kernel takes raises, so the plain version never runs there).  Returns
+    (fn's result, launches by route, synchronized wall ms)."""
     import torch
 
     from repro_torch.kernels import counters
@@ -644,8 +680,9 @@ def _counted(name, fn, calls):
     torch.cuda.synchronize()
     wall_ms = 1e3 * (time.perf_counter() - t0)
     by_route = dict(counters.launches_by_route)
-    if by_route != EXPECTED_LAUNCHES[name]:
-        fail(f"{name}: launches per route {by_route}, expected {EXPECTED_LAUNCHES[name]}")
+    want = EXPECTED_LAUNCHES[name] if expect is None else expect(out)
+    if by_route != want:
+        fail(f"{name}: launches per route {by_route}, expected {want}")
     recorded = {rt: sum(c[0] == rt for c in path_calls) for rt in ROUTES}
     if any(recorded[rt] != by_route[rt] for rt in ROUTES):
         fail(f"{name}: recorded ring matmuls {recorded} != launches {by_route}")
@@ -785,11 +822,11 @@ def phase_main_path(report: dict) -> dict:
 
 
 def phase_path_calls(report: dict, calls: list) -> None:
-    """Hold each route at every distinct (ring, shape) that phases 3 and 5-7
+    """Hold each route at every distinct (ring, shape) that phases 3 and 5-9
     gave it, on fresh random operands of that shape, bit for bit: this
     covers every batch slice of a worker launch, the dead workers' ones too,
     which the end-to-end check cannot see because decode never reads them.
-    The shapes of the GCSA and secure paths and of phases 5-7 are timed as
+    The shapes of the GCSA and secure paths and of phases 5-9 are timed as
     well (``_timing_row``), with the plain version's time from the same call
     that holds them."""
     import numpy as np
@@ -799,7 +836,7 @@ def phase_path_calls(report: dict, calls: list) -> None:
 
     rng = np.random.default_rng(SEED + 1)
     worst = report["kernel_max_abs_err"]
-    timed_paths = {name for name, *_ in SLICE3_PATHS} | set(SLICE4_PATHS)
+    timed_paths = {name for name, *_ in SLICE3_PATHS} | set(SLICE4_PATHS) | set(SLICE5_PATHS)
     seen = {}
     for path, route, ring, a_shape, b_shape in calls:
         key = (route, ring.p, ring.e, ring.degrees, a_shape, b_shape)
@@ -825,7 +862,7 @@ def phase_path_calls(report: dict, calls: list) -> None:
         torch.cuda.empty_cache()
     report["path_calls_checked"] = [f"{k[0]} {k[3]} {k[4][:-1]} x {k[5][:-1]}" for k in seen]
     report["path_kernel_timings"] = timings
-    log(f"phase-3, 5-7 calls == plain: {len(calls)} launches at {len(seen)} distinct "
+    log(f"phase-3, 5-9 calls == plain: {len(calls)} launches at {len(seen)} distinct "
         f"(route, ring, shape): {report['path_calls_checked']}")
 
 
@@ -1116,6 +1153,360 @@ def phase_quantized(report: dict, calls: list) -> dict:
     return by_route
 
 
+# ---------------------------------------------------------------------------
+# phases 8-9: the worker pool and the continuous-batching server
+# ---------------------------------------------------------------------------
+
+
+def _worker_call(scheme, A, B, key=None):
+    """(route, ring, a_shape, b_shape) of the product every worker runs for
+    ``scheme``: the shapes of share 0, drawn from the plan outside any count
+    (the workers' own launches happen in other processes)."""
+    from repro_torch.kernels import pick_route
+
+    fa, gb = scheme.encode_a_at(A, 0, key=key), scheme.encode_b_at(B, 0, key=key)
+    route = pick_route(scheme.ring, fa.shape[0], fa.shape[1], gb.shape[1])
+    return route, scheme.ring, tuple(fa.shape), tuple(gb.shape)
+
+
+def _pool_counted(name, pool, fn, calls, worker_call, expect):
+    """``_counted`` for a path on the pool: this process's (the master's)
+    launches as there, and the workers' read before and after
+    (``Master.worker_launches`` pings every worker, so the products that
+    land after the decode are counted too).  ``expect(out)`` gives (the
+    master's, the workers' summed) expected launches.  The workers' ring
+    matmuls are recorded from the plan, once per launch they report.
+    Returns (fn's result, master's launches, workers' launches, wall ms)."""
+    before = pool.master.worker_launches()
+    out, master, wall_ms = _counted(name, fn, calls, expect=lambda out: expect(out)[0])
+    workers = dict.fromkeys(ROUTES + ("limbs",), 0)
+    for wid, counts in pool.master.worker_launches().items():
+        for route, n in counts.items():
+            workers[route] += n - before.get(wid, {}).get(route, 0)
+    if workers != expect(out)[1]:
+        fail(f"{name}: the workers' launches per route {workers}, expected {expect(out)[1]}")
+    calls.extend([(name,) + worker_call] * workers[worker_call[0]])
+    return out, master, workers, wall_ms
+
+
+def _pool_warm(pool, scheme, A, B, expect, key=None) -> dict:
+    """``WARM_REQUESTS`` requests straight through ``Master.execute``, each
+    traced: synchronized wall, time to R, bytes, and the master's spans
+    (host time: encode and send per share, wait_R, decode; the workers'
+    compute spans, H2D + product + D2H, come back on their result frames)."""
+    import torch
+
+    from repro_torch import obs
+
+    runs = []
+    for _ in range(WARM_REQUESTS):
+        ctx = obs.TraceContext.new("pool")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        C, st = pool.master.execute(scheme, A, B, key=key, trace=ctx)
+        torch.cuda.synchronize()
+        wall = 1e3 * (time.perf_counter() - t0)
+        if max_abs_err(C, expect):
+            fail(f"pool warm request ({scheme.name}): output != the oracle")
+        spans = obs.tracer().timeline(ctx.trace_id).spans
+        ms = lambda name: [1e3 * x.duration_s for x in spans if x.name == name and x.component == "pool"]  # noqa: E731
+        compute = [1e3 * x.duration_s for x in spans if x.component == "worker"]
+        runs.append({
+            "wall_ms": wall, "time_to_R_ms": st.time_to_R_ms, "stats_wall_ms": st.wall_ms,
+            "encode_ms": sum(ms("encode")), "send_ms": sum(ms("send")),
+            "wait_R_ms": sum(ms("wait_R")), "decode_ms": sum(ms("decode")),
+            "worker_compute_ms": compute, "live_idx": list(st.live_idx),
+            "raw_bytes_out": st.raw_bytes_out, "bytes_out": st.bytes_out,
+            "raw_bytes_in": st.raw_bytes_in, "bytes_in": st.bytes_in, "codecs": list(st.codecs),
+        })
+    obs.tracer().clear()
+    med = lambda xs: sorted(xs)[len(xs) // 2]  # noqa: E731
+    return {
+        "wall_ms_runs": [r["wall_ms"] for r in runs],
+        "time_to_R_ms_runs": [r["time_to_R_ms"] for r in runs],
+        "time_to_R_ms_p50": med([r["time_to_R_ms"] for r in runs]),
+        "time_to_R_ms_max": max(r["time_to_R_ms"] for r in runs),
+        "encode_ms_p50": med([r["encode_ms"] for r in runs]),
+        "send_ms_p50": med([r["send_ms"] for r in runs]),
+        "wait_R_ms_p50": med([r["wait_R_ms"] for r in runs]),
+        "decode_ms_p50": med([r["decode_ms"] for r in runs]),
+        "worker_compute_ms_p50": med([x for r in runs for x in r["worker_compute_ms"]]),
+        "raw_bytes_out": runs[-1]["raw_bytes_out"], "bytes_out": runs[-1]["bytes_out"],
+        "raw_bytes_in": runs[-1]["raw_bytes_in"], "bytes_in": runs[-1]["bytes_in"],
+        "codecs": runs[-1]["codecs"], "runs": runs,
+    }
+
+
+def phase_pool(report: dict, calls: list) -> dict:
+    """``batch_ep_rmfe`` 2048^3 on a ``LocalPool`` of 8 CUDA worker processes
+    through ``coded_matmul(..., backend=PoolBackend(pool))``: all live; then
+    2 workers SIGKILLed in the middle of a request; then ``ep_rmfe_secure``
+    1024^3 with a key on the 6 survivors.  Each against ``local``."""
+    import threading
+
+    import numpy as np
+    import torch
+
+    from repro_torch.cdmm import BatchRMFEAdapter, ProblemSpec, coded_matmul, plan
+    from repro_torch.core import make_ring
+    from repro_torch.dist import LocalPool, PoolBackend, PoolConfig
+
+    rng = np.random.default_rng(SEED + 4)
+    Z32 = make_ring(2, 32, ())
+    totals = dict.fromkeys(ROUTES + ("limbs",), 0)
+    rows = {}
+
+    def add(*by_routes):
+        for by_route in by_routes:
+            for k, v in by_route.items():
+                totals[k] += v
+
+    # whole shares (no contraction-axis streaming: one product per share) in
+    # raw frames: Z_2^32 words use all 32 bits, so packing saves nothing
+    cfg = PoolConfig(workers=POOL_WORKERS, stream_chunk_bytes=0, transport="raw")
+    t0 = time.perf_counter()
+    pool = LocalPool(config=cfg)
+    up_s = time.perf_counter() - t0
+    try:
+        card = torch.cuda.get_device_name(0)
+        hellos = pool.master.worker_caps()
+        if len(hellos) != POOL_WORKERS or any(
+                c.get("device") != "gpu" or c.get("card") != card for c in hellos.values()):
+            fail(f"pool: the workers' hellos do not all name the card: {hellos}")
+        log(f"pool up in {up_s:.1f} s: {POOL_WORKERS} CUDA worker processes, hello "
+            f"{json.dumps({k: hellos[0].get(k) for k in ('device', 'card', 'torch_version', 'kernels')})}")
+        report["pool_up_s"] = up_s
+        be = PoolBackend(pool)
+        expect = lambda out: (POOL_MASTER_LAUNCHES, POOL_WORKER_LAUNCHES)  # noqa: E731
+
+        As = Z32.random(rng, (2, MAIN_SIZE, MAIN_SIZE), device="cuda")
+        Bs = Z32.random(rng, (2, MAIN_SIZE, MAIN_SIZE), device="cuda")
+        scheme = BatchRMFEAdapter(Z32, n=2, N=8, u=2, v=2, w=1, device="cuda")
+        local = coded_matmul(As, Bs, scheme, backend="local")  # the oracle, not counted
+        if max_abs_err(local, _direct(As, Bs, Z32)):
+            fail("pool: the local oracle != direct product")
+        wcall = _worker_call(scheme, As, Bs)
+
+        # 1. all live
+        C, master, workers, wall = _pool_counted(
+            "pool_all_live", pool, lambda: coded_matmul(As, Bs, scheme, backend=be),
+            calls, wcall, expect)
+        add(master, workers)
+        if max_abs_err(C, local):
+            fail("pool_all_live: output != local's")
+        rows["pool_all_live"] = {"launches_master": master, "launches_workers": workers,
+                                 "first_call_wall_ms": wall, "stats": vars(be.last_stats),
+                                 **_pool_warm(pool, scheme, As, Bs, local)}
+        # the same request with the shares streamed in chunks of the
+        # PoolConfig default (1 MiB: ~49 contraction slices of a share, each
+        # its own product in the worker), timed, outside the launch counts
+        pool.master.stream_chunk_bytes = PoolConfig().stream_chunk_bytes
+        try:
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            C, st = pool.master.execute(scheme, As, Bs)
+            torch.cuda.synchronize()
+            rows["pool_all_live"]["streamed_1MiB_wall_ms"] = 1e3 * (time.perf_counter() - t1)
+            rows["pool_all_live"]["streamed_1MiB_time_to_R_ms"] = st.time_to_R_ms
+        finally:
+            pool.master.stream_chunk_bytes = 0
+        if max_abs_err(C, local):
+            fail("pool_all_live: the streamed request's output != local's")
+
+        # 2. dist.smoke's flow: every worker parked, 2 SIGKILLed mid-request,
+        # once every share is on the wire (its holder parked on it)
+        request_bytes = be.last_stats.raw_bytes_out
+
+        def killed_request():
+            # blind round-robin (no health ranking from the warm requests):
+            # one share a worker, so each killed worker holds one share
+            pool.master.health.reset_scores()
+            for wid in pool.master.live_workers():
+                pool.master.task_delay_ms[wid] = POOL_PARK_MS
+            sent0 = pool.master.stats()["pool_raw_bytes_out"]
+            result = {}
+
+            def request():
+                try:
+                    result["C"] = coded_matmul(As, Bs, scheme, backend=be)
+                except Exception as e:  # failed below
+                    result["err"] = e
+
+            t = threading.Thread(target=request, daemon=True)
+            t.start()
+            deadline = time.perf_counter() + 60
+            while pool.master.stats()["pool_raw_bytes_out"] - sent0 < request_bytes:
+                if time.perf_counter() > deadline:
+                    fail("pool_kill: the request's shares were not all sent in 60 s")
+                time.sleep(0.002)
+            result["killed"] = pool.kill(POOL_KILL)
+            t.join(timeout=300)
+            pool.master.task_delay_ms.clear()
+            if t.is_alive() or "err" in result:
+                fail(f"pool_kill: the request did not complete after the kill: {result.get('err')!r}")
+            return result
+
+        redispatched0 = pool.master.stats()["pool_redispatched"]
+        res, master, workers, wall = _pool_counted("pool_kill", pool, killed_request, calls,
+                                                   wcall, expect)
+        add(master, workers)
+        st = be.last_stats
+        if len(res["killed"]) != POOL_KILL or len(pool.master.live_workers()) != POOL_WORKERS - POOL_KILL:
+            fail(f"pool_kill: killed {res['killed']}, live {pool.master.live_workers()}")
+        # a re-dispatched share waits in a parked survivor's socket, so its
+        # send can end after the decode: count them once every worker has
+        # answered the ping of _pool_counted.  At least one per killed
+        # worker; more when a share first went to the other killed worker
+        # before its death was seen (survivors still compute each share once)
+        redispatched = pool.master.stats()["pool_redispatched"] - redispatched0
+        if max_abs_err(res["C"], local) or redispatched < POOL_KILL:
+            fail(f"pool_kill: output != local's, or {redispatched} shares re-dispatched, "
+                 f"fewer than the {POOL_KILL} of the killed workers")
+        rows["pool_kill"] = {"killed_pids": res["killed"], "redispatched": redispatched,
+                             "launches_master": master,
+                             "launches_workers_survivors": workers, "first_call_wall_ms": wall,
+                             "stats": vars(st), **_pool_warm(pool, scheme, As, Bs, local)}
+        del As, Bs, local, C, res
+        torch.cuda.empty_cache()
+
+        # 3. a secure scheme with a key, on the survivors
+        spec = ProblemSpec(SINGLE_SIZE, SINGLE_SIZE, SINGLE_SIZE, n=2, ring=Z32, N=8,
+                           straggler_budget=2, privacy_t=1)
+        sch = plan(spec, schemes=["ep_rmfe_secure"]).instantiate(device="cuda")
+        A = Z32.random(rng, (2, SINGLE_SIZE, SINGLE_SIZE), device="cuda")
+        B = Z32.random(rng, (2, SINGLE_SIZE, SINGLE_SIZE), device="cuda")
+        local = coded_matmul(A, B, sch, backend="local", key=KEY)
+        if max_abs_err(local, _direct(A, B, Z32)):
+            fail("pool_secure: the local oracle != direct product")
+        C, master, workers, wall = _pool_counted(
+            "pool_secure", pool, lambda: coded_matmul(A, B, sch, backend=be, key=KEY),
+            calls, _worker_call(sch, A, B, key=KEY), expect)
+        add(master, workers)
+        if sch.ring.degrees != (4,) or max_abs_err(C, local):
+            fail(f"pool_secure over {sch.ring}: output != local's with the same key")
+        rows["pool_secure"] = {"scheme": sch.name, "partition": list(sch.partition), "R": sch.R,
+                               "launches_master": master, "launches_workers": workers,
+                               "first_call_wall_ms": wall, "stats": vars(be.last_stats),
+                               **_pool_warm(pool, sch, A, B, local, key=KEY)}
+        del A, B, local, C
+        report["pool_stats"] = dict(pool.stats())
+    finally:
+        pool.close()
+    torch.cuda.empty_cache()
+    for name, row in rows.items():
+        log(f"pool path {name}: " + json.dumps({k: v for k, v in row.items() if k != "runs"},
+                                                default=str))
+    report["pool"] = rows
+    return totals
+
+
+def phase_serve(report: dict, calls: list) -> dict:
+    """``SERVE_REQUESTS`` concurrent 1024^3 requests over Z_2^32 through a
+    ``ServeScheduler`` over a ``LocalPool`` of 8 CUDA workers, coalesced by
+    the amortized plan; ``/metrics`` scraped once while they run."""
+    import urllib.request
+
+    import numpy as np
+    import torch
+
+    from repro_torch.cdmm import ProblemSpec
+    from repro_torch.core import make_ring
+    from repro_torch.dist import LocalPool, PoolConfig
+    from repro_torch.kernels import gr_matmul_ref
+    from repro_torch.obs import http as obs_http
+    from repro_torch.obs import parse_prometheus
+    from repro_torch.serve import CoalescePolicy, ServeScheduler
+
+    rng = np.random.default_rng(SEED + 5)
+    Z32 = make_ring(2, 32, ())
+    spec = ProblemSpec(SINGLE_SIZE, SINGLE_SIZE, SINGLE_SIZE, n=1, ring=Z32, N=POOL_WORKERS,
+                       straggler_budget=1)
+    cfg = PoolConfig(workers=POOL_WORKERS, stream_chunk_bytes=0, transport="raw",
+                     obs_http_port=0)
+    pairs = [(Z32.random(rng, (SINGLE_SIZE, SINGLE_SIZE), device="cuda"),
+              Z32.random(rng, (SINGLE_SIZE, SINGLE_SIZE), device="cuda"))
+             for _ in range(SERVE_REQUESTS)]
+    oracles = [gr_matmul_ref(A, B, Z32) for A, B in pairs]
+    pool = LocalPool(config=cfg)
+    try:
+        url = obs_http.server().url
+        with ServeScheduler(pool.master, CoalescePolicy(**SERVE_POLICY), max_queue=64,
+                            seed=SEED) as sched:
+            entry = sched.entry_for(spec)
+            sch = entry.scheme
+            if entry.cap < 2 or sch.name != "batch_ep_rmfe":
+                fail(f"serve: the amortized plan does not coalesce: {sch.name} cap {entry.cap}")
+            zA = torch.stack([pairs[0][0]] * sch.batch)
+            wcall = _worker_call(sch, zA, zA)
+            # one warm batch: the workers' first product of this ring
+            warm = [sched.submit(A, B, spec=spec) for A, B in pairs[: entry.cap]]
+            for fut in warm:
+                fut.result(timeout=300)
+            base = sched.stats.snapshot()
+            latencies, families = [], {}
+
+            def serve_round():
+                t0 = time.perf_counter()
+                futs = []
+                for A, B in pairs:
+                    fut = sched.submit(A, B, spec=spec)
+                    fut.add_done_callback(
+                        lambda f, t=time.perf_counter(): latencies.append(1e3 * (time.perf_counter() - t)))
+                    futs.append(fut)
+                # one scrape while the requests run
+                with urllib.request.urlopen(f"{url}/metrics", timeout=30) as resp:
+                    families.update(parse_prometheus(resp.read().decode()))
+                outs = [f.result(timeout=600) for f in futs]
+                return outs, time.perf_counter() - t0
+
+            def expect(out):
+                batches = sched.stats.snapshot()["serve_batches"] - base["serve_batches"]
+                return ({k: v * batches for k, v in POOL_MASTER_LAUNCHES.items()},
+                        {k: v * batches for k, v in POOL_WORKER_LAUNCHES.items()})
+
+            (outs, seconds), master, workers, wall = _pool_counted(
+                "serve", pool, serve_round, calls, wcall, expect)
+            snap = sched.stats.snapshot()
+        for i, (C, want) in enumerate(zip(outs, oracles)):
+            if max_abs_err(C, want):
+                fail(f"serve: request {i}'s slice != its direct product")
+        fills = [b["fill"] for b in snap["serve_recent_batches"]][base["serve_batches"]:]
+        mean_fill = sum(fills) / len(fills)
+        if mean_fill <= 1:
+            fail(f"serve: mean fill {mean_fill} of the counted round is not > 1")
+        missing = [p for p in ("repro_serve_", "repro_pool_")
+                   if not any(name.startswith(p) for name in families)]
+        if missing:
+            fail(f"serve: /metrics scraped mid-round has no {missing} series")
+        lat = sorted(latencies)
+        stages = {"phi": "skinny", "encode_at": "skinny", "workers": wcall[0],
+                  "decode": "skinny", "psi": "skinny"}
+        row = {"plan": {"scheme": sch.name, "partition": list(sch.partition), "ring": str(sch.ring),
+                        "R": sch.R, "N": sch.N, "cap": entry.cap, "policy": SERVE_POLICY,
+                        "routes": stages, "worker_shapes": [list(wcall[2]), list(wcall[3])]},
+               "requests": SERVE_REQUESTS, "seconds": seconds,
+               "requests_per_s": SERVE_REQUESTS / seconds, "batches": len(fills),
+               "mean_fill": mean_fill, "latency_ms_p50": lat[len(lat) // 2],
+               "latency_ms_max": lat[-1], "wait_ms_p50": snap["serve_wait_ms_p50"],
+               "wait_ms_p99": snap["serve_wait_ms_p99"],
+               "amortized_us_per_request": snap["serve_amortized_us_per_request"],
+               "launches_master": master, "launches_workers": workers,
+               "metrics_families": len(families), "wall_ms": wall}
+        report["serve_pool_stats"] = dict(pool.stats())
+    finally:
+        obs_http.stop_server()
+        pool.close()
+    del pairs, oracles, outs
+    torch.cuda.empty_cache()
+    log(f"serve: {json.dumps(row)}")
+    report["serve"] = row
+    totals = dict.fromkeys(ROUTES + ("limbs",), 0)
+    for by_route in (master, workers):
+        for k, v in by_route.items():
+            totals[k] += v
+    return totals
+
+
 def _kernel_rows(report: dict, totals: dict) -> list:
     """The ``{"kernels": [...]}`` rows: one per route and one for the
     pre-pass, each at its representative main-path shape, with the times of
@@ -1174,7 +1565,7 @@ def main() -> int:
     phase_env_build(report)
     phase_kernels(report)
     totals, calls = phase_main_path(report)
-    for phase in (phase_elastic, phase_stream, phase_quantized):
+    for phase in (phase_elastic, phase_stream, phase_quantized, phase_pool, phase_serve):
         for route, n in phase(report, calls).items():
             totals[route] += n
     for route in ROUTES + ("limbs",):

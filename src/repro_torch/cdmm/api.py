@@ -29,7 +29,7 @@ is served only by the secure families.
 from __future__ import annotations
 
 from collections import OrderedDict
-from dataclasses import dataclass
+from dataclasses import dataclass, replace
 from math import ceil, gcd, log
 from typing import (
     Callable,
@@ -121,6 +121,13 @@ class ProblemSpec:
                     f"N - budget = {self.N - self.straggler_budget} "
                     f"guaranteed responders; raise N or relax the budgets"
                 )
+
+    def with_batch(self, n: int) -> "ProblemSpec":
+        """The same per-request problem at batch arity ``n`` (the seam a
+        serving engine coalescing ``n`` requests plans through)."""
+        if n < 1:
+            raise ValueError(f"batch arity must be >= 1, got {n}")
+        return replace(self, n=n)
 
 
 @runtime_checkable

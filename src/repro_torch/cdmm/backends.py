@@ -8,10 +8,13 @@ an event-driven master that dispatches per-worker encode and compute and
 decodes at the R-th arrival.  Every registered scheme is integer-exact, so
 the result equals ``A @ B`` bit for bit whatever the live set.
 
-Both record ``repro_torch.obs`` spans (encode / compute / decode, the
-reference's schema) when tracing is on; with it off the cost is one
-``None`` check per call.  The ``shard_map`` and ``pool`` backends come with
-the ``torch.distributed`` and worker-pool slices.
+``pool`` (``repro_torch.dist``, imported on first use of the name): the
+same protocol over real worker OS processes.
+
+The local and elastic backends record ``repro_torch.obs`` spans (encode /
+compute / decode, the reference's schema) when tracing is on; with it off
+the cost is one ``None`` check per call.  The ``shard_map`` backend comes
+with the ``torch.distributed`` slice.
 """
 from __future__ import annotations
 
@@ -104,9 +107,11 @@ class LocalSimBackend:
 
 _BACKENDS: dict = {"local": LocalSimBackend}
 
+# backends registered by a module imported on first use of their name
+_LAZY_BACKENDS: dict = {"pool": "repro_torch.dist"}
+
 # backends of the reference that later slices of the port bring
 _LATER: dict = {
-    "pool": "the worker pool (repro.dist) is not ported yet; see ROADMAP Queue 1 item 14",
     "shard_map": "the torch.distributed backend is not ported yet; see ROADMAP Queue 1 item 16",
 }
 
@@ -123,11 +128,16 @@ def get_backend(backend: Union[None, str, object]):
     if isinstance(backend, str):
         if backend in _LATER and backend not in _BACKENDS:
             raise ValueError(f"backend {backend!r}: {_LATER[backend]}")
+        if backend not in _BACKENDS and backend in _LAZY_BACKENDS:
+            import importlib
+
+            importlib.import_module(_LAZY_BACKENDS[backend])
         try:
             return _BACKENDS[backend]()
         except KeyError:
             raise ValueError(
-                f"unknown backend {backend!r}; one of {sorted(_BACKENDS)}"
+                f"unknown backend {backend!r}; one of "
+                f"{sorted(set(_BACKENDS) | set(_LAZY_BACKENDS))}"
             ) from None
     return backend
 

@@ -8,12 +8,21 @@ source is never served by a stale build.  ``-Xptxas -v`` output (registers,
 shared memory, spills) is kept beside the library as
 ``<source>.ptxas.txt``, one file per source.
 
+Several processes may load the library at once (the workers of a pool,
+the agents of a multi-host launch on one machine), so compile-and-load
+runs under an inter-process lock, ``fcntl.flock`` on ``BUILD_DIR /
+"build.lock"``: the first process compiles, the others wait and then load
+its library.  The kernel advisory lock dies with its holder, so a run cut
+off mid-build leaves no stale lock behind.
+
 Nothing here runs at import time: the CPU tests import this module on
 machines without ``nvcc``.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
+import fcntl
 import hashlib
 import os
 import shutil
@@ -91,25 +100,37 @@ def _compile(nvcc: str, so: Path) -> None:
     os.replace(tmp, so)  # atomic: a concurrent loader sees all or nothing
 
 
+@contextlib.contextmanager
+def _build_lock():
+    """Exclusive inter-process lock on ``BUILD_DIR / "build.lock"``."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with open(BUILD_DIR / "build.lock", "a") as f:
+        fcntl.flock(f, fcntl.LOCK_EX)
+        try:
+            yield
+        finally:
+            fcntl.flock(f, fcntl.LOCK_UN)
+
+
 def load_library() -> ctypes.CDLL:
-    """Compile (once per source hash) and load the kernels of ``SOURCES``."""
+    """Compile (once per source hash, in one process of all that ask at
+    once) and load the kernels of ``SOURCES``."""
     lib = _libs.get(LIB_NAME)
     if lib is not None:
         return lib
     with _lock:
         if LIB_NAME in _libs:
             return _libs[LIB_NAME]
-        nvcc = _nvcc()
         h = hashlib.sha256(" ".join(ARCH_FLAGS + NVCC_FLAGS).encode())
         for name in SOURCES:
             h.update((CSRC_DIR / f"{name}.cu").read_bytes())
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
         so = BUILD_DIR / f"lib{LIB_NAME}-{h.hexdigest()[:16]}.so"
         t0 = time.perf_counter()
-        built = not so.exists()
-        if built:
-            _compile(nvcc, so)
-        lib = ctypes.CDLL(str(so))
+        with _build_lock():
+            built = not so.exists()
+            if built:
+                _compile(_nvcc(), so)
+            lib = ctypes.CDLL(str(so))
         _declare(lib)
         _libs[LIB_NAME] = lib
         _info[LIB_NAME] = {

@@ -1,14 +1,17 @@
-"""repro_torch.obs — structured tracing, live metrics, health scores and
-their exporters; counterpart of ``repro.obs`` (all jax-free).
+"""repro_torch.obs — structured tracing, live metrics, health scores, the
+HTTP admin plane and their exporters; counterpart of ``repro.obs`` (all
+jax-free).
 
 See :mod:`repro_torch.obs.trace` for the span model,
-:mod:`repro_torch.obs.metrics` for the push-based registry,
-:mod:`repro_torch.obs.health` for per-worker health scoring, and
-:mod:`repro_torch.obs.export` for the JSON / Chrome trace_event /
-Prometheus output formats (:func:`parse_prometheus` validates the
-exposition text strictly).  The reference's HTTP admin plane, terminal
-dashboard and smoke (``repro.obs.http``, ``top``, ``smoke``) come with the
-port's worker pool and serving engine, which are what exercise them.
+:mod:`repro_torch.obs.metrics` for the push-based registry the pool,
+scheduler and serving engine publish into,
+:mod:`repro_torch.obs.health` for per-worker health scoring,
+:mod:`repro_torch.obs.http` for the embedded ``/metrics`` ``/healthz``
+``/stats`` ``/trace/<id>`` server, and :mod:`repro_torch.obs.export` for
+the JSON / Chrome trace_event / Prometheus output formats
+(:func:`parse_prometheus` validates the exposition text strictly).
+``python -m repro_torch.obs.top`` is a live terminal dashboard over
+``/stats``; ``python -m repro_torch.obs.smoke`` drives them all on a pool.
 """
 from .export import (
     parse_prometheus,
@@ -18,6 +21,15 @@ from .export import (
     validate_timeline,
 )
 from .health import HealthTracker
+from .http import (
+    ObsHttpServer,
+    register_source,
+    register_trace_resolver,
+    start_server,
+    stop_server,
+    unregister_source,
+    unregister_trace_resolver,
+)
 from .metrics import Counter, Gauge, MetricsRegistry, Series
 from .trace import (
     Span,
@@ -39,6 +51,7 @@ __all__ = [
     "Gauge",
     "HealthTracker",
     "MetricsRegistry",
+    "ObsHttpServer",
     "Series",
     "Span",
     "Timeline",
@@ -49,12 +62,18 @@ __all__ = [
     "new_trace_id",
     "now",
     "parse_prometheus",
+    "register_source",
+    "register_trace_resolver",
     "set_enabled",
     "spans_from_wire",
     "spans_to_wire",
+    "start_server",
+    "stop_server",
     "to_chrome_trace",
     "to_json",
     "to_prometheus",
     "tracer",
+    "unregister_source",
+    "unregister_trace_resolver",
     "validate_timeline",
 ]

@@ -7,10 +7,10 @@ packages and one environment configures both.  Every consumer goes through
 :func:`get`; ``python -m repro_torch.settings`` prints the list.
 
 Knobs read only by parts of the JAX package the port does not have yet (the
-calibrated planner, the traced decode checks, the conformance sweep, the
-worker pool, the HTTP plane, hedging) stay listed; in the port they are
-no-ops, named in :data:`PORT_NOOPS`.  The port reads ``REPRO_TRACE`` and
-``REPRO_TRACE_BUFFER`` (``repro_torch.obs``).
+calibrated planner, the traced decode checks, the conformance sweep) stay
+listed; in the port they are no-ops, named in :data:`PORT_NOOPS`.  The
+port reads the tracing knobs (``repro_torch.obs``) and those of the worker
+pool, the HTTP plane and hedging (``repro_torch.dist``).
 
 The module imports nothing heavy (no torch, no numpy).
 
@@ -151,7 +151,7 @@ SETTINGS: Dict[str, Setting] = {
 
 
 # knobs the port lists for parity but does not read (yet)
-PORT_NOOPS = frozenset(name for name in SETTINGS if name not in ("trace", "trace_buffer"))
+PORT_NOOPS = frozenset(("calibration", "debug_solve", "conformance_inproc"))
 
 
 def _parse(setting: Setting, raw: str):

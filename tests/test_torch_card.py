@@ -1,7 +1,9 @@
 """repro_torch on the card: the three CUDA routes of the ring matmul
 (``simt``, ``tc``, ``skinny``) against their plain version, and the main path
 through them: ``coded_matmul`` for every family, the elastic backend's
-traced path and the coded int8 matmul.  Every test here needs a CUDA device and skips
+traced path, the coded int8 matmul, a pool of CUDA worker processes (every
+worker product a ``tc`` launch, read from the workers' heartbeats) and one
+round of the serving engine over it.  Every test here needs a CUDA device and skips
 without one; on a machine with a card run
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_card.py
@@ -190,3 +192,57 @@ def test_coded_quant_matmul_on_the_card(cuda):
     assert torch.equal(acc.cpu(), (qx.long() @ qw.long()).to(torch.int32))
     with pytest.raises(ValueError, match="use_kernel=False"):
         CodedQuantMatmul(8, None, use_kernel=False, device=cuda)
+
+
+def _summed(by_wid):
+    out = {"simt": 0, "tc": 0, "skinny": 0, "limbs": 0}
+    for counts in by_wid.values():
+        for route, n in counts.items():
+            out[route] += n
+    return out
+
+
+def test_pool_of_cuda_workers_runs_every_product_on_a_kernel(cuda):
+    """Four CUDA worker processes serve batch_ep_rmfe at 256^3: the decode
+    equals local's, every worker product is a tc launch in a worker, and
+    the master's encodes and decode are skinny launches in this process."""
+    from repro_torch.dist import LocalPool, PoolBackend, PoolConfig
+
+    Z = make_ring(2, 32, ())
+    scheme = BatchRMFEAdapter(Z, 2, 8, 2, 2, 1, device=cuda)
+    rng = np.random.default_rng(11)
+    A, B = Z.random(rng, (2, 256, 256), device=cuda), Z.random(rng, (2, 256, 256), device=cuda)
+    with LocalPool(config=PoolConfig(workers=4), device=cuda) as pool:
+        for caps in pool.master.worker_caps().values():
+            assert caps["device"] == "gpu" and caps["card"] == torch.cuda.get_device_name(0)
+            assert caps["kernels"]["path"].endswith(".so")
+        before = _summed(pool.master.worker_launches())
+        counters.reset()
+        C = coded_matmul(A, B, scheme, backend=PoolBackend(pool))
+        master = dict(counters.launches_by_route)
+        after = _summed(pool.master.worker_launches())
+    workers = {k: after[k] - before[k] for k in after}
+    assert workers == {"simt": 0, "tc": 8, "skinny": 0, "limbs": 16}
+    # per share phi(A), encode_a_at, phi(B), encode_b_at; then decode and psi
+    assert master == {"simt": 0, "tc": 0, "skinny": 34, "limbs": 0}
+    assert torch.equal(C, coded_matmul(A, B, scheme, backend="local"))
+    assert torch.equal(C, torch.stack([gr_matmul_ref(A[i], B[i], Z) for i in range(2)]))
+
+
+def test_serve_round_on_cuda_workers(cuda):
+    from repro_torch.dist import LocalPool, PoolConfig
+    from repro_torch.serve import CoalescePolicy, ServeScheduler
+
+    Z = make_ring(2, 32, ())
+    spec = ProblemSpec(128, 128, 128, n=1, ring=Z, N=8, straggler_budget=1)
+    rng = np.random.default_rng(12)
+    pairs = [(Z.random(rng, (128, 128), device=cuda), Z.random(rng, (128, 128), device=cuda))
+             for _ in range(4)]
+    with LocalPool(config=PoolConfig(workers=4), device=cuda) as pool:
+        with ServeScheduler(pool.master, CoalescePolicy(target_batch_n=4, max_wait_ms=200),
+                            seed=0) as sched:
+            futs = [sched.submit(A, B, spec=spec) for A, B in pairs]
+            for fut, (A, B) in zip(futs, pairs):
+                C = fut.result(timeout=120)
+                assert C.device == A.device and torch.equal(C, gr_matmul_ref(A, B, Z))
+            assert sched.stats.snapshot()["serve_mean_fill"] > 1

@@ -100,8 +100,11 @@ def test_registry_and_unported_paths():
     assert best.costs.privacy_t >= 1
     with pytest.raises(ValueError, match="not ported yet"):
         P.get_backend("shard_map")
-    with pytest.raises(ValueError, match="item 14"):
-        P.get_backend("pool")
+    # the pool backend is ported: its name resolves to a PoolBackend, which
+    # spawns nothing before its first call
+    from repro_torch.dist import PoolBackend
+
+    assert isinstance(P.get_backend("pool"), PoolBackend)
     with pytest.raises(ValueError, match="unknown backend"):
         P.get_backend("no_such_backend")
 

@@ -28,7 +28,14 @@ def test_every_module_imports_without_jax_or_repro():
               "repro_torch.cdmm.elastic", "repro_torch.cdmm.quantized",
               "repro_torch.runtime.elastic", "repro_torch.core.straggler",
               "repro_torch.obs.trace", "repro_torch.obs.metrics", "repro_torch.obs.export",
-              "repro_torch.obs.health", "repro_torch.settings", "repro_torch.stats"):
+              "repro_torch.obs.health", "repro_torch.settings", "repro_torch.stats",
+              "repro_torch.obs.http", "repro_torch.obs.top", "repro_torch.obs.smoke",
+              "repro_torch.dist", "repro_torch.dist.protocol", "repro_torch.dist.config",
+              "repro_torch.dist.worker", "repro_torch.dist.launch", "repro_torch.dist.master",
+              "repro_torch.dist.pool_backend", "repro_torch.dist.scheduler",
+              "repro_torch.dist.smoke", "repro_torch.serve", "repro_torch.serve.coalescer",
+              "repro_torch.serve.stats", "repro_torch.serve.engine", "repro_torch.serve.smoke",
+              "repro_torch.launch", "repro_torch.launch.serve"):
         assert m in mods, m
     code = (
         "import sys, importlib\n"
@@ -124,6 +131,24 @@ def test_elastic_and_quantized_default_to_cuda_and_raise_without_it(monkeypatch)
         CodedQuantMatmul(8, None)
     x = torch.ones((4, 8))
     assert CodedQuantMatmul(8, None, device="cpu")(x, torch.ones((8, 4))).shape == (4, 4)
+
+
+def test_pool_and_server_default_to_cuda_and_raise_without_it(monkeypatch, capsys):
+    _without_cuda(monkeypatch)
+    from repro_torch.dist import LocalPool, Master, PoolConfig, default_pool, launch_pool
+    from repro_torch.dist import worker
+    from repro_torch.serve import ServeScheduler
+
+    for build in (Master, LocalPool, lambda: launch_pool(PoolConfig(workers=1)),
+                  default_pool, ServeScheduler, lambda: ServeScheduler(config=PoolConfig())):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            build()
+    # the worker CLI refuses before it connects anywhere
+    assert worker.main(["--connect", "unix:/nonexistent.sock"]) != 0
+    assert "device='cpu'" in capsys.readouterr().err
+    # the same calls with device="cpu" build (a master with no workers)
+    with Master(device="cpu") as m:
+        assert m.device == torch.device("cpu") and m.live_workers() == []
 
 
 def test_chip_smoke_refuses_without_a_card(tmp_path):
