@@ -79,9 +79,36 @@ Phases (any mismatch fails the run with a non-zero exit):
    max_wait_ms=50)``) over a fresh pool of 8 CUDA workers answers 16
    concurrent 1024^3 requests over Z_2^32; each slice must equal its
    direct product, the mean fill must exceed 1, and ``/metrics``, scraped
-   once while they run, must carry ``serve_`` and ``pool_`` series.
+   once while they run, must carry ``serve_`` and ``pool_`` series;
+10. the autotuner: every point of ``kernels.autotune.DEFAULT_POINTS`` (the
+   ``tc`` and ``skinny`` shapes of the main, secure and GCSA paths and of
+   ``CodedQuantMatmul``) tuned over all its instantiations, each held
+   against the plain version bit for bit, one row a point (the default and
+   the tuned configuration with their times, the bound, the int8 yardstick
+   for ``tc``, registers and spills), the cache written to
+   ``build/autotune_cache.json``, and ``--check`` passing on the committed
+   cache;
+11. calibration: a ``CalibrationSet`` for ``local`` and ``elastic`` fitted
+   from the spans of traced requests of three families at three sizes, its
+   coefficients, predicted against measured times, and the main-path
+   spec's ranking with and without it; the reference's JAX/CPU file must
+   not match the card;
+12. the SPMD backend: ``ShardMapBackend`` over 8 ranks sharing this card
+   (this process and 7 spawned, a gloo group) on ``batch_ep_rmfe`` 2048^3
+   with ranks 2 and 5 dead, in worker-encode and master-encode mode, equal
+   to ``local`` and the direct product; ``ep_rmfe_secure`` 1024^3 keyed,
+   equal to ``local`` under the key; the sharded ``CodedQuantMatmul`` over
+   16 ranks (12 dead) at gemma2-2b's FFN widths with 256 tokens, equal to
+   ``torch._int_mm``.  Every rank's launches per route are held against
+   ``SPMD_RANK_LAUNCHES``; its encode, compute, gather and decode spans
+   are reported;
+13. a hedged straggler on 4 CUDA pool workers: a zero-slack plan, every
+   worker parked, the master re-ships the overdue shares
+   (``Master._maybe_hedge``); the decode equals ``local``'s and the workers
+   compute every share and duplicate on the card.
 
-Launch counts per route are zeroed before each path of phases 3 and 5-9, read
+Phases run in the order 1-3, 5-9, 13, 12, 10, 11, 4.  Launch counts per
+route are zeroed before each path of phases 3, 5-9, 12 and 13, read
 after it (after the elastic backend's straggler tasks have finished) and
 held against ``EXPECTED_LAUNCHES``; in phases 8-9 the master's counts are
 this process's, and the workers' come from their heartbeats (a ping after
@@ -99,7 +126,6 @@ from __future__ import annotations
 import argparse
 import contextlib
 import json
-import re
 import subprocess
 import sys
 import time
@@ -116,6 +142,21 @@ INT8_OPS_PER_S = 1.979e15
 INT32_MAD_PER_S = 132 * 64 * 1.98e9
 
 SEED = 0
+# phase 12: ranks of the SPMD backend on this one card, and each rank's
+# launches per call (phi(A), encode_a_at, phi(B), encode_b_at, decode, psi
+# on skinny, or the master encode's pack and encode; its product on tc)
+SPMD_N = 8
+SPMD_RANK_LAUNCHES = {"simt": 0, "tc": 1, "skinny": 6, "limbs": 2}
+# the sharded CodedQuantMatmul at gemma2-2b's FFN widths, its tokens cut
+# from 2048 to 256: 16 ranks gather 16 responses each through gloo on the
+# host (9.4 MB a response at 256 tokens, 2.4 GB for all ranks)
+QUANT_SPMD_SHAPE = (256, 2304, 9216)
+# phase 13: a zero-slack (R = N) plan on CUDA pool workers, every worker
+# parked, the master hedging overdue shares (tests/test_metrics.py's flow)
+HEDGE_WORKERS = 4
+HEDGE_SIZE = 1024
+HEDGE_PARK_MS = 150.0
+HEDGE_FACTOR = 1.05
 MAIN_SIZE = 2048
 SINGLE_SIZE = 1024
 SMALL_SIZE = 96
@@ -292,25 +333,20 @@ def host_us(fn, iters: int = 20) -> float:
 # phase 1
 # ---------------------------------------------------------------------------
 
-# ptxas entry names -> (route, template arguments)
-_ENTRY = re.compile(r"Compiling entry function '.*?(gr_matmul_kernel|gr_matmul_tc_kernel|"
-                    r"gr_matmul_skinny_kernel|limbs_rows_kernel|limbs_cols_kernel)ILi(\d+)E(?:Li(\d+)E)?")
-_ROUTE_OF = {"gr_matmul_kernel": "simt", "gr_matmul_tc_kernel": "tc",
-             "gr_matmul_skinny_kernel": "skinny", "limbs_rows_kernel": "limbs_rows",
-             "limbs_cols_kernel": "limbs_cols"}
-
-
 def phase_env_build(report: dict) -> None:
     import ctypes
 
     import torch
 
     from repro_torch.core import make_ring
-    from repro_torch.kernels.build import BUILD_DIR, SOURCES, build_info, load_library
+    from repro_torch.kernels.autotune import ptxas_usage
+    from repro_torch.kernels.build import build_info, library_configs, load_library
     from repro_torch.kernels.gr_matmul import (
-        TC_TILE,
+        TC_DEPTH,
         kernel_tile,
         skinny_cols,
+        skinny_configs,
+        tc_configs,
         tc_instantiated,
         tower_shape,
     )
@@ -327,23 +363,9 @@ def phase_env_build(report: dict) -> None:
     info = build_info()
     log(f"kernel library {info['path']} built={info['built']} in {info['seconds']:.2f} s")
     report["build"] = info
-    # registers / spills per instantiation, from nvcc -Xptxas -v of each source
-    usage, cur = {}, None
-    for name in SOURCES:
-        ptxas = BUILD_DIR / f"{name}.ptxas.txt"
-        for line in ptxas.read_text().splitlines() if ptxas.exists() else []:
-            m = _ENTRY.search(line)
-            if m:
-                args = ",".join(g for g in m.group(2, 3) if g)
-                cur = f"{_ROUTE_OF[m.group(1)]}({args})"
-                usage[cur] = {}
-            elif cur:
-                m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
-                if m:
-                    usage[cur]["spill_st"], usage[cur]["spill_ld"] = int(m.group(1)), int(m.group(2))
-                m = re.search(r"Used (\d+) registers", line)
-                if m:
-                    usage[cur]["regs"] = int(m.group(1))
+    # registers / spills per instantiation (tower and, for tc and skinny,
+    # tile configuration), from nvcc -Xptxas -v of each source
+    usage = ptxas_usage()
     log("ptxas " + json.dumps(usage, separators=(",", ":")))
     report["ptxas"] = usage
     for route in ("simt", "tc", "skinny", "limbs_rows", "limbs_cols"):
@@ -359,17 +381,21 @@ def phase_env_build(report: dict) -> None:
             fail(f"simt tile mirror {kernel_tile(ring)} != library {(bm.value, bn.value, bk.value)}")
     towers = [(d, 1) for d in range(1, 17)] + [(2, 3), (2, 5), (2, 7), (3, 2), (3, 4), (3, 5),
                                                 (4, 3), (5, 2), (5, 3), (7, 2), (3, 7)]
+    if lib.gr_matmul_tc_depth() != TC_DEPTH:
+        fail(f"tc stage depth mirror {TC_DEPTH} != library {lib.gr_matmul_tc_depth()}")
     for d0, d1 in towers:
-        bm, bn, ks = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
-        has_tc = lib.gr_matmul_tc_tile(d0, d1, bm, bn, ks) == 0
-        if has_tc != tc_instantiated(d0, d1) or (has_tc and (bm.value, bn.value, ks.value) != TC_TILE):
-            fail(f"tc mirror disagrees with the library for tower {(d0, d1)}")
+        if library_configs("tc", d0, d1) != tc_configs(d0, d1):
+            fail(f"tc mirror {tc_configs(d0, d1)} != library {library_configs('tc', d0, d1)} "
+                 f"for tower {(d0, d1)}")
         cols = lib.gr_matmul_skinny_cols(d0, d1)
         if (cols if cols > 0 else None) != skinny_cols(d0, d1):
             fail(f"skinny mirror {skinny_cols(d0, d1)} != library {cols} for tower {(d0, d1)}")
+        if library_configs("skinny", d0, d1) != skinny_configs(d0, d1):
+            fail(f"skinny mirror {skinny_configs(d0, d1)} != library "
+                 f"{library_configs('skinny', d0, d1)} for tower {(d0, d1)}")
     report["instantiations"] = {
-        "tc": [t for t in towers if tc_instantiated(*t)],
-        "skinny": [t for t in towers if skinny_cols(*t)],
+        "tc": {str(t): tc_configs(*t) for t in towers if tc_instantiated(*t)},
+        "skinny": {str(t): skinny_configs(*t) for t in towers if skinny_cols(*t)},
     }
     log(f"instantiations {json.dumps(report['instantiations'])}")
     # the library yardstick: PyTorch has no integer GEMM on CUDA
@@ -1273,8 +1299,11 @@ def phase_pool(report: dict, calls: list) -> dict:
         if len(hellos) != POOL_WORKERS or any(
                 c.get("device") != "gpu" or c.get("card") != card for c in hellos.values()):
             fail(f"pool: the workers' hellos do not all name the card: {hellos}")
+        # the committed tile cache covers this card's kind
+        if any(c["autotune"]["device_entries"] < 1 for c in hellos.values()):
+            fail(f"pool: a worker reports no autotune coverage for {card}: {hellos}")
         log(f"pool up in {up_s:.1f} s: {POOL_WORKERS} CUDA worker processes, hello "
-            f"{json.dumps({k: hellos[0].get(k) for k in ('device', 'card', 'torch_version', 'kernels')})}")
+            f"{json.dumps({k: hellos[0].get(k) for k in ('device', 'card', 'torch_version', 'kernels', 'autotune')})}")
         report["pool_up_s"] = up_s
         be = PoolBackend(pool)
         expect = lambda out: (POOL_MASTER_LAUNCHES, POOL_WORKER_LAUNCHES)  # noqa: E731
@@ -1507,6 +1536,376 @@ def phase_serve(report: dict, calls: list) -> dict:
     return totals
 
 
+# ---------------------------------------------------------------------------
+# phase 13: a hedged straggler on CUDA pool workers
+# ---------------------------------------------------------------------------
+
+
+def _zero_slack_scheme(Z32, workers: int, size: int):
+    """The plan of R = N (no slack: every share is needed), as the
+    reference's hedging tests build it (tests/test_metrics.py)."""
+    from repro_torch.cdmm import ProblemSpec, plan
+
+    spec = ProblemSpec(size, size, size, n=1, ring=Z32, N=workers, straggler_budget=0)
+    p = plan(spec, objective="threshold", calibration=False)
+    rank = max(range(len(p.candidates)), key=lambda i: p.candidates[i].costs.R)
+    scheme = p.instantiate(rank, device="cuda")
+    if scheme.R != scheme.N:
+        fail(f"hedge: no zero-slack plan for N = {workers} (R = {scheme.R})")
+    return scheme
+
+
+def phase_hedge(report: dict, calls: list) -> dict:
+    """``HEDGE_WORKERS`` CUDA worker processes, a zero-slack scheme at
+    ``HEDGE_SIZE``^3: after warm requests seed the hedge window, every
+    worker is parked ``HEDGE_PARK_MS`` and the master re-ships the overdue
+    shares (``Master._maybe_hedge``); the decode must equal ``local``'s and
+    the duplicates must be computed and discarded."""
+    import numpy as np
+    import torch
+
+    from repro_torch.cdmm import coded_matmul
+    from repro_torch.core import make_ring
+    from repro_torch.dist import LocalPool, PoolConfig
+    from repro_torch.kernels import counters
+
+    rng = np.random.default_rng(SEED + 6)
+    Z32 = make_ring(2, 32, ())
+    scheme = _zero_slack_scheme(Z32, HEDGE_WORKERS, HEDGE_SIZE)
+    A = Z32.random(rng, (HEDGE_SIZE, HEDGE_SIZE), device="cuda")
+    B = Z32.random(rng, (HEDGE_SIZE, HEDGE_SIZE), device="cuda")
+    oracle = coded_matmul(A, B, scheme, backend="local")
+    if max_abs_err(oracle, _direct(A, B, Z32)):
+        fail("hedge: the local oracle != direct product")
+    wcall = _worker_call(scheme, A, B)
+    cfg = PoolConfig(workers=HEDGE_WORKERS, stream_chunk_bytes=0, transport="raw")
+    with LocalPool(config=cfg, device="cuda") as pool:
+        master = pool.master
+
+        def warm_and_seed():
+            master.hedge_factor = 0.0
+            for _ in range(3):
+                master.execute(scheme, A, B)
+            master.health.clear_window()
+            for _ in range(2):
+                master.execute(scheme, A, B)
+
+        warm_and_seed()
+        before = master.worker_launches()
+        hedged0 = master.stats()["pool_hedged"]
+        for wid in master.live_workers():
+            master.task_delay_ms[wid] = HEDGE_PARK_MS
+        master.hedge_factor = HEDGE_FACTOR
+        counters.reset()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        try:
+            C, st = master.execute(scheme, A, B)
+            torch.cuda.synchronize()
+            wall = 1e3 * (time.perf_counter() - t0)
+        finally:
+            master.hedge_factor = 0.0
+            master.task_delay_ms.clear()
+        master_launches = dict(counters.launches_by_route)
+        # the ping behind the parked tasks: the duplicates' products count
+        workers = dict.fromkeys(ROUTES + ("limbs",), 0)
+        for wid, counts in master.worker_launches().items():
+            for route, n in counts.items():
+                workers[route] += n - before.get(wid, {}).get(route, 0)
+        hedged = master.stats()["pool_hedged"] - hedged0
+        if max_abs_err(C, oracle):
+            fail("hedge: the hedged request's output != local's")
+        if st.hedged < 1 or hedged < 1:
+            fail(f"hedge: no share was hedged ({st.hedged}, counter {hedged})")
+        want_tc = HEDGE_WORKERS + st.hedged
+        if (workers[wcall[0]] != want_tc
+                or workers["limbs"] != (2 * want_tc if wcall[0] == "tc" else 0)
+                or master_launches["tc"] or master_launches["simt"] or not master_launches["skinny"]):
+            fail(f"hedge: launches master {master_launches}, workers {workers}; the workers "
+                 f"should compute {HEDGE_WORKERS} shares and {st.hedged} duplicates on {wcall[0]}")
+        # a clean request after the race still decodes exactly, unhedged
+        C2, st2 = master.execute(scheme, A, B)
+        if max_abs_err(C2, oracle) or st2.hedged:
+            fail("hedge: the request after the race is not clean")
+        calls.extend([("hedge",) + wcall] * workers[wcall[0]])
+        row = {"scheme": scheme.name, "partition": list(scheme.partition), "ring": str(scheme.ring),
+               "N": scheme.N, "R": scheme.R, "size": HEDGE_SIZE, "park_ms": HEDGE_PARK_MS,
+               "hedge_factor": HEDGE_FACTOR, "hedged": st.hedged, "wall_ms": wall,
+               "time_to_R_ms": st.time_to_R_ms, "launches_master": master_launches,
+               "launches_workers": workers, "pool_stats": {k: v for k, v in master.stats().items()
+                                                           if "hedge" in k}}
+    log(f"hedge: {json.dumps(row)}")
+    report["hedge"] = row
+    totals = dict.fromkeys(ROUTES + ("limbs",), 0)
+    for by_route in (master_launches, workers):
+        for k, v in by_route.items():
+            totals[k] += v
+    return totals
+
+
+# ---------------------------------------------------------------------------
+# phase 12: the SPMD backend over ranks of one card
+# ---------------------------------------------------------------------------
+
+
+def _rank_rows(name: str, reports: list, N: int) -> dict:
+    """Hold every rank's launches per route against ``SPMD_RANK_LAUNCHES``;
+    returns the ranks' launches summed and their spans (ms) by stage."""
+    if len(reports) != N:
+        fail(f"{name}: {len(reports)} rank reports, expected {N}")
+    summed = dict.fromkeys(ROUTES + ("limbs",), 0)
+    stages: dict = {}
+    for rep in reports:
+        if rep["launches"] != SPMD_RANK_LAUNCHES:
+            fail(f"{name}: rank {rep['rank']} launched {rep['launches']}, "
+                 f"expected {SPMD_RANK_LAUNCHES}")
+        for k, v in rep["launches"].items():
+            summed[k] += v
+        for sp in rep.get("spans", []):
+            stages.setdefault(sp["name"], []).append(1e3 * (sp["t1"] - sp["t0"]))
+            if sp["name"] == "gather":
+                stages.setdefault("gather_bytes_in", []).append(sp["tags"]["bytes_in"])
+    return {"launches": summed, "stages": {
+        k: {"mean": sum(v) / len(v), "max": max(v)} for k, v in stages.items()}}
+
+
+def phase_spmd(report: dict, calls: list) -> dict:
+    """``ShardMapBackend`` over N ranks on this card (this process rank 0,
+    N - 1 spawned; a gloo group): ``batch_ep_rmfe`` 2048^3 with ranks 2, 5
+    dead, worker encode and master encode; ``ep_rmfe_secure`` 1024^3 keyed;
+    the sharded ``CodedQuantMatmul`` over 16 ranks, 12 dead."""
+    import numpy as np
+    import torch
+
+    from repro_torch.cdmm import BatchRMFEAdapter, CodedQuantMatmul, ProblemSpec, coded_matmul, plan
+    from repro_torch.cdmm.backends import ShardMapBackend
+    from repro_torch.cdmm.quantized import quantize_int8
+    from repro_torch.cdmm.runtime import DistributedBatchRMFE, RankPool, cdmm_shard_map
+    from repro_torch.core import make_ring
+
+    rng = np.random.default_rng(SEED + 7)
+    Z32 = make_ring(2, 32, ())
+    mask = torch.tensor(MASK, device="cuda")
+    totals = dict.fromkeys(ROUTES + ("limbs",), 0)
+    rows = {}
+    expect = lambda out: SPMD_RANK_LAUNCHES  # noqa: E731  (rank 0, this process)
+
+    def add(by_route):
+        for k, v in by_route.items():
+            totals[k] += v
+
+    def timed(fn, runs=3):
+        walls = []
+        for _ in range(runs):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            walls.append(1e3 * (time.perf_counter() - t0))
+        return walls
+
+    As = Z32.random(rng, (2, MAIN_SIZE, MAIN_SIZE), device="cuda")
+    Bs = Z32.random(rng, (2, MAIN_SIZE, MAIN_SIZE), device="cuda")
+    scheme = BatchRMFEAdapter(Z32, n=2, N=SPMD_N, u=2, v=2, w=1, device="cuda")
+    local = coded_matmul(As, Bs, scheme, backend="local", mask=mask)  # oracles, not counted
+    if max_abs_err(local, _direct(As, Bs, Z32)):
+        fail("spmd: the local oracle != direct product")
+    t0 = time.perf_counter()
+    be = ShardMapBackend(trace=True)
+    try:
+        pool = be.pool(SPMD_N, "cuda")
+        report["spmd_ranks_up_s"] = time.perf_counter() - t0
+        log(f"spmd: {SPMD_N} ranks up in {report['spmd_ranks_up_s']:.1f} s (gloo, one card)")
+        # 1. worker encode (each rank encode_*_at its own point)
+        C, by_route, wall = _counted("spmd_worker_encode", lambda: coded_matmul(
+            As, Bs, scheme, backend=be, mask=mask), calls, expect=expect)
+        if max_abs_err(C, local):
+            fail("spmd_worker_encode: output != local's (and the direct product)")
+        ranks = _rank_rows("spmd_worker_encode", be.last_reports, SPMD_N)
+        add(ranks["launches"])
+        walls = timed(lambda: coded_matmul(As, Bs, scheme, backend=be, mask=mask))
+        rows["spmd_worker_encode"] = {"first_call_wall_ms": wall, "warm_wall_ms": walls,
+                                      **ranks, "stages_warm": _rank_rows(
+                                          "spmd_worker_encode", be.last_reports, SPMD_N)["stages"]}
+        # 2. master encode: the Vandermonde encode of all N shares on every
+        # rank, read at its row (DistributedBatchRMFE under cdmm_shard_map)
+        f = cdmm_shard_map(DistributedBatchRMFE(scheme.inner, "workers", master_encode=True),
+                           pool, "workers")
+        C, by_route, wall = _counted("spmd_master_encode", lambda: f(As, Bs, mask.cpu()),
+                                     calls, expect=expect)
+        if max_abs_err(C, local):
+            fail("spmd_master_encode: output != local's (and the direct product)")
+        ranks = _rank_rows("spmd_master_encode", pool.last_reports, SPMD_N)
+        add(ranks["launches"])
+        rows["spmd_master_encode"] = {"first_call_wall_ms": wall, **ranks,
+                                      "warm_wall_ms": timed(lambda: f(As, Bs, mask.cpu()))}
+        del As, Bs, local, C
+        torch.cuda.empty_cache()
+        # 3. a secure scheme, keyed: every rank draws the same masks
+        spec = ProblemSpec(SINGLE_SIZE, SINGLE_SIZE, SINGLE_SIZE, n=2, ring=Z32, N=SPMD_N,
+                           straggler_budget=2, privacy_t=1)
+        sch = plan(spec, schemes=["ep_rmfe_secure"], calibration=False).instantiate(device="cuda")
+        A = Z32.random(rng, (2, SINGLE_SIZE, SINGLE_SIZE), device="cuda")
+        B = Z32.random(rng, (2, SINGLE_SIZE, SINGLE_SIZE), device="cuda")
+        local = coded_matmul(A, B, sch, backend="local", mask=mask, key=KEY)
+        if max_abs_err(local, _direct(A, B, Z32)):
+            fail("spmd_secure: the local oracle != direct product")
+        C, by_route, wall = _counted("spmd_secure", lambda: coded_matmul(
+            A, B, sch, backend=be, mask=mask, key=KEY), calls, expect=expect)
+        if max_abs_err(C, local):
+            fail("spmd_secure: output != local's with the same key")
+        ranks = _rank_rows("spmd_secure", be.last_reports, SPMD_N)
+        add(ranks["launches"])
+        rows["spmd_secure"] = {"scheme": sch.name, "ring": str(sch.ring), "R": sch.R,
+                               "first_call_wall_ms": wall, **ranks}
+        del A, B, local, C
+    finally:
+        be.close()
+    torch.cuda.empty_cache()
+    # 4. the sharded CodedQuantMatmul: 16 ranks, 12 dead
+    tokens, d_model, d_ff = QUANT_SPMD_SHAPE
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED + 7)
+    x = torch.randn((tokens, d_model), generator=gen, device="cuda")
+    w = torch.randn((d_model, d_ff), generator=gen, device="cuda")
+    qx, _ = quantize_int8(x, axis=-1)
+    qw, _ = quantize_int8(w, axis=0)
+    qmask = torch.zeros(QUANT_N, dtype=torch.bool)
+    qmask[list(QUANT_LIVE)] = True
+    cq = CodedQuantMatmul(QUANT_N, "workers", device="cuda")
+    oracle = torch._int_mm(qx, qw.t().contiguous().t())  # an oracle only
+    t0 = time.perf_counter()
+    with RankPool(QUANT_N, device="cuda", trace=True) as pool16:
+        up = time.perf_counter() - t0
+        f = cdmm_shard_map(cq.exact_int_matmul, pool16, "workers")
+        acc, by_route, wall = _counted("spmd_quantized", lambda: f(qx, qw, qmask), calls,
+                                       expect=expect)
+        if not torch.equal(acc, oracle):
+            fail("spmd_quantized: exact_int_matmul over 16 ranks != torch._int_mm")
+        ranks = _rank_rows("spmd_quantized", pool16.last_reports, QUANT_N)
+        add(ranks["launches"])
+        rows["spmd_quantized"] = {"shape": list(QUANT_SPMD_SHAPE), "N": QUANT_N, "R": cq.R,
+                                  "live": list(QUANT_LIVE), "ranks_up_s": up,
+                                  "first_call_wall_ms": wall, **ranks,
+                                  "warm_wall_ms": timed(lambda: f(qx, qw, qmask), runs=2)}
+    del x, w, qx, qw, acc, oracle
+    torch.cuda.empty_cache()
+    for name, row in rows.items():
+        log(f"spmd path {name}: {json.dumps(row)}")
+    report["spmd"] = rows
+    return totals
+
+
+# ---------------------------------------------------------------------------
+# phase 10: the autotuner; phase 11: planner calibration
+# ---------------------------------------------------------------------------
+
+
+def phase_autotune(report: dict) -> None:
+    """Tune every point of ``autotune.DEFAULT_POINTS`` (all candidates; each
+    held against the plain version inside ``autotune``), write the cache to
+    ``build/autotune_cache.json``, and check the committed cache with the
+    module's ``--check``.  The in-process view is dropped afterwards, so
+    later phases launch with the committed entries."""
+    import os
+
+    from repro_torch.core import make_ring
+    from repro_torch.kernels import autotune as at
+
+    out = ROOT / "build" / "autotune_cache.json"
+    rows = []
+    t0 = time.perf_counter()
+    try:
+        for route, (p, e, deg), batch, (t, r, s) in at.DEFAULT_POINTS:
+            ring = make_ring(p, e, tuple(deg))
+            res = at.autotune(ring, t, r, s, batch=batch, route=route)
+            bytes_ms, int8_ms, _ = _bounds(ring, batch, t, r, s)
+            row = {"key": res.key, "batch": batch, "static": res.entry["default"],
+                   "static_ms": res.default_ms, "tuned": res.entry["name"], "tuned_ms": res.ms,
+                   "bound_ms": max(bytes_ms, int8_ms),
+                   "bound_by": "operations" if int8_ms >= bytes_ms else "bytes",
+                   "candidates_ms": res.entry["candidates"], "usage": res.entry["usage"]}
+            if route == "tc":
+                row["int8_yardstick_ms"] = _int8_yardstick_ms(ring, batch, t, r, s)[0]
+            rows.append(row)
+            log(f"autotune {json.dumps(row)}")
+        at.save_cache(at._disk_cache(), out, meta=at._card_meta("cuda"))
+    finally:
+        at.invalidate_memory_cache()
+    env = {**os.environ, "PYTHONPATH": str(SRC)}
+    checks = {}
+    for label, extra in (("committed", []), ("this run", ["--out", str(out)])):
+        res = subprocess.run([sys.executable, "-m", "repro_torch.kernels.autotune", "--check",
+                              *extra], capture_output=True, text=True, env=env, cwd=ROOT)
+        checks[label] = res.stdout.strip().splitlines()
+        if res.returncode != 0:
+            fail(f"autotune --check on the {label} cache: rc {res.returncode}\n"
+                 f"{res.stdout}{res.stderr[-2000:]}")
+    log(f"autotune --check: {json.dumps(checks)}")
+    report["autotune"] = {"points": rows, "seconds": time.perf_counter() - t0, "check": checks,
+                          "cache": str(out)}
+
+
+def phase_calibrate(report: dict) -> None:
+    """Fit a ``CalibrationSet`` for ``local`` and ``elastic`` from the spans
+    of traced requests (three families at three sizes), print the
+    coefficients and the predicted against the measured time of the rows,
+    and rank the main-path spec with the calibration and without."""
+    from collections import defaultdict
+
+    from repro_torch.cdmm import ProblemSpec, plan
+    from repro_torch.cdmm.calibrate import (
+        STAGE_FEATURES,
+        CalibrationSet,
+        fit_rows,
+        measure_rows,
+        save_calibration,
+    )
+    from repro_torch.core import make_ring
+
+    t0 = time.perf_counter()
+    rows = measure_rows(device="cuda", runs=2, seed=SEED + 8)
+    cal = fit_rows(rows, device="cuda")
+    path = save_calibration(cal, ROOT / "build" / "calibration.json")
+    for backend in ("local", "elastic"):
+        c = cal.backends.get(backend)
+        if c is None or not all(c.coef.get(k, 0) > 0 for k in ("encode", "compute", "decode")):
+            fail(f"calibrate: no positive encode/compute/decode fit for {backend}: {c}")
+    if not cal.matches_device("cuda"):
+        fail(f"calibrate: the fit's device {cal.device} does not match this card")
+    ref_payload = json.loads((ROOT / "benchmarks" / "calibration.json").read_text())
+    if CalibrationSet.from_payload(ref_payload).matches_device("cuda"):
+        fail("calibrate: the reference's JAX/CPU calibration passes as this card's")
+    # predicted against measured, per (backend, stage, feature value)
+    groups = defaultdict(list)
+    coef_of = {stage: name for stage, (_, name) in STAGE_FEATURES.items()}
+    for row in rows:
+        stage = row["name"].rsplit("_", 1)[-1]
+        feat = row["derived"][STAGE_FEATURES[stage][0]]
+        groups[(row["derived"]["backend"], stage, feat)].append(row["us"])
+    table = []
+    for (backend, stage, feat), us in sorted(groups.items()):
+        pred = cal.backends[backend].coef.get(coef_of[stage], 0.0) * feat
+        table.append({"backend": backend, "stage": stage, "feature": feat, "rows": len(us),
+                      "measured_us": sum(us) / len(us), "predicted_us": pred})
+    Z32 = make_ring(2, 32, ())
+    spec = ProblemSpec(MAIN_SIZE, MAIN_SIZE, MAIN_SIZE, n=2, ring=Z32, N=8, straggler_budget=2)
+    rank = lambda p: [(c.scheme, c.u, c.v, c.w, c.n, c.costs.R, c.score)  # noqa: E731
+                      for c in p.candidates[:5]]
+    rankings = {"calibrated_local": rank(plan(spec, calibration=cal, backend="local")),
+                "calibrated_elastic": rank(plan(spec, calibration=cal, backend="elastic")),
+                "analytic": rank(plan(spec, calibration=False))}
+    for name, c in sorted(cal.backends.items()):
+        log(f"calibrate {name}: coef {json.dumps(c.coef)} r2 {json.dumps(c.r2)} rows {c.nrows}")
+    for row in table:
+        log(f"calibrate row {json.dumps(row)}")
+    for name, r in rankings.items():
+        log(f"calibrate plan ({name}): {json.dumps(r)}")
+    report["calibration"] = {"payload": cal.to_payload(), "path": str(path), "rows": rows,
+                             "table": table, "rankings": rankings,
+                             "seconds": time.perf_counter() - t0}
+
+
 def _kernel_rows(report: dict, totals: dict) -> list:
     """The ``{"kernels": [...]}`` rows: one per route and one for the
     pre-pass, each at its representative main-path shape, with the times of
@@ -1519,6 +1918,14 @@ def _kernel_rows(report: dict, totals: dict) -> list:
                         for x in report["path_kernel_timings"] if x["route"] == route}
     base = {"route": "cuda", "replaces": "src/repro/kernels/gr_matmul.py:40", "library_ms": None,
             "tolerance": 0}  # integer-exact: each kernel and its plain version agree bit for bit
+
+    def tuned(route, row):  # phase 10's row at this representative shape
+        key = f"|{route}|{row['ring'].strip('(),') or '1'}x1e32|{row['t']}x{row['r']}x{row['s']}"
+        for point in report["autotune"]["points"]:
+            if point["key"].endswith(key):
+                return {k: point[k] for k in ("static", "static_ms", "tuned", "tuned_ms")}
+        return None
+
     src = "src/repro_torch/kernels/csrc/"
     return [
         {**base, "name": "gr_matmul_simt", "source": src + "gr_matmul.cu",
@@ -1529,7 +1936,8 @@ def _kernel_rows(report: dict, totals: dict) -> list:
          "launches": totals["tc"], "max_abs_err": report["kernel_max_abs_err"]["tc"],
          "ms": w["ms"], "plain_ms": w["plain_ms"], "bound_ms": w["bound_ms"],
          "bound_by": w["bound_by"], "int8_yardstick_ms": w["int8_yardstick_ms"],
-         "simt_ms": w["simt_ms"], "shape": shape(w), "per_shape_ms": d4("tc")},
+         "simt_ms": w["simt_ms"], "shape": shape(w), "per_shape_ms": d4("tc"),
+         "autotune": tuned("tc", w)},
         {**base, "name": "gr_matmul_tc_limbs", "source": src + "gr_matmul_tc.cu",
          "launches": totals["limbs"], "max_abs_err": report["kernel_max_abs_err"]["limbs"],
          "ms": w["limbs_ms"], "plain_ms": w["limbs_plain_ms"], "bound_ms": w["limbs_bound_ms"],
@@ -1538,6 +1946,7 @@ def _kernel_rows(report: dict, totals: dict) -> list:
          "launches": totals["skinny"], "max_abs_err": report["kernel_max_abs_err"]["skinny"],
          "ms": enc["ms"], "plain_ms": enc["plain_ms"], "bound_ms": enc["bound_ms"],
          "bound_by": enc["bound_by"], "simt_ms": enc["simt_ms"], "shape": shape(enc),
+         "autotune": tuned("skinny", enc),
          "per_shape_ms": {**{k: v["ms"] for k, v in t.items() if v["route"] == "skinny"},
                           **d4("skinny")}},
     ]
@@ -1565,13 +1974,16 @@ def main() -> int:
     phase_env_build(report)
     phase_kernels(report)
     totals, calls = phase_main_path(report)
-    for phase in (phase_elastic, phase_stream, phase_quantized, phase_pool, phase_serve):
+    for phase in (phase_elastic, phase_stream, phase_quantized, phase_pool, phase_serve,
+                  phase_hedge, phase_spmd):
         for route, n in phase(report, calls).items():
             totals[route] += n
     for route in ROUTES + ("limbs",):
         if totals[route] == 0:
             fail(f"the main path never launched the {route} kernel")
     report["main_path_launches"] = totals
+    phase_autotune(report)
+    phase_calibrate(report)
     phase_path_calls(report, calls)
     report["seconds"] = time.perf_counter() - t0
     kernels = _kernel_rows(report, totals)

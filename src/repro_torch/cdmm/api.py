@@ -194,6 +194,13 @@ class DecodeOpsMixin:
         cache[idx] = op  # re-insert = mark most-recently-used
         return op
 
+    def __getstate__(self) -> dict:
+        # the op cache holds closures, which do not pickle; a scheme sent to
+        # the ranks of a RankPool rebuilds its ops on first use
+        state = dict(self.__dict__)
+        state.pop("_decode_ops", None)
+        return state
+
 
 # ---------------------------------------------------------------------------
 # adapters over the scheme classes

@@ -9,29 +9,39 @@ decodes at the R-th arrival.  Every registered scheme is integer-exact, so
 the result equals ``A @ B`` bit for bit whatever the live set.
 
 ``pool`` (``repro_torch.dist``, imported on first use of the name): the
-same protocol over real worker OS processes.
+same protocol over real worker OS processes.  ``shard_map``: the protocol
+SPMD over N ranks of a ``torch.distributed`` group
+(``repro_torch.cdmm.runtime``), one rank per worker, each encoding its own
+share, computing its product and all-gathering the responses.
 
 The local and elastic backends record ``repro_torch.obs`` spans (encode /
 compute / decode, the reference's schema) when tracing is on; with it off
-the cost is one ``None`` check per call.  The ``shard_map`` backend comes
-with the ``torch.distributed`` slice.
+the cost is one ``None`` check per call.  ``shard_map`` adds a ``gather``
+span, and its spans close after the card finished the stage.
 """
 from __future__ import annotations
 
+import atexit
+import contextlib
+import functools
 from typing import Optional, Tuple, Union
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..core.galois import from_numpy
 from ..core.straggler import select_workers
 from ..device import resolve_device
 from ..obs import trace as obs
+from . import runtime
 from .api import CdmmScheme
 from .planner import Plan
 
 __all__ = [
     "LocalSimBackend",
+    "ShardMapBackend",
+    "shard_worker_body",
     "check_use_kernel",
     "coded_matmul",
     "get_backend",
@@ -105,15 +115,132 @@ class LocalSimBackend:
             return decode_from(scheme, H, live_indices(scheme, mask))
 
 
-_BACKENDS: dict = {"local": LocalSimBackend}
+@contextlib.contextmanager
+def _stage(ctx, name: str, device: torch.device, **tags):
+    """One ``shard_map`` span; traced, it closes after the card finished
+    the stage (so the product's span is device time, not its enqueue)."""
+    with obs.tracer().span(ctx, name, "shard_map", **tags) as live:
+        yield live
+        if ctx is not None and device.type == "cuda":
+            torch.cuda.synchronize(device)
+
+
+def shard_worker_body(
+    scheme: CdmmScheme,
+    axis: str,
+    A: torch.Tensor,
+    B: torch.Tensor,
+    mask=None,
+    *,
+    use_kernel: Optional[bool] = None,
+    key: Optional[int] = None,
+) -> torch.Tensor:
+    """Per-rank master/worker protocol: call on every rank of the group
+    bound to ``axis`` (``runtime.cdmm_shard_map``) with all operands
+    replicated.
+
+    Each rank encodes only its own codeword pair (``encode_a_at`` /
+    ``encode_b_at`` at its index: no rank materialises all N shares),
+    computes its block product, all-gathers the N responses and decodes
+    from the first R live workers under ``mask`` (every rank computes; the
+    mask only selects which responses are read).  ``key`` feeds every rank
+    the same masks of a secure scheme (drawn from the same generator seed
+    on the same device type), so the codeword polynomial is consistent.
+    """
+    check_use_kernel(scheme, use_kernel)
+    dev = scheme.code.device
+    i = runtime.axis_index(axis)
+    ctx = obs.maybe_context("shard_map")
+    with _stage(ctx, "encode", dev, rank=i, scheme=scheme.name):
+        fa = scheme.encode_a_at(A, i, key=key)
+        gb = scheme.encode_b_at(B, i, key=key)
+    with _stage(ctx, "compute", dev, rank=i):
+        h = scheme.worker_compute(fa[None], gb[None])[0]
+    with _stage(ctx, "gather", dev, rank=i, bytes_in=h.numel() * h.element_size() * scheme.N):
+        H = runtime.all_gather(h, axis)
+    with _stage(ctx, "decode", dev, rank=i, scheme=scheme.name):
+        return decode_from(scheme, H, live_indices(scheme, mask))
+
+
+class ShardMapBackend:
+    """Run the protocol SPMD over a group of N ranks, one per worker.
+
+    Inside an initialized ``torch.distributed`` world of size N (e.g. under
+    ``torchrun``) every rank calls with replicated operands and the default
+    group is the worker axis.  Otherwise the caller joins as rank 0 of a
+    :class:`~repro_torch.cdmm.runtime.RankPool` spawned once per N on the
+    operands' device (or the one given as ``pool``): the operands are
+    broadcast from this process and ``close()`` stops the ranks.
+    ``last_reports``: every rank's launches per route (and, with
+    ``trace=True``, its encode / compute / gather / decode spans).
+    """
+
+    name = "shard_map"
+
+    def __init__(self, pool: Optional["runtime.RankPool"] = None, axis: str = "workers",
+                 use_kernel: Optional[bool] = None, trace: bool = False):
+        self.axis, self.use_kernel, self.trace = axis, use_kernel, trace
+        self._pools: dict = {} if pool is None else {pool.size: pool}
+        self._owned = pool is None
+        self.last_reports: list = []
+
+    def pool(self, N: int, device=None) -> "runtime.RankPool":
+        """The rank pool of N ranks (spawned on first use)."""
+        if N not in self._pools:
+            self._pools[N] = runtime.RankPool(N, device=device, trace=self.trace)
+        return self._pools[N]
+
+    def __call__(
+        self,
+        scheme: CdmmScheme,
+        A: torch.Tensor,
+        B: torch.Tensor,
+        mask: Optional[torch.Tensor] = None,
+        key: Optional[int] = None,
+    ) -> torch.Tensor:
+        body = functools.partial(shard_worker_body, scheme, self.axis,
+                                 use_kernel=self.use_kernel, key=key)
+        if mask is not None:
+            mask = torch.as_tensor(mask, dtype=torch.bool).cpu()
+        if dist.is_initialized() and dist.get_world_size() == scheme.N:
+            with runtime.bind_axis(self.axis, runtime.RankGroup.world()):
+                return body(A, B, mask)
+        pool = self.pool(scheme.N, scheme.code.device)
+        out = pool.run(body, A, B, mask, axis=self.axis)
+        self.last_reports = pool.last_reports
+        return out
+
+    def close(self) -> None:
+        """Stop the rank pools this backend spawned (idempotent)."""
+        if self._owned:
+            for pool in self._pools.values():
+                pool.close()
+        self._pools = {}
+
+    def __enter__(self) -> "ShardMapBackend":
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.close()
+
+
+_shared_shard_map: Optional[ShardMapBackend] = None
+
+
+def _shard_map_backend() -> ShardMapBackend:
+    """``backend="shard_map"``: one process-wide instance, so its rank pools
+    are spawned once and stopped when the interpreter exits."""
+    global _shared_shard_map
+    if _shared_shard_map is None:
+        _shared_shard_map = ShardMapBackend()
+        atexit.register(_shared_shard_map.close)
+    return _shared_shard_map
+
+
+_BACKENDS: dict = {"local": LocalSimBackend, "shard_map": _shard_map_backend}
 
 # backends registered by a module imported on first use of their name
 _LAZY_BACKENDS: dict = {"pool": "repro_torch.dist"}
-
-# backends of the reference that later slices of the port bring
-_LATER: dict = {
-    "shard_map": "the torch.distributed backend is not ported yet; see ROADMAP Queue 1 item 16",
-}
 
 
 def register_backend(name: str, factory) -> None:
@@ -126,8 +253,6 @@ def get_backend(backend: Union[None, str, object]):
     if backend is None:
         return LocalSimBackend()
     if isinstance(backend, str):
-        if backend in _LATER and backend not in _BACKENDS:
-            raise ValueError(f"backend {backend!r}: {_LATER[backend]}")
         if backend not in _BACKENDS and backend in _LAZY_BACKENDS:
             import importlib
 

@@ -22,16 +22,20 @@ the reference's: every candidate of one plan shares ``spec.N``, and each
 trial's sorted row is monotone in R, so the order depends only on R and the
 tie-break, which is the same arithmetic in both packages.
 
-No measured calibration is read — the JAX package's
-``benchmarks/calibration.json`` holds CPU/JAX coefficients, so the port
-always ranks as the reference does under ``REPRO_CALIBRATION=off``.
+``calibration`` grounds ``"latency"``, ``"amortized"`` and ``"time_to_R"``
+in measured wall-time coefficients (``repro_torch.cdmm.calibrate``), with
+the reference's semantics: None auto-loads the port's own
+``cdmm/calibration.json`` (used only when it was fitted on this device and
+covers every cost term; ``REPRO_CALIBRATION=off`` disables it), False keeps
+the analytic proxy, and a pinned :class:`CalibrationSet` applies as given.
+Without a calibration the rankings are the reference's analytic ones.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass, field
 from functools import lru_cache
 from math import log1p
-from typing import Dict, Iterable, List, Optional, Sequence, Tuple
+from typing import Dict, Iterable, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -82,6 +86,28 @@ OBJECTIVES: Dict[str, callable] = {
 }
 
 
+# objectives whose analytic form is replaced by measured coefficients when a
+# calibration applies (the rest are pure counts, already exact)
+_CALIBRATED_OBJECTIVES = ("latency", "time_to_R", "amortized")
+
+
+def _calibrated_score_fn(objective: str, cal: "Calibration"):
+    """Measured-wall-time score for one objective, or None to keep the
+    analytic proxy (the calibration carries no coefficients)."""
+    if not cal.coef:
+        return None
+    if objective in ("latency", "amortized"):
+        return cal.predict_us
+    if objective == "time_to_R":
+        # E[t_R] is in model-ms, the fitted serial master work in machine-us:
+        # the measured term stays a log-compressed tie-break, so that the
+        # objective keeps rewarding straggler resilience
+        return lambda c: (
+            expected_time_to_R(c.N, c.R) + 1e-6 * log1p(cal.serial_master_us(c))
+        )
+    return None
+
+
 @dataclass(frozen=True)
 class PlanCandidate:
     """One feasible (scheme, partition, packing) configuration, scored."""
@@ -112,6 +138,13 @@ class Plan:
     @property
     def best(self) -> PlanCandidate:
         return self.candidates[0]
+
+    def by_scheme(self, name: str) -> Optional[PlanCandidate]:
+        """Best-ranked candidate of a given scheme family, if any."""
+        for c in self.candidates:
+            if c.scheme == name:
+                return c
+        return None
 
     def instantiate(self, rank: int = 0, device=None) -> CdmmScheme:
         """Build (and memoize per device) the executable scheme at ``rank``;
@@ -167,6 +200,8 @@ def plan(
     objective: str = "latency",
     schemes: Optional[Sequence[str]] = None,
     top_k: Optional[int] = None,
+    calibration: Union[None, bool, "CalibrationSet"] = None,
+    backend: str = "local",
 ) -> Plan:
     """Rank every feasible (scheme, u, v, w, n) configuration for ``spec``.
 
@@ -176,6 +211,11 @@ def plan(
     R <= N - straggler_budget.  With ``privacy_t > 0`` only configurations
     whose costs advertise ``privacy_t >= spec.privacy_t`` (the secure
     families) are feasible: a plan never downgrades a privacy requirement.
+
+    ``calibration``: None auto-loads the port's calibration file (applied
+    only when fitted on this device with every cost term), False forces the
+    analytic proxy, a :class:`CalibrationSet` pins the coefficients.
+    ``backend`` selects whose coefficients apply ("local" is the fallback).
     """
     spec.validate()
     if objective not in OBJECTIVES:
@@ -183,6 +223,20 @@ def plan(
             f"unknown objective {objective!r}; one of {sorted(OBJECTIVES)}"
         )
     score_fn = OBJECTIVES[objective]
+    if objective in _CALIBRATED_OBJECTIVES and calibration is not False:
+        # imported here: ``python -m repro_torch.cdmm.calibrate`` runs it as __main__
+        from .calibrate import COEF_NAMES, CalibrationSet, load_calibration
+
+        pinned = isinstance(calibration, CalibrationSet)
+        cal_set = calibration if pinned else load_calibration()
+        cal = cal_set.for_backend(backend) if cal_set is not None else None
+        if cal is not None and not pinned:
+            # an auto-loaded file must describe this hardware and cover every
+            # cost term: a partial fit would score the missing term as free
+            if not cal_set.matches_device() or set(cal.coef) != set(COEF_NAMES):
+                cal = None
+        if cal is not None:
+            score_fn = _calibrated_score_fn(objective, cal) or score_fn
 
     requested = registered_schemes()
     if schemes is not None:

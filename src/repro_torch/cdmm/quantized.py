@@ -15,10 +15,10 @@ reconstruct the EXACT integer result, so the dequantized output is
 bit-identical under any allowed set of dead workers.
 
 The coded matmul is the registered ``ep_rmfe1`` scheme executed by the
-``local`` backend; on the card its worker products run on the ``tc`` route
-and its packs, encodes and decode on ``skinny``.  The reference's
-shard_map path (``axis_name``) waits for the ``torch.distributed``
-backend.
+``local`` backend, or, with ``axis_name``, by ``shard_worker_body`` on each
+rank of the group bound to that axis (``runtime.cdmm_shard_map``); on the
+card its worker products run on the ``tc`` route and its packs, encodes and
+decode on ``skinny``.
 """
 from __future__ import annotations
 
@@ -28,7 +28,7 @@ import torch
 
 from ..core.galois import make_ring
 from .api import EPRMFE1Adapter
-from .backends import LocalSimBackend, check_use_kernel
+from .backends import LocalSimBackend, check_use_kernel, shard_worker_body
 
 __all__ = ["quantize_int8", "CodedQuantMatmul", "lift_i8_to_ring", "unlift_to_i32"]
 
@@ -65,11 +65,11 @@ class CodedQuantMatmul:
     GR(2^32, 4) — the paper's 16-worker evaluation point.  The scheme's
     tables live on ``device`` (None: CUDA).
 
-    ``axis_name`` must be None: the reference's shard_map path needs the
-    ``torch.distributed`` backend (ROADMAP Queue 1 item 16) and raises
-    NotImplementedError.  ``use_kernel`` follows
-    the elastic backend's: None or True on the card, where False raises;
-    ignored on the CPU.
+    ``axis_name``: None runs the local backend; a name makes
+    :meth:`exact_int_matmul` the per-rank body over that axis (call it
+    through ``runtime.cdmm_shard_map`` with the operands and mask
+    replicated).  ``use_kernel`` follows the elastic backend's: None or
+    True on the card, where False raises; ignored on the CPU.
     """
 
     def __init__(
@@ -84,11 +84,6 @@ class CodedQuantMatmul:
         use_kernel: Optional[bool] = None,
         device=None,
     ):
-        if axis_name is not None:
-            raise NotImplementedError(
-                f"axis_name={axis_name!r}: the sharded path needs the torch.distributed "
-                "backend, not ported yet (ROADMAP Queue 1 item 16); pass axis_name=None"
-            )
         self.base = make_ring(2, 32, ())
         self.n = n
         self.scheme = EPRMFE1Adapter(self.base, n, N, u, v, w, device=device)
@@ -110,10 +105,16 @@ class CodedQuantMatmul:
     def exact_int_matmul(
         self, qx: torch.Tensor, qw: torch.Tensor, mask: Optional[torch.Tensor] = None
     ) -> torch.Tensor:
-        """(tokens, d) int8 @ (d, f) int8 -> exact int32, coded across workers."""
+        """(tokens, d) int8 @ (d, f) int8 -> exact int32, coded across workers.
+
+        With ``axis_name`` this runs on every rank of the group bound to
+        that axis, with qx, qw and mask replicated; otherwise locally."""
         A = lift_i8_to_ring(self._on_device(qx))  # (t, d, 1)
         B = lift_i8_to_ring(self._on_device(qw))  # (d, f, 1)
-        C = self._local(self.scheme, A, B, mask)
+        if self.axis is not None:
+            C = shard_worker_body(self.scheme, self.axis, A, B, mask, use_kernel=self.use_kernel)
+        else:
+            C = self._local(self.scheme, A, B, mask)
         return unlift_to_i32(C)
 
     def __call__(

@@ -11,7 +11,7 @@ from typing import Union
 
 import torch
 
-__all__ = ["resolve_device", "DeviceLike"]
+__all__ = ["resolve_device", "device_kind", "DeviceLike"]
 
 DeviceLike = Union[None, str, torch.device]
 
@@ -30,3 +30,24 @@ def resolve_device(device: DeviceLike = None) -> torch.device:
         if dev.index is None:
             dev = torch.device("cuda", torch.cuda.current_device())
     return dev
+
+
+_NAMES: dict = {}
+
+
+def device_kind(device: DeviceLike = None) -> str:
+    """The namespace of measured data (tuned tiles, calibrations) for
+    ``device`` (None: CUDA when there is a card, else the CPU):
+    ``cuda|<card name>`` or ``cpu``.  Numbers taken on one card never rank
+    or pick for another.  A kind given as ``device`` is returned as it is."""
+    if isinstance(device, str) and "|" in device:
+        return device
+    if device is None:
+        device = "cuda" if torch.cuda.is_available() else "cpu"
+    device = torch.device(device)
+    if device.type != "cuda":
+        return "cpu"
+    idx = torch.cuda.current_device() if device.index is None else device.index
+    if idx not in _NAMES:  # asking CUDA costs far more than the dict
+        _NAMES[idx] = torch.cuda.get_device_name(idx)
+    return f"cuda|{_NAMES[idx]}"

@@ -5,8 +5,9 @@ port's counterpart of ``repro.dist.worker``, on the same wire protocol.
 On connect the worker sends a ``hello`` capability handshake — device kind
 (``"gpu"`` on a card, ``"cpu"`` otherwise, as the reference reports
 ``jax.default_backend()``), pid, the ring-arithmetic envelope, the wire
-codecs it can decode, its autotune coverage (none yet: the port has no
-autotuner), plus the port's own fields: ``torch_version`` and, on a card,
+codecs it can decode, its autotune coverage (the entries of the committed
+tile cache, and those of this device's kind: ``cuda|<card>`` or ``cpu``),
+plus the port's own fields: ``torch_version`` and, on a card,
 the card's name (``card``) and the kernel library's ``build_info()``
 (``kernels``).  Then it serves ``task`` messages until the master says
 ``shutdown`` or the socket drops.
@@ -62,6 +63,16 @@ def _capabilities(device) -> Dict:
     """The capability handshake payload (device, rings, codecs, autotune)."""
     import torch
 
+    from ..device import device_kind
+    from ..kernels.autotune import load_cache
+
+    try:
+        cache = load_cache()
+        prefix = f"{device_kind(device)}|"
+        coverage = sum(1 for k in cache if k.startswith(prefix))
+        entries = len(cache)
+    except (OSError, ValueError):  # a bad cache must not keep a worker out of the pool
+        coverage, entries = 0, 0
     caps = {
         "protocol": PROTOCOL_VERSION,
         "pid": os.getpid(),
@@ -72,8 +83,7 @@ def _capabilities(device) -> Dict:
         "codecs": list(supported_codecs()),
         "streaming": True,
         "tracing": True,
-        # the port has no autotuner yet: no cached tile entries
-        "autotune": {"entries": 0, "device_entries": 0},
+        "autotune": {"entries": entries, "device_entries": coverage},
     }
     if device.type == "cuda":
         from ..kernels.build import build_info

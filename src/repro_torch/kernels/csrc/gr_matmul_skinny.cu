@@ -26,6 +26,10 @@
 //  * The tower shape (D0, D1) is a template parameter, so CONVPOS(i, j) and
 //    the accumulator indices are compile-time constants.  Instantiated where
 //    the K x CPT accumulators fit comfortably in registers (K * CPT <= 64).
+//  * So are the threads per block (NT) and a multiple CM of the columns per
+//    thread: a block covers NT * CPT * CM columns.  The default is NT = 128,
+//    CM = 1; SKINNY_CONFIGS adds two more for the towers with D <= 4, which
+//    the autotuner (repro_torch.kernels.autotune) times per shape.
 //  * Ragged columns, and operands whose rows are not 16-byte aligned, take
 //    4-byte loads and stores in the same kernel.
 //
@@ -52,22 +56,22 @@ __host__ __device__ constexpr int convpos(int i, int j, int d0) {
   return (i / d0 + j / d0) * (2 * d0 - 1) + (i % d0 + j % d0);
 }
 
-template <int D0, int D1>
+template <int D0, int D1, int CM = 1>
 struct Skinny {
   static constexpr int D = D0 * D1;
   static constexpr int K = (2 * D0 - 1) * (2 * D1 - 1);
   // columns per thread: CPT * D words make whole 16-byte vectors
-  static constexpr int CPT = (D % 4 == 0) ? 1 : (D % 2 == 0) ? 2 : 4;
+  static constexpr int CPT = ((D % 4 == 0) ? 1 : (D % 2 == 0) ? 2 : 4) * CM;
   static constexpr int W = CPT * D;  // words per thread per row
 };
 
-template <int D0, int D1>
-__global__ void __launch_bounds__(128)
+template <int D0, int D1, int NT, int CM>
+__global__ void __launch_bounds__(NT)
     gr_matmul_skinny_kernel(const uint32_t* __restrict__ A,
                             const uint32_t* __restrict__ B,
                             uint32_t* __restrict__ C, int T, int R, int S,
                             const FoldTable fold, uint32_t mask, int vec) {
-  using G = Skinny<D0, D1>;
+  using G = Skinny<D0, D1, CM>;
   constexpr int D = G::D, K = G::K, CPT = G::CPT, W = G::W;
   static_assert(K * CPT <= 64, "accumulators would spill");
   extern __shared__ uint4 smem4[];
@@ -165,13 +169,14 @@ __global__ void __launch_bounds__(128)
   }
 }
 
-template <int D0, int D1>
+template <int D0, int D1, int NT, int CM>
 int launch(const uint32_t* A, const uint32_t* B, uint32_t* C, int batch, int T,
            int R, int S, const FoldTable& fold, uint32_t mask,
            cudaStream_t stream) {
-  using G = Skinny<D0, D1>;
+  using G = Skinny<D0, D1, CM>;
   const size_t a_words = (T * R * G::D + 3) & ~3;
-  int threads = 128;
+  // NT threads, halved while the slab of B would not fit
+  int threads = NT;
   auto smem_for = [&](int th) {
     return 4 * (a_words + (size_t)R * th * G::W);
   };
@@ -187,7 +192,7 @@ int launch(const uint32_t* A, const uint32_t* B, uint32_t* C, int batch, int T,
     if (e != cudaSuccess) return (int)e;
     if (dev >= kMaxDevices) return (int)cudaErrorInvalidDevice;
     if (!raised[dev]) {
-      e = cudaFuncSetAttribute(gr_matmul_skinny_kernel<D0, D1>,
+      e = cudaFuncSetAttribute(gr_matmul_skinny_kernel<D0, D1, NT, CM>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemCap);
       if (e != cudaSuccess) return (int)e;
       raised[dev] = true;
@@ -198,9 +203,13 @@ int launch(const uint32_t* A, const uint32_t* B, uint32_t* C, int batch, int T,
                   ((uintptr_t)B | (uintptr_t)C) % 16 == 0;
   const int nb = threads * G::CPT;
   dim3 grid((S + nb - 1) / nb, batch);
-  gr_matmul_skinny_kernel<D0, D1><<<grid, threads, smem, stream>>>(
+  gr_matmul_skinny_kernel<D0, D1, NT, CM><<<grid, threads, smem, stream>>>(
       A, B, C, T, R, S, fold, mask, vec);
   return (int)cudaGetLastError();
+}
+
+constexpr int skinny_key(int d0, int d1, int nt, int cm) {
+  return ((d0 * 32 + d1) * 1024 + nt) * 8 + cm;
 }
 
 }  // namespace
@@ -211,14 +220,23 @@ int launch(const uint32_t* A, const uint32_t* B, uint32_t* C, int batch, int T,
   X(1, 1) X(2, 1) X(3, 1) X(4, 1) X(5, 1) X(6, 1) X(7, 1) X(8, 1) X(10, 1)  \
   X(12, 1) X(14, 1) X(16, 1) X(2, 3) X(2, 5) X(3, 2) X(3, 4) X(4, 3) X(5, 2)
 
+// (d0, d1, NT, CM) beyond each tower's default (128, 1), which every tower
+// of SKINNY_TOWERS has; the Python mirror is
+// repro_torch.kernels.gr_matmul.SKINNY_CONFIGS.
+#define SKINNY_EXTRA(X)                                                  \
+  X(1, 1, 256, 1) X(1, 1, 128, 2) X(2, 1, 256, 1) X(2, 1, 128, 2)        \
+  X(3, 1, 256, 1) X(3, 1, 128, 2) X(4, 1, 256, 1) X(4, 1, 128, 2)
+
 extern "C" {
 
 // A (batch, T, R, D), B (batch, R, S, D) -> C (batch, T, S, D), all uint32
-// words, contiguous.  Returns cudaGetLastError() after the launch, and
-// cudaErrorInvalidValue for a tower without an instantiation or T, R > 16.
+// words, contiguous, with the (threads, cm) instantiation of the tower
+// (d0, d1).  Returns cudaGetLastError() after the launch, and
+// cudaErrorInvalidValue for a configuration without an instantiation or
+// T, R > 16.
 int gr_matmul_skinny_u32(const void* A, const void* B, void* C, int batch,
-                         int T, int R, int S, int d0, int d1,
-                         const uint32_t* fold_host, uint32_t mask,
+                         int T, int R, int S, int d0, int d1, int threads,
+                         int cm, const uint32_t* fold_host, uint32_t mask,
                          void* stream) {
   const int D = d0 * d1, K = (2 * d0 - 1) * (2 * d1 - 1);
   if (D > kMaxD || K > kMaxK || T > kMaxT || R > kMaxR || T < 1 || R < 1)
@@ -230,18 +248,22 @@ int gr_matmul_skinny_u32(const void* A, const void* B, void* C, int batch,
   const uint32_t* b = static_cast<const uint32_t*>(B);
   uint32_t* c = static_cast<uint32_t*>(C);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (d0 * 32 + d1) {
-#define SKINNY_LAUNCH(x, y) \
-  case x * 32 + y:          \
-    return launch<x, y>(a, b, c, batch, T, R, S, fold, mask, st);
+  switch (skinny_key(d0, d1, threads, cm)) {
+#define SKINNY_LAUNCH4(x, y, nt, m) \
+  case skinny_key(x, y, nt, m):     \
+    return launch<x, y, nt, m>(a, b, c, batch, T, R, S, fold, mask, st);
+#define SKINNY_LAUNCH(x, y) SKINNY_LAUNCH4(x, y, 128, 1)
     SKINNY_TOWERS(SKINNY_LAUNCH)
+    SKINNY_EXTRA(SKINNY_LAUNCH4)
 #undef SKINNY_LAUNCH
+#undef SKINNY_LAUNCH4
     default:
       return (int)cudaErrorInvalidValue;
   }
 }
 
-// Columns per thread of the instantiation for a tower shape; -1 if none.
+// Columns per thread of the default instantiation for a tower shape; -1 if
+// none.
 int gr_matmul_skinny_cols(int d0, int d1) {
   switch (d0 * 32 + d1) {
 #define SKINNY_COLS(x, y) \
@@ -252,6 +274,28 @@ int gr_matmul_skinny_cols(int d0, int d1) {
     default:
       return -1;
   }
+}
+
+// The instantiations of the tower (d0, d1), default first: writes up to
+// `cap` (threads, cm) pairs to `out` and returns how many there are.
+int gr_matmul_skinny_configs(int d0, int d1, int* out, int cap) {
+  int n = 0;
+  auto add = [&](int nt, int m) {
+    if (n < cap) {
+      out[2 * n] = nt;
+      out[2 * n + 1] = m;
+    }
+    ++n;
+  };
+#define SKINNY_DEFAULT(x, y) \
+  if (x == d0 && y == d1) add(128, 1);
+#define SKINNY_MORE(x, y, nt, m) \
+  if (x == d0 && y == d1) add(nt, m);
+  SKINNY_TOWERS(SKINNY_DEFAULT)
+  SKINNY_EXTRA(SKINNY_MORE)
+#undef SKINNY_DEFAULT
+#undef SKINNY_MORE
+  return n;
 }
 
 }  // extern "C"

@@ -29,16 +29,23 @@
 //    through shared memory, as (batch, D, L, Sp, Rp).  It zero-pads T and S
 //    to the block tile and R to the stage depth, so the main loop has no
 //    edge checks.  It writes as many bytes as it reads.
-//  * The main kernel: 8 warps per block, a 32 x 32 block tile, each warp a
-//    16 x 8 tile.  A ring of STAGES shared-memory stages, each holding a
-//    64-deep slab of all D * L limb planes of both operands, is filled with
-//    cp.async (16-byte copies, rows padded to 80 bytes so that ldmatrix is
-//    free of bank conflicts).  For every 32-deep step each warp loads the
-//    D * L fragments of B (ldmatrix.x2) and of A (ldmatrix.x4) once, then
+//  * The main kernel: WM x WN warps per block, each warp a 16 x 8 tile, so a
+//    (16 WM) x (8 WN) block tile; the default is 2 x 4 warps, 32 x 32.  A
+//    ring of ST shared-memory stages, each holding a 64-deep slab of all
+//    D * L limb planes of both operands, is filled with cp.async (16-byte
+//    copies, rows padded to 80 bytes so that ldmatrix is free of bank
+//    conflicts).  For every 32-deep step each warp loads the D * L
+//    fragments of B (ldmatrix.x2) and of A (ldmatrix.x4) once, then
 //    issues mma.sync.m16n8k32.row.col.s32.u8.u8.s32 for every (i, j, a, b)
 //    with a + b < L into the int32 fragment of (CONVPOS(i, j), a + b), in an
 //    order that keeps two MMAs into one fragment at least D + 1 apart, so
 //    that each warp has independent MMAs in flight while one completes.
+//  * The block tile (WM, WN) and the stage count ST are template
+//    parameters beside the tower: a stage holds (BM + BN) * D * L * kRow
+//    bytes, at most 227 KB in all, while a warp's K * L + K fragments and
+//    accumulators do not depend on the tile.  TC_CONFIGS lists the
+//    instantiations, the default of each tower first; the autotuner
+//    (repro_torch.kernels.autotune) times them and picks per shape.
 //  * Every 256 of R (kChunk) the fragments are flushed into K uint32
 //    accumulators, acc[c] += frag[c][s] << 8s (exact mod 2^32), and zeroed.
 //    A fragment then holds at most 256 * D * L <= 4,096 byte products.  The
@@ -68,9 +75,6 @@
 
 namespace {
 
-constexpr int kThreads = 256;  // 8 warps: 2 (M) x 4 (N), each 16 x 8
-constexpr int BM = 32;         // block tile rows (T)
-constexpr int BN = 32;         // block tile columns (S)
 constexpr int KS = 64;         // bytes of R per pipeline stage
 constexpr int kRow = KS + 16;  // shared-memory row stride: conflict-free ldmatrix
 constexpr int kChunk = 256;    // flush period in R
@@ -88,12 +92,18 @@ __host__ __device__ constexpr int convpos(int i, int j, int d0) {
   return (i / d0 + j / d0) * (2 * d0 - 1) + (i % d0 + j % d0);
 }
 
-template <int D0, int D1>
+// one instantiation: tower (D0, D1), WM x WN warps of 16 x 8, ST stages
+template <int D0, int D1, int WM, int WN, int ST>
 struct Tc {
   static constexpr int D = D0 * D1;
   static constexpr int K = (2 * D0 - 1) * (2 * D1 - 1);
-  static constexpr int kStageMax = D * kMaxL * (BM + BN) * kRow;
-  static constexpr int STAGES = 3 * kStageMax <= kSmemMax ? 3 : 2;
+  static constexpr int kThreads = 32 * WM * WN;
+  static constexpr int BM = 16 * WM;  // block tile rows (T)
+  static constexpr int BN = 8 * WN;   // block tile columns (S)
+  static constexpr int STAGES = ST;
+  static_assert(ST >= 2, "the pipeline refills the stage read one step earlier");
+  // shared memory of all stages for L limbs
+  static constexpr int smem(int L) { return ST * D * L * (BM + BN) * kRow; }
 };
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
@@ -217,14 +227,15 @@ int launch_limbs(const uint32_t* X, uint32_t* Y, int batch, int rows, int cols,
 // main kernel
 // ---------------------------------------------------------------------------
 
-template <int D0, int D1>
-__global__ void __launch_bounds__(kThreads, 1)
+template <int D0, int D1, int WM, int WN, int ST>
+__global__ void __launch_bounds__(32 * WM * WN, 1)
     gr_matmul_tc_kernel(const uint8_t* __restrict__ A8,
                         const uint8_t* __restrict__ B8, uint32_t* __restrict__ C,
                         int T, int S, int Tp, int Sp, int Rp, int L,
                         const FoldTable fold, uint32_t mask) {
-  using G = Tc<D0, D1>;
+  using G = Tc<D0, D1, WM, WN, ST>;
   constexpr int D = G::D, K = G::K, STAGES = G::STAGES;
+  constexpr int kThreads = G::kThreads, BM = G::BM, BN = G::BN;
   static_assert(D1 == 1, "the MMA order assumes a single-level tower");
   extern __shared__ __align__(16) uint8_t smem[];
   const int P = D * L;  // limb planes per operand
@@ -232,7 +243,7 @@ __global__ void __launch_bounds__(kThreads, 1)
   const int stage = P * (BM + BN) * kRow;
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int wm = (warp >> 2) * 16, wn = (warp & 3) * 8;
+  const int wm = (warp / WN) * 16, wn = (warp % WN) * 8;
   const int64_t z = blockIdx.z;
   const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
   const uint8_t* Ab = A8 + z * P * (int64_t)Tp * Rp;
@@ -364,12 +375,14 @@ __global__ void __launch_bounds__(kThreads, 1)
   }
 }
 
-template <int D0, int D1>
+template <int D0, int D1, int WM, int WN, int ST>
 int launch(const uint8_t* A8, const uint8_t* B8, uint32_t* C, int batch, int T,
            int S, int Tp, int Sp, int Rp, int L, const FoldTable& fold,
            uint32_t mask, cudaStream_t stream) {
-  using G = Tc<D0, D1>;
-  const int smem = G::STAGES * G::D * L * (BM + BN) * kRow;
+  using G = Tc<D0, D1, WM, WN, ST>;
+  if (Tp % G::BM || Sp % G::BN) return (int)cudaErrorInvalidValue;
+  const int smem = G::smem(L);
+  if (smem > kSmemMax) return (int)cudaErrorInvalidValue;
   // raise the kernel's shared-memory limit once per device (the attribute
   // persists), not on every launch: launches may be captured in a CUDA graph
   static int smem_set[kMaxDevices] = {};
@@ -378,22 +391,32 @@ int launch(const uint8_t* A8, const uint8_t* B8, uint32_t* C, int batch, int T,
   if (e != cudaSuccess) return (int)e;
   if (dev >= kMaxDevices) return (int)cudaErrorInvalidDevice;
   if (smem > smem_set[dev]) {
-    e = cudaFuncSetAttribute(gr_matmul_tc_kernel<D0, D1>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize, G::STAGES * G::kStageMax);
+    const int cap = G::smem(kMaxL) < kSmemMax ? G::smem(kMaxL) : kSmemMax;
+    e = cudaFuncSetAttribute(gr_matmul_tc_kernel<D0, D1, WM, WN, ST>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, cap);
     if (e != cudaSuccess) return (int)e;
-    smem_set[dev] = G::STAGES * G::kStageMax;
+    smem_set[dev] = cap;
   }
-  dim3 grid(Sp / BN, Tp / BM, batch);
-  gr_matmul_tc_kernel<D0, D1><<<grid, kThreads, smem, stream>>>(
+  dim3 grid(Sp / G::BN, Tp / G::BM, batch);
+  gr_matmul_tc_kernel<D0, D1, WM, WN, ST><<<grid, G::kThreads, smem, stream>>>(
       A8, B8, C, T, S, Tp, Sp, Rp, L, fold, mask);
   return (int)cudaGetLastError();
 }
 
+constexpr int tc_key(int d0, int d1, int wm, int wn, int st) {
+  return (((d0 * 32 + d1) * 16 + wm) * 16 + wn) * 8 + st;
+}
+
 }  // namespace
 
-// Single-level towers with D <= 4; the Python mirror is
-// repro_torch.kernels.gr_matmul.tc_instantiated.
-#define TC_TOWERS(X) X(1, 1) X(2, 1) X(3, 1) X(4, 1)
+// (d0, d1, WM, WN, ST) instantiations: single-level towers with D <= 4,
+// each tower's default (the autotuner's fallback) first.  The Python mirror
+// is repro_torch.kernels.gr_matmul.TC_CONFIGS.
+#define TC_CONFIGS(X)                                                    \
+  X(1, 1, 2, 4, 3) X(1, 1, 2, 4, 4) X(1, 1, 4, 4, 3) X(1, 1, 2, 2, 4)    \
+  X(2, 1, 2, 4, 3) X(2, 1, 2, 4, 4) X(2, 1, 4, 2, 3) X(2, 1, 2, 2, 4)    \
+  X(3, 1, 2, 4, 3) X(3, 1, 2, 4, 2) X(3, 1, 4, 2, 2) X(3, 1, 2, 2, 3)    \
+  X(4, 1, 2, 4, 2) X(4, 1, 4, 2, 2) X(4, 1, 1, 8, 2) X(4, 1, 2, 2, 2)
 
 extern "C" {
 
@@ -419,12 +442,16 @@ int gr_matmul_tc_limbs(const void* X, void* Y, int batch, int rows, int cols,
 }
 
 // A8 (batch, D, L, Tp, Rp), B8 (batch, D, L, Sp, Rp) u8 limb planes ->
-// C (batch, T, S, D) uint32.  fold_host: (K, D) uint32 row-major.
+// C (batch, T, S, D) uint32 with the (wm, wn, st) instantiation of the
+// tower (d0, d1); cudaErrorInvalidValue if it has none, if Tp, Sp are not
+// multiples of its block tile, Rp of KS, or its stages exceed 227 KB at L.
+// fold_host: (K, D) uint32 row-major.
 int gr_matmul_tc_u32(const void* A8, const void* B8, void* C, int batch, int T,
                      int S, int Tp, int Sp, int Rp, int L, int d0, int d1,
-                     const uint32_t* fold_host, uint32_t mask, void* stream) {
+                     int wm, int wn, int stages, const uint32_t* fold_host,
+                     uint32_t mask, void* stream) {
   const int D = d0 * d1, K = (2 * d0 - 1) * (2 * d1 - 1);
-  if (D > kMaxD || K > kMaxK || L < 1 || L > kMaxL || Tp % BM || Sp % BN || Rp % KS)
+  if (D > kMaxD || K > kMaxK || L < 1 || L > kMaxL || Rp % KS)
     return (int)cudaErrorInvalidValue;
   FoldTable fold;
   memset(&fold, 0, sizeof(fold));
@@ -433,31 +460,37 @@ int gr_matmul_tc_u32(const void* A8, const void* B8, void* C, int batch, int T,
   const uint8_t* b = static_cast<const uint8_t*>(B8);
   uint32_t* c = static_cast<uint32_t*>(C);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (d0 * 32 + d1) {
-#define TC_LAUNCH(x, y) \
-  case x * 32 + y:      \
-    return launch<x, y>(a, b, c, batch, T, S, Tp, Sp, Rp, L, fold, mask, st);
-    TC_TOWERS(TC_LAUNCH)
+  switch (tc_key(d0, d1, wm, wn, stages)) {
+#define TC_LAUNCH(x, y, m, n, s)                                        \
+  case tc_key(x, y, m, n, s):                                           \
+    return launch<x, y, m, n, s>(a, b, c, batch, T, S, Tp, Sp, Rp, L, fold, \
+                                 mask, st);
+    TC_CONFIGS(TC_LAUNCH)
 #undef TC_LAUNCH
     default:
       return (int)cudaErrorInvalidValue;
   }
 }
 
-// (BM, BN, KS) of the tc kernel for a tower shape: block tile and the
-// multiples its limb planes are padded to; -1 if there is no instantiation.
-int gr_matmul_tc_tile(int d0, int d1, int* bm, int* bn, int* ks) {
-  switch (d0 * 32 + d1) {
-#define TC_TILE(x, y) case x * 32 + y:
-    TC_TOWERS(TC_TILE)
-#undef TC_TILE
-    *bm = BM;
-    *bn = BN;
-    *ks = KS;
-    return 0;
-    default:
-      return -1;
+// The instantiations of the tower (d0, d1), default first: writes up to
+// `cap` (wm, wn, stages) triples to `out` and returns how many there are.
+int gr_matmul_tc_configs(int d0, int d1, int* out, int cap) {
+  int n = 0;
+#define TC_CONFIG(x, y, m, n_, s)  \
+  if (x == d0 && y == d1) {        \
+    if (n < cap) {                 \
+      out[3 * n] = m;              \
+      out[3 * n + 1] = n_;         \
+      out[3 * n + 2] = s;          \
+    }                              \
+    ++n;                           \
   }
+  TC_CONFIGS(TC_CONFIG)
+#undef TC_CONFIG
+  return n;
 }
+
+// KS of the tc kernel, the multiple its limb planes' R is padded to.
+int gr_matmul_tc_depth() { return KS; }
 
 }  // extern "C"

@@ -15,6 +15,12 @@ header notes its design and what bounds it:
 * ``skinny`` (``csrc/gr_matmul_skinny.cu``): interleaved layout, a
   bandwidth kernel for T, R <= 16.
 
+``tc`` and ``skinny`` come in a few instantiations per tower
+(``TC_CONFIGS``: warp grid and stages; ``SKINNY_CONFIGS``: threads per
+block and a multiple of the columns per thread), the default first; the
+wrappers take a ``config`` and launch exactly that one (``None``: the
+default).  ``kernels.autotune`` times them and ``ops.pick_blocks`` picks.
+
 This module validates the operands, launches on PyTorch's current stream
 through ctypes, and counts launches.  Which route a ring matmul takes is
 decided in ``ops.pick_route``.
@@ -44,6 +50,10 @@ __all__ = [
     "SKINNY_MAX_T",
     "SKINNY_MAX_R",
     "SIMT_WIDE_TOWERS",
+    "SKINNY_CONFIGS",
+    "SMEM_BLOCK_BYTES",
+    "TC_CONFIGS",
+    "TC_DEPTH",
     "TC_TILE",
     "counters",
     "gr_matmul_planar",
@@ -52,9 +62,13 @@ __all__ = [
     "kernel_tile",
     "simt_instantiated",
     "skinny_cols",
+    "skinny_configs",
+    "tc_configs",
     "tc_instantiated",
     "tc_limbs",
     "tc_padded",
+    "tc_smem_bytes",
+    "tc_tile",
     "tower_shape",
 ]
 
@@ -65,9 +79,28 @@ SIMT_WIDE_TOWERS = ((3, 7),)
 ROUTES = ("simt", "tc", "skinny")
 # the skinny kernel keeps A (T x R x D words) in shared memory
 SKINNY_MAX_T = SKINNY_MAX_R = 16
-# (BM, BN, KS) of the tc kernel: its block tile, and the multiples of T, S
-# and R its limb planes are padded to (mirrors csrc/gr_matmul_tc.cu)
-TC_TILE = (32, 32, 64)
+# (wm, wn, stages) instantiations of the tc kernel per tower, the default
+# first: a wm x wn grid of warps of 16 x 8 outputs, so a (16 wm) x (8 wn)
+# block tile, and a ring of `stages` cp.async stages (mirrors TC_CONFIGS in
+# csrc/gr_matmul_tc.cu)
+TC_CONFIGS = {
+    (1, 1): ((2, 4, 3), (2, 4, 4), (4, 4, 3), (2, 2, 4)),
+    (2, 1): ((2, 4, 3), (2, 4, 4), (4, 2, 3), (2, 2, 4)),
+    (3, 1): ((2, 4, 3), (2, 4, 2), (4, 2, 2), (2, 2, 3)),
+    (4, 1): ((2, 4, 2), (4, 2, 2), (1, 8, 2), (2, 2, 2)),
+}
+# KS: bytes of R per stage, the multiple the limb planes' R is padded to
+TC_DEPTH = 64
+TC_ROW_BYTES = TC_DEPTH + 16  # a stage's shared-memory row stride
+# dynamic shared memory one block may ask for on sm_90 (227 KB)
+SMEM_BLOCK_BYTES = 227 * 1024
+# (BM, BN, KS) of the default tc instantiation
+TC_TILE = (32, 32, TC_DEPTH)
+# (threads, cm) instantiations of the skinny kernel beyond every tower's
+# default (128, 1): a block of `threads` threads covers threads * cm *
+# skinny_cols columns (mirrors SKINNY_EXTRA in csrc/gr_matmul_skinny.cu)
+SKINNY_DEFAULT = (128, 1)
+SKINNY_CONFIGS = {(d, 1): (SKINNY_DEFAULT, (256, 1), (128, 2)) for d in (1, 2, 3, 4)}
 
 
 class KernelCounters:
@@ -120,8 +153,35 @@ def simt_instantiated(d0: int, d1: int) -> bool:
 
 def tc_instantiated(d0: int, d1: int) -> bool:
     """Whether the tc kernel has an instantiation for the tower (d0, d1);
-    mirrors ``TC_TOWERS`` in ``csrc/gr_matmul_tc.cu``."""
-    return d1 == 1 and 1 <= d0 <= 4
+    mirrors ``TC_CONFIGS`` in ``csrc/gr_matmul_tc.cu``."""
+    return (d0, d1) in TC_CONFIGS
+
+
+def tc_configs(d0: int, d1: int) -> Tuple[Tuple[int, int, int], ...]:
+    """The tc kernel's (wm, wn, stages) instantiations for the tower
+    (d0, d1), default first; empty without any."""
+    return TC_CONFIGS.get((d0, d1), ())
+
+
+def skinny_configs(d0: int, d1: int) -> Tuple[Tuple[int, int], ...]:
+    """The skinny kernel's (threads, cm) instantiations for the tower
+    (d0, d1), default first; empty without any."""
+    if skinny_cols(d0, d1) is None:
+        return ()
+    return SKINNY_CONFIGS.get((d0, d1), (SKINNY_DEFAULT,))
+
+
+def tc_tile(config: Tuple[int, int, int]) -> Tuple[int, int]:
+    """(BM, BN): the block tile of the tc instantiation ``config``."""
+    wm, wn, _ = config
+    return 16 * wm, 8 * wn
+
+
+def tc_smem_bytes(ring, config: Tuple[int, int, int]) -> int:
+    """Dynamic shared memory a tc launch of ``config`` over ``ring`` asks
+    for: stages x (BM + BN) rows of every limb plane of both operands."""
+    bm, bn = tc_tile(config)
+    return config[2] * ring.D * n_limbs(ring) * (bm + bn) * TC_ROW_BYTES
 
 
 def skinny_cols(d0: int, d1: int) -> Optional[int]:
@@ -133,10 +193,13 @@ def skinny_cols(d0: int, d1: int) -> Optional[int]:
     return cpt if D <= MAX_D and K * cpt <= 64 else None
 
 
-def tc_padded(t: int, r: int, s: int) -> Tuple[int, int, int]:
-    """(Tp, Rp, Sp): the shape the tc route's limb planes are padded to."""
-    bm, bn, ks = TC_TILE
-    return -(-t // bm) * bm, -(-r // ks) * ks, -(-s // bn) * bn
+def tc_padded(t: int, r: int, s: int, config=None) -> Tuple[int, int, int]:
+    """(Tp, Rp, Sp): the shape the tc route's limb planes are padded to for
+    the instantiation ``config`` (None: the default tile): T and S to its
+    block tile and to the pre-pass's 32, R to the stage depth."""
+    bm, bn = tc_tile(config) if config is not None else TC_TILE[:2]
+    bm, bn = max(bm, 32), max(bn, 32)
+    return -(-t // bm) * bm, -(-r // TC_DEPTH) * TC_DEPTH, -(-s // bn) * bn
 
 
 def kernel_tile(ring) -> Tuple[int, int, int]:
@@ -267,16 +330,22 @@ def _stream(device: torch.device):
     return torch.cuda.device(device), torch.cuda.current_stream(device).cuda_stream
 
 
-def gr_matmul_skinny(A: torch.Tensor, B: torch.Tensor, ring) -> torch.Tensor:
+def gr_matmul_skinny(A: torch.Tensor, B: torch.Tensor, ring, config=None) -> torch.Tensor:
     """The bandwidth route on the card: A (b?, t, r, D) x B (b?, r, s, D) ->
-    C (b?, t, s, D), interleaved int32, for t, r <= 16.
+    C (b?, t, s, D), interleaved int32, for t, r <= 16, with the (threads,
+    cm) instantiation ``config`` (None: the tower's default).
 
     Launches the CUDA kernel or raises; it never falls back.
     """
     A, B, squeeze, (nb, T, R, S) = _interleaved(A, B, ring)
     d0, d1 = tower_shape(ring)
-    if skinny_cols(d0, d1) is None:
+    configs = skinny_configs(d0, d1)
+    if not configs:
         raise ValueError(f"{ring}: the skinny kernel has no instantiation for tower {(d0, d1)}")
+    config = configs[0] if config is None else tuple(config)
+    if config not in configs:
+        raise ValueError(f"{ring}: the skinny kernel has no instantiation {config}; "
+                         f"built: {configs}")
     if not (1 <= T <= SKINNY_MAX_T and 1 <= R <= SKINNY_MAX_R):
         raise ValueError(f"the skinny kernel takes 1 <= t, r <= 16, got t={T}, r={R}")
     _, fold = _check_layout(ring)
@@ -286,22 +355,22 @@ def gr_matmul_skinny(A: torch.Tensor, B: torch.Tensor, ring) -> torch.Tensor:
         ctx, stream = _stream(A.device)
         with ctx:
             err = lib.gr_matmul_skinny_u32(A.data_ptr(), B.data_ptr(), C.data_ptr(), nb, T, R, S,
-                                           d0, d1, fold, _mask(ring), stream)
+                                           d0, d1, *config, fold, _mask(ring), stream)
         _check_launch(err, "skinny")
         counters.count("skinny")
     return C[0] if squeeze else C
 
 
-def tc_limbs(A: torch.Tensor, B: torch.Tensor, ring):
+def tc_limbs(A: torch.Tensor, B: torch.Tensor, ring, config=None):
     """The tc route's limb pre-pass on the card: two launches, counted as
     ``limbs``.  Returns (A8, B8): A8 (b, D, L, Tp, Rp) and B8 (b, D, L, Sp,
-    Rp) uint8, K-major and zero-padded (``tc_padded``); the plain version is
-    ``ref.limb_planes_ref``."""
+    Rp) uint8, K-major and zero-padded for the instantiation ``config``
+    (``tc_padded``); the plain version is ``ref.limb_planes_ref``."""
     A, B, _, (nb, T, R, S) = _interleaved(A, B, ring)
     d0, d1 = tower_shape(ring)
     if not tc_instantiated(d0, d1):
         raise ValueError(f"{ring}: the tc kernel has no instantiation for tower {(d0, d1)}")
-    Tp, Rp, Sp = tc_padded(T, R, S)
+    Tp, Rp, Sp = tc_padded(T, R, S, config)
     L = n_limbs(ring)
     A8 = torch.empty((nb, ring.D, L, Tp, Rp), dtype=torch.uint8, device=A.device)
     B8 = torch.empty((nb, ring.D, L, Sp, Rp), dtype=torch.uint8, device=A.device)
@@ -319,28 +388,38 @@ def tc_limbs(A: torch.Tensor, B: torch.Tensor, ring):
     return A8, B8
 
 
-def gr_matmul_tc(A: torch.Tensor, B: torch.Tensor, ring) -> torch.Tensor:
+def gr_matmul_tc(A: torch.Tensor, B: torch.Tensor, ring, config=None) -> torch.Tensor:
     """The tensor-core route on the card: A (b?, t, r, D) x B (b?, r, s, D)
-    -> C (b?, t, s, D), interleaved int32.  Runs the limb pre-pass
-    (:func:`tc_limbs`), then the int8 MMA kernel.
+    -> C (b?, t, s, D), interleaved int32, with the (wm, wn, stages)
+    instantiation ``config`` (None: the tower's default).  Runs the limb
+    pre-pass (:func:`tc_limbs`), then the int8 MMA kernel.
 
     Launches the CUDA kernels or raises; it never falls back.
     """
     A, B, squeeze, (nb, T, R, S) = _interleaved(A, B, ring)
     _, fold = _check_layout(ring)
-    if -(-T // TC_TILE[0]) > 65535:
+    d0, d1 = tower_shape(ring)
+    configs = tc_configs(d0, d1)
+    if not configs:
+        raise ValueError(f"{ring}: the tc kernel has no instantiation for tower {(d0, d1)}")
+    config = configs[0] if config is None else tuple(config)
+    if config not in configs:
+        raise ValueError(f"{ring}: the tc kernel has no instantiation {config}; built: {configs}")
+    if tc_smem_bytes(ring, config) > SMEM_BLOCK_BYTES:
+        raise ValueError(f"{ring}: tc {config} needs {tc_smem_bytes(ring, config)} B of shared "
+                         f"memory, more than a block's {SMEM_BLOCK_BYTES}")
+    Tp, Rp, Sp = tc_padded(T, R, S, config)
+    if Tp // tc_tile(config)[0] > 65535:
         raise ValueError(f"t={T} exceeds the tc kernel's launch grid")
     C = torch.empty((nb, T, S, ring.D), dtype=torch.int32, device=A.device)
     if C.numel() == 0:
         return C[0] if squeeze else C
-    A8, B8 = tc_limbs(A, B, ring)
-    Tp, Rp, Sp = tc_padded(T, R, S)
-    d0, d1 = tower_shape(ring)
+    A8, B8 = tc_limbs(A, B, ring, config)
     lib = load_library()
     ctx, stream = _stream(A.device)
     with ctx:
         err = lib.gr_matmul_tc_u32(A8.data_ptr(), B8.data_ptr(), C.data_ptr(), nb, T, S, Tp, Sp,
-                                   Rp, n_limbs(ring), d0, d1, fold, _mask(ring), stream)
+                                   Rp, n_limbs(ring), d0, d1, *config, fold, _mask(ring), stream)
     _check_launch(err, "tc")
     counters.count("tc")
     return C[0] if squeeze else C

@@ -15,6 +15,11 @@ of the port, which all come through :func:`gr_matmul`:
   XLA, ``repro/kernels/ops.py:66``).  The envelope is the reference's (p = 2,
   e <= 32, D <= 16) plus the towers of ``SIMT_WIDE_TOWERS``.
 
+``tc`` and ``skinny`` come in a few instantiations each; :func:`pick_blocks`
+names the one a launch uses: the caller's, else the tuned entry of
+``kernels.autotune``'s cache for this (card, ring, shape), else the
+route's default.  ``simt`` keeps its static tile.
+
 ``tc`` and ``skinny`` take the interleaved (t, r, D) layout as it is;
 ``simt`` takes planar (D, t, r) copies.  The kernels mask ragged edges
 themselves (``tc`` pads inside its limb pre-pass), so nothing is padded
@@ -22,7 +27,7 @@ here.
 """
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional
 
 import torch
 
@@ -36,6 +41,8 @@ from .gr_matmul import (
     gr_matmul_tc,
     kernel_tile,
     skinny_cols,
+    skinny_configs,
+    tc_configs,
     tc_instantiated,
     tower_shape,
 )
@@ -59,10 +66,33 @@ __all__ = [
 ]
 
 
-def pick_blocks(ring) -> Tuple[int, int, int]:
-    """(bt, bs, br) the kernel uses for ``ring``: a static choice from the
-    ring's K and D (an autotuner is later work)."""
-    return kernel_tile(ring)
+def pick_blocks(ring, t: Optional[int] = None, r: Optional[int] = None,
+                s: Optional[int] = None, *, route: Optional[str] = None,
+                device=None) -> tuple:
+    """The configuration a launch of ``route`` (None: ``pick_route``'s) at
+    (t, r, s) over ``ring`` on ``device`` (None: the current card) uses:
+
+    * ``simt``, or no shape given: the static (BM, BN, BK) tile of the
+      ring's instantiation;
+    * ``tc`` (wm, wn, stages) and ``skinny`` (threads, cm): the tuned entry
+      of the autotune cache for this card, ring and shape, else the route's
+      default (its first instantiation), None for a tower it has none for.
+
+    ``device``: a torch device, or a device kind (``cuda|<card>``).
+    """
+    if t is None:
+        return kernel_tile(ring)
+    route = route or pick_route(ring, t, r, s)
+    if route == "simt":
+        return kernel_tile(ring)
+    # imported here: ``python -m repro_torch.kernels.autotune`` runs it as __main__
+    from .autotune import cached_blocks
+
+    tuned = cached_blocks(ring, t, r, s, device, route=route)
+    if tuned is not None:
+        return tuned
+    configs = (tc_configs if route == "tc" else skinny_configs)(*tower_shape(ring))
+    return configs[0] if configs else None  # the wrapper raises: no instantiation
 
 
 def kernel_supported(ring) -> bool:
@@ -90,14 +120,18 @@ def pick_route(ring, t: int, r: int, s: int) -> str:
     return "simt"
 
 
-def run_route(route: str, A: torch.Tensor, B: torch.Tensor, ring) -> torch.Tensor:
+def run_route(route: str, A: torch.Tensor, B: torch.Tensor, ring, config=None) -> torch.Tensor:
     """Launch ``route`` on contiguous CUDA operands (b?, t, r, D) x
-    (b?, r, s, D) -> (b?, t, s, D); raises where the route's kernel does not
-    take them."""
+    (b?, r, s, D) -> (b?, t, s, D) with ``config`` (None:
+    :func:`pick_blocks`'); raises where the route's kernel does not take
+    them."""
+    if route in ("skinny", "tc") and config is None:
+        config = pick_blocks(ring, A.shape[-3], A.shape[-2], B.shape[-2], route=route,
+                             device=A.device)
     if route == "skinny":
-        return gr_matmul_skinny(A, B, ring)
+        return gr_matmul_skinny(A, B, ring, config)
     if route == "tc":
-        return gr_matmul_tc(A, B, ring)
+        return gr_matmul_tc(A, B, ring, config)
     if route == "simt":
         Ap = A.movedim(-1, -3).contiguous()
         Bp = B.movedim(-1, -3).contiguous()

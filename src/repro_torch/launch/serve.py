@@ -10,7 +10,7 @@ lifted to Z_{2^32}, EP_RMFE-I encoded across N workers, decoded from the
 first R responders — bit-identical outputs under worker failures.  The
 reference's token-generation path (prefill + decode with KV caches) needs
 the LM substrate, which the port does not have yet (ROADMAP Queue 1 item
-18): :func:`greedy_generate` raises ``NotImplementedError`` naming it.
+7): :func:`greedy_generate` raises ``NotImplementedError`` naming it.
 """
 from __future__ import annotations
 
@@ -34,7 +34,7 @@ def greedy_generate(arch: str, **kwargs) -> Dict[str, Any]:
     """Token generation through a model: not ported yet."""
     raise NotImplementedError(
         f"token generation ({arch}) needs repro.models, the LM substrate, which "
-        "the port does not have yet (ROADMAP Queue 1 item 18); use --coded or --serve"
+        "the port does not have yet (ROADMAP Queue 1 item 7); use --coded or --serve"
     )
 
 

@@ -8,7 +8,7 @@ that: ``Master``, ``PoolScheduler`` and ``ServeScheduler`` each own a
 :class:`MetricsRegistry` and record into typed instruments *as events
 happen* (a counter ``inc`` is one lock + one add), and ``snapshot()``
 becomes a cheap read of state that already exists — the same numbers the
-HTTP plane (``repro.obs.http``, not ported yet) serves continuously at ``/metrics``
+HTTP plane (``repro_torch.obs.http``) serves continuously at ``/metrics``
 and ``/stats``.
 
 Instruments:

@@ -26,7 +26,7 @@ execution   one ``Master.execute`` per batch: members stack on the leading
 ``privacy_t > 0`` specs ride the same path on ``ep_rmfe_secure``: one
 derived key masks the whole batch (a batch IS one codeword), so coalesced
 and sequential execution stay bit-identical under a caller-fixed key.  The
-port's keys are ints (ROADMAP Queue 1 item 9): the engine's base key is its
+port's keys are ints (ROADMAP, "Decisions that stand"): the engine's base key is its
 int ``seed``, batch ``k`` is masked with ``galois.fold_in(seed, k)``, and a
 caller's key still wins.
 

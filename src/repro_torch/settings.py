@@ -6,11 +6,13 @@ kinds, defaults and docs, so :func:`describe` prints the same text in both
 packages and one environment configures both.  Every consumer goes through
 :func:`get`; ``python -m repro_torch.settings`` prints the list.
 
-Knobs read only by parts of the JAX package the port does not have yet (the
-calibrated planner, the traced decode checks, the conformance sweep) stay
-listed; in the port they are no-ops, named in :data:`PORT_NOOPS`.  The
-port reads the tracing knobs (``repro_torch.obs``) and those of the worker
-pool, the HTTP plane and hedging (``repro_torch.dist``).
+Knobs read only by parts of the JAX package the port does not have (the
+traced decode checks, the conformance sweep) stay listed; in the port they
+are no-ops, named in :data:`PORT_NOOPS`.  The port reads the tracing knobs
+(``repro_torch.obs``), those of the worker pool, the HTTP plane and hedging
+(``repro_torch.dist``), and ``calibration`` (``repro_torch.cdmm.calibrate``;
+unset, the port's default is its own ``cdmm/calibration.json``, not the
+reference's ``benchmarks/calibration.json`` its doc names).
 
 The module imports nothing heavy (no torch, no numpy).
 
@@ -151,7 +153,7 @@ SETTINGS: Dict[str, Setting] = {
 
 
 # knobs the port lists for parity but does not read (yet)
-PORT_NOOPS = frozenset(("calibration", "debug_solve", "conformance_inproc"))
+PORT_NOOPS = frozenset(("debug_solve", "conformance_inproc"))
 
 
 def _parse(setting: Setting, raw: str):

@@ -25,10 +25,14 @@ from repro_torch.cdmm import (
 from repro_torch.core import WorkerTrace, make_ring
 from repro_torch.kernels import counters, gr_matmul, gr_matmul_ref, pick_route, run_route
 from repro_torch.kernels.gr_matmul import (
+    SKINNY_CONFIGS,
+    TC_CONFIGS,
     gr_matmul_planar,
     gr_matmul_skinny,
     gr_matmul_tc,
     skinny_cols,
+    skinny_configs,
+    tc_configs,
     tc_instantiated,
     tower_shape,
 )
@@ -246,3 +250,86 @@ def test_serve_round_on_cuda_workers(cuda):
                 C = fut.result(timeout=120)
                 assert C.device == A.device and torch.equal(C, gr_matmul_ref(A, B, Z))
             assert sched.stats.snapshot()["serve_mean_fill"] > 1
+
+
+# -- slice 6: the tuned configurations, the SPMD backend ----------------------
+
+
+@pytest.mark.parametrize("tower", sorted(TC_CONFIGS), ids=str)
+def test_every_tc_configuration_matches_plain(cuda, tower):
+    ring = make_ring(2, 32, (tower[0],) if tower[0] > 1 else ())
+    rng = np.random.default_rng(13)
+    for lead, (t, r, s) in [((), (96, 300, 160)), ((2,), (70, 520, 97)), ((), (130, 17, 129))]:
+        A = ring.random(rng, lead + (t, r), device=cuda)
+        B = ring.random(rng, lead + (r, s), device=cuda)
+        want = gr_matmul_ref(A, B, ring)
+        for config in tc_configs(*tower):
+            assert torch.equal(gr_matmul_tc(A, B, ring, config), want), (config, lead, t, r, s)
+    with pytest.raises(ValueError, match="no instantiation"):
+        gr_matmul_tc(A, B, ring, (8, 8, 3))
+
+
+@pytest.mark.parametrize("tower", sorted(SKINNY_CONFIGS), ids=str)
+def test_every_skinny_configuration_matches_plain(cuda, tower):
+    ring = make_ring(2, 32, (tower[0],) if tower[0] > 1 else ())
+    rng = np.random.default_rng(14)
+    for lead, (t, r, s) in [((), (8, 2, 4099)), ((3,), (16, 16, 333)), ((), (2, 3, 123457))]:
+        A = ring.random(rng, lead + (t, r), device=cuda)
+        B = ring.random(rng, lead + (r, s), device=cuda)
+        want = gr_matmul_ref(A, B, ring)
+        for config in skinny_configs(*tower):
+            assert torch.equal(gr_matmul_skinny(A, B, ring, config), want), (config, lead, t, r, s)
+
+
+def test_tuned_entry_is_what_the_route_launches(cuda, monkeypatch):
+    """The committed cache covers this card's main-path shapes, or misses
+    to the default; run_route launches what pick_blocks names, exactly."""
+    from repro_torch.kernels import autotune, ops
+
+    ring = make_ring(2, 32, (3,))
+    entry = autotune.load_cache().get(autotune.tune_key(ring, 1024, 2048, 1024, cuda))
+    picked = ops.pick_blocks(ring, 1024, 2048, 1024, device=cuda)
+    assert picked == (tuple(entry["config"]) if entry else tc_configs(3, 1)[0])
+    seen = []
+    real = ops.gr_matmul_tc
+    monkeypatch.setattr(ops, "gr_matmul_tc", lambda A, B, ring, config: (
+        seen.append(config), real(A, B, ring, config))[1])
+    rng = np.random.default_rng(15)
+    A = ring.random(rng, (2, 1024, 2048), device=cuda)
+    B = ring.random(rng, (2, 2048, 1024), device=cuda)
+    assert torch.equal(gr_matmul(A, B, ring), gr_matmul_ref(A, B, ring))
+    assert seen == [picked]
+
+
+def test_autotune_one_point_on_the_card(cuda):
+    from repro_torch.kernels import autotune
+
+    ring = make_ring(2, 32, (3,))
+    try:
+        res = autotune.autotune(ring, 128, 256, 128, batch=2, route="tc", iters=2)
+    finally:
+        autotune.invalidate_memory_cache()
+    assert res.entry["default"] == autotune.config_name("tc", tc_configs(3, 1)[0])
+    assert set(res.entry["candidates"]) == set(res.entry["usage"])
+    assert all(u.get("regs", 0) > 0 for u in res.entry["usage"].values())
+
+
+def test_shard_map_ranks_on_one_card(cuda):
+    """Four ranks (this process and three spawned) on the card in a gloo
+    group: every rank's encode, product and decode launch kernels, and the
+    result equals local's under two dead ranks."""
+    from repro_torch.cdmm.backends import ShardMapBackend
+
+    ring = make_ring(2, 32, (2,))
+    spec = ProblemSpec(256, 256, 256, n=1, ring=ring, N=4, straggler_budget=1)
+    scheme = plan(spec, schemes=["ep"], calibration=False).instantiate(device=cuda)
+    rng = np.random.default_rng(16)
+    A, B = ring.random(rng, (256, 256), device=cuda), ring.random(rng, (256, 256), device=cuda)
+    mask = torch.tensor([True, False, True, True])
+    with ShardMapBackend() as be:
+        C = coded_matmul(A, B, scheme, backend=be, mask=mask)
+        reports = be.last_reports
+    assert torch.equal(C, coded_matmul(A, B, scheme, backend="local", mask=mask.to(cuda)))
+    assert torch.equal(C, gr_matmul_ref(A, B, ring))
+    assert len(reports) == 4 and all(r["launches"]["tc"] == 1 and r["launches"]["skinny"] >= 3
+                                     for r in reports)

@@ -98,8 +98,13 @@ def test_registry_and_unported_paths():
     best = P.plan(secure).best
     assert best.scheme == J.plan(jsecure, calibration=False).best.scheme == "ep_secure"
     assert best.costs.privacy_t >= 1
-    with pytest.raises(ValueError, match="not ported yet"):
-        P.get_backend("shard_map")
+    # the shard_map backend is ported: one shared instance, which spawns no
+    # rank before its first call
+    from repro_torch.cdmm.backends import ShardMapBackend
+
+    assert isinstance(P.get_backend("shard_map"), ShardMapBackend)
+    assert P.get_backend("shard_map") is P.get_backend("shard_map")
+    assert not P.get_backend("shard_map")._pools
     # the pool backend is ported: its name resolves to a PoolBackend, which
     # spawns nothing before its first call
     from repro_torch.dist import PoolBackend

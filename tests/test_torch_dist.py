@@ -31,6 +31,7 @@ from repro_torch.dist import (
 )
 from repro_torch.dist.protocol import supported_codecs
 from repro_torch.kernels import gr_matmul_ref
+from repro_torch.kernels.autotune import load_cache
 
 SRC = Path(__file__).resolve().parents[1] / "src"
 WORKERS = 4
@@ -137,7 +138,8 @@ def test_hello_and_worker_launch_counts(pool):
     assert len(caps) == WORKERS
     for c in caps.values():
         assert c["device"] == "cpu" and c["torch_version"] == torch.__version__
-        assert c["autotune"] == {"entries": 0, "device_entries": 0}
+        # the committed tile cache holds card entries only
+        assert c["autotune"] == {"entries": len(load_cache()), "device_entries": 0}
         assert c["rings"]["p2_max_e"] == 32 and "card" not in c
     counts = pool.master.worker_launches(timeout=30)
     assert sorted(counts) == pool.master.live_workers()

@@ -151,6 +151,39 @@ def test_pool_and_server_default_to_cuda_and_raise_without_it(monkeypatch, capsy
         assert m.device == torch.device("cpu") and m.live_workers() == []
 
 
+NEW_MODULES = ("repro_torch.kernels.autotune", "repro_torch.cdmm.calibrate",
+               "repro_torch.cdmm.runtime", "repro_torch.examples",
+               "repro_torch.examples.quickstart", "repro_torch.examples.coded_inference",
+               "repro_torch.examples.coded_matmul_service")
+
+
+def test_autotune_calibration_spmd_and_examples_default_to_cuda(monkeypatch):
+    """The autotuner, the calibration's measurement, the SPMD rank pool and
+    the examples are modules of the port (imported without JAX by the test
+    above) whose entry points run on the card by default and raise without
+    one; a CPU run names the CPU."""
+    assert set(NEW_MODULES) <= set(_modules())
+    _without_cuda(monkeypatch)
+    from repro_torch.cdmm import calibrate
+    from repro_torch.cdmm.backends import ShardMapBackend
+    from repro_torch.cdmm.runtime import RankPool
+    from repro_torch.core import make_ring
+    from repro_torch.device import device_kind
+    from repro_torch.examples import coded_inference, coded_matmul_service, quickstart
+    from repro_torch.kernels import autotune
+
+    for build in (lambda: RankPool(2), lambda: ShardMapBackend().pool(2),
+                  lambda: calibrate.measure_rows(), lambda: calibrate.main([]),
+                  lambda: quickstart.main([]), lambda: coded_inference.main([]),
+                  lambda: coded_matmul_service.main([])):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            build()
+    with pytest.raises(ValueError, match="on the card"):
+        autotune.autotune(make_ring(2, 32, (3,)), 1024, 2048, 1024)
+    assert device_kind() == "cpu" and device_kind("cpu") == "cpu"
+    assert calibrate.fit_rows([], device=None).device == "cpu"
+
+
 def test_chip_smoke_refuses_without_a_card(tmp_path):
     """chip_smoke.py exits non-zero and prints no result without CUDA, and
     when it stands alone outside the repository."""

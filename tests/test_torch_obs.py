@@ -469,9 +469,9 @@ def test_describe_and_knobs_equal_across_packages():
     env = {"REPRO_TRACE": "on", "REPRO_TRACE_BUFFER": "32", "REPRO_HEDGE_FACTOR": "1.5"}
     for name in ref.settings.SETTINGS:
         assert port.settings.get(name, env=env) == ref.settings.get(name, env=env)
-    # the port reads the tracing, pool, HTTP-plane and hedging knobs; the
-    # calibration, traced-decode-check and conformance knobs are listed no-ops
-    assert port.settings.PORT_NOOPS == {"calibration", "debug_solve", "conformance_inproc"}
+    # the port reads the tracing, pool, HTTP-plane, hedging and calibration
+    # knobs; the traced-decode-check and conformance knobs are listed no-ops
+    assert port.settings.PORT_NOOPS == {"debug_solve", "conformance_inproc"}
     assert port.settings.PORT_NOOPS < set(ref.settings.SETTINGS)
 
 

@@ -127,7 +127,11 @@ def test_call_bit_identical_under_dead_workers(coded):
 
 
 def test_paths_of_later_slices_raise():
-    with pytest.raises(NotImplementedError, match="item 16"):
-        P.CodedQuantMatmul(N, "workers", device="cpu")
+    # the sharded path is ported: outside a group bound to its axis (see
+    # tests/test_torch_runtime.py for inside) it raises rather than run local
+    cm = P.CodedQuantMatmul(N, "workers", device="cpu")
+    q = torch.zeros((4, 8), dtype=torch.int8)
+    with pytest.raises(RuntimeError, match="bound to no group"):
+        cm.exact_int_matmul(q, q.T.contiguous())
     # use_kernel is ignored on the CPU (it only pins a route on the card)
     assert P.CodedQuantMatmul(N, None, use_kernel=False, device="cpu").R == 4

@@ -25,12 +25,17 @@ from repro_torch.kernels import counters, gr_matmul_limbs_ref, gr_matmul_ref, pi
 from repro_torch.kernels.gr_matmul import (
     MAX_D,
     SIMT_WIDE_TOWERS,
+    SKINNY_CONFIGS,
+    SKINNY_DEFAULT,
+    TC_CONFIGS,
+    TC_DEPTH,
     TC_TILE,
     gr_matmul_skinny,
     gr_matmul_tc,
     simt_instantiated,
     skinny_cols,
     tc_instantiated,
+    tc_tile,
     tc_limbs,
     tc_padded,
 )
@@ -152,15 +157,30 @@ def _towers(source: str, macro: str):
     return sorted((int(a), int(b)) for a, b in re.findall(r"X\((\d+), (\d+)\)", body))
 
 
+def _configs(source: str, macro: str):
+    body = re.search(rf"#define {macro}\(X\)(.*?)\n\n", (CSRC / source).read_text(), re.S).group(1)
+    return [tuple(int(x) for x in c if x)
+            for c in re.findall(r"X\((\d+), (\d+), (\d+), (\d+)(?:, (\d+))?\)", body)]
+
+
 def test_instantiation_mirrors_match_the_sources():
     towers = _towers("gr_matmul.cu", "GR_TOWERS")
     assert len(towers) == 27
     assert [t for t in towers if t[0] * t[1] > MAX_D] == list(SIMT_WIDE_TOWERS)
     assert all(simt_instantiated(*t) for t in towers) and not simt_instantiated(17, 1)
-    assert _towers("gr_matmul_tc.cu", "TC_TOWERS") == [t for t in towers if tc_instantiated(*t)]
+    # the tc instantiations (tower, warp grid, stages), default first; the
+    # skinny ones: every tower's default plus SKINNY_EXTRA
+    tc = _configs("gr_matmul_tc.cu", "TC_CONFIGS")
+    assert sorted({c[:2] for c in tc}) == [t for t in towers if tc_instantiated(*t)]
+    assert {t: tuple(c[2:] for c in tc if c[:2] == t) for t in TC_CONFIGS} == TC_CONFIGS
     assert _towers("gr_matmul_skinny.cu", "SKINNY_TOWERS") == [t for t in towers if skinny_cols(*t)]
-    tile = re.findall(r"constexpr int (BM|BN|KS) = (\d+);", (CSRC / "gr_matmul_tc.cu").read_text())
-    assert tuple(int(v) for _, v in tile) == TC_TILE
+    extra = _configs("gr_matmul_skinny.cu", "SKINNY_EXTRA")
+    assert {t: (SKINNY_DEFAULT,) + tuple(c[2:] for c in extra if c[:2] == t)
+            for t in SKINNY_CONFIGS} == SKINNY_CONFIGS
+    assert SKINNY_DEFAULT == (128, 1) and all(skinny_cols(*t) for t in SKINNY_CONFIGS)
+    depth = re.findall(r"constexpr int KS = (\d+);", (CSRC / "gr_matmul_tc.cu").read_text())
+    assert [int(v) for v in depth] == [TC_DEPTH]
+    assert all(tc_tile(c[0]) + (TC_DEPTH,) == TC_TILE for c in TC_CONFIGS.values())
 
 
 def test_route_wrappers_take_cuda_tensors_only():
