@@ -105,9 +105,25 @@ Phases (any mismatch fails the run with a non-zero exit):
 13. a hedged straggler on 4 CUDA pool workers: a zero-slack plan, every
    worker parked, the master re-ships the overdue shares
    (``Master._maybe_hedge``); the decode equals ``local``'s and the workers
-   compute every share and duplicate on the card.
+   compute every share and duplicate on the card;
+14. the LM substrate's serving path (plain PyTorch ops; no ring kernel may
+   launch): gemma2-2b at full width and depth (26 layers, d 2304, vocab
+   256000, bf16, 2.614 B parameters) from ``materialize`` on the card,
+   seeded from ``--seed``; (a) ``greedy_generate(smoke=False)`` at batch 2,
+   prompt 8, generate 8, then at batch 8, prompt 64, generate 32 (every
+   token in range, every logit finite; per-step time from CUDA events,
+   median and p90, tokens/s, against the bound of every weight and the
+   cache read once from HBM; the weights' bytes, the init time and the
+   peak memory); (b) the last cached step against ``prefill_fn`` over the
+   same 96 tokens, in bf16 and in float32 with a float32 cache (TF32 off),
+   each within its tolerance, the argmax equal wherever the top-2 gap
+   exceeds twice the tolerance; (c) a 2-layer gemma2-2b at full width in
+   float32 with the vocab cut to 32768 through ``prefill_fn`` at 4160
+   tokens (past the local window of 4096), on the card and on the host
+   CPU, within 1e-3 relative (TF32 off); (d) launch counts zeroed before
+   and read after (a)-(c): no ``gr_matmul`` route launched.
 
-Phases run in the order 1-3, 5-9, 13, 12, 10, 11, 4.  Launch counts per
+Phases run in the order 1-3, 5-9, 13, 12, 10, 11, 14, 4.  Launch counts per
 route are zeroed before each path of phases 3, 5-9, 12 and 13, read
 after it (after the elastic backend's straggler tasks have finished) and
 held against ``EXPECTED_LAUNCHES``; in phases 8-9 the master's counts are
@@ -1906,6 +1922,241 @@ def phase_calibrate(report: dict) -> None:
                              "seconds": time.perf_counter() - t0}
 
 
+# ---------------------------------------------------------------------------
+# phase 14: the LM substrate's serving path (plain PyTorch ops, no ring kernel)
+# ---------------------------------------------------------------------------
+
+LM_ARCH = "gemma2-2b"
+# (batch, prompt, generated): the reference's defaults, then the timed run
+LM_RUNS = [(2, 8, 8), (8, 64, 32)]
+# (c): sequence beyond the local window of 4096, depth and vocab cut so the
+# CPU can run the same float32 prefill; TF32 off on the card
+LM_SEQ = 4160
+LM_CUT = {"num_layers": 2, "vocab_size": 32768}
+# relative L2 tolerances.  bf16: two bf16 computations of the same logits
+# (the cached decode, M = batch GEMMs and the direct attention; the prefill,
+# M = batch x seq GEMMs and the chunked attention) through 26 layers whose
+# stacked weights have std 1/sqrt(13) (the reference's std rule): each
+# rounding difference grows ~10x a matmul.  The CPU tests hold the port to
+# 5e-2 against the reference through 2-6 such layers; at 26 they differ by
+# 4.3e-2 (NVIDIA H100 80GB HBM3, 700 W).  float32 (TF32 off): summation
+# order only, for (b)'s float32 twin and (c)'s card against CPU
+LM_BF16_TOL = 1e-1
+LM_F32_TOL = 1e-3
+
+
+def _lm_rel(a, b) -> float:
+    a, b = a.double().cpu(), b.double().cpu()
+    return float((a - b).norm() / b.norm())
+
+
+def _lm_profile(api, params, batch: int, steps: int = 3) -> dict:
+    """Kernels and device-busy time of ``steps`` decode steps at ``batch``
+    (a fresh cache, after two warm steps) from ``torch.profiler``, beside
+    the host wall of the same steps: the device's idle share."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs import ShapeConfig
+    from repro_torch.runtime.sharding import _map_leaves
+
+    decl = api.cache_decl(ShapeConfig("profile", steps + 10, batch, "decode"))
+    cache = _map_leaves(lambda _, ps: torch.zeros(ps.shape, dtype=ps.dtype, device="cuda"), decl)
+    tok = torch.zeros((batch, 1), dtype=torch.int32, device="cuda")
+    with torch.inference_mode():
+        for _ in range(2):
+            _, cache = api.decode_fn(params, cache, {"tokens": tok})
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(steps):
+                _, cache = api.decode_fn(params, cache, {"tokens": tok})
+            torch.cuda.synchronize()
+            wall_ms = 1e3 * (time.perf_counter() - t0) / steps
+    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    if not kernels:
+        return {"batch": batch, "wall_ms_per_step": wall_ms, "device": "not measured"}
+    busy_ms = sum(e.time_range.elapsed_us() for e in kernels) / 1e3 / steps
+    by_name: dict = {}
+    for e in kernels:
+        by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3 / steps
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+    row = {"batch": batch, "kernels_per_step": len(kernels) / steps,
+           "device_busy_ms_per_step": busy_ms, "wall_ms_per_step": wall_ms,
+           "idle_share": 1 - busy_ms / wall_ms, "top_kernels_ms": dict(top)}
+    log(f"lm profile, batch {batch}: {row['kernels_per_step']:.0f} kernels a step, device busy "
+        f"{busy_ms:.3f} of {wall_ms:.3f} ms (idle {100 * row['idle_share']:.1f}%); top "
+        + ", ".join(f"{k[:40]} {v:.3f}" for k, v in top[:4]))
+    return row
+
+
+def phase_lm(report: dict) -> None:
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import ARCHS, ShapeConfig
+    from repro_torch.kernels import counters
+    from repro_torch.launch.serve import greedy_generate
+    from repro_torch.models import build_model
+    from repro_torch.runtime.sharding import _map_leaves, materialize, param_bytes, param_count
+
+    t_phase = time.perf_counter()
+    counters.reset()
+    out: dict = {"arch": LM_ARCH}
+    cfg = ARCHS[LM_ARCH]
+    api = build_model(cfg)
+    nbytes, nparams = param_bytes(api.param_specs), param_count(api.param_specs)
+    out.update(params=nparams, param_bytes=nbytes, layers=cfg.num_layers, d_model=cfg.d_model,
+               vocab=cfg.vocab_size, dtype=cfg.dtype)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = materialize(api.param_specs, SEED, device="cuda")
+    torch.cuda.synchronize()
+    out["init_s"] = time.perf_counter() - t0
+    log(f"lm {LM_ARCH}: {nparams} parameters, {nbytes} bytes (bf16) on the card in "
+        f"{out['init_s']:.2f} s")
+
+    # (a) greedy generation at full width and depth
+    runs = []
+    for batch, prompt_len, gen_len in LM_RUNS:
+        t0 = time.perf_counter()
+        gen = greedy_generate(LM_ARCH, smoke=False, batch=batch, prompt_len=prompt_len,
+                              gen_len=gen_len, seed=SEED, device="cuda", params=params)
+        wall = time.perf_counter() - t0
+        toks, logits = gen["generated"], gen["logits"]
+        if toks.shape != (batch, gen_len) or not ((toks >= 0) & (toks < cfg.vocab_size)).all():
+            fail(f"lm generation ({batch}, {prompt_len}, {gen_len}): tokens out of range")
+        if not bool(torch.isfinite(logits).all()):
+            fail(f"lm generation ({batch}, {prompt_len}, {gen_len}): non-finite logits")
+        steps = np.asarray(gen["step_ms"][1:])  # the first step pays the first calls
+        cache_bytes = (2 * cfg.num_layers * batch * (prompt_len + gen_len + 8)
+                       * cfg.num_kv_heads * cfg.hd * 2)
+        row = {"batch": batch, "prompt": prompt_len, "generated": gen_len, "wall_s": wall,
+               "first_step_ms": gen["step_ms"][0],
+               "step_ms_median": float(np.median(steps)),
+               "step_ms_p90": float(np.percentile(steps, 90)),
+               "tokens_per_s": batch * 1e3 / float(np.median(steps)),
+               # the least a step can take: every weight and the whole cache
+               # read once from HBM
+               "bound_ms": 1e3 * (nbytes + cache_bytes) / HBM_BYTES_PER_S,
+               "weight_bound_ms": 1e3 * nbytes / HBM_BYTES_PER_S,
+               "tokens_head": toks[0, :8].tolist()}
+        runs.append(row)
+        log(f"lm generate batch {batch} prompt {prompt_len} gen {gen_len}: step median "
+            f"{row['step_ms_median']:.3f} ms p90 {row['step_ms_p90']:.3f} ms (first "
+            f"{row['first_step_ms']:.1f}), {row['tokens_per_s']:.1f} tokens/s, bound "
+            f"{row['bound_ms']:.3f} ms; wall {wall:.2f} s")
+    out["generate"] = runs
+    out["peak_bytes"] = torch.cuda.max_memory_allocated()
+    out["profile"] = _lm_profile(api, params, LM_RUNS[-1][0])
+
+    # (b) the last cached step against prefill_fn over the same tokens: in
+    # bf16 as generated, then in float32 with a float32 cache (TF32 off),
+    # where only the summation order differs
+    seq = np.concatenate([gen["prompt"], toks], axis=1).astype(np.int32)
+    tseq = torch.from_numpy(seq).cuda()
+    with torch.inference_mode():
+        pre = api.prefill_fn(params, {"tokens": tseq})
+    err = _lm_rel(logits, pre)
+    ref = pre[:, -1].float().cpu().numpy()
+    got = logits[:, -1].float().cpu().numpy()
+    checked = agree = 0
+    for b in range(ref.shape[0]):
+        top2 = np.sort(ref[b])[-2:]
+        if top2[1] - top2[0] > 2 * LM_BF16_TOL * np.abs(ref[b]).max():
+            checked += 1
+            agree += int(got[b].argmax() == ref[b].argmax())
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    api32 = build_model(cfg32)
+    decl = api32.cache_decl(ShapeConfig("check", seq.shape[1] + 8, seq.shape[0], "decode"))
+    cache = _map_leaves(lambda _, ps: torch.zeros(ps.shape, device="cuda", dtype=torch.float32
+                                                  if ps.shape else ps.dtype), decl)
+    prev_tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        with torch.inference_mode():
+            for t in range(seq.shape[1]):
+                lg32, cache = api32.decode_fn(params, cache, {"tokens": tseq[:, t:t + 1]})
+            pre32 = api32.prefill_fn(params, {"tokens": tseq})
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev_tf32
+    err32 = _lm_rel(lg32, pre32)
+    r32, g32 = pre32[:, -1].cpu().numpy(), lg32[:, -1].cpu().numpy()
+    checked32 = agree32 = 0
+    for b in range(r32.shape[0]):
+        top2 = np.sort(r32[b])[-2:]
+        if top2[1] - top2[0] > 2 * LM_F32_TOL * np.abs(r32[b]).max():
+            checked32 += 1
+            agree32 += int(g32[b].argmax() == r32[b].argmax())
+    out["cache_vs_prefill"] = {
+        "seq": list(seq.shape), "rel_l2": err, "tol": LM_BF16_TOL, "rows_checked": checked,
+        "argmax_agree": agree, "argmax_agree_all_rows": int((got.argmax(-1) == ref.argmax(-1)).sum()),
+        "float32_rel_l2": err32, "float32_tol": LM_F32_TOL, "float32_rows_checked": checked32,
+        "float32_argmax_agree": agree32,
+        # how far each bf16 computation is from the float32 prefill
+        "bf16_prefill_vs_float32": _lm_rel(pre, pre32),
+        "bf16_cached_vs_float32": _lm_rel(logits, pre32)}
+    log(f"lm cache vs prefill over {seq.shape}: bf16 rel L2 {err:.3e} (tol {LM_BF16_TOL}); "
+        f"argmax agrees in {agree} of {checked} rows with a clear top-2 gap "
+        f"({out['cache_vs_prefill']['argmax_agree_all_rows']} of {ref.shape[0]} in all); "
+        f"float32 (float32 cache) rel L2 {err32:.3e} (tol {LM_F32_TOL}), argmax agrees in "
+        f"{agree32} of {checked32} rows; bf16 prefill / cached "
+        f"vs float32 prefill {out['cache_vs_prefill']['bf16_prefill_vs_float32']:.3e} / "
+        f"{out['cache_vs_prefill']['bf16_cached_vs_float32']:.3e}")
+    if err > LM_BF16_TOL or agree != checked or err32 > LM_F32_TOL or agree32 != checked32:
+        fail(f"lm cache vs prefill: bf16 rel L2 {err:.3e}, argmax {agree}/{checked}, "
+             f"float32 rel L2 {err32:.3e}, argmax {agree32}/{checked32}")
+    del params, pre, pre32, logits, lg32, cache, gen
+    torch.cuda.empty_cache()
+
+    # (c) the card against the host CPU, float32, at a sequence beyond the window
+    prev_tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        cut = dataclasses.replace(cfg, dtype="float32", **LM_CUT)
+        capi = build_model(cut)
+        host = materialize(capi.param_specs, SEED, device="cpu")
+        card = _map_leaves(lambda _, t: t.cuda(), host)
+        toks = np.random.default_rng(SEED).integers(0, cut.vocab_size, (1, LM_SEQ)).astype(np.int32)
+        with torch.inference_mode():
+            t0 = time.perf_counter()
+            lg = capi.prefill_fn(card, {"tokens": torch.from_numpy(toks).cuda()})
+            torch.cuda.synchronize()
+            card_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            lc = capi.prefill_fn(host, {"tokens": torch.from_numpy(toks)})
+            cpu_s = time.perf_counter() - t0
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev_tf32
+    err = _lm_rel(lg, lc)
+    maxrel = float((lg.double().cpu() - lc.double()).abs().max() / lc.double().abs().max())
+    out["card_vs_cpu"] = {
+        "seq": LM_SEQ, "dtype": "float32", "tf32": False, "rel_l2": err, "max_rel": maxrel,
+        "tol": LM_F32_TOL, "card_s": card_s, "cpu_s": cpu_s,
+        "reduced": {k: f"{getattr(cfg, k)} -> {v}" for k, v in LM_CUT.items()},
+        "finite": bool(torch.isfinite(lg).all())}
+    log(f"lm card vs cpu, float32 prefill at {LM_SEQ} (reduced: "
+        f"{out['card_vs_cpu']['reduced']}): rel L2 {err:.3e}, max rel {maxrel:.3e} "
+        f"(tol {LM_F32_TOL}); card {card_s:.2f} s, cpu {cpu_s:.2f} s")
+    if not out["card_vs_cpu"]["finite"] or err > LM_F32_TOL or maxrel > LM_F32_TOL:
+        fail(f"lm card vs cpu: rel L2 {err:.3e}, max rel {maxrel:.3e}")
+    del host, card, lg, lc
+    torch.cuda.empty_cache()
+
+    # (d) no ring kernel ran
+    out["launches"] = dict(counters.launches_by_route)
+    if any(out["launches"].values()):
+        fail(f"lm path launched ring kernels: {out['launches']}")
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"lm phase: peak {out['peak_bytes']} bytes allocated, ring launches "
+        f"{out['launches']}, {out['seconds']:.1f} s")
+    report["lm"] = out
+
+
 def _kernel_rows(report: dict, totals: dict) -> list:
     """The ``{"kernels": [...]}`` rows: one per route and one for the
     pre-pass, each at its representative main-path shape, with the times of
@@ -1984,6 +2235,7 @@ def main() -> int:
     report["main_path_launches"] = totals
     phase_autotune(report)
     phase_calibrate(report)
+    phase_lm(report)
     phase_path_calls(report, calls)
     report["seconds"] = time.perf_counter() - t0
     kernels = _kernel_rows(report, totals)

@@ -1,2 +1,2 @@
-"""Entry points — counterpart of ``repro.launch`` (of it, only the coded and
-serving paths of ``serve.py`` so far)."""
+"""Entry points — counterpart of ``repro.launch`` (of it, ``serve.py``:
+token generation, the coded and the serving paths)."""

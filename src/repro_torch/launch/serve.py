@@ -1,16 +1,16 @@
 """Serving driver — the port's counterpart of ``repro.launch.serve``:
-the coded matmul plane (``--coded``) and continuous-batching serving over a
-worker pool (``--serve``), on the card unless ``--device cpu``::
+greedy token generation through a KV-cached decoder (always first), then
+optionally the coded matmul plane (``--coded``) and continuous-batching
+serving over a worker pool (``--serve``), on the card unless ``--device
+cpu``::
 
+    python -m repro_torch.launch.serve --device cpu --gen-len 2
     python -m repro_torch.launch.serve --coded --coded-backend pool --pool-workers 4
     python -m repro_torch.launch.serve --serve 16 --serve-batch 4 --pool-workers 8
 
 The coded path swaps one matmul onto the CDMM plane: int8-quantized,
 lifted to Z_{2^32}, EP_RMFE-I encoded across N workers, decoded from the
-first R responders — bit-identical outputs under worker failures.  The
-reference's token-generation path (prefill + decode with KV caches) needs
-the LM substrate, which the port does not have yet (ROADMAP Queue 1 item
-7): :func:`greedy_generate` raises ``NotImplementedError`` naming it.
+first R responders — bit-identical outputs under worker failures.
 """
 from __future__ import annotations
 
@@ -23,19 +23,88 @@ import numpy as np
 import torch
 
 from ..cdmm import CodedQuantMatmul, ProblemSpec, coded_matmul, plan
+from ..configs import ARCHS, ShapeConfig
 from ..core import make_ring, sample_trace
 from ..device import resolve_device
 from ..kernels import gr_matmul_ref
+from ..models import build_model
+from ..runtime.sharding import _map_leaves, materialize
 
 __all__ = ["batch_serving_demo", "coded_matmul_demo", "greedy_generate", "main"]
 
 
-def greedy_generate(arch: str, **kwargs) -> Dict[str, Any]:
-    """Token generation through a model: not ported yet."""
-    raise NotImplementedError(
-        f"token generation ({arch}) needs repro.models, the LM substrate, which "
-        "the port does not have yet (ROADMAP Queue 1 item 7); use --coded or --serve"
+def greedy_generate(
+    arch: str,
+    *,
+    smoke: bool = True,
+    prompt_len: int = 8,
+    gen_len: int = 8,
+    batch: int = 2,
+    seed: int = 0,
+    device=None,
+    params: Optional[Dict] = None,
+) -> Dict[str, Any]:
+    """Greedy generation with ``arch`` (its ``.smoke()`` reduction unless
+    ``smoke=False``) on ``device`` (default: the card).
+
+    The prompt, ``batch`` x ``prompt_len`` tokens from
+    ``np.random.default_rng(seed)``, is fed token by token through
+    ``decode_fn`` (exercising the cache writes), then each next token is
+    the argmax of the last logits.  ``params`` takes a converted tree
+    (``models.convert.params_from_numpy``); left at None the weights are
+    ``materialize``'s draw from ``seed`` on ``device``.
+
+    Returns ``generated`` (batch, gen_len) int32, ``config``, ``prompt``,
+    ``logits`` (the last step's, on ``device``) and ``step_ms``: the time of
+    each of the prompt_len + gen_len steps, from CUDA events on the card
+    (recorded between steps, read once at the end), from the host clock
+    on the CPU.
+    """
+    device = resolve_device(device)
+    cfg = ARCHS[arch].smoke() if smoke else ARCHS[arch]
+    api = build_model(cfg)
+    if params is None:
+        params = materialize(api.param_specs, seed, device)
+    rng = np.random.default_rng(seed)
+    cache_shape = ShapeConfig("serve", prompt_len + gen_len + 8, batch, "decode")
+    cache = _map_leaves(
+        lambda _, ps: torch.zeros(ps.shape, dtype=ps.dtype, device=device),
+        api.cache_decl(cache_shape),
     )
+    prompt = rng.integers(0, cfg.vocab_size, (batch, prompt_len))
+    tokens = torch.as_tensor(prompt, dtype=torch.int32).to(device)
+
+    cuda = device.type == "cuda"
+    marks = []
+
+    def mark():
+        if cuda:
+            ev = torch.cuda.Event(enable_timing=True)
+            ev.record()
+            marks.append(ev)
+        else:
+            marks.append(time.perf_counter())
+
+    out_tokens = []
+    with torch.inference_mode():
+        mark()
+        # prefill token-by-token through the decode path (exercises cache writes)
+        for t in range(prompt_len):
+            logits, cache = api.decode_fn(params, cache, {"tokens": tokens[:, t:t + 1]})
+            mark()
+        for _ in range(gen_len):
+            nxt = logits[:, -1].argmax(-1).to(torch.int32)[:, None]
+            out_tokens.append(nxt)
+            logits, cache = api.decode_fn(params, cache, {"tokens": nxt})
+            mark()
+        gen = torch.cat(out_tokens, dim=1).cpu().numpy()
+    if cuda:
+        torch.cuda.synchronize(device)
+        step_ms = [a.elapsed_time(b) for a, b in zip(marks, marks[1:])]
+    else:
+        step_ms = [1e3 * (b - a) for a, b in zip(marks, marks[1:])]
+    return {"generated": gen, "config": cfg, "prompt": prompt, "logits": logits,
+            "step_ms": step_ms}
 
 
 def coded_matmul_demo(
@@ -205,13 +274,9 @@ def batch_serving_demo(
 
 def main(argv: Optional[list] = None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--arch", default="gemma2-2b")
-    ap.add_argument(
-        "--gen-len", type=int, default=None,
-        help="generate this many tokens (needs the LM substrate, not ported "
-        "yet: raises); with neither --coded nor --serve, generation is what "
-        "runs, as in the reference",
-    )
+    ap.add_argument("--arch", default="gemma2-2b", choices=sorted(ARCHS))
+    ap.add_argument("--smoke", action="store_true", default=True)
+    ap.add_argument("--gen-len", type=int, default=8)
     ap.add_argument("--coded", action="store_true")
     ap.add_argument(
         "--coded-backend", default="local",
@@ -262,14 +327,14 @@ def main(argv: Optional[list] = None) -> int:
     )
     ap.add_argument(
         "--device", default=None,
-        help="torch device of the engine, the master and the workers "
-        "(default: the card)",
+        help="torch device of the model, the engine, the master and the "
+        "workers (default: the card)",
     )
     args = ap.parse_args(argv)
-    if args.gen_len is not None or not (args.serve > 0 or args.coded):
-        t0 = time.time()
-        out = greedy_generate(args.arch, gen_len=args.gen_len or 8)
-        print(f"generated tokens ({time.time() - t0:.1f}s):\n{out['generated']}")
+    t0 = time.time()
+    out = greedy_generate(args.arch, smoke=args.smoke, gen_len=args.gen_len,
+                          device=args.device)
+    print(f"generated tokens ({time.time() - t0:.1f}s):\n{out['generated']}")
     ok = True
     if args.serve > 0:
         demo = batch_serving_demo(

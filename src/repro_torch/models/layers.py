@@ -1,0 +1,333 @@
+"""Shared neural layers for the dense decoder: norms, RoPE, chunked
+flash-style attention (prefill / decode) and dense MLPs — counterpart of the
+dense part of ``repro.models.layers`` (MoE and the Mamba2 SSD wait: ROADMAP
+Queue 1 item 7).
+
+All layers are plain functions over ParamSpec-declared trees of tensors, in
+plain PyTorch ops.  The reference's dtypes follow JAX promotion; where
+PyTorch would differ, the cast is written out:
+
+* weights are bf16 whatever ``cfg.dtype`` is, and ``x @ w`` promotes to the
+  activation dtype (``_mm`` casts the weight);
+* a Python scalar times a bf16 array is a bf16 product of the scalar
+  rounded to bf16 (JAX's weak typing), so ``q``'s scale is rounded to
+  ``q``'s dtype first;
+* scores leave the einsum in the activation dtype and go to f32 for the
+  softcap, the mask and the softmax; the probabilities go back to ``v``'s
+  dtype for the PV product, and the chunked branch's accumulator lives in
+  ``v``'s dtype across chunks;
+* norms and RoPE compute in f32 and cast back;
+* GELU is the tanh approximation (``jax.nn.gelu``'s default) and SiLU is
+  ``x * sigmoid(x)``, both op for op as JAX and XLA write them: in bf16
+  every op rounds, where PyTorch's fused ``F.gelu``/``F.silu`` round once.
+
+Division is by 0-dim tensors, not Python floats: on CUDA PyTorch turns
+``x / c`` into ``x * (1 / c)``, which is not the quotient.
+"""
+from __future__ import annotations
+
+import functools
+from typing import Dict, Optional, Tuple
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from ..configs.base import ModelConfig
+from ..runtime.sharding import ParamSpec, shard
+
+__all__ = [
+    "NEG_INF", "apply_mlp", "apply_norm", "attention_block", "attention_specs",
+    "mlp_specs", "multihead_attention", "norm_specs", "rope", "softcap",
+]
+
+NEG_INF = -1e30
+# unwritten cache slots and padded keys sit at this position; a key is valid
+# below 2**29
+FAR = 2**30
+
+
+def _div(x: torch.Tensor, c: float) -> torch.Tensor:
+    """``x / c`` as a true quotient on every device (the 0-dim divisor is
+    filled on the device: a tensor built from a Python number would be a
+    synchronous host-to-device copy)."""
+    return x / torch.full((), c, dtype=x.dtype, device=x.device)
+
+
+def _einsum(eq: str, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``jnp.einsum``'s promotion: an f32 query meets a bf16 cache as f32."""
+    dt = torch.promote_types(a.dtype, b.dtype)
+    return torch.einsum(eq, a.to(dt), b.to(dt))
+
+
+def _const(c: float, dtype: torch.dtype) -> float:
+    """``c`` rounded to ``dtype``, as JAX rounds a weak Python scalar."""
+    return torch.tensor(c, dtype=dtype).item()
+
+
+def _mm(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``x @ w`` with the reference's promotion: a bf16 weight meets an f32
+    activation as f32."""
+    return x @ w.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# norms
+# ---------------------------------------------------------------------------
+
+
+def norm_specs(cfg: ModelConfig, d: int) -> Dict:
+    if cfg.norm == "layernorm":
+        return {
+            "scale": ParamSpec((d,), (None,), torch.float32, "ones"),
+            "bias": ParamSpec((d,), (None,), torch.float32, "zeros"),
+        }
+    return {"scale": ParamSpec((d,), (None,), torch.float32, "ones")}
+
+
+def apply_norm(p: Dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    xf = x.float()
+    if cfg.norm == "layernorm":
+        mu = xf.mean(-1, keepdim=True)
+        var = (xf - mu).square().mean(-1, keepdim=True)
+        out = (xf - mu) * torch.rsqrt(var + 1e-6) * p["scale"] + p["bias"]
+    else:
+        var = xf.square().mean(-1, keepdim=True)
+        out = xf * torch.rsqrt(var + 1e-6) * p["scale"]
+    return out.to(x.dtype)
+
+
+def softcap(x: torch.Tensor, cap: float) -> torch.Tensor:
+    if cap and cap > 0:
+        return torch.tanh(_div(x, cap)) * cap
+    return x
+
+
+# ---------------------------------------------------------------------------
+# RoPE
+# ---------------------------------------------------------------------------
+
+
+@functools.lru_cache(maxsize=32)
+def _rope_freqs(half: int, theta: float, device: torch.device) -> torch.Tensor:
+    # numpy's float32 arithmetic, as the reference computes them, copied to
+    # the device once
+    freqs = 1.0 / (theta ** (np.arange(0, half, dtype=np.float32) / half))
+    return torch.from_numpy(np.asarray(freqs, dtype=np.float32)).to(device)
+
+
+def rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor:
+    """x: (B, S, H, hd), positions: (B, S) int32."""
+    half = x.shape[-1] // 2
+    freqs = _rope_freqs(half, float(theta), x.device)
+    ang = positions[..., None].float() * freqs  # (B, S, half)
+    cos = torch.cos(ang)[:, :, None, :]
+    sin = torch.sin(ang)[:, :, None, :]
+    x1, x2 = x[..., :half].float(), x[..., half:].float()
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# attention
+# ---------------------------------------------------------------------------
+
+
+def attention_specs(cfg: ModelConfig) -> Dict:
+    d, H, KV, hd = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.hd
+    p = {
+        "wq": ParamSpec((d, H * hd), ("fsdp", "qkv")),
+        "wk": ParamSpec((d, KV * hd), ("fsdp", "qkv")),
+        "wv": ParamSpec((d, KV * hd), ("fsdp", "qkv")),
+        "wo": ParamSpec((H * hd, d), ("qkv", "fsdp")),
+    }
+    if cfg.qk_norm:
+        p["qnorm"] = {"scale": ParamSpec((hd,), (None,), torch.float32, "ones")}
+        p["knorm"] = {"scale": ParamSpec((hd,), (None,), torch.float32, "ones")}
+    return p
+
+
+def _qk_normalize(p, q, k, cfg):
+    if not cfg.qk_norm:
+        return q, k
+
+    def rn(scale, x):
+        xf = x.float()
+        var = xf.square().mean(-1, keepdim=True)
+        return (xf * torch.rsqrt(var + 1e-6) * scale).to(x.dtype)
+
+    return rn(p["qnorm"]["scale"], q), rn(p["knorm"]["scale"], k)
+
+
+def _chunk_mask(qpos, kpos, layer_type: str, window: int, causal: bool):
+    """(..., Sq, Sk) boolean mask given absolute positions (..., Sq) and
+    (..., Sk)."""
+    diff = qpos[..., :, None] - kpos[..., None, :]
+    m = (kpos < 2**29)[..., None, :]  # padded / unwritten cache slots are invalid
+    if causal:
+        m = m & (diff >= 0)
+    if layer_type == "local":
+        m = m & (diff < window)
+    return m
+
+
+def multihead_attention(
+    x_q: torch.Tensor,       # (B, Sq, H, hd) post-rope
+    k: torch.Tensor,         # (B, Sk, KV, hd)
+    v: torch.Tensor,         # (B, Sk, KV, hd)
+    qpos: torch.Tensor,      # (B, Sq)
+    kpos: torch.Tensor,      # (B, Sk)
+    *,
+    layer_type: str = "global",
+    window: int = 0,
+    causal: bool = True,
+    attn_softcap: float = 0.0,
+    kv_chunk: int = 1024,
+) -> torch.Tensor:
+    """Online-softmax (flash-style) chunked attention over key blocks.
+
+    Peak memory is (B, H, Sq, kv_chunk) scores, never (Sq, Sk); GQA reshapes
+    q into (KV, group) without repeating K/V.  ``Sq <= 8`` (decode) takes
+    the direct split-K form over all keys at once.
+    """
+    B, Sq, H, hd = x_q.shape
+    _, Sk, KV, _ = k.shape
+    G = H // KV
+    q = x_q.reshape(B, Sq, KV, G, hd) * _const(hd ** -0.5, x_q.dtype)
+
+    if Sq <= 8:
+        s = _einsum("bqkgh,bskh->bkgqs", q, k).float()
+        s = softcap(s, attn_softcap)
+        mask = _chunk_mask(qpos, kpos, layer_type, window, causal)  # (B, Sq, Sk)
+        s = torch.where(mask[:, None, None], s, NEG_INF)
+        m = s.amax(-1, keepdim=True)
+        pexp = torch.where(s <= NEG_INF * 0.5, 0.0, torch.exp(s - m))
+        l = pexp.sum(-1, keepdim=True)
+        out = torch.einsum("bkgqs,bskh->bkgqh", (pexp / l.clamp_min(1e-30)).to(v.dtype), v)
+        return out.movedim(3, 1).reshape(B, Sq, H, hd)
+
+    nchunks = -(-Sk // kv_chunk)
+    pad = nchunks * kv_chunk - Sk
+    if pad:
+        k = F.pad(k, (0, 0, 0, 0, 0, pad))
+        v = F.pad(v, (0, 0, 0, 0, 0, pad))
+        kpos = F.pad(kpos, (0, pad), value=FAR)
+    m_run = torch.full((B, KV, G, Sq), NEG_INF, dtype=torch.float32, device=q.device)
+    l_run = torch.zeros((B, KV, G, Sq), dtype=torch.float32, device=q.device)
+    acc = torch.zeros((B, KV, G, Sq, hd), dtype=v.dtype, device=q.device)
+    for c in range(nchunks):
+        blk = slice(c * kv_chunk, (c + 1) * kv_chunk)
+        kb, vb, pb = k[:, blk], v[:, blk], kpos[:, blk]
+        s = _einsum("bqkgh,bckh->bkgqc", q, kb).float()
+        s = softcap(s, attn_softcap)
+        mask = _chunk_mask(qpos, pb, layer_type, window, causal)  # (B, Sq, C)
+        s = torch.where(mask[:, None, None], s, NEG_INF)
+        m_new = torch.maximum(m_run, s.amax(-1))
+        alpha = torch.exp(m_run - m_new)
+        # fully-masked chunks: exp(NEG_INF - NEG_INF) would be 1 — force 0
+        pexp = torch.where(s <= NEG_INF * 0.5, 0.0, torch.exp(s - m_new[..., None]))
+        l_run = l_run * alpha + pexp.sum(-1)
+        upd = torch.einsum("bkgqc,bckh->bkgqh", pexp.to(vb.dtype), vb)
+        acc = acc * alpha[..., None].to(acc.dtype) + upd
+        m_run = m_new
+    out = acc / l_run.clamp_min(1e-30)[..., None].to(acc.dtype)
+    return out.movedim(3, 1).reshape(B, Sq, H, hd)  # (B,KV,G,Sq,hd) -> (B,Sq,H,hd)
+
+
+def attention_block(
+    p: Dict,
+    x: torch.Tensor,
+    positions: torch.Tensor,
+    cfg: ModelConfig,
+    *,
+    layer_type: str = "global",
+    causal: bool = True,
+    cache: Optional[Dict] = None,
+) -> Tuple[torch.Tensor, Optional[Dict]]:
+    """Full attention sublayer: projections + rope + (cached) attention.
+
+    cache: ``{"k": (B, T, KV, hd), "v": ..., "len": int}`` for decode.  The
+    new k and v are written into the cache tensors in place (the reference
+    donates its cache to the step, so the old one is gone there too); the
+    returned dict holds the same tensors and ``len + S``.
+    """
+    B, S, d = x.shape
+    H, KV, hd = cfg.num_heads, cfg.num_kv_heads, cfg.hd
+    q = _mm(x, p["wq"]).reshape(B, S, H, hd)
+    k = _mm(x, p["wk"]).reshape(B, S, KV, hd)
+    v = _mm(x, p["wv"]).reshape(B, S, KV, hd)
+    q, k = _qk_normalize(p, q, k, cfg)
+    q = rope(q, positions, cfg.rope_theta)
+    k = rope(k, positions, cfg.rope_theta)
+    kpos = positions
+    q = shard(q, "batch", "q_seq", "heads", None)
+    k = shard(k, "batch", "kv_seq", "kv_heads", None)
+    v = shard(v, "batch", "kv_seq", "kv_heads", None)
+
+    new_cache = None
+    if cache is not None:
+        ck, cv = cache["k"], cache["v"]
+        T = ck.shape[1]
+        start = int(cache["len"])
+        if start + S > T:
+            raise ValueError(f"cache of {T} slots cannot take tokens {start}..{start + S - 1}")
+        ck[:, start:start + S] = k.to(ck.dtype)
+        cv[:, start:start + S] = v.to(cv.dtype)
+        new_cache = {"k": ck, "v": cv, "len": start + S}
+        k, v = ck, cv
+        slots = torch.arange(T, dtype=torch.int32, device=x.device)
+        # mask out unwritten slots via "future" positions
+        kpos = torch.where(slots < start + S, slots, FAR)[None].expand(B, T)
+
+    out = multihead_attention(
+        q, k, v, positions, kpos,
+        layer_type=layer_type,
+        window=cfg.window_size,
+        causal=causal,
+        attn_softcap=cfg.attn_softcap,
+    )
+    out = shard(out, "batch", "q_seq", "heads", None)
+    out = _mm(out.reshape(B, S, H * hd), p["wo"])
+    return shard(out, "batch", "residual_seq", None), new_cache
+
+
+# ---------------------------------------------------------------------------
+# dense MLP
+# ---------------------------------------------------------------------------
+
+
+def mlp_specs(cfg: ModelConfig, d: int, ff: int) -> Dict:
+    if cfg.mlp_act in ("swiglu", "geglu"):
+        return {
+            "w_gate": ParamSpec((d, ff), ("fsdp", "ffn")),
+            "w_in": ParamSpec((d, ff), ("fsdp", "ffn")),
+            "w_out": ParamSpec((ff, d), ("ffn", "fsdp")),
+        }
+    return {
+        "w_in": ParamSpec((d, ff), ("fsdp", "ffn")),
+        "w_out": ParamSpec((ff, d), ("ffn", "fsdp")),
+    }
+
+
+def _gelu(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.gelu(x)`` (``approximate=True``), op for op."""
+    c = _const(float(np.sqrt(2 / np.pi)), x.dtype)
+    cdf = 0.5 * (1.0 + torch.tanh(c * (x + _const(0.044715, x.dtype) * (x * x * x))))
+    return x * cdf
+
+
+def _silu(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.silu(x)``, op for op: XLA expands its logistic into
+    ``1 / (1 + exp(-x))``."""
+    return x * (1 / (1 + torch.exp(-x)))
+
+
+def apply_mlp(p: Dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    if cfg.mlp_act == "swiglu":
+        h = _silu(_mm(x, p["w_gate"])) * _mm(x, p["w_in"])
+    elif cfg.mlp_act == "geglu":
+        h = _gelu(_mm(x, p["w_gate"])) * _mm(x, p["w_in"])
+    else:
+        h = _gelu(_mm(x, p["w_in"]))
+    h = shard(h, "batch", "seq", "ffn")
+    return shard(_mm(h, p["w_out"]), "batch", "residual_seq", None)

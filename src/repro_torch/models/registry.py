@@ -1,0 +1,102 @@
+"""Uniform model API — counterpart of ``repro.models.registry``: every
+architecture exposes
+
+    param_specs                    -> ParamSpec tree
+    loss_fn(params, batch)         -> (loss, metrics)
+    prefill_fn(params, batch)      -> logits of the last position
+    decode_fn(params, cache, batch)-> (logits, new_cache)
+    batch_specs(shape)             -> input ParamSpec tree
+    cache_decl(shape)              -> cache ParamSpec tree + scalar "len"
+
+Of the families, the dense decoder is ported; ``build_model`` raises
+``NotImplementedError`` naming the ROADMAP item each other family waits for.
+``loss_fn`` is forward only (under ``torch.no_grad``) until the training
+slice.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable, Dict, Tuple
+
+import torch
+
+from ..configs.base import ModelConfig, ShapeConfig
+from ..runtime.sharding import ParamSpec
+from . import transformer as tf_mod
+
+__all__ = ["AUX_WEIGHT", "ModelAPI", "build_model", "cross_entropy"]
+
+AUX_WEIGHT = 0.01
+
+
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Masked CE; labels < 0 are ignored.  logits (B,S,V) f32, labels (B,S)."""
+    mask = (labels >= 0).float()
+    safe = labels.clamp_min(0).long()
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.take_along_dim(logits, safe[..., None], dim=-1)[..., 0]
+    nll = (logz - gold) * mask
+    denom = mask.sum().clamp_min(1.0)
+    return nll.sum() / denom, denom
+
+
+@dataclasses.dataclass
+class ModelAPI:
+    cfg: ModelConfig
+    param_specs: Dict
+    loss_fn: Callable
+    prefill_fn: Callable
+    decode_fn: Callable
+    batch_specs: Callable[[ShapeConfig], Dict]
+    cache_decl: Callable[[ShapeConfig], Dict]
+
+
+def _lm_batch_specs(cfg: ModelConfig, shape: ShapeConfig) -> Dict:
+    B, S = shape.global_batch, shape.seq_len
+    tok = ("batch", "seq")
+    if shape.kind == "train":
+        return {
+            "tokens": ParamSpec((B, S), tok, torch.int32),
+            "labels": ParamSpec((B, S), tok, torch.int32),
+        }
+    if shape.kind == "prefill":
+        return {"tokens": ParamSpec((B, S), tok, torch.int32)}
+    # decode: one new token against a cache of length S
+    return {"tokens": ParamSpec((B, 1), ("batch", None), torch.int32)}
+
+
+def _build_decoder_family(cfg: ModelConfig) -> ModelAPI:
+    specs = tf_mod.decoder_specs(cfg)
+
+    @torch.no_grad()
+    def loss_fn(params, batch):
+        logits, _, aux = tf_mod.decoder_forward(params, batch["tokens"], cfg)
+        loss, ntok = cross_entropy(logits, batch["labels"])
+        total = loss + AUX_WEIGHT * aux
+        return total, {"ce": loss, "aux": aux, "ntok": ntok}
+
+    def prefill_fn(params, batch):
+        logits, _, _ = tf_mod.decoder_forward(params, batch["tokens"], cfg)
+        return logits[:, -1:]
+
+    def decode_fn(params, cache, batch):
+        """One step; writes the new k and v into ``cache`` in place."""
+        logits, new_cache, _ = tf_mod.decoder_forward(
+            params, batch["tokens"], cfg, cache=cache, cache_len=cache["len"]
+        )
+        return logits, new_cache
+
+    def cache_decl(shape: ShapeConfig):
+        decl = tf_mod.cache_specs(cfg, shape.global_batch, shape.seq_len)
+        decl["len"] = ParamSpec((), (), torch.int32, "zeros")
+        return decl
+
+    return ModelAPI(
+        cfg, specs, loss_fn, prefill_fn, decode_fn,
+        lambda s: _lm_batch_specs(cfg, s), cache_decl,
+    )
+
+
+def build_model(cfg: ModelConfig) -> ModelAPI:
+    # decoder_specs raises NotImplementedError for the families not ported yet
+    return _build_decoder_family(cfg)

@@ -1,5 +1,5 @@
-"""Runtime helpers — counterpart of ``repro.runtime`` (of it, only
-``elastic.replan_batch`` so far)."""
+"""Runtime helpers — counterpart of ``repro.runtime``: ``elastic.replan_batch``
+and the single-card part of ``sharding`` (``ParamSpec``, ``materialize``)."""
 from .elastic import replan_batch
 
 __all__ = ["replan_batch"]

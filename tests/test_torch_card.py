@@ -333,3 +333,62 @@ def test_shard_map_ranks_on_one_card(cuda):
     assert torch.equal(C, gr_matmul_ref(A, B, ring))
     assert len(reports) == 4 and all(r["launches"]["tc"] == 1 and r["launches"]["skinny"] >= 3
                                      for r in reports)
+
+
+# ---------------------------------------------------------------------------
+# the LM substrate on the card (plain PyTorch ops; no ring kernel)
+# ---------------------------------------------------------------------------
+
+# relative L2 tolerances of tests/test_torch_models.py: float32 end to end
+# (TF32 off), a float32 decode step, bf16 logits
+LM_TOL = {"float32": 1e-5, "float32-step": 5e-5, "bfloat16": 5e-2}
+
+
+def _lm_rel(a, b) -> float:
+    a, b = a.double().cpu(), b.double().cpu()
+    return float((a - b).norm() / b.norm())
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_lm_smoke_on_the_card_matches_the_cpu(cuda, dtype, monkeypatch):
+    """gemma2-2b at smoke size, the same weights on the card and on the
+    CPU: prefill at 80 tokens (beyond the window of 64) and 16 decode steps
+    (a float32 cache in the float32 config) agree within the tolerances the
+    CPU tests hold the port to against the reference; greedy generation on
+    the card gives tokens in range and launches no ring kernel."""
+    import dataclasses
+
+    from repro_torch.configs import ARCHS, ShapeConfig
+    from repro_torch.launch.serve import greedy_generate
+    from repro_torch.models import build_model
+    from repro_torch.runtime.sharding import _map_leaves, materialize
+
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    cfg = dataclasses.replace(ARCHS["gemma2-2b"].smoke(), dtype=dtype)
+    api = build_model(cfg)
+    host = materialize(api.param_specs, 0, device="cpu")
+    card = _map_leaves(lambda _, t: t.to(cuda), host)
+    toks = torch.from_numpy(np.random.default_rng(0).integers(0, 512, (2, 80)).astype(np.int32))
+    with torch.inference_mode():
+        pc = api.prefill_fn(host, {"tokens": toks})
+        pg = api.prefill_fn(card, {"tokens": toks.to(cuda)})
+        assert pg.device.type == "cuda"
+        assert _lm_rel(pg, pc) <= LM_TOL[dtype]
+        decl = api.cache_decl(ShapeConfig("s", 24, 2, "decode"))
+        cdt = torch.float32 if dtype == "float32" else None
+
+        def zeros(dev):
+            return _map_leaves(lambda _, ps: torch.zeros(ps.shape, dtype=cdt if cdt and ps.shape
+                                                         else ps.dtype, device=dev), decl)
+
+        cc, cg = zeros("cpu"), zeros(cuda)
+        for t in range(16):
+            lc, cc = api.decode_fn(host, cc, {"tokens": toks[:, t:t + 1]})
+            lg, cg = api.decode_fn(card, cg, {"tokens": toks[:, t:t + 1].to(cuda)})
+            assert _lm_rel(lg, lc) <= LM_TOL["float32-step" if dtype == "float32" else dtype], t
+    counters.reset()
+    out = greedy_generate("gemma2-2b", device=cuda, params=card if dtype == "bfloat16" else None)
+    assert out["generated"].shape == (2, 8)
+    assert ((out["generated"] >= 0) & (out["generated"] < 512)).all()
+    assert bool(torch.isfinite(out["logits"]).all()) and len(out["step_ms"]) == 16
+    assert sum(counters.launches_by_route.values()) == 0

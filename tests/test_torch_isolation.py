@@ -35,7 +35,11 @@ def test_every_module_imports_without_jax_or_repro():
               "repro_torch.dist.pool_backend", "repro_torch.dist.scheduler",
               "repro_torch.dist.smoke", "repro_torch.serve", "repro_torch.serve.coalescer",
               "repro_torch.serve.stats", "repro_torch.serve.engine", "repro_torch.serve.smoke",
-              "repro_torch.launch", "repro_torch.launch.serve"):
+              "repro_torch.launch", "repro_torch.launch.serve",
+              "repro_torch.configs", "repro_torch.configs.base", "repro_torch.configs.gemma2_2b",
+              "repro_torch.runtime.sharding", "repro_torch.models", "repro_torch.models.layers",
+              "repro_torch.models.transformer", "repro_torch.models.registry",
+              "repro_torch.models.convert"):
         assert m in mods, m
     code = (
         "import sys, importlib\n"
