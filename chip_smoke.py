@@ -7,14 +7,19 @@ Phases (any mismatch fails the run with a non-zero exit):
 
 1. environment and build: torch/CUDA versions, the card's name and power
    limit, the kernels built from ``src/repro_torch/kernels/csrc`` with nvcc
-   (``-Xptxas -v`` registers and spills per instantiation of every route),
-   and the Python mirrors of each route's tiles and instantiations held
-   against the library;
+   (``-Xptxas -v`` registers and spills per instantiation of every route;
+   every ``tc`` instantiation must enter with 168 registers, which its
+   ``setmaxnreg`` split needs, and ptxas' warnings on it are reported),
+   and the Python mirrors of each route's tiles, instantiations and the
+   ``tc`` kernel's shared memory per tile and L held against the library;
 2. every route of ``gr_matmul`` (``simt``, ``tc``, ``skinny``) and the tc
    route's limb pre-pass against their plain PyTorch versions on the card,
    bit for bit, on eight rings (K up to 65: the (3, 7) tower, D = 21, on
-   ``simt``) at the shapes each route takes,
-   batched and unbatched, and at every shape the main path hands the
+   ``simt``) at the shapes each route takes (``tc`` at every instantiation
+   of the ring's tower), batched and unbatched; the ``tc`` accumulators'
+   overflow rule (all-0xFF operands, chains past 2^31 and 2^32, every
+   instantiation; printed as ``tc_accumulate: wraps``, and the run fails
+   if they saturate); and at every shape the main path hands the
    kernels; there each shape's route is timed in turns with ``simt``
    (replayed from CUDA graphs, so without the wrappers' host time), and
    every route at the edges of the dispatch rule is held and timed the same
@@ -39,8 +44,8 @@ Phases (any mismatch fails the run with a non-zero exit):
    handed it, recorded as the paths ran (the pool workers' products from
    the plan), against the plain version on fresh operands of that shape,
    bit for bit (all batch slices of a worker launch included); the shapes
-   of the GR(2^32, 4) paths and of phases 5-9 are also timed as phase 2
-   times the main path's: the route in turns with ``simt`` from CUDA
+   of the GR(2^32, 4) paths, of ep's 96^3 request and of phases 5-9 are
+   also timed as phase 2 times the main path's: the route in turns with ``simt`` from CUDA
    graphs, beside its bound, the plain version and, for ``tc``, the int8
    yardstick.  It runs last, once phases 5-9 have recorded;
 5. the elastic any-R master (``coded_matmul(..., backend=ElasticBackend)``)
@@ -259,8 +264,8 @@ SLICE4_PATHS = ("elastic_all_live", "elastic_traced", "elastic_race", "elastic_s
 RING_SPECS = [(2, 32, ()), (2, 32, (3,)), (2, 32, (4,)), (2, 16, (5,)), (2, 8, (2, 3)),
               (2, 32, (16,)), (2, 32, (3, 5)), (2, 32, (3, 7))]
 # the shapes of tests/test_kernels.py, then extra shapes for the new routes:
-# t, s >= 64 and an r that crosses the tc route's 256-deep flush chunk; and
-# t, r <= 16 with ragged s for the skinny route
+# t, s >= 64 and an r that runs several times round the tc route's ring of
+# 64-deep stages; and t, r <= 16 with ragged s for the skinny route
 SHAPES = [(8, 8, 8), (16, 32, 8), (128, 128, 128), (7, 13, 5), (1, 64, 1), (130, 17, 129)]
 TC_SHAPES = [(64, 64, 64), (96, 300, 160), (70, 520, 97)]
 SKINNY_SHAPES = [(8, 2, 4099), (16, 16, 333), (4, 4, 1000), (2, 3, 12345)]
@@ -364,6 +369,7 @@ def phase_env_build(report: dict) -> None:
         skinny_configs,
         tc_configs,
         tc_instantiated,
+        tc_smem_bytes,
         tower_shape,
     )
 
@@ -387,6 +393,17 @@ def phase_env_build(report: dict) -> None:
     for route in ("simt", "tc", "skinny", "limbs_rows", "limbs_cols"):
         if not any(k.startswith(route + "(") for k in usage):
             fail(f"no ptxas report for the {route} kernels")
+    # the tc kernel's warpgroups trade registers with setmaxnreg (producer
+    # 40, consumers 232), which balances only at 168 a thread on entry;
+    # ptxas' warnings (a serialised wgmma, an ignored setmaxnreg) are kept
+    tc_regs = {k: v.get("regs") for k, v in usage.items() if k.startswith("tc(")}
+    if set(tc_regs.values()) != {168}:
+        fail(f"tc instantiations must enter with 168 registers: {tc_regs}")
+    report["ptxas_tc_warnings"] = sorted({
+        line.split("warning", 1)[-1].strip()[:200]
+        for line in (ROOT / "build" / "kernels" / "gr_matmul_tc.ptxas.txt").read_text().splitlines()
+        if "warning" in line.lower()})
+    log(f"ptxas tc warnings: {report['ptxas_tc_warnings']}")
     # the library's own tile and instantiation choices must match the mirrors
     for spec in RING_SPECS:
         ring = make_ring(*spec)
@@ -403,6 +420,13 @@ def phase_env_build(report: dict) -> None:
         if library_configs("tc", d0, d1) != tc_configs(d0, d1):
             fail(f"tc mirror {tc_configs(d0, d1)} != library {library_configs('tc', d0, d1)} "
                  f"for tower {(d0, d1)}")
+        for config in tc_configs(d0, d1):
+            for e in (8, 16, 24, 32):
+                ring = make_ring(2, e, (d0,) if d0 > 1 else ())
+                lib_smem = lib.gr_matmul_tc_smem(d0, d1, *config, -(-e // 8))
+                if lib_smem != tc_smem_bytes(ring, config):
+                    fail(f"tc shared-memory mirror {tc_smem_bytes(ring, config)} != library "
+                         f"{lib_smem} for tower {(d0, d1)} {config} e={e}")
         cols = lib.gr_matmul_skinny_cols(d0, d1)
         if (cols if cols > 0 else None) != skinny_cols(d0, d1):
             fail(f"skinny mirror {skinny_cols(d0, d1)} != library {cols} for tower {(d0, d1)}")
@@ -496,21 +520,24 @@ def _int8_yardstick_ms(ring, b, t, r, s):
     return one * n, f"{n} x torch._int_mm ({t}x{r} @ {r}x{s}) at {one:.4f} ms each"
 
 
-def _hold(route, ring, A, B, worst: dict, what: str, plain=None) -> None:
-    """Hold ``route`` on (A, B) against the plain version, bit for bit, and
-    for ``tc`` its limb pre-pass against the pre-pass's plain version; the
-    worst error of each goes into ``worst``."""
+def _hold(route, ring, A, B, worst: dict, what: str, plain=None, every_config=False) -> None:
+    """Hold ``route`` on (A, B) against the plain version, bit for bit (with
+    ``every_config``, each tc instantiation of the ring's tower), and for
+    ``tc`` its limb pre-pass against the pre-pass's plain version; the worst
+    error of each goes into ``worst``."""
     from repro_torch.kernels import gr_matmul_ref, run_route
-    from repro_torch.kernels.gr_matmul import tc_limbs, tc_padded
+    from repro_torch.kernels.gr_matmul import tc_configs, tc_limbs, tc_padded, tower_shape
     from repro_torch.kernels.ref import limb_planes_ref
 
     shape = f"{tuple(A.shape[:-1])} x {tuple(B.shape[:-1])}"
     if plain is None:
         plain = gr_matmul_ref(A, B, ring)
-    err = max_abs_err(run_route(route, A, B, ring), plain)
-    worst[route] = max(worst[route], err)
-    if err:
-        fail(f"{route} != plain on {ring} at {shape}{what}: max abs err {err}")
+    configs = tc_configs(*tower_shape(ring)) if route == "tc" and every_config else (None,)
+    for config in configs:
+        err = max_abs_err(run_route(route, A, B, ring, config), plain)
+        worst[route] = max(worst[route], err)
+        if err:
+            fail(f"{route} {config or ''} != plain on {ring} at {shape}{what}: max abs err {err}")
     if route == "tc":
         Tp, Rp, Sp = tc_padded(A.shape[-3], A.shape[-2], B.shape[-2])
         A8, B8 = tc_limbs(A, B, ring)
@@ -549,6 +576,8 @@ def _timing_row(ring, A, B, route: str, plain_ms: float) -> dict:
         "bound_by": "operations" if int8_ms >= bytes_ms else "bytes",
         "bytes_bound_ms": bytes_ms, "int8_bound_ms": int8_ms, "int32_bound_ms": int32_ms,
     }
+    row["bound_share"] = row["bound_ms"] / row["ms"]
+    row["simt_over_route"] = row["simt_ms"] / row["ms"]
     if route == "tc":
         Tp, Rp, Sp = tc_padded(t, r, s)
         L = n_limbs(ring)
@@ -560,6 +589,38 @@ def _timing_row(ring, A, B, route: str, plain_ms: float) -> dict:
             limb_planes_ref(A3, ring, Tp, Rp), limb_planes_ref(B3, ring, Sp, Rp, transpose=True)))
         row["int8_yardstick_ms"], row["int8_yardstick"] = _int8_yardstick_ms(ring, b, t, r, s)
     return row
+
+
+# all-0xFF operands: accumulator (c, s) of the middle conv plane at s = 3
+# chains 12 (D = 3) or 16 (D = 4) byte products of 255^2 per element of r,
+# so these r take a chain past 2^31 (and at 4160 and 8192 past 2^32)
+WRAP_CASES = [((3,), 2816), ((3,), 8192), ((4,), 2112), ((4,), 4160)]
+
+
+def _tc_wrap_check(worst: dict) -> str:
+    """Whether the tc kernel's int32 wgmma accumulators wrap mod 2^32 (the
+    kernel relies on it: no flush at any r), held bit for bit against the
+    plain version at every instantiation; fails unless they wrap."""
+    import torch
+
+    from repro_torch.core import make_ring
+    from repro_torch.kernels import gr_matmul_ref
+    from repro_torch.kernels.gr_matmul import gr_matmul_tc, tc_configs
+
+    errs = {}
+    for deg, r in WRAP_CASES:
+        ring = make_ring(2, 32, deg)
+        A = torch.full((64, r, ring.D), -1, dtype=torch.int32, device="cuda")
+        B = torch.full((r, 64, ring.D), -1, dtype=torch.int32, device="cuda")
+        plain = gr_matmul_ref(A, B, ring)
+        for config in tc_configs(deg[0], 1):
+            errs[f"{deg} r={r} {config}"] = max_abs_err(gr_matmul_tc(A, B, ring, config), plain)
+    worst["tc"] = max(worst["tc"], *errs.values())
+    verdict = "wraps" if not any(errs.values()) else "saturates"
+    log(f"tc_accumulate: {verdict} {json.dumps(errs)}")
+    if verdict != "wraps":
+        fail(f"the tc accumulators do not wrap mod 2^32: {errs}")
+    return verdict
 
 
 def phase_kernels(report: dict) -> dict:
@@ -576,7 +637,7 @@ def phase_kernels(report: dict) -> dict:
     def check(route, ring, lead, t, r, s, what=""):
         A = ring.random(rng, lead + (t, r), device="cuda")
         B = ring.random(rng, lead + (r, s), device="cuda")
-        _hold(route, ring, A, B, worst, what)
+        _hold(route, ring, A, B, worst, what, every_config=True)
 
     for spec in RING_SPECS:
         ring = make_ring(*spec)
@@ -592,6 +653,7 @@ def phase_kernels(report: dict) -> dict:
             checked[route].append(f"{ring.degrees}:K={ring.K}:{len(shapes) + 1} shapes")
     for route in ROUTES:
         log(f"{route} == plain: {checked[route]}")
+    report["tc_accumulate"] = _tc_wrap_check(worst)
 
     timings = {}
     for name, (deg, nb, t, r, s) in _main_path_shapes().items():
@@ -868,9 +930,9 @@ def phase_path_calls(report: dict, calls: list) -> None:
     gave it, on fresh random operands of that shape, bit for bit: this
     covers every batch slice of a worker launch, the dead workers' ones too,
     which the end-to-end check cannot see because decode never reads them.
-    The shapes of the GCSA and secure paths and of phases 5-9 are timed as
-    well (``_timing_row``), with the plain version's time from the same call
-    that holds them."""
+    The shapes of the GCSA and secure paths, of ep's 96^3 request and of
+    phases 5-9 are timed as well (``_timing_row``), with the plain
+    version's time from the same call that holds them."""
     import numpy as np
     import torch
 
@@ -878,7 +940,9 @@ def phase_path_calls(report: dict, calls: list) -> None:
 
     rng = np.random.default_rng(SEED + 1)
     worst = report["kernel_max_abs_err"]
-    timed_paths = {name for name, *_ in SLICE3_PATHS} | set(SLICE4_PATHS) | set(SLICE5_PATHS)
+    # and ep's 96^3 request, whose 48-row worker blocks are simt's one main-path call
+    timed_paths = ({name for name, *_ in SLICE3_PATHS} | set(SLICE4_PATHS) | set(SLICE5_PATHS)
+                   | {"ep_small"})
     seen = {}
     for path, route, ring, a_shape, b_shape in calls:
         key = (route, ring.p, ring.e, ring.degrees, a_shape, b_shape)

@@ -6,15 +6,16 @@ VMEM budget.  On Hopper the routes are compiled CUDA, so a candidate is one
 of the instantiations the built library has (``gr_matmul.TC_CONFIGS``,
 ``gr_matmul.SKINNY_CONFIGS``):
 
-* ``tc``: the warp grid of the block tile (wm x wn warps of 16 x 8 outputs)
-  and the number of ``cp.async`` stages, ``(wm, wn, stages)``;
+* ``tc``: the width of the 64 x BN block tile and the number of TMA
+  stages, ``(bn, stages)``;
 * ``skinny``: threads per block and a multiple of the columns per thread,
   ``(threads, cm)``;
 * ``simt`` keeps its static tile; its entry says so (``"static": true``).
 
 The budget is the card's: at most 227 KB of dynamic shared memory a block
-(a ``tc`` stage holds (BM + BN) * D * L * 80 bytes) and at most 255
-registers a thread, with one block's registers within the SM's 65,536.
+(a ``tc`` stage holds (64 + BN) * D * L * 64 bytes) and at most 255
+registers a thread, with one block's registers within the SM's 65,536
+(a ``tc`` consumer thread may hold 232: ``setmaxnreg``).
 Each candidate is timed on the card from a CUDA graph of launches (CUDA
 events around the replays, so the wrappers' host time stays out) and held
 against the plain version bit for bit (batch slice 0) and against the
@@ -64,11 +65,11 @@ from .gr_matmul import (
     skinny_cols,
     skinny_configs,
     tc_configs,
-    tc_padded,
     tc_smem_bytes,
     tc_tile,
     tower_shape,
 )
+from .ref import n_limbs
 
 __all__ = [
     "CACHE_PATH",
@@ -98,9 +99,11 @@ TUNED_ROUTES = ("tc", "skinny")
 SMEM_BUDGET_BYTES = SMEM_BLOCK_BYTES
 REGISTER_BUDGET = 255  # a thread
 REGISTER_FILE = 65536  # an SM, so one block's threads x registers
-# ptxas' overhead beyond a tc warp's fragments (addresses, loop state),
-# from the D = 3 default instantiation's 246 registers (sm_90a, CUDA 12.8)
-_TC_REG_OVERHEAD = 74
+# a tc consumer warpgroup's registers a thread after setmaxnreg (the
+# producer keeps 40: 128 * 40 + 256 * 232 = 384 * 168), and what it needs
+# beyond its accumulators: two A fragments (8) and addresses, loop state
+TC_CONSUMER_REGS = 232
+_TC_REG_OVERHEAD = 32
 
 _LRU_SIZE = 256
 _LRU: "OrderedDict[str, Optional[tuple]]" = OrderedDict()
@@ -137,11 +140,11 @@ def tune_key(ring, t: int, r: int, s: int, device=None, *, route: Optional[str] 
 
 
 def config_name(route: str, config) -> str:
-    """Short name of a configuration: ``w2x4s3`` (tc), ``t128m1`` (skinny),
+    """Short name of a configuration: ``n32s3`` (tc), ``t128m1`` (skinny),
     ``b64x64k16`` (simt's static tile)."""
     c = tuple(config)
     if route == "tc":
-        return "w{}x{}s{}".format(*c)
+        return "n{}s{}".format(*c)
     if route == "skinny":
         return "t{}m{}".format(*c)
     return "b{}x{}k{}".format(*c)
@@ -151,25 +154,24 @@ def _tower_K(d0: int, d1: int) -> int:
     return (2 * d0 - 1) * (2 * d1 - 1)
 
 
-def _tc_register_estimate(d0: int, d1: int) -> int:
-    """Registers a tc thread needs: its warp's K x 4 limb fragments and K
-    accumulators (4 words each a thread), the D x 4 fragments of A and B
-    (4 and 2 words), plus ptxas' overhead; independent of the tile."""
-    D, K = d0 * d1, _tower_K(d0, d1)
-    return 4 * K * 4 + 4 * K + 6 * D * 4 + _TC_REG_OVERHEAD
+def _tc_register_estimate(ring, config) -> int:
+    """Registers a tc consumer thread needs: its warpgroup's share of the
+    tile's K * L accumulators, ceil(K * L / 2) of them, BN / 2 words each a
+    thread, plus the A fragments and ptxas' overhead."""
+    pairs = -(-ring.K * n_limbs(ring) // 2)
+    return pairs * config[0] // 2 + _TC_REG_OVERHEAD
 
 
 def fits_budget(route: str, ring, config) -> bool:
     """Does ``config`` of ``route`` fit the card's budget for ``ring``:
-    its shared memory at most 227 KB a block, and one block's threads x
-    min(registers, 255) within the SM's register file (registers beyond 255
-    spill, which ptxas reports; they do not stop a launch)."""
+    its shared memory at most 227 KB a block, and its registers within a
+    thread's share of the SM's register file (tc: a consumer's 232 after
+    ``setmaxnreg``; registers beyond a thread's limit spill, which ptxas
+    reports; they do not stop a launch)."""
     d0, d1 = tower_shape(ring)
     if route == "tc":
-        threads = 32 * config[0] * config[1]
-        regs = min(_tc_register_estimate(d0, d1), REGISTER_BUDGET)
         return (tc_smem_bytes(ring, config) <= SMEM_BUDGET_BYTES
-                and threads * regs <= REGISTER_FILE)
+                and _tc_register_estimate(ring, config) <= TC_CONSUMER_REGS)
     if route == "skinny":
         threads, cm = config
         cols = skinny_cols(d0, d1) or 0
@@ -206,9 +208,9 @@ def candidate_blocks(ring, t: int, r: int, s: int, *, route: Optional[str] = Non
 
     def order(c):
         if route == "tc":
-            tp, _, sp = tc_padded(t, r, s, c)
             bm, bn = tc_tile(c)
-            return (tp * sp / (max(t, 1) * max(s, 1)), -(bm * bn), c)
+            waste = (-(-t // bm) * bm) * (-(-s // bn) * bn) / (max(t, 1) * max(s, 1))
+            return (waste, -(bm * bn), c)
         return (0.0, -(c[0] * c[1]), c)
 
     return [default] + sorted(rest, key=order)
@@ -322,6 +324,7 @@ def cached_blocks(ring, t: int, r: int, s: int, device=None, *,
 
 
 # ptxas entry names -> route; the template arguments follow as Li<n>E
+# (tc: d0, d1, bn, stages, L)
 _ENTRY = re.compile(r"Compiling entry function '.*?(gr_matmul_kernel|gr_matmul_tc_kernel|"
                     r"gr_matmul_skinny_kernel|limbs_rows_kernel|limbs_cols_kernel)I((?:Li\d+E)+)")
 _ROUTE_OF = {"gr_matmul_kernel": "simt", "gr_matmul_tc_kernel": "tc",
@@ -332,7 +335,7 @@ _ROUTE_OF = {"gr_matmul_kernel": "simt", "gr_matmul_tc_kernel": "tc",
 def ptxas_usage(build_dir: Path = BUILD_DIR) -> Dict[str, dict]:
     """Registers and spill bytes per instantiation, from the ``-Xptxas -v``
     output the build keeps as ``<source>.ptxas.txt``: keys are
-    ``route(template arguments)``, e.g. ``tc(3,1,2,4,3)``."""
+    ``route(template arguments)``, e.g. ``tc(3,1,32,3,4)``."""
     from .build import SOURCES
 
     usage: Dict[str, dict] = {}
@@ -355,8 +358,10 @@ def ptxas_usage(build_dir: Path = BUILD_DIR) -> Dict[str, dict]:
     return usage
 
 
-def _usage_of(usage: dict, route: str, tower, config) -> dict:
-    args = tuple(tower) if route == "simt" else (*tower, *config)  # simt: one per tower
+def _usage_of(usage: dict, route: str, ring, config) -> dict:
+    tower = tower_shape(ring)
+    args = (tuple(tower) if route == "simt"  # simt: one per tower
+            else (*tower, *config, n_limbs(ring)) if route == "tc" else (*tower, *config))
     return usage.get(f"{route}({','.join(map(str, args))})", {})
 
 
@@ -434,7 +439,6 @@ def autotune(
     A, B = _operands(ring, batch, t, r, s, dev)
     want = gr_matmul_ref(A[:1], B[:1], ring)
     usage = ptxas_usage()
-    tower = tower_shape(ring)
     times: Dict[str, float] = {}
     first = None
     for cfg in cands:
@@ -454,7 +458,7 @@ def autotune(
         "route": route, "config": list(names[best]), "name": best, "ms": times[best],
         "default": default_name, "default_ms": times[default_name], "batch": batch,
         "tried": len(cands), "candidates": times,
-        "usage": {n: _usage_of(usage, route, tower, c) for n, c in names.items()},
+        "usage": {n: _usage_of(usage, route, ring, c) for n, c in names.items()},
         "checked": "plain version (batch slice 0) and the default (all slices), bit for bit",
     }
     if route not in TUNED_ROUTES:

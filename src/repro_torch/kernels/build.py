@@ -63,15 +63,17 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.gr_matmul_planar_u32.argtypes = [vp, vp, vp, ci, ci, ci, ci, ci, ci, fold, u32, vp]
     lib.gr_matmul_tile.argtypes = [ci, ci, ip, ip, ip]
     lib.gr_matmul_tc_limbs.argtypes = [vp, vp, ci, ci, ci, ci, ci, ci, ci, ci, vp]
-    lib.gr_matmul_tc_u32.argtypes = [vp, vp, vp, ci, ci, ci, ci, ci, ci, ci, ci, ci, ci, ci, ci,
+    lib.gr_matmul_tc_u32.argtypes = [vp, vp, vp, ci, ci, ci, ci, ci, ci, ci, ci, ci, ci, ci,
                                      fold, u32, vp]
     lib.gr_matmul_tc_configs.argtypes = [ci, ci, ip, ci]
+    lib.gr_matmul_tc_smem.argtypes = [ci, ci, ci, ci, ci]
     lib.gr_matmul_tc_depth.argtypes = []
     lib.gr_matmul_skinny_u32.argtypes = [vp, vp, vp, ci, ci, ci, ci, ci, ci, ci, ci, fold, u32, vp]
     lib.gr_matmul_skinny_cols.argtypes = [ci, ci]
     lib.gr_matmul_skinny_configs.argtypes = [ci, ci, ip, ci]
     for fn in ("gr_matmul_planar_u32", "gr_matmul_tile", "gr_matmul_tc_limbs",
-               "gr_matmul_tc_u32", "gr_matmul_tc_configs", "gr_matmul_tc_depth",
+               "gr_matmul_tc_u32", "gr_matmul_tc_configs", "gr_matmul_tc_smem",
+               "gr_matmul_tc_depth",
                "gr_matmul_skinny_u32", "gr_matmul_skinny_cols", "gr_matmul_skinny_configs"):
         getattr(lib, fn).restype = ci
 
@@ -147,10 +149,10 @@ def load_library() -> ctypes.CDLL:
 
 def library_configs(route: str, d0: int, d1: int) -> tuple:
     """The instantiations the built library has for ``route`` (``tc``:
-    (wm, wn, stages); ``skinny``: (threads, cm)) on the tower (d0, d1),
+    (bn, stages); ``skinny``: (threads, cm)) on the tower (d0, d1),
     default first, as the library itself reports them."""
     lib = load_library()
-    fn, width = {"tc": (lib.gr_matmul_tc_configs, 3),
+    fn, width = {"tc": (lib.gr_matmul_tc_configs, 2),
                  "skinny": (lib.gr_matmul_skinny_configs, 2)}[route]
     n = fn(d0, d1, None, 0)
     out = (ctypes.c_int * (width * max(n, 1)))()

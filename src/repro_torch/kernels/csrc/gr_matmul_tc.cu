@@ -13,72 +13,98 @@
 //
 //   A[i] @ B[j] = sum_{a+b<L} 2^(8(a+b)) (A[i]_a @ B[j]_b),
 //
-// and each A_a @ B_b is a u8 x u8 -> s32 tensor-core product.  A chain of at
-// most floor((2^31-1)/255^2) = 33,025 byte products stays below 2^31, so it
-// is exact whatever the accumulator's overflow rule.
+// and each A_a @ B_b is a u8 x u8 -> s32 tensor-core product.  Every
+// product of conv plane c and shift s = a + b goes into one int32
+// accumulator (c, s); the end combines conv[c] = sum_s acc(c, s) << 8s and
+// folds.  The accumulators wrap mod 2^32 (integer wgmma without .satfinite;
+// chip_smoke.py phase 2 holds a chain past 2^31 and past 2^32 against the
+// plain version), and a shift-add is exact mod 2^32, so no flush is needed
+// at any R.  (Within R <= 2048, which every main-path call keeps, no chain
+// reaches 2^31 at all: D * L <= 16 byte products per element of R.)
 //
 // What bounds it: operations.  At the worker shape (8 x 1024x2048 @
 // 2048x1024 over GR(2^32, 3)) it needs 8 * 9 * 10 byte products of 1024 x
-// 2048 x 1024, 1.56 ms at the 1,979 TOP/s int8 peak, against 9.25 ms for the
-// same work as uint32 multiply-adds on the CUDA cores (gr_matmul.cu).
+// 2048 x 1024, 1.56 ms at the 1,979 TOP/s int8 peak.  Three things stand
+// between a kernel and that rate on Hopper: only wgmma reaches the full
+// tensor-core rate (mma.sync runs at a fraction of it); the K * L
+// accumulators per output (20 at D = 3, 28 at D = 4) fill the register
+// file long before a tile reaches the sizes GEMMs use, so every operand
+// byte feeds few MACs; and at those small tiles the shared memory and L2
+// must deliver operands at close to their peak rates.
 //
 // Design:
 //  * A limb pre-pass (gr_matmul_tc_limbs) reads the interleaved int32
 //    operands once and writes u8 limb planes, K-major for both operands as
 //    the 8-bit MMAs need them: A as (batch, D, L, Tp, Rp) and B, transposed
 //    through shared memory, as (batch, D, L, Sp, Rp).  It zero-pads T and S
-//    to the block tile and R to the stage depth, so the main loop has no
-//    edge checks.  It writes as many bytes as it reads.
-//  * The main kernel: WM x WN warps per block, each warp a 16 x 8 tile, so a
-//    (16 WM) x (8 WN) block tile; the default is 2 x 4 warps, 32 x 32.  A
-//    ring of ST shared-memory stages, each holding a 64-deep slab of all
-//    D * L limb planes of both operands, is filled with cp.async (16-byte
-//    copies, rows padded to 80 bytes so that ldmatrix is free of bank
-//    conflicts).  For every 32-deep step each warp loads the D * L
-//    fragments of B (ldmatrix.x2) and of A (ldmatrix.x4) once, then
-//    issues mma.sync.m16n8k32.row.col.s32.u8.u8.s32 for every (i, j, a, b)
-//    with a + b < L into the int32 fragment of (CONVPOS(i, j), a + b), in an
-//    order that keeps two MMAs into one fragment at least D + 1 apart, so
-//    that each warp has independent MMAs in flight while one completes.
-//  * The block tile (WM, WN) and the stage count ST are template
-//    parameters beside the tower: a stage holds (BM + BN) * D * L * kRow
-//    bytes, at most 227 KB in all, while a warp's K * L + K fragments and
-//    accumulators do not depend on the tile.  TC_CONFIGS lists the
-//    instantiations, the default of each tower first; the autotuner
-//    (repro_torch.kernels.autotune) times them and picks per shape.
-//  * Every 256 of R (kChunk) the fragments are flushed into K uint32
-//    accumulators, acc[c] += frag[c][s] << 8s (exact mod 2^32), and zeroed.
-//    A fragment then holds at most 256 * D * L <= 4,096 byte products.  The
-//    shift-adds cost K * L per output per 256 of R, against
-//    D^2 * L(L+1)/2 * 256 tensor-core multiply-adds.
-//  * The epilogue folds by FOLD, masks to e bits and writes C in the
-//    interleaved (batch, T, S, D) layout directly.
-//  * The tower shape (D0, D1) is a template parameter, so CONVPOS(i, j) and
-//    every fragment and accumulator index are compile-time constants; L is a
-//    run-time argument (the fragments for L = 4 are always allocated, and
-//    the MMAs with a + b >= L are skipped).  Instantiated for single-level
-//    towers with D <= 4 (Z_2^e and GR(2^e, 2..4)), whose K * L + K
-//    fragments and accumulators fit in registers; other towers take the
-//    general kernel.
+//    to 32 and R to KS.  It writes as many bytes as it reads.
+//  * The main kernel is warp-specialised: 3 warpgroups a block, one block
+//    an SM.  Warpgroup 2 is the producer: it drops to 40 registers
+//    (setmaxnreg) and one of its threads issues, for each KS-deep step of
+//    R, two TMA loads (cp.async.bulk.tensor.3d) into a ring of ST stages:
+//    a box of KS x 64 rows x all D * L limb planes of A and one of KS x BN
+//    rows x all planes of B, 64-byte swizzled, completed on the stage's
+//    full mbarrier.  The tensor maps are encoded on the host at every call
+//    (cuTensorMapEncodeTiled, reached through cudaGetDriverEntryPoint, so
+//    the library needs no -lcuda) and passed as __grid_constant__
+//    parameters, so a launch captures in a CUDA graph.  TMA zero-fills
+//    rows past the planes' ends, so T and S need no padding to the tile.
+//  * Warpgroups 0 and 1 are consumers (setmaxnreg up to 232).  Both work on
+//    the same 64 x BN output tile, and each owns half of its (c, s)
+//    accumulators, the halves balanced by MMA count (Plan below).  For
+//    every 32-deep step a consumer loads each A plane it needs into
+//    registers once (ldmatrix from the swizzled stage) and issues
+//    wgmma.mma_async.m64nBNk32.s32.u8.u8 with A from registers and B from
+//    shared memory (a descriptor per B plane) for every (i, j, a, b) with
+//    a + b < L whose accumulator it owns.  A is register-sourced because
+//    at these N an A read by every wgmma from shared memory would need more
+//    than the SM's 128 B a clock.  A planes alternate between two register
+//    buffers: each plane's wgmmas form one commit group, and waiting for at
+//    most one group in flight frees the buffer the next plane loads into.
+//    At the end of a stage a consumer waits for its wgmmas and releases the
+//    stage (empty mbarrier, one arrival a warp).
+//  * Tile sizes follow the register file: a thread holds NP * BN / 2
+//    accumulator registers (NP = ceil(K * L / 2)), so BN = 128 at D = 1,
+//    64 or 48 at D = 2, 32 at D = 3 and 24 or 16 at D = 4.  A 64 x 32 tile
+//    gives a third more MACs per operand byte than the 32 x 32 block tile
+//    the earlier mma.sync kernel used; a cluster of 2 along S multicasting
+//    A's box would raise it further (not tried).
+//  * The epilogue: each consumer folds its accumulators into partial
+//    results, sum over its (c, s) of FOLD[c, d] * (acc << 8s) (all mod
+//    2^32), trades half of them with the other consumer through shared
+//    memory (the stages' space, free by then), adds, masks to e bits and
+//    writes C in the interleaved (batch, T, S, D) layout directly.
+//  * Template parameters: the tower (D0, D1 = 1), BN, the stage count ST
+//    and L, so every conv position, accumulator slot and plane offset is a
+//    compile-time constant (static_for unrolls over them).  TC_CONFIGS
+//    lists the (BN, ST) instantiations, the default of each tower first;
+//    each is built for L = 1..4.  The autotuner (repro_torch.kernels.
+//    autotune) times them and picks per shape.
+//  * The box is 64 bytes deep, not 128: a 128-byte box of every limb plane
+//    of both operands would hold 147 KB a stage at D = 3, L = 4 (one stage
+//    in all); at 64 the ring holds 2-4 stages.
 //
-// Instruction choice: mma.sync with ldmatrix, not wgmma.  wgmma is the only
-// way to the full tensor-core rate, but its shared-memory descriptors and
-// core-matrix layouts for 8-bit K-major operands, and its 64-row warpgroup
-// tiles (which would need the K * L fragments of 64 x N outputs per
-// warpgroup), are a larger step.  mma.sync already moves the bound from the
-// CUDA cores to the tensor cores; wgmma is the next step for this kernel.
+// Measured (chip_smoke.py, an H100 80GB HBM3 at 700 W): at the worker
+// shape the pre-pass and this kernel take 2.56 ms, 61% of the int8 bound
+// (the mma.sync kernel it replaces took 7.27 ms); every instantiation
+// enters with 168 registers and spills nothing; the accumulators wrap.
 //
 // C interface (loaded with ctypes); the functions return cudaGetLastError().
+#include <cuda.h>  // CUtensorMap and its enums (types only)
 #include <cuda_runtime.h>
 #include <stdint.h>
 #include <string.h>
 
 namespace {
 
-constexpr int KS = 64;         // bytes of R per pipeline stage
-constexpr int kRow = KS + 16;  // shared-memory row stride: conflict-free ldmatrix
-constexpr int kChunk = 256;    // flush period in R
-constexpr int kMaxL = 4;       // e <= 32
+constexpr int KS = 64;           // bytes of R per pipeline stage: one 64-byte swizzle row
+constexpr int kBM = 64;          // rows of the block tile: one wgmma M
+constexpr int kConsumers = 2;    // consumer warpgroups
+constexpr int kThreads = 128 * (kConsumers + 1);
+constexpr int kProducerRegs = 40;
+constexpr int kConsumerRegs = 232;  // 128 * 40 + 256 * 232 = 384 * 168
+constexpr int kAlign = 1024;     // slack to align the stages in dynamic shared memory
+constexpr int kMaxL = 4;         // e <= 32
 constexpr int kMaxD = 4;
 constexpr int kMaxK = 7;
 constexpr int kSmemMax = 227 * 1024;
@@ -88,39 +114,111 @@ struct FoldTable {
   uint32_t f[kMaxK * kMaxD];
 };
 
-__host__ __device__ constexpr int convpos(int i, int j, int d0) {
-  return (i / d0 + j / d0) * (2 * d0 - 1) + (i % d0 + j % d0);
+template <int I>
+struct Int {
+  static constexpr int value = I;
+};
+
+// f(Int<I>{}) for I = B .. E - 1, unrolled at compile time
+template <int B, int E, class F>
+__device__ __forceinline__ void static_for(F&& f) {
+  if constexpr (B < E) {
+    f(Int<B>{});
+    static_for<B + 1, E>(f);
+  }
 }
 
-// one instantiation: tower (D0, D1), WM x WN warps of 16 x 8, ST stages
-template <int D0, int D1, int WM, int WN, int ST>
+// The accumulators of a single-level tower of degree D with L limbs: pair
+// q = c * L + s for conv plane c < K = 2D - 1 and shift s < L, fed by
+// count(c) * (s + 1) MMAs a 32-deep step.  Greedily, heaviest first, each
+// pair goes to the consumer with fewer MMAs that still has room; a
+// consumer holds at most NP = ceil(K * L / 2) pairs.  Evaluated once, at
+// compile time (kT).
+template <int D, int L>
+struct Plan {
+  static constexpr int K = 2 * D - 1;
+  static constexpr int NQ = K * L;
+  static constexpr int NP = (NQ + 1) / 2;
+  static constexpr int P = D * L;  // A planes, p = i * L + a
+  struct Table {
+    int owner[NQ];      // consumer of pair q
+    int slot[NQ];       // its accumulator index there
+    int pairs[2];       // pairs a consumer owns
+    bool needs[2][P];   // does consumer w multiply by A plane p?
+    int rank[2][P];     // A planes consumer w needs before plane p
+    int planes[2];      // A planes consumer w needs
+  };
+  __host__ __device__ static constexpr int count(int c) {
+    return (c < D ? c : 2 * D - 2 - c) + 1;
+  }
+  __host__ __device__ static constexpr int mmas(int q) { return count(q / L) * (q % L + 1); }
+  __host__ __device__ static constexpr Table build() {
+    Table t{};
+    bool done[NQ] = {};
+    int load[2] = {0, 0};
+    for (int n = 0; n < NQ; ++n) {
+      int best = -1;
+      for (int q = 0; q < NQ; ++q)
+        if (!done[q] && (best < 0 || mmas(q) > mmas(best))) best = q;
+      const int w = t.pairs[0] < NP && (t.pairs[1] >= NP || load[0] <= load[1]) ? 0 : 1;
+      done[best] = true;
+      t.owner[best] = w;
+      t.slot[best] = t.pairs[w]++;
+      load[w] += mmas(best);
+    }
+    for (int w = 0; w < 2; ++w) {
+      for (int p = 0; p < P; ++p) {
+        t.rank[w][p] = t.planes[w];
+        for (int j = 0; j < D; ++j)
+          for (int b = 0; p % L + b < L; ++b)
+            if (t.owner[(p / L + j) * L + p % L + b] == w) t.needs[w][p] = true;
+        t.planes[w] += t.needs[w][p];
+      }
+    }
+    return t;
+  }
+  static constexpr Table kT = build();
+};
+
+// Plan<D, L>'s entries as scalar constants: device code may use a scalar
+// static constexpr member, not the table itself
+template <int D, int L, int Q>
+struct PairAt {  // accumulator pair q
+  static constexpr int owner = Plan<D, L>::kT.owner[Q];
+  static constexpr int slot = Plan<D, L>::kT.slot[Q];
+};
+
+template <int D, int L, int W, int Pl>
+struct PlaneAt {  // A plane p for consumer W
+  static constexpr bool needs = Plan<D, L>::kT.needs[W][Pl];
+  static constexpr int rank = Plan<D, L>::kT.rank[W][Pl];
+};
+
+template <int D, int L, int W>
+struct ConsumerAt {
+  static constexpr int pairs = Plan<D, L>::kT.pairs[W];
+  static constexpr int planes = Plan<D, L>::kT.planes[W];
+};
+
+// one instantiation: tower (D0, D1), block tile 64 x BN, ST stages, L limbs
+template <int D0, int D1, int BN, int ST, int L>
 struct Tc {
   static constexpr int D = D0 * D1;
-  static constexpr int K = (2 * D0 - 1) * (2 * D1 - 1);
-  static constexpr int kThreads = 32 * WM * WN;
-  static constexpr int BM = 16 * WM;  // block tile rows (T)
-  static constexpr int BN = 8 * WN;   // block tile columns (S)
-  static constexpr int STAGES = ST;
-  static_assert(ST >= 2, "the pipeline refills the stage read one step earlier");
-  // shared memory of all stages for L limbs
-  static constexpr int smem(int L) { return ST * D * L * (BM + BN) * kRow; }
+  static constexpr int P = D * L;  // limb planes an operand
+  static constexpr int kABytes = P * kBM * KS;
+  static constexpr int kTx = P * (kBM + BN) * KS;  // bytes a stage's two loads bring
+  static constexpr int kStage = (kTx + 1023) / 1024 * 1024;
+  // the epilogue's trade: 2 consumers x D x BN / 4 words x 128 threads
+  static constexpr int kXch = D * BN * 256;
+  static constexpr int kRing = ST * kStage > kXch ? ST * kStage : kXch;
+  static constexpr int kSmem = kAlign + kRing + 16 * ST;  // + full and empty mbarriers
+  static_assert(D1 == 1, "the accumulator plan assumes a single-level tower");
+  static_assert(ST >= 2, "the ring refills a stage while the other is read");
+  static_assert(BN % 16 == 0 || BN == 24, "wgmma u8 takes N = 16, 24, 32, 48, 64, ...");
 };
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst), "l"(src));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
 }
 
 __device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], uint32_t addr) {
@@ -129,20 +227,202 @@ __device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], uint32_t addr) {
                : "r"(addr));
 }
 
-__device__ __forceinline__ void ldmatrix_x2(uint32_t (&r)[2], uint32_t addr) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0,%1}, [%2];\n"
-               : "=r"(r[0]), "=r"(r[1])
-               : "r"(addr));
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count));
 }
 
-// d += a (16x32 u8, row) @ b (32x8 u8, col), s32 accumulate, no saturation
-__device__ __forceinline__ void mma_u8(int (&d)[4], const uint32_t (&a)[4],
-                                       const uint32_t (&b)[2]) {
-  asm("mma.sync.aligned.m16n8k32.row.col.s32.u8.u8.s32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  } while (!done);
 }
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
+               : "memory");
+}
+
+// a box of the 3-D tensor map into shared memory, completing on `bar`
+__device__ __forceinline__ void tma_load_3d(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                            int c0, int c1, int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
+__device__ __forceinline__ void named_barrier_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// shared-memory matrix descriptor of a K-major operand in the 64-byte
+// swizzle: rows of 64 bytes, 8-row groups 512 bytes apart (SBO); LBO is
+// unused for swizzled K-major layouts
+__device__ __forceinline__ uint64_t sw64_desc(uint32_t addr) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) | (1ull << 16) |
+         (static_cast<uint64_t>(512 >> 4) << 32) | (2ull << 62);
+}
+
+// d (64 x N s32, the warpgroup's fragment) += a (64 x 32 u8, registers) @
+// b (32 x N u8, K-major in shared memory); integer, no saturation
+template <int N>
+struct Wgmma;
+
+template <>
+struct Wgmma<16> {
+  __device__ __forceinline__ static void mma(uint32_t (&d)[8], const uint32_t (&a)[4],
+                                             uint64_t desc) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n16k32.s32.u8.u8 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7}, "
+        "{%8, %9, %10, %11}, %12, p;\n}\n"
+        : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]),
+          "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
+  }
+};
+
+template <>
+struct Wgmma<24> {
+  __device__ __forceinline__ static void mma(uint32_t (&d)[12], const uint32_t (&a)[4],
+                                             uint64_t desc) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %17, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n24k32.s32.u8.u8 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7,"
+        "%8, %9, %10, %11}, "
+        "{%12, %13, %14, %15}, %16, p;\n}\n"
+        : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]),
+          "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]),
+          "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
+  }
+};
+
+template <>
+struct Wgmma<32> {
+  __device__ __forceinline__ static void mma(uint32_t (&d)[16], const uint32_t (&a)[4],
+                                             uint64_t desc) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k32.s32.u8.u8 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7,"
+        "%8, %9, %10, %11, %12, %13, %14, %15}, "
+        "{%16, %17, %18, %19}, %20, p;\n}\n"
+        : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]),
+          "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]),
+          "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]),
+          "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
+  }
+};
+
+template <>
+struct Wgmma<48> {
+  __device__ __forceinline__ static void mma(uint32_t (&d)[24], const uint32_t (&a)[4],
+                                             uint64_t desc) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %29, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n48k32.s32.u8.u8 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7,"
+        "%8, %9, %10, %11, %12, %13, %14, %15,"
+        "%16, %17, %18, %19, %20, %21, %22, %23}, "
+        "{%24, %25, %26, %27}, %28, p;\n}\n"
+        : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]),
+          "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]),
+          "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]),
+          "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]),
+          "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]),
+          "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
+  }
+};
+
+template <>
+struct Wgmma<64> {
+  __device__ __forceinline__ static void mma(uint32_t (&d)[32], const uint32_t (&a)[4],
+                                             uint64_t desc) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k32.s32.u8.u8 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7,"
+        "%8, %9, %10, %11, %12, %13, %14, %15,"
+        "%16, %17, %18, %19, %20, %21, %22, %23,"
+        "%24, %25, %26, %27, %28, %29, %30, %31}, "
+        "{%32, %33, %34, %35}, %36, p;\n}\n"
+        : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]),
+          "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]),
+          "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]),
+          "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]),
+          "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]),
+          "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
+          "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]),
+          "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
+  }
+};
+
+template <>
+struct Wgmma<128> {
+  __device__ __forceinline__ static void mma(uint32_t (&d)[64], const uint32_t (&a)[4],
+                                             uint64_t desc) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k32.s32.u8.u8 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7,"
+        "%8, %9, %10, %11, %12, %13, %14, %15,"
+        "%16, %17, %18, %19, %20, %21, %22, %23,"
+        "%24, %25, %26, %27, %28, %29, %30, %31,"
+        "%32, %33, %34, %35, %36, %37, %38, %39,"
+        "%40, %41, %42, %43, %44, %45, %46, %47,"
+        "%48, %49, %50, %51, %52, %53, %54, %55,"
+        "%56, %57, %58, %59, %60, %61, %62, %63}, "
+        "{%64, %65, %66, %67}, %68, p;\n}\n"
+        : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]),
+          "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]),
+          "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]),
+          "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]),
+          "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]),
+          "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
+          "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]),
+          "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31]),
+          "+r"(d[32]), "+r"(d[33]), "+r"(d[34]), "+r"(d[35]),
+          "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]),
+          "+r"(d[40]), "+r"(d[41]), "+r"(d[42]), "+r"(d[43]),
+          "+r"(d[44]), "+r"(d[45]), "+r"(d[46]), "+r"(d[47]),
+          "+r"(d[48]), "+r"(d[49]), "+r"(d[50]), "+r"(d[51]),
+          "+r"(d[52]), "+r"(d[53]), "+r"(d[54]), "+r"(d[55]),
+          "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]),
+          "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
+  }
+};
 
 // ---------------------------------------------------------------------------
 // limb pre-pass
@@ -223,166 +503,231 @@ int launch_limbs(const uint32_t* X, uint32_t* Y, int batch, int rows, int cols,
   return (int)cudaGetLastError();
 }
 
+
 // ---------------------------------------------------------------------------
 // main kernel
 // ---------------------------------------------------------------------------
 
-template <int D0, int D1, int WM, int WN, int ST>
-__global__ void __launch_bounds__(32 * WM * WN, 1)
-    gr_matmul_tc_kernel(const uint8_t* __restrict__ A8,
-                        const uint8_t* __restrict__ B8, uint32_t* __restrict__ C,
-                        int T, int S, int Tp, int Sp, int Rp, int L,
-                        const FoldTable fold, uint32_t mask) {
-  using G = Tc<D0, D1, WM, WN, ST>;
-  constexpr int D = G::D, K = G::K, STAGES = G::STAGES;
-  constexpr int kThreads = G::kThreads, BM = G::BM, BN = G::BN;
-  static_assert(D1 == 1, "the MMA order assumes a single-level tower");
-  extern __shared__ __align__(16) uint8_t smem[];
-  const int P = D * L;  // limb planes per operand
-  const int a_stage = P * BM * kRow;
-  const int stage = P * (BM + BN) * kRow;
+// Consumer warpgroup W: the 32-deep steps of every stage, then its half of
+// the epilogue.  `smem` is the 1024-aligned ring, `full`/`empty` the
+// stages' mbarriers (8 bytes apart).
+template <int D0, int D1, int BN, int ST, int L, int W>
+__device__ __forceinline__ void consume(uint8_t* smem, uint32_t full, uint32_t empty,
+                                        int ktiles, uint32_t* __restrict__ C, int T, int S,
+                                        int64_t z, int m0, int n0, const FoldTable& fold,
+                                        uint32_t mask) {
+  using G = Tc<D0, D1, BN, ST, L>;
+  constexpr int D = G::D, P = G::P, E = BN / 2, EH = E / 2;
+  using Me = ConsumerAt<D, L, W>;
+  constexpr int NPW = Me::pairs > 0 ? Me::pairs : 1;
+  const int tid = threadIdx.x & 127, warp = tid >> 5, lane = tid & 31;
 
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int wm = (warp / WN) * 16, wn = (warp % WN) * 8;
-  const int64_t z = blockIdx.z;
-  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
-  const uint8_t* Ab = A8 + z * P * (int64_t)Tp * Rp;
-  const uint8_t* Bb = B8 + z * P * (int64_t)Sp * Rp;
-  const int ktiles = Rp / KS;
-
-  // one stage: P * (BM + BN) rows of KS bytes, four 16-byte pieces each
-  auto load_stage = [&](int kt, int st) {
-    uint8_t* sA = smem + st * stage;
-    const int pieces = P * (BM + BN) * (KS / 16);
-    for (int idx = tid; idx < pieces; idx += kThreads) {
-      const int q = idx & 3, row = idx >> 2;
-      const uint8_t* src;
-      if (row < P * BM) {
-        const int p = row / BM, m = row - p * BM;
-        src = Ab + ((int64_t)p * Tp + m0 + m) * Rp;
-      } else {
-        const int rb = row - P * BM;
-        const int p = rb / BN, n = rb - p * BN;
-        src = Bb + ((int64_t)p * Sp + n0 + n) * Rp;
-      }
-      cp_async16(smem_addr(sA + row * kRow + q * 16), src + kt * KS + q * 16);
-    }
-  };
-
-  int frag[K][kMaxL][4];
-  uint32_t acc[K][4];
+  uint32_t acc[NPW][E];
 #pragma unroll
-  for (int c = 0; c < K; ++c) {
+  for (int n = 0; n < NPW; ++n)
 #pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      acc[c][e] = 0u;
-#pragma unroll
-      for (int s = 0; s < kMaxL; ++s) frag[c][s][e] = 0;
-    }
-  }
+    for (int e = 0; e < E; ++e) acc[n][e] = 0u;
 
-#pragma unroll
-  for (int s = 0; s < STAGES - 1; ++s) {
-    if (s < ktiles) load_stage(s, s);
-    cp_async_commit();
-  }
-
-  // ldmatrix row addresses of this lane within a plane
-  const int a_row = wm + (lane & 7) + ((lane >> 3) & 1) * 8, a_col = (lane >> 4) * 16;
-  const int b_row = wn + (lane & 7), b_col = ((lane >> 3) & 1) * 16;
-
+  // ldmatrix.x4 rows of this lane: its warp's 16 rows, two 16-byte chunks
+  // of each 32-deep step (the m16n8k32 A fragment, which wgmma's register
+  // A operand repeats per warp); the 64-byte swizzle XORs the chunk with
+  // bits 1-2 of the row
+  const int a_row = warp * 16 + (lane & 7) + ((lane >> 3) & 1) * 8;
+  const int a_chunk = lane >> 4, a_swz = (a_row >> 1) & 3;
+  const uint32_t ring = smem_addr(smem);
+  uint32_t abuf[2][4];
+  int stage = 0;
+  uint32_t phase = 0;
   for (int kt = 0; kt < ktiles; ++kt) {
-    cp_async_wait<STAGES - 2>();
-    __syncthreads();
-    {
-      const int nk = kt + STAGES - 1;  // refills the stage read at kt - 1
-      if (nk < ktiles) load_stage(nk, nk % STAGES);
-      cp_async_commit();
-    }
-    const uint8_t* sA = smem + (kt % STAGES) * stage;
-    const uint8_t* sB = sA + a_stage;
-#pragma unroll
-    for (int kk = 0; kk < KS; kk += 32) {
-      uint32_t bf[D][kMaxL][2];
-#pragma unroll
-      for (int j = 0; j < D; ++j)
-#pragma unroll
-        for (int y = 0; y < kMaxL; ++y)
-          if (y < L)
-            ldmatrix_x2(bf[j][y],
-                        smem_addr(sB + ((j * L + y) * BN + b_row) * kRow + kk + b_col));
-      uint32_t af[D][kMaxL][4];
-#pragma unroll
-      for (int i = 0; i < D; ++i)
-#pragma unroll
-        for (int x = 0; x < kMaxL; ++x)
-          if (x < L)
-            ldmatrix_x4(af[i][x],
-                        smem_addr(sA + ((i * L + x) * BM + a_row) * kRow + kk + a_col));
-      // limb pairs (x, y) in an order where neighbouring pairs feed
-      // different shifts x + y; within a pair, the D^2 products walk the
-      // conv diagonals c = i + j (single-level tower) rank by rank, so that
-      // two MMAs into one fragment are at least D + 1 apart
-#pragma unroll
-      for (int x = 0; x < kMaxL; ++x)
-#pragma unroll
-        for (int y = 0; y < kMaxL; ++y)
-          if (x + y < L)
-#pragma unroll
-            for (int rank = 0; rank < D; ++rank)
-#pragma unroll
-              for (int c = 0; c < K; ++c) {
-                const int i = (c < D ? 0 : c - D + 1) + rank, j = c - i;
-                if (i < D && j >= 0) mma_u8(frag[c][x + y], af[i][x], bf[j][y]);
-              }
-    }
-    if ((kt + 1) % (kChunk / KS) == 0 || kt + 1 == ktiles) {
-#pragma unroll
-      for (int c = 0; c < K; ++c) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          uint32_t v = 0u;
-#pragma unroll
-          for (int s = 0; s < kMaxL; ++s) {
-            v += static_cast<uint32_t>(frag[c][s][e]) << (8 * s);
-            frag[c][s][e] = 0;
-          }
-          acc[c][e] += v;
+    mbar_wait(full + 8 * stage, phase);
+    const uint32_t sA = ring + stage * G::kStage;
+    const uint32_t sB = sA + G::kABytes;
+    static_for<0, KS / 32>([&](auto KK) {
+      constexpr int kk = decltype(KK)::value;
+      const uint32_t a_lane = sA + a_row * KS + (((2 * kk + a_chunk) ^ a_swz) << 4);
+      static_for<0, P>([&](auto PI) {
+        constexpr int p = decltype(PI)::value, i = p / L, a = p % L;
+        using Plane = PlaneAt<D, L, W, p>;
+        [[maybe_unused]] constexpr int buf = (kk * Me::planes + Plane::rank) & 1;
+        if constexpr (Plane::needs) {
+          ldmatrix_x4(abuf[buf], a_lane + p * kBM * KS);
+          wgmma_fence();
+          static_for<0, D * L>([&](auto JB) {
+            constexpr int j = decltype(JB)::value / L, b = decltype(JB)::value % L;
+            if constexpr (a + b < L) {
+              constexpr int q = (i + j) * L + a + b;
+              using Pair = PairAt<D, L, q>;
+              if constexpr (Pair::owner == W)
+                Wgmma<BN>::mma(acc[Pair::slot], abuf[buf],
+                               sw64_desc(sB + (j * L + b) * BN * KS + kk * 32));
+            }
+          });
+          wgmma_commit();
+          wgmma_wait<1>();
         }
-      }
+      });
+    });
+    wgmma_wait<0>();
+    __syncwarp();
+    if (lane == 0) mbar_arrive(empty + 8 * stage);
+    if (++stage == ST) {
+      stage = 0;
+      phase ^= 1;
     }
   }
-  cp_async_wait<0>();
+  wgmma_wait<0>();
 
-  // fold-and-mask epilogue into the interleaved layout; the m16n8 fragment
-  // of a lane holds rows g, g + 8 and columns 2q, 2q + 1 of the warp tile
-  const int g = lane >> 2, q = lane & 3;
+  // epilogue: partial(e, d) = sum over this consumer's (c, s) of
+  // FOLD[c, d] * (acc << 8s), mod 2^32.  Consumer W finishes the outputs of
+  // fragment entries e in [W * EH, (W + 1) * EH) and hands the other half
+  // of its partials to the other consumer through shared memory, laid out
+  // (consumer, d, e - half, thread) so that a warp's stores and loads are
+  // conflict-free.
+  named_barrier_sync(1, 128 * kConsumers);  // both consumers are done with the ring
+  uint32_t* xch = reinterpret_cast<uint32_t*>(smem);
+  uint32_t mine[EH][D];
+  static_for<0, E>([&](auto EI) {
+    constexpr int e = decltype(EI)::value;
+    uint32_t v[D];
+#pragma unroll
+    for (int d = 0; d < D; ++d) v[d] = 0u;
+    static_for<0, Plan<D, L>::NQ>([&](auto QI) {
+      constexpr int q = decltype(QI)::value, c = q / L, s = q % L;
+      using Pair = PairAt<D, L, q>;
+      if constexpr (Pair::owner == W) {
+        const uint32_t x = acc[Pair::slot][e] << (8 * s);
+#pragma unroll
+        for (int d = 0; d < D; ++d) v[d] += fold.f[c * D + d] * x;
+      }
+    });
+#pragma unroll
+    for (int d = 0; d < D; ++d) {
+      if constexpr (e / EH == W)
+        mine[e % EH][d] = v[d];
+      else
+        xch[((W * D + d) * EH + e % EH) * 128 + tid] = v[d];
+    }
+  });
+  named_barrier_sync(1, 128 * kConsumers);
+  // the s32 accumulator fragment: entry e of a thread is row g (+ 8 for
+  // e % 4 >= 2) of its warp's 16, column 8 * (e / 4) + 2 * (lane % 4) + e % 2
+  const int g = lane >> 2, qd = lane & 3;
   uint32_t* Cb = C + z * T * (int64_t)S * D;
 #pragma unroll
-  for (int e = 0; e < 4; ++e) {
-    const int row = m0 + wm + g + (e >> 1) * 8;
-    const int col = n0 + wn + 2 * q + (e & 1);
+  for (int el = 0; el < EH; ++el) {
+    const int e = W * EH + el;
+    const int row = m0 + warp * 16 + g + ((e >> 1) & 1) * 8;
+    const int col = n0 + 8 * (e >> 2) + 2 * qd + (e & 1);
     if (row < T && col < S) {
       uint32_t* dst = Cb + ((int64_t)row * S + col) * D;
 #pragma unroll
-      for (int d = 0; d < D; ++d) {
-        uint32_t v = 0u;
-#pragma unroll
-        for (int c = 0; c < K; ++c) v += fold.f[c * D + d] * acc[c][e];
-        dst[d] = v & mask;
-      }
+      for (int d = 0; d < D; ++d)
+        dst[d] = (mine[el][d] + xch[(((1 - W) * D + d) * EH + el) * 128 + tid]) & mask;
     }
   }
 }
 
-template <int D0, int D1, int WM, int WN, int ST>
-int launch(const uint8_t* A8, const uint8_t* B8, uint32_t* C, int batch, int T,
-           int S, int Tp, int Sp, int Rp, int L, const FoldTable& fold,
-           uint32_t mask, cudaStream_t stream) {
-  using G = Tc<D0, D1, WM, WN, ST>;
-  if (Tp % G::BM || Sp % G::BN) return (int)cudaErrorInvalidValue;
-  const int smem = G::smem(L);
-  if (smem > kSmemMax) return (int)cudaErrorInvalidValue;
+template <int D0, int D1, int BN, int ST, int L>
+__global__ void __launch_bounds__(kThreads, 1)
+    gr_matmul_tc_kernel(const __grid_constant__ CUtensorMap mapA,
+                        const __grid_constant__ CUtensorMap mapB, uint32_t* __restrict__ C,
+                        int T, int S, int Rp, const FoldTable fold, uint32_t mask) {
+  using G = Tc<D0, D1, BN, ST, L>;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = smem_raw + ((kAlign - (smem_addr(smem_raw) & (kAlign - 1))) & (kAlign - 1));
+  const uint32_t full = smem_addr(smem + G::kRing), empty = full + 8 * ST;
+  const int64_t z = blockIdx.z;
+  const int m0 = blockIdx.y * kBM, n0 = blockIdx.x * BN;
+  const int ktiles = Rp / KS;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < ST; ++s) {
+      mbar_init(full + 8 * s, 1);                  // the producer's expect_tx
+      mbar_init(empty + 8 * s, 4 * kConsumers);    // one arrival a consumer warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x / 128;
+  if (wg == kConsumers) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kProducerRegs));
+    if (threadIdx.x == 128 * kConsumers) {
+      int stage = 0;
+      uint32_t phase = 0;
+      for (int kt = 0; kt < ktiles; ++kt) {
+        mbar_wait(empty + 8 * stage, phase ^ 1);
+        const uint32_t bar = full + 8 * stage;
+        const uint32_t sA = smem_addr(smem) + stage * G::kStage;
+        mbar_expect_tx(bar, G::kTx);
+        tma_load_3d(sA, &mapA, bar, kt * KS, m0, (int)z * G::P);
+        tma_load_3d(sA + G::kABytes, &mapB, bar, kt * KS, n0, (int)z * G::P);
+        if (++stage == ST) {
+          stage = 0;
+          phase ^= 1;
+        }
+      }
+    }
+  } else {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kConsumerRegs));
+    if (wg == 0)
+      consume<D0, D1, BN, ST, L, 0>(smem, full, empty, ktiles, C, T, S, z, m0, n0, fold, mask);
+    else
+      consume<D0, D1, BN, ST, L, 1>(smem, full, empty, ktiles, C, T, S, z, m0, n0, fold, mask);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// host side
+// ---------------------------------------------------------------------------
+
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled from the driver the runtime has loaded (no -lcuda)
+EncodeTiled encode_tiled() {
+  static const EncodeTiled fn = [] {
+    void* p = nullptr;
+#if CUDART_VERSION >= 12050
+    cudaDriverEntryPointQueryResult q;
+    if (cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault,
+                                         &q) != cudaSuccess ||
+        q != cudaDriverEntryPointSuccess)
+      p = nullptr;
+#else
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault) != cudaSuccess)
+      p = nullptr;
+#endif
+    return reinterpret_cast<EncodeTiled>(p);
+  }();
+  return fn;
+}
+
+// planes (batch * P, rows, Rp) u8 as a 3-D tensor map with KS x box_rows x P
+// boxes in the 64-byte swizzle; rows past the end read as zeros
+int encode_planes(CUtensorMap* map, const void* base, int planes, int rows, int Rp, int box_rows,
+                  int P) {
+  memset(map, 0, sizeof(*map));
+  if (Rp == 0) return 0;  // nothing to load
+  const EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return (int)cudaErrorNotSupported;
+  const cuuint64_t dims[3] = {(cuuint64_t)Rp, (cuuint64_t)rows, (cuuint64_t)planes};
+  const cuuint64_t strides[2] = {(cuuint64_t)Rp, (cuuint64_t)rows * Rp};
+  const cuuint32_t box[3] = {(cuuint32_t)KS, (cuuint32_t)box_rows, (cuuint32_t)P};
+  const cuuint32_t unit[3] = {1, 1, 1};
+  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 3, const_cast<void*>(base), dims,
+                        strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                        CU_TENSOR_MAP_SWIZZLE_64B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
+}
+
+template <int D0, int D1, int BN, int ST, int L>
+int launch(const uint8_t* A8, const uint8_t* B8, uint32_t* C, int batch, int T, int S, int Tp,
+           int Sp, int Rp, const FoldTable& fold, uint32_t mask, cudaStream_t stream) {
+  using G = Tc<D0, D1, BN, ST, L>;
+  if (G::kSmem > kSmemMax) return (int)cudaErrorInvalidValue;
   // raise the kernel's shared-memory limit once per device (the attribute
   // persists), not on every launch: launches may be captured in a CUDA graph
   static int smem_set[kMaxDevices] = {};
@@ -390,40 +735,55 @@ int launch(const uint8_t* A8, const uint8_t* B8, uint32_t* C, int batch, int T,
   cudaError_t e = cudaGetDevice(&dev);
   if (e != cudaSuccess) return (int)e;
   if (dev >= kMaxDevices) return (int)cudaErrorInvalidDevice;
-  if (smem > smem_set[dev]) {
-    const int cap = G::smem(kMaxL) < kSmemMax ? G::smem(kMaxL) : kSmemMax;
-    e = cudaFuncSetAttribute(gr_matmul_tc_kernel<D0, D1, WM, WN, ST>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize, cap);
+  if (!smem_set[dev]) {
+    e = cudaFuncSetAttribute(gr_matmul_tc_kernel<D0, D1, BN, ST, L>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, G::kSmem);
     if (e != cudaSuccess) return (int)e;
-    smem_set[dev] = cap;
+    smem_set[dev] = 1;
   }
-  dim3 grid(Sp / G::BN, Tp / G::BM, batch);
-  gr_matmul_tc_kernel<D0, D1, WM, WN, ST><<<grid, G::kThreads, smem, stream>>>(
-      A8, B8, C, T, S, Tp, Sp, Rp, L, fold, mask);
+  CUtensorMap mapA, mapB;
+  int err = encode_planes(&mapA, A8, batch * G::P, Tp, Rp, kBM, G::P);
+  if (err == 0) err = encode_planes(&mapB, B8, batch * G::P, Sp, Rp, BN, G::P);
+  if (err != 0) return err;
+  dim3 grid((S + BN - 1) / BN, (T + kBM - 1) / kBM, batch);
+  gr_matmul_tc_kernel<D0, D1, BN, ST, L><<<grid, kThreads, G::kSmem, stream>>>(
+      mapA, mapB, C, T, S, Rp, fold, mask);
   return (int)cudaGetLastError();
 }
 
-constexpr int tc_key(int d0, int d1, int wm, int wn, int st) {
-  return (((d0 * 32 + d1) * 16 + wm) * 16 + wn) * 8 + st;
+template <int D0, int D1, int BN, int ST>
+int launch_l(const uint8_t* A8, const uint8_t* B8, uint32_t* C, int batch, int T, int S, int Tp,
+             int Sp, int Rp, int L, const FoldTable& fold, uint32_t mask, cudaStream_t st) {
+  switch (L) {
+    case 1: return launch<D0, D1, BN, ST, 1>(A8, B8, C, batch, T, S, Tp, Sp, Rp, fold, mask, st);
+    case 2: return launch<D0, D1, BN, ST, 2>(A8, B8, C, batch, T, S, Tp, Sp, Rp, fold, mask, st);
+    case 3: return launch<D0, D1, BN, ST, 3>(A8, B8, C, batch, T, S, Tp, Sp, Rp, fold, mask, st);
+    case 4: return launch<D0, D1, BN, ST, 4>(A8, B8, C, batch, T, S, Tp, Sp, Rp, fold, mask, st);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+constexpr int tc_key(int d0, int d1, int bn, int st) {
+  return ((d0 * 32 + d1) * 256 + bn) * 8 + st;
 }
 
 }  // namespace
 
-// (d0, d1, WM, WN, ST) instantiations: single-level towers with D <= 4,
-// each tower's default (the autotuner's fallback) first.  The Python mirror
-// is repro_torch.kernels.gr_matmul.TC_CONFIGS.
-#define TC_CONFIGS(X)                                                    \
-  X(1, 1, 2, 4, 3) X(1, 1, 2, 4, 4) X(1, 1, 4, 4, 3) X(1, 1, 2, 2, 4)    \
-  X(2, 1, 2, 4, 3) X(2, 1, 2, 4, 4) X(2, 1, 4, 2, 3) X(2, 1, 2, 2, 4)    \
-  X(3, 1, 2, 4, 3) X(3, 1, 2, 4, 2) X(3, 1, 4, 2, 2) X(3, 1, 2, 2, 3)    \
-  X(4, 1, 2, 4, 2) X(4, 1, 4, 2, 2) X(4, 1, 1, 8, 2) X(4, 1, 2, 2, 2)
+// (d0, d1, BN, ST) instantiations: single-level towers with D <= 4, each
+// tower's default (the autotuner's fallback) first; each is built for
+// L = 1..4.  The Python mirror is repro_torch.kernels.gr_matmul.TC_CONFIGS.
+#define TC_CONFIGS(X)                                        \
+  X(1, 1, 128, 4) X(1, 1, 64, 4)                             \
+  X(2, 1, 64, 3) X(2, 1, 48, 3) X(2, 1, 32, 4)               \
+  X(3, 1, 32, 3) X(3, 1, 32, 2) X(3, 1, 24, 3)               \
+  X(4, 1, 24, 2) X(4, 1, 16, 2)
 
 extern "C" {
 
 // Limb pre-pass: X (batch, rows, cols, D) uint32 -> Y uint8 limb planes,
 // (batch, D, L, rows_p, cols_p), or (batch, D, L, cols_p, rows_p) with
 // transpose, zero-padded.  rows_p, cols_p must be multiples of 32 (the
-// K-major one of 64).
+// K-major one of KS).
 int gr_matmul_tc_limbs(const void* X, void* Y, int batch, int rows, int cols,
                        int d, int L, int rows_p, int cols_p, int transpose,
                        void* stream) {
@@ -442,16 +802,16 @@ int gr_matmul_tc_limbs(const void* X, void* Y, int batch, int rows, int cols,
 }
 
 // A8 (batch, D, L, Tp, Rp), B8 (batch, D, L, Sp, Rp) u8 limb planes ->
-// C (batch, T, S, D) uint32 with the (wm, wn, st) instantiation of the
-// tower (d0, d1); cudaErrorInvalidValue if it has none, if Tp, Sp are not
-// multiples of its block tile, Rp of KS, or its stages exceed 227 KB at L.
+// C (batch, T, S, D) uint32 with the (bn, stages) instantiation of the
+// tower (d0, d1); cudaErrorInvalidValue if it has none, if Rp is not a
+// multiple of KS, or if its shared memory exceeds 227 KB at L.
 // fold_host: (K, D) uint32 row-major.
 int gr_matmul_tc_u32(const void* A8, const void* B8, void* C, int batch, int T,
                      int S, int Tp, int Sp, int Rp, int L, int d0, int d1,
-                     int wm, int wn, int stages, const uint32_t* fold_host,
+                     int bn, int stages, const uint32_t* fold_host,
                      uint32_t mask, void* stream) {
   const int D = d0 * d1, K = (2 * d0 - 1) * (2 * d1 - 1);
-  if (D > kMaxD || K > kMaxK || L < 1 || L > kMaxL || Rp % KS)
+  if (D > kMaxD || K > kMaxK || L < 1 || L > kMaxL || Rp % KS || Tp < T || Sp < S)
     return (int)cudaErrorInvalidValue;
   FoldTable fold;
   memset(&fold, 0, sizeof(fold));
@@ -460,11 +820,10 @@ int gr_matmul_tc_u32(const void* A8, const void* B8, void* C, int batch, int T,
   const uint8_t* b = static_cast<const uint8_t*>(B8);
   uint32_t* c = static_cast<uint32_t*>(C);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (tc_key(d0, d1, wm, wn, stages)) {
-#define TC_LAUNCH(x, y, m, n, s)                                        \
-  case tc_key(x, y, m, n, s):                                           \
-    return launch<x, y, m, n, s>(a, b, c, batch, T, S, Tp, Sp, Rp, L, fold, \
-                                 mask, st);
+  switch (tc_key(d0, d1, bn, stages)) {
+#define TC_LAUNCH(x, y, n, s)                                                          \
+  case tc_key(x, y, n, s):                                                             \
+    return launch_l<x, y, n, s>(a, b, c, batch, T, S, Tp, Sp, Rp, L, fold, mask, st);
     TC_CONFIGS(TC_LAUNCH)
 #undef TC_LAUNCH
     default:
@@ -473,21 +832,36 @@ int gr_matmul_tc_u32(const void* A8, const void* B8, void* C, int batch, int T,
 }
 
 // The instantiations of the tower (d0, d1), default first: writes up to
-// `cap` (wm, wn, stages) triples to `out` and returns how many there are.
+// `cap` (bn, stages) pairs to `out` and returns how many there are.
 int gr_matmul_tc_configs(int d0, int d1, int* out, int cap) {
   int n = 0;
-#define TC_CONFIG(x, y, m, n_, s)  \
-  if (x == d0 && y == d1) {        \
-    if (n < cap) {                 \
-      out[3 * n] = m;              \
-      out[3 * n + 1] = n_;         \
-      out[3 * n + 2] = s;          \
-    }                              \
-    ++n;                           \
+#define TC_CONFIG(x, y, n_, s)   \
+  if (x == d0 && y == d1) {      \
+    if (n < cap) {               \
+      out[2 * n] = n_;           \
+      out[2 * n + 1] = s;        \
+    }                            \
+    ++n;                         \
   }
   TC_CONFIGS(TC_CONFIG)
 #undef TC_CONFIG
   return n;
+}
+
+// Dynamic shared memory a launch of the (bn, stages) instantiation of the
+// tower (d0, d1) at L limbs asks for; -1 without one.
+int gr_matmul_tc_smem(int d0, int d1, int bn, int stages, int L) {
+  switch (tc_key(d0, d1, bn, stages) * 8 + L) {
+#define TC_SMEM(x, y, n, s)                                   \
+  case tc_key(x, y, n, s) * 8 + 1: return Tc<x, y, n, s, 1>::kSmem; \
+  case tc_key(x, y, n, s) * 8 + 2: return Tc<x, y, n, s, 2>::kSmem; \
+  case tc_key(x, y, n, s) * 8 + 3: return Tc<x, y, n, s, 3>::kSmem; \
+  case tc_key(x, y, n, s) * 8 + 4: return Tc<x, y, n, s, 4>::kSmem;
+    TC_CONFIGS(TC_SMEM)
+#undef TC_SMEM
+    default:
+      return -1;
+  }
 }
 
 // KS of the tc kernel, the multiple its limb planes' R is padded to.

@@ -10,13 +10,14 @@ header notes its design and what bounds it:
   the CUDA cores; every tower with D <= 16 and the towers of
   ``SIMT_WIDE_TOWERS``, every shape.
 * ``tc`` (``csrc/gr_matmul_tc.cu``): interleaved layout, a limb pre-pass
-  (counted as ``limbs``) into u8 planes, then int8 tensor-core MMAs;
-  single-level towers with D <= 4.
+  (counted as ``limbs``) into u8 planes, then a warp-specialised kernel:
+  TMA loads into a ring of stages, ``wgmma`` u8 x u8 -> s32 on the int8
+  tensor cores; single-level towers with D <= 4.
 * ``skinny`` (``csrc/gr_matmul_skinny.cu``): interleaved layout, a
   bandwidth kernel for T, R <= 16.
 
 ``tc`` and ``skinny`` come in a few instantiations per tower
-(``TC_CONFIGS``: warp grid and stages; ``SKINNY_CONFIGS``: threads per
+(``TC_CONFIGS``: tile width and stages; ``SKINNY_CONFIGS``: threads per
 block and a multiple of the columns per thread), the default first; the
 wrappers take a ``config`` and launch exactly that one (``None``: the
 default).  ``kernels.autotune`` times them and ``ops.pick_blocks`` picks.
@@ -53,8 +54,9 @@ __all__ = [
     "SKINNY_CONFIGS",
     "SMEM_BLOCK_BYTES",
     "TC_CONFIGS",
+    "TC_BM",
     "TC_DEPTH",
-    "TC_TILE",
+    "TC_PAD",
     "counters",
     "gr_matmul_planar",
     "gr_matmul_skinny",
@@ -79,23 +81,27 @@ SIMT_WIDE_TOWERS = ((3, 7),)
 ROUTES = ("simt", "tc", "skinny")
 # the skinny kernel keeps A (T x R x D words) in shared memory
 SKINNY_MAX_T = SKINNY_MAX_R = 16
-# (wm, wn, stages) instantiations of the tc kernel per tower, the default
-# first: a wm x wn grid of warps of 16 x 8 outputs, so a (16 wm) x (8 wn)
-# block tile, and a ring of `stages` cp.async stages (mirrors TC_CONFIGS in
+# (bn, stages) instantiations of the tc kernel per tower, the default
+# first: a 64 x bn block tile (two consumer warpgroups, each with half of
+# the tile's (conv plane, shift) accumulators) and a ring of `stages` TMA
+# stages; each is built for L = 1..4 (mirrors TC_CONFIGS in
 # csrc/gr_matmul_tc.cu)
 TC_CONFIGS = {
-    (1, 1): ((2, 4, 3), (2, 4, 4), (4, 4, 3), (2, 2, 4)),
-    (2, 1): ((2, 4, 3), (2, 4, 4), (4, 2, 3), (2, 2, 4)),
-    (3, 1): ((2, 4, 3), (2, 4, 2), (4, 2, 2), (2, 2, 3)),
-    (4, 1): ((2, 4, 2), (4, 2, 2), (1, 8, 2), (2, 2, 2)),
+    (1, 1): ((128, 4), (64, 4)),
+    (2, 1): ((64, 3), (48, 3), (32, 4)),
+    (3, 1): ((32, 3), (32, 2), (24, 3)),
+    (4, 1): ((24, 2), (16, 2)),
 }
-# KS: bytes of R per stage, the multiple the limb planes' R is padded to
+# KS: bytes of R per stage (the TMA box depth, one 64-byte swizzle row),
+# the multiple the limb planes' R is padded to
 TC_DEPTH = 64
-TC_ROW_BYTES = TC_DEPTH + 16  # a stage's shared-memory row stride
+# rows of every tc block tile (one wgmma M) and the padding of the limb
+# planes' T and S (the pre-pass works in 32 x 32 tiles; TMA zero-fills the
+# rest of a box)
+TC_BM = 64
+TC_PAD = 32
 # dynamic shared memory one block may ask for on sm_90 (227 KB)
 SMEM_BLOCK_BYTES = 227 * 1024
-# (BM, BN, KS) of the default tc instantiation
-TC_TILE = (32, 32, TC_DEPTH)
 # (threads, cm) instantiations of the skinny kernel beyond every tower's
 # default (128, 1): a block of `threads` threads covers threads * cm *
 # skinny_cols columns (mirrors SKINNY_EXTRA in csrc/gr_matmul_skinny.cu)
@@ -157,9 +163,9 @@ def tc_instantiated(d0: int, d1: int) -> bool:
     return (d0, d1) in TC_CONFIGS
 
 
-def tc_configs(d0: int, d1: int) -> Tuple[Tuple[int, int, int], ...]:
-    """The tc kernel's (wm, wn, stages) instantiations for the tower
-    (d0, d1), default first; empty without any."""
+def tc_configs(d0: int, d1: int) -> Tuple[Tuple[int, int], ...]:
+    """The tc kernel's (bn, stages) instantiations for the tower (d0, d1),
+    default first; empty without any."""
     return TC_CONFIGS.get((d0, d1), ())
 
 
@@ -171,17 +177,22 @@ def skinny_configs(d0: int, d1: int) -> Tuple[Tuple[int, int], ...]:
     return SKINNY_CONFIGS.get((d0, d1), (SKINNY_DEFAULT,))
 
 
-def tc_tile(config: Tuple[int, int, int]) -> Tuple[int, int]:
+def tc_tile(config: Tuple[int, int]) -> Tuple[int, int]:
     """(BM, BN): the block tile of the tc instantiation ``config``."""
-    wm, wn, _ = config
-    return 16 * wm, 8 * wn
+    return TC_BM, config[0]
 
 
-def tc_smem_bytes(ring, config: Tuple[int, int, int]) -> int:
+def tc_smem_bytes(ring, config: Tuple[int, int]) -> int:
     """Dynamic shared memory a tc launch of ``config`` over ``ring`` asks
-    for: stages x (BM + BN) rows of every limb plane of both operands."""
-    bm, bn = tc_tile(config)
-    return config[2] * ring.D * n_limbs(ring) * (bm + bn) * TC_ROW_BYTES
+    for (mirrors ``Tc::kSmem`` in ``csrc/gr_matmul_tc.cu``): a ring of
+    ``stages`` stages, each a KS-deep box of the 64 + BN rows of every limb
+    plane of both operands rounded up to 1 KB (or, if larger, the
+    epilogue's exchange of D * BN * 256 bytes, which reuses the ring), 1 KB
+    of alignment slack and two mbarriers a stage."""
+    bn, stages = config
+    planes = ring.D * n_limbs(ring)
+    stage = -(-planes * (TC_BM + bn) * TC_DEPTH // 1024) * 1024
+    return 1024 + max(stages * stage, ring.D * bn * 256) + 16 * stages
 
 
 def skinny_cols(d0: int, d1: int) -> Optional[int]:
@@ -193,13 +204,12 @@ def skinny_cols(d0: int, d1: int) -> Optional[int]:
     return cpt if D <= MAX_D and K * cpt <= 64 else None
 
 
-def tc_padded(t: int, r: int, s: int, config=None) -> Tuple[int, int, int]:
-    """(Tp, Rp, Sp): the shape the tc route's limb planes are padded to for
-    the instantiation ``config`` (None: the default tile): T and S to its
-    block tile and to the pre-pass's 32, R to the stage depth."""
-    bm, bn = tc_tile(config) if config is not None else TC_TILE[:2]
-    bm, bn = max(bm, 32), max(bn, 32)
-    return -(-t // bm) * bm, -(-r // TC_DEPTH) * TC_DEPTH, -(-s // bn) * bn
+def tc_padded(t: int, r: int, s: int) -> Tuple[int, int, int]:
+    """(Tp, Rp, Sp): the shape the tc route's limb planes are padded to: T
+    and S to the pre-pass's 32, R to the stage depth (the swizzled box's
+    64 bytes).  The main kernel's boxes may reach past Tp and Sp (a 64-row
+    or BN-row tile): TMA reads those rows as zeros."""
+    return -(-t // TC_PAD) * TC_PAD, -(-r // TC_DEPTH) * TC_DEPTH, -(-s // TC_PAD) * TC_PAD
 
 
 def kernel_tile(ring) -> Tuple[int, int, int]:
@@ -361,16 +371,16 @@ def gr_matmul_skinny(A: torch.Tensor, B: torch.Tensor, ring, config=None) -> tor
     return C[0] if squeeze else C
 
 
-def tc_limbs(A: torch.Tensor, B: torch.Tensor, ring, config=None):
+def tc_limbs(A: torch.Tensor, B: torch.Tensor, ring):
     """The tc route's limb pre-pass on the card: two launches, counted as
     ``limbs``.  Returns (A8, B8): A8 (b, D, L, Tp, Rp) and B8 (b, D, L, Sp,
-    Rp) uint8, K-major and zero-padded for the instantiation ``config``
-    (``tc_padded``); the plain version is ``ref.limb_planes_ref``."""
+    Rp) uint8, K-major and zero-padded (``tc_padded``); the plain version
+    is ``ref.limb_planes_ref``."""
     A, B, _, (nb, T, R, S) = _interleaved(A, B, ring)
     d0, d1 = tower_shape(ring)
     if not tc_instantiated(d0, d1):
         raise ValueError(f"{ring}: the tc kernel has no instantiation for tower {(d0, d1)}")
-    Tp, Rp, Sp = tc_padded(T, R, S, config)
+    Tp, Rp, Sp = tc_padded(T, R, S)
     L = n_limbs(ring)
     A8 = torch.empty((nb, ring.D, L, Tp, Rp), dtype=torch.uint8, device=A.device)
     B8 = torch.empty((nb, ring.D, L, Sp, Rp), dtype=torch.uint8, device=A.device)
@@ -390,9 +400,9 @@ def tc_limbs(A: torch.Tensor, B: torch.Tensor, ring, config=None):
 
 def gr_matmul_tc(A: torch.Tensor, B: torch.Tensor, ring, config=None) -> torch.Tensor:
     """The tensor-core route on the card: A (b?, t, r, D) x B (b?, r, s, D)
-    -> C (b?, t, s, D), interleaved int32, with the (wm, wn, stages)
+    -> C (b?, t, s, D), interleaved int32, with the (bn, stages)
     instantiation ``config`` (None: the tower's default).  Runs the limb
-    pre-pass (:func:`tc_limbs`), then the int8 MMA kernel.
+    pre-pass (:func:`tc_limbs`), then the wgmma kernel.
 
     Launches the CUDA kernels or raises; it never falls back.
     """
@@ -408,13 +418,13 @@ def gr_matmul_tc(A: torch.Tensor, B: torch.Tensor, ring, config=None) -> torch.T
     if tc_smem_bytes(ring, config) > SMEM_BLOCK_BYTES:
         raise ValueError(f"{ring}: tc {config} needs {tc_smem_bytes(ring, config)} B of shared "
                          f"memory, more than a block's {SMEM_BLOCK_BYTES}")
-    Tp, Rp, Sp = tc_padded(T, R, S, config)
-    if Tp // tc_tile(config)[0] > 65535:
+    Tp, Rp, Sp = tc_padded(T, R, S)
+    if -(-T // TC_BM) > 65535:
         raise ValueError(f"t={T} exceeds the tc kernel's launch grid")
     C = torch.empty((nb, T, S, ring.D), dtype=torch.int32, device=A.device)
     if C.numel() == 0:
         return C[0] if squeeze else C
-    A8, B8 = tc_limbs(A, B, ring, config)
+    A8, B8 = tc_limbs(A, B, ring)
     lib = load_library()
     ctx, stream = _stream(A.device)
     with ctx:

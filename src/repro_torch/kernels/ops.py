@@ -74,7 +74,7 @@ def pick_blocks(ring, t: Optional[int] = None, r: Optional[int] = None,
 
     * ``simt``, or no shape given: the static (BM, BN, BK) tile of the
       ring's instantiation;
-    * ``tc`` (wm, wn, stages) and ``skinny`` (threads, cm): the tuned entry
+    * ``tc`` (bn, stages) and ``skinny`` (threads, cm): the tuned entry
       of the autotune cache for this card, ring and shape, else the route's
       default (its first instantiation), None for a tower it has none for.
 

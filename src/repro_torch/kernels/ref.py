@@ -137,18 +137,17 @@ def limb_planes_ref(X: torch.Tensor, ring, rows: int, cols: int,
     return planes.to(torch.uint8)
 
 
-def gr_matmul_limbs_ref(A: torch.Tensor, B: torch.Tensor, ring,
-                        chunk: int = 256) -> torch.Tensor:
+def gr_matmul_limbs_ref(A: torch.Tensor, B: torch.Tensor, ring) -> torch.Tensor:
     """The ``tc`` route's algorithm on the CPU (int64 matmuls stand in for
     the int8 MMAs): (..., t, r, D) x (..., r, s, D) -> (..., t, s, D).
 
     Each operand is split into L = ceil(e/8) unsigned bytes, so mod 2^e
-    ``a * b = sum_{x+y<L} 2^(8(x+y)) a_x b_y``.  Over each ``chunk`` of r, the
-    limb products of every (i, j, x, y) with CONVPOS[i, j] = c and x + y = s
-    are chained into one fragment; the fragment must stay below 2^31 (the
-    int32 accumulator of the MMA) and is flushed as
-    ``acc[c] += frag << 8s (mod 2^32)``.  Then fold and mask as the plain
-    version does.  Only for p = 2, e <= 32.
+    ``a * b = sum_{x+y<L} 2^(8(x+y)) a_x b_y``.  The limb products of every
+    (i, j, x, y) with CONVPOS[i, j] = c and x + y = s are chained over all
+    of r into one accumulator (c, s), which wraps mod 2^32 as the kernel's
+    int32 wgmma accumulator does; then ``conv[c] = sum_s acc(c, s) << 8s
+    (mod 2^32)``, folded and masked as the plain version does.  No flush:
+    wrapping keeps every step exact mod 2^32.  Only for p = 2, e <= 32.
     """
     assert ring.p == 2 and ring.e <= 32, ring
     t, r = A.shape[-3], A.shape[-2]
@@ -156,17 +155,15 @@ def gr_matmul_limbs_ref(A: torch.Tensor, B: torch.Tensor, ring,
     L = n_limbs(ring)
     A8 = limb_planes_ref(A, ring, t, r).to(torch.int64)  # (..., D, L, t, r)
     B8 = limb_planes_ref(B, ring, s, r, transpose=True).to(torch.int64)  # (..., D, L, s, r)
-    acc = [torch.zeros(A.shape[:-3] + (t, s), dtype=torch.int64) for _ in range(ring.K)]
-    for k0 in range(0, r, chunk):
-        frag = {}
-        for i in range(ring.D):
-            for j in range(ring.D):
-                c = int(ring.CONVPOS[i, j])
-                for x in range(L):
-                    for y in range(L - x):
-                        p = A8[..., i, x, :, k0:k0 + chunk] @ B8[..., j, y, :, k0:k0 + chunk].transpose(-1, -2)
-                        frag[c, x + y] = frag[c, x + y] + p if (c, x + y) in frag else p
-        for (c, sh), f in frag.items():
-            assert int(f.max()) < 2**31, "limb fragment overflows int32"
-            acc[c] = (acc[c] + (f << (8 * sh))) & _U32
-    return _fold(acc, ring).movedim(-3, -1)
+    acc = {}
+    for i in range(ring.D):
+        for j in range(ring.D):
+            c = int(ring.CONVPOS[i, j])
+            for x in range(L):
+                for y in range(L - x):
+                    p = A8[..., i, x, :, :] @ B8[..., j, y, :, :].transpose(-1, -2)
+                    acc[c, x + y] = (acc[c, x + y] + p if (c, x + y) in acc else p) & _U32
+    conv = [torch.zeros(A.shape[:-3] + (t, s), dtype=torch.int64) for _ in range(ring.K)]
+    for (c, sh), a in acc.items():
+        conv[c] = (conv[c] + (a << (8 * sh))) & _U32
+    return _fold(conv, ring).movedim(-3, -1)

@@ -52,7 +52,7 @@ def _inject(key, entry):
 
 def test_cache_roundtrip(tmp_path):
     entries = {
-        at.tune_key(GR3, 1024, 2048, 1024, DEV, route="tc"): _entry("tc", (2, 4, 2)),
+        at.tune_key(GR3, 1024, 2048, 1024, DEV, route="tc"): _entry("tc", (32, 2)),
         at.tune_key(GR4, 4, 4, 4718592, DEV, route="skinny"): _entry("skinny", (256, 1)),
         at.tune_key(Z32, 8, 8, 8, DEV, route="simt"): _entry("simt", at.kernel_tile(Z32)),
     }
@@ -64,13 +64,13 @@ def test_cache_roundtrip(tmp_path):
 
 
 @pytest.mark.parametrize("key,entry,match", [
-    ("cuda|X|tc|3x1e32", _entry("tc", (2, 4, 3)), "malformed"),          # no dims
+    ("cuda|X|tc|3x1e32", _entry("tc", (32, 3)), "malformed"),          # no dims
     (f"{DEV}|tc|3x1e32|8x8x8", _entry("skinny", (128, 1)), "malformed"),  # route != key's
-    (f"{DEV}|tc|3x1e32|8x8x8", {"route": "tc", "config": [2, 4]}, "no instantiation"),
-    (f"{DEV}|tc|3x1e32|8x8x8", {"route": "tc", "config": "w2x4s3"}, "malformed"),
-    (f"{DEV}|tc|3x1e32|8x8x8", {"route": "tc", "config": [2, 4, 0]}, "malformed"),
-    (f"{DEV}|tc|3x1e32|8x8x8", _entry("tc", (8, 8, 3)), "no instantiation"),
-    (f"{DEV}|tc|5x1e32|8x8x8", _entry("tc", (2, 4, 3)), "no instantiation"),
+    (f"{DEV}|tc|3x1e32|8x8x8", {"route": "tc", "config": [32]}, "no instantiation"),
+    (f"{DEV}|tc|3x1e32|8x8x8", {"route": "tc", "config": "n32s3"}, "malformed"),
+    (f"{DEV}|tc|3x1e32|8x8x8", {"route": "tc", "config": [32, 0]}, "malformed"),
+    (f"{DEV}|tc|3x1e32|8x8x8", _entry("tc", (2, 4, 3)), "no instantiation"),  # mma.sync's w2x4s3
+    (f"{DEV}|tc|5x1e32|8x8x8", _entry("tc", (32, 3)), "no instantiation"),
     (f"{DEV}|skinny|5x1e32|8x8x8", _entry("skinny", (256, 1)), "no instantiation"),
     (f"{DEV}|simt|3x1e32|8x8x8", _entry("simt", (16, 16, 16)), "no instantiation"),
 ], ids=["no-dims", "route", "short", "not-a-list", "zero", "tc-uninstantiated",
@@ -125,24 +125,23 @@ def test_candidate_enumeration_is_deterministic():
 def test_candidates_include_static_default_and_respect_budget(tower):
     ring = make_ring(2, 32, (tower[0],) if tower[0] > 1 else ())
     cands = at.candidate_blocks(ring, 1024, 2048, 1024, route="tc")
-    assert cands[0] == tc_configs(*tower)[0] == (2, 4, 3 if tower[0] < 4 else 2)
-    regs = min(at._tc_register_estimate(*tower), at.REGISTER_BUDGET)
-    for wm, wn, st in cands:
-        assert tc_smem_bytes(ring, (wm, wn, st)) <= at.SMEM_BUDGET_BYTES == 227 * 1024
-        assert 32 * wm * wn * regs <= at.REGISTER_FILE
+    assert cands[0] == tc_configs(*tower)[0]
+    assert set(cands) == set(tc_configs(*tower))  # every instantiation fits at L = 4
+    for config in cands:
+        assert tc_smem_bytes(ring, config) <= at.SMEM_BUDGET_BYTES == 227 * 1024
+        assert at._tc_register_estimate(ring, config) <= at.TC_CONSUMER_REGS == 232
     skinny = at.candidate_blocks(ring, 8, 2, 2097152, route="skinny")
     assert skinny[0] == (128, 1) and set(skinny) == set(SKINNY_CONFIGS[tower])
-    # the reckoning: a stage holds (BM + BN) * D * L * 80 bytes, so at D = 4
-    # and L = 4 a 32 x 32 tile (81,920 B a stage) fits two stages, not three,
-    # and a 64 x 32 tile not even two
+    # the reckoning: a stage holds (64 + BN) * D * L * 64 bytes, so at D = 4
+    # and L = 4 a 64 x 24 tile (90,112 B a stage) fits two stages, not
+    # three; one fewer limb (L = 3) fits three
     if tower == (4, 1):
-        assert tc_smem_bytes(GR4, (2, 4, 1)) == 81920
-        assert at.fits_budget("tc", GR4, (2, 4, 2)) and not at.fits_budget("tc", GR4, (2, 4, 3))
-        assert not at.fits_budget("tc", GR4, (4, 4, 2))
-        assert at.fits_budget("tc", make_ring(2, 24, (4,)), (2, 4, 3))  # L = 3
-    # each warp's K * L + K fragments do not depend on the tile: a 16-warp
-    # block only fits the register file where K is small
-    assert at.fits_budget("tc", ring, (4, 4, 2)) == (tower == (1, 1))
+        assert tc_smem_bytes(GR4, (24, 1)) == 1024 + 90112 + 16
+        assert at.fits_budget("tc", GR4, (24, 2)) and not at.fits_budget("tc", GR4, (24, 3))
+        assert at.fits_budget("tc", make_ring(2, 24, (4,)), (24, 3))  # L = 3
+    # the accumulators, not the tile, bound BN: a consumer holds
+    # ceil(K * L / 2) * BN / 2 of them, so BN = 32 is too wide at D = 4
+    assert at.fits_budget("tc", ring, (32, 2)) == (tower != (4, 1))
 
 
 def test_tune_key_canonicalizes_ragged_shapes():
@@ -161,9 +160,9 @@ def test_tune_key_canonicalizes_ragged_shapes():
 
 def test_ops_pick_the_cached_config(monkeypatch):
     assert ops.pick_blocks(GR3, 1024, 2048, 1024, device=DEV) == tc_configs(3, 1)[0]  # a miss
-    _inject(at.tune_key(GR3, 1024, 2048, 1024, DEV), _entry("tc", (4, 2, 2)))
+    _inject(at.tune_key(GR3, 1024, 2048, 1024, DEV), _entry("tc", (24, 3)))
     _inject(at.tune_key(GR3, 8, 2, 2097152, DEV), _entry("skinny", (256, 1)))
-    assert ops.pick_blocks(GR3, 1024, 2048, 1024, device=DEV) == (4, 2, 2)
+    assert ops.pick_blocks(GR3, 1024, 2048, 1024, device=DEV) == (24, 3)
     assert ops.pick_blocks(GR3, 8, 2, 2097152, device=DEV) == (256, 1)
     assert ops.pick_blocks(GR3, 48, 48, 48, device=DEV) == ops.pick_blocks(GR3)  # simt: static
     assert ops.pick_blocks(GR3, 1024, 2048, 1024, device="cpu") == tc_configs(3, 1)[0]
@@ -171,11 +170,11 @@ def test_ops_pick_the_cached_config(monkeypatch):
     # device kind (here the CPU's, injected), or the one the caller pins
     seen = []
     monkeypatch.setattr(ops, "gr_matmul_tc", lambda A, B, ring, config: seen.append(config))
-    _inject(at.tune_key(GR3, 64, 64, 64, "cpu"), _entry("tc", (2, 2, 3)))
+    _inject(at.tune_key(GR3, 64, 64, 64, "cpu"), _entry("tc", (32, 2)))
     A = torch.zeros((64, 64, 3), dtype=torch.int32)
     ops.run_route("tc", A, A, GR3)
-    ops.run_route("tc", A, A, GR3, config=(2, 4, 2))
-    assert seen == [(2, 2, 3), (2, 4, 2)]
+    ops.run_route("tc", A, A, GR3, config=(24, 3))
+    assert seen == [(32, 2), (24, 3)]
 
 
 def test_explicit_config_overrides_cache(monkeypatch):
@@ -190,10 +189,10 @@ def test_explicit_config_overrides_cache(monkeypatch):
 
 def test_lru_survives_disk_invalidation_boundary():
     key = at.tune_key(GR4, 1024, 1024, 512, DEV)
-    _inject(key, _entry("tc", (1, 8, 2)))
-    assert at.cached_blocks(GR4, 1024, 1024, 512, DEV) == (1, 8, 2)
+    _inject(key, _entry("tc", (16, 2)))
+    assert at.cached_blocks(GR4, 1024, 1024, 512, DEV) == (16, 2)
     at._DISK.pop(key)
-    assert at.cached_blocks(GR4, 1024, 1024, 512, DEV) == (1, 8, 2)  # an LRU hit
+    assert at.cached_blocks(GR4, 1024, 1024, 512, DEV) == (16, 2)  # an LRU hit
     at.invalidate_memory_cache()
     # nothing was persisted: the in-process entry is gone, the committed file rules
     assert at.cached_blocks(GR4, 1024, 1024, 512, DEV) is None
@@ -220,18 +219,21 @@ def test_autotune_rejects_out_of_envelope_rings_and_the_cpu():
 def test_ptxas_usage_reads_every_instantiation(tmp_path):
     (tmp_path / "gr_matmul_tc.ptxas.txt").write_text(
         "ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_119gr_matmul_tc_kernelILi4ELi1E"
-        "Li2ELi4ELi2EEEvPKhS2_Pjiiiiiii' for 'sm_90a'\n"
+        "Li24ELi2ELi4EEEv14CUtensorMap_stS1_Pjiiii9FoldTablej' for 'sm_90a'\n"
         "ptxas info    : Function properties for _ZN12_GLOBAL__N_1\n"
         "    0 bytes stack frame, 132 bytes spill stores, 104 bytes spill loads\n"
-        "ptxas info    : Used 255 registers\n"
+        "ptxas info    : Used 168 registers\n"
         "ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_123gr_matmul_skinny_kernelILi3ELi1E"
         "Li128ELi2EEEvPKjS2_Pjiii' for 'sm_90a'\n"
         "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads\n"
         "ptxas info    : Used 80 registers\n")
     usage = at.ptxas_usage(tmp_path)
-    assert usage == {"tc(4,1,2,4,2)": {"spill_st": 132, "spill_ld": 104, "regs": 255},
+    assert usage == {"tc(4,1,24,2,4)": {"spill_st": 132, "spill_ld": 104, "regs": 168},
                      "skinny(3,1,128,2)": {"spill_st": 0, "spill_ld": 0, "regs": 80}}
-    assert at._usage_of(usage, "tc", (4, 1), (2, 4, 2))["regs"] == 255
-    assert at._usage_of({"simt(3,7)": {"regs": 123}}, "simt", (3, 7), (16, 16, 16)) == {"regs": 123}
-    assert at.config_name("tc", (2, 4, 2)) == "w2x4s2" and at.config_name("skinny", (128, 2)) == "t128m2"
+    # a tc entry names its instantiation at the ring's L (here 4)
+    assert at._usage_of(usage, "tc", GR4, (24, 2))["regs"] == 168
+    assert at._usage_of(usage, "tc", make_ring(2, 24, (4,)), (24, 2)) == {}
+    simt = {"simt(3,7)": {"regs": 123}}
+    assert at._usage_of(simt, "simt", make_ring(2, 32, (3, 7)), (16, 16, 16)) == {"regs": 123}
+    assert at.config_name("tc", (32, 2)) == "n32s2" and at.config_name("skinny", (128, 2)) == "t128m2"
     assert skinny_configs(5, 1) == ((128, 1),) and not tc_configs(5, 1)

@@ -43,7 +43,7 @@ pytestmark = pytest.mark.cuda
 RING_SPECS = [(2, 32, ()), (2, 32, (3,)), (2, 32, (4,)), (2, 16, (5,)), (2, 8, (2, 3)),
               (2, 32, (16,)), (2, 32, (3, 5)), (2, 32, (3, 7))]
 SHAPES = [(8, 8, 8), (16, 32, 8), (128, 128, 128), (7, 13, 5), (1, 64, 1), (130, 17, 129)]
-# t, s >= 64 and an r across the tc route's 256-deep flush chunk; t, r <= 16
+# t, s >= 64 and an r across several of the tc route's 64-deep stages; t, r <= 16
 # with ragged s for the skinny route
 ROUTE_SHAPES = {"simt": SHAPES, "tc": SHAPES + [(64, 64, 64), (96, 300, 160)],
                 "skinny": [x for x in SHAPES if x[0] <= 16 and x[1] <= 16]
@@ -266,7 +266,7 @@ def test_every_tc_configuration_matches_plain(cuda, tower):
         for config in tc_configs(*tower):
             assert torch.equal(gr_matmul_tc(A, B, ring, config), want), (config, lead, t, r, s)
     with pytest.raises(ValueError, match="no instantiation"):
-        gr_matmul_tc(A, B, ring, (8, 8, 3))
+        gr_matmul_tc(A, B, ring, (8, 3))
 
 
 @pytest.mark.parametrize("tower", sorted(SKINNY_CONFIGS), ids=str)

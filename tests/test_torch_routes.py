@@ -6,8 +6,9 @@ are held against repro (JAX on the CPU), and so are the dispatch rules
 around them:
 
 * ``gr_matmul_limbs_ref`` computes the ring matmul the ``tc`` way: byte
-  limbs, integer matmuls, the chunked shift-and-add flush, the fold.  It
-  must equal repro's ``Ring.matmul`` bit for bit;
+  limbs, integer matmuls into wrapping int32 accumulators (one per conv
+  plane and shift), one shift-and-add at the end, the fold.  It must equal
+  repro's ``Ring.matmul`` bit for bit;
 * ``pick_route`` picks a route from the ring and the shape alone;
 * the Python mirrors of the kernels' instantiations match the CUDA sources.
 """
@@ -27,17 +28,19 @@ from repro_torch.kernels.gr_matmul import (
     SIMT_WIDE_TOWERS,
     SKINNY_CONFIGS,
     SKINNY_DEFAULT,
+    TC_BM,
     TC_CONFIGS,
     TC_DEPTH,
-    TC_TILE,
+    TC_PAD,
     gr_matmul_skinny,
     gr_matmul_tc,
     simt_instantiated,
     skinny_cols,
     tc_instantiated,
-    tc_tile,
     tc_limbs,
     tc_padded,
+    tc_smem_bytes,
+    tc_tile,
 )
 from repro_torch.kernels.ref import limb_planes_ref, n_limbs
 
@@ -63,7 +66,7 @@ def _reference(deg):
     return jr, a, b, np.asarray(jr.matmul(a, b))
 
 
-@pytest.mark.parametrize("e", [8, 16, 32])
+@pytest.mark.parametrize("e", [8, 16, 31, 32])
 @pytest.mark.parametrize("deg", DEGREES, ids=str)
 def test_limbs_ref_matches_reference(deg, e):
     # repro's GR(2^e, deg) has GR(2^32, deg)'s tables mod 2^e, so reducing
@@ -76,8 +79,7 @@ def test_limbs_ref_matches_reference(deg, e):
     mask = np.uint32(2**e - 1)
     ring = make_ring(2, e, deg)
     A, B = from_numpy(a & mask, ring, "cpu"), from_numpy(b & mask, ring, "cpu")
-    # r = 37 crosses a 16-deep flush chunk twice
-    got = gr_matmul_limbs_ref(A, B, ring, chunk=16)
+    got = gr_matmul_limbs_ref(A, B, ring)
     np.testing.assert_array_equal(to_numpy(got), ref & mask)
 
 
@@ -88,12 +90,26 @@ def test_limbs_ref_batched_and_extreme_values():
     ring = make_ring(2, 32, (3,))
     A = from_numpy(np.stack([a, a[::-1]]), ring, "cpu")
     B = from_numpy(np.stack([b, b[:, ::-1]]), ring, "cpu")
-    got = to_numpy(gr_matmul_limbs_ref(A, B, ring, chunk=8))
+    got = to_numpy(gr_matmul_limbs_ref(A, B, ring))
     np.testing.assert_array_equal(got, np.stack([ref, ref[::-1, ::-1]]))
-    # every limb 0xFF: the largest fragments a 256-deep chunk can build stay
-    # below 2^31 (checked inside), and the flush stays exact mod 2^32
+    # every limb 0xFF: the largest chains, exact mod 2^32
     A = torch.full((3, 300, ring.D), -1, dtype=torch.int32)
     B = torch.full((300, 2, ring.D), -1, dtype=torch.int32)
+    assert torch.equal(gr_matmul_limbs_ref(A, B, ring), gr_matmul_ref(A, B, ring))
+
+
+@pytest.mark.parametrize("deg,r", [((3,), 2048), ((3,), 2816), ((4,), 2112), ((4,), 4160)])
+def test_limbs_ref_wraps_at_the_largest_chain(deg, r):
+    # every limb 0xFF: accumulator (c, s) chains count(c) * (s + 1) byte
+    # products of 255^2 per element of r, 12 at D = 3 and 16 at D = 4 for
+    # the middle conv plane and s = 3.  At r = 2048 (D = 3) no chain passes
+    # 2^31; past 2752 (D = 3) or 2064 (D = 4) one does, and at 4160 (D = 4)
+    # one passes 2^32: wrapping mod 2^32 keeps every shift-add exact
+    ring = make_ring(2, 32, deg)
+    chain = r * (ring.D * 4) * 255 ** 2 if deg == (4,) else r * 12 * 255 ** 2
+    assert (chain >= 2 ** 31) == (r > 2048)
+    A = torch.full((2, r, ring.D), -1, dtype=torch.int32)
+    B = torch.full((r, 3, ring.D), -1, dtype=torch.int32)
     assert torch.equal(gr_matmul_limbs_ref(A, B, ring), gr_matmul_ref(A, B, ring))
 
 
@@ -113,10 +129,32 @@ def test_limb_planes_layout(transpose):
 
 
 def test_tc_padding_follows_the_tile():
-    bm, bn, ks = TC_TILE
+    # T and S to the pre-pass's 32 (TMA zero-fills a tile past them), R to
+    # the 64-byte swizzled box depth; no instantiation changes the padding
+    assert (TC_PAD, TC_DEPTH, TC_BM) == (32, 64, 64)
     assert tc_padded(1024, 2048, 1024) == (1024, 2048, 1024)
     assert tc_padded(70, 300, 97) == (96, 320, 128)
-    assert all(x % m == 0 for x, m in zip(tc_padded(33, 1, 65), (bm, ks, bn)))
+    assert tc_padded(33, 1, 65) == (64, 64, 96)
+    assert all(x % m == 0 for x, m in zip(tc_padded(33, 1, 65), (TC_PAD, TC_DEPTH, TC_PAD)))
+
+
+@pytest.mark.parametrize("tower", sorted(TC_CONFIGS), ids=str)
+def test_tc_instantiations_fit_the_block(tower):
+    # every instantiation: a wgmma width (N = 16, 24, 32, 48, ...), its
+    # stages within 227 KB at every L, and the reckoning of Tc::kSmem:
+    # 1 KB of alignment slack, the ring (each stage rounded up to 1 KB; the
+    # epilogue's exchange reuses it) and two mbarriers a stage
+    for e in (8, 16, 24, 32):
+        ring = make_ring(2, e, (tower[0],) if tower[0] > 1 else ())
+        planes = ring.D * n_limbs(ring)
+        for bn, stages in TC_CONFIGS[tower]:
+            assert bn % 16 == 0 or bn == 24
+            assert tc_tile((bn, stages)) == (TC_BM, bn)
+            stage = -(-planes * (TC_BM + bn) * TC_DEPTH // 1024) * 1024
+            want = 1024 + max(stages * stage, ring.D * bn * 256) + 16 * stages
+            assert tc_smem_bytes(ring, (bn, stages)) == want <= 227 * 1024
+    # the tightest: GR(2^32, 3) at 64 x 32 with three stages
+    assert tc_smem_bytes(make_ring(2, 32, (3,)), (32, 3)) == 222256
 
 
 # (ring degrees, t, r, s, route): the main path's calls (batch_ep_rmfe at
@@ -168,7 +206,7 @@ def test_instantiation_mirrors_match_the_sources():
     assert len(towers) == 27
     assert [t for t in towers if t[0] * t[1] > MAX_D] == list(SIMT_WIDE_TOWERS)
     assert all(simt_instantiated(*t) for t in towers) and not simt_instantiated(17, 1)
-    # the tc instantiations (tower, warp grid, stages), default first; the
+    # the tc instantiations (tower, tile width, stages), default first; the
     # skinny ones: every tower's default plus SKINNY_EXTRA
     tc = _configs("gr_matmul_tc.cu", "TC_CONFIGS")
     assert sorted({c[:2] for c in tc}) == [t for t in towers if tc_instantiated(*t)]
@@ -178,9 +216,9 @@ def test_instantiation_mirrors_match_the_sources():
     assert {t: (SKINNY_DEFAULT,) + tuple(c[2:] for c in extra if c[:2] == t)
             for t in SKINNY_CONFIGS} == SKINNY_CONFIGS
     assert SKINNY_DEFAULT == (128, 1) and all(skinny_cols(*t) for t in SKINNY_CONFIGS)
-    depth = re.findall(r"constexpr int KS = (\d+);", (CSRC / "gr_matmul_tc.cu").read_text())
-    assert [int(v) for v in depth] == [TC_DEPTH]
-    assert all(tc_tile(c[0]) + (TC_DEPTH,) == TC_TILE for c in TC_CONFIGS.values())
+    src = (CSRC / "gr_matmul_tc.cu").read_text()
+    assert [int(v) for v in re.findall(r"constexpr int KS = (\d+);", src)] == [TC_DEPTH]
+    assert [int(v) for v in re.findall(r"constexpr int kBM = (\d+);", src)] == [TC_BM]
 
 
 def test_route_wrappers_take_cuda_tensors_only():
