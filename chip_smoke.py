@@ -7,19 +7,25 @@ Phases (any mismatch fails the run with a non-zero exit):
 
 1. environment and build: torch/CUDA versions, the card's name and power
    limit, the kernels built from ``src/repro_torch/kernels/csrc`` with nvcc
-   (``-Xptxas -v`` registers and spills per instantiation of every route;
+   (``-Xptxas -v`` registers and spills per instantiation of every route,
+   the ``tower`` kernels and the ``lift`` pre-pass printed on their own;
    every ``tc`` instantiation must enter with 168 registers, which its
    ``setmaxnreg`` split needs, and ptxas' warnings on it are reported),
    and the Python mirrors of each route's tiles, instantiations and the
-   ``tc`` kernel's shared memory per tile and L held against the library;
-2. every route of ``gr_matmul`` (``simt``, ``tc``, ``skinny``) and the tc
-   route's limb pre-pass against their plain PyTorch versions on the card,
-   bit for bit, on eight rings (K up to 65: the (3, 7) tower, D = 21, on
-   ``simt``) at the shapes each route takes (``tc`` at every instantiation
-   of the ring's tower), batched and unbatched; the ``tc`` accumulators'
-   overflow rule (all-0xFF operands, chains past 2^31 and 2^32, every
-   instantiation; printed as ``tc_accumulate: wraps``, and the run fails
-   if they saturate); and at every shape the main path hands the
+   ``tc`` kernel's shared memory per tile and L (a lifted tower's too) and
+   the ``tower`` kernel's per (t, r) held against the library;
+2. every route of ``gr_matmul`` (``simt``, ``tc``, ``skinny``, ``tower``)
+   and the tc route's pre-passes (limb planes, a two-level tower's lift)
+   against their plain PyTorch versions on the card, bit for bit, on nine
+   rings (K up to 65: the (3, 7) tower, D = 21, at e = 32 and 31) at the
+   shapes each route takes (``tc`` and ``tower`` at every instantiation of
+   the ring's tower), batched and unbatched; the ``tc`` accumulators'
+   overflow rule (all-0xFF operands, chains past 2^31 and 2^32, the lifted
+   (3, 7) chain among them, every instantiation; printed as
+   ``tc_accumulate: wraps``, and the run fails if they saturate);
+   ``ElasticStream``'s step over the (3, 7) tower (three ``tower`` calls
+   and the lifted ``tc`` worker product) at every instantiation and on
+   ``simt``; and at every shape the main path hands the
    kernels; there each shape's route is timed in turns with ``simt``
    (replayed from CUDA graphs, so without the wrappers' host time), and
    every route at the edges of the dispatch rule is held and timed the same
@@ -46,8 +52,9 @@ Phases (any mismatch fails the run with a non-zero exit):
    bit for bit (all batch slices of a worker launch included); the shapes
    of the GR(2^32, 4) paths, of ep's 96^3 request and of phases 5-9 are
    also timed as phase 2 times the main path's: the route in turns with ``simt`` from CUDA
-   graphs, beside its bound, the plain version and, for ``tc``, the int8
-   yardstick.  It runs last, once phases 5-9 have recorded;
+   graphs, beside its byte, int8 and INT32 bounds, the plain version and,
+   for ``tc``, its pre-passes (the lift alone over the (3, 7) tower) and the
+   int8 yardstick.  It runs last, once phases 5-9 have recorded;
 5. the elastic any-R master (``coded_matmul(..., backend=ElasticBackend)``)
    on ``batch_ep_rmfe`` at 2048^3: (a) the all-live fast path, equal to
    ``local`` with ``local``'s launches; (b) the traced event loop under a
@@ -62,8 +69,11 @@ Phases (any mismatch fails the run with a non-zero exit):
    ``repro_torch.obs`` spans of 5 traced runs;
 6. ``ElasticStream``: 8 products of 1024^3 over Z_2^32 in groups of 8
    workers, stepped at 16, 9 and 24 live workers (re-chunked to (2, 4),
-   (1, 8), (3, 3); the middle step's ring is GR(2^32, (3, 7)), D = 21, on
-   ``simt``), each step equal to the direct products; 7 live raises;
+   (1, 8), (3, 3); the middle step's ring is GR(2^32, (3, 7)), D = 21: its
+   worker product on ``tc`` through the lift, its encodes and decode on
+   ``tower``, no ``simt`` launch), each step equal to the direct products;
+   7 live raises; then 5 warm steps at 9 live workers, each timed with CUDA
+   events and held against the direct products;
 7. ``CodedQuantMatmul`` at gemma2-2b's FFN width: x (2048, 2304) @
    w (2304, 9216) float32 from ``--seed`` over N = 16 workers (EP_RMFE-I
    over GR(2^32, 4)): the exact int32 product under 12 dead workers (a
@@ -167,7 +177,7 @@ SEED = 0
 # launches per call (phi(A), encode_a_at, phi(B), encode_b_at, decode, psi
 # on skinny, or the master encode's pack and encode; its product on tc)
 SPMD_N = 8
-SPMD_RANK_LAUNCHES = {"simt": 0, "tc": 1, "skinny": 6, "limbs": 2}
+SPMD_RANK_LAUNCHES = dict(simt=0, tc=1, skinny=6, tower=0, limbs=2, lift=0)
 # the sharded CodedQuantMatmul at gemma2-2b's FFN widths, its tokens cut
 # from 2048 to 256: 16 ranks gather 16 responses each through gloo on the
 # host (9.4 MB a response at 256 tokens, 2.4 GB for all ranks)
@@ -183,53 +193,64 @@ SINGLE_SIZE = 1024
 SMALL_SIZE = 96
 # dead workers 2 and 5: the first R = 4 live workers are (0, 1, 3, 4), not a prefix
 MASK = [True, True, False, True, True, False, True, True]
-ROUTES = ("simt", "tc", "skinny")
+ROUTES = ("simt", "tc", "skinny", "tower")
+# every count a wrapper keeps: the routes' matmul kernels and the tc route's
+# pre-passes (limbs: A's, and a single-level B's; lift: a tower's B)
+COUNTED = ROUTES + ("limbs", "lift")
+
+
+def _launches(**counts) -> dict:
+    """Launches per counted kernel, 0 for those not named."""
+    return {**dict.fromkeys(COUNTED, 0), **counts}
+
+
 # launches per route for one coded_matmul of each path (limbs: the tc
 # route's pre-pass, two per tc launch); the ring matmuls of a round are the
 # phi/psi packs, two encodes, one batched worker launch and one decode
 EXPECTED_LAUNCHES = {
     # phi(A), phi(B), encode a/b, decode, psi -> skinny; workers -> tc
-    "batch_ep_rmfe": {"simt": 0, "tc": 1, "skinny": 6, "limbs": 2},
-    "ep": {"simt": 0, "tc": 1, "skinny": 3, "limbs": 2},
-    "plain": {"simt": 0, "tc": 1, "skinny": 3, "limbs": 2},  # embedding is a copy
-    "ep_rmfe1": {"simt": 0, "tc": 1, "skinny": 6, "limbs": 2},
-    "ep_rmfe2": {"simt": 0, "tc": 1, "skinny": 5, "limbs": 2},  # A embedded, not packed
+    "batch_ep_rmfe": _launches(simt=0, tc=1, skinny=6, limbs=2),
+    "ep": _launches(simt=0, tc=1, skinny=3, limbs=2),
+    "plain": _launches(simt=0, tc=1, skinny=3, limbs=2),  # embedding is a copy
+    "ep_rmfe1": _launches(simt=0, tc=1, skinny=6, limbs=2),
+    "ep_rmfe2": _launches(simt=0, tc=1, skinny=5, limbs=2),  # A embedded, not packed
     # 96^3: worker blocks of 48 rows are below the tc threshold
-    "ep_small": {"simt": 1, "tc": 0, "skinny": 3, "limbs": 0},
+    "ep_small": _launches(simt=1, tc=0, skinny=3, limbs=0),
     # over GR(2^32, 4): encode a/b (one batched launch each for the kappa
     # groups of gcsa_general) and the one-matrix decode on skinny; masks are
     # drawn by torch.randint, not a ring matmul; embedding is a copy
-    "gcsa": {"simt": 0, "tc": 1, "skinny": 3, "limbs": 2},
-    "ep_rmfe_secure": {"simt": 0, "tc": 1, "skinny": 6, "limbs": 2},
-    "ep_secure": {"simt": 0, "tc": 1, "skinny": 3, "limbs": 2},
-    "gcsa_general": {"simt": 0, "tc": 1, "skinny": 3, "limbs": 2},
+    "gcsa": _launches(simt=0, tc=1, skinny=3, limbs=2),
+    "ep_rmfe_secure": _launches(simt=0, tc=1, skinny=6, limbs=2),
+    "ep_secure": _launches(simt=0, tc=1, skinny=3, limbs=2),
+    "gcsa_general": _launches(simt=0, tc=1, skinny=3, limbs=2),
     # the elastic master on batch_ep_rmfe: the all-live fast path is local's
     # round; the traced path dispatches all 8 workers (the dead ones join at
     # 0 too) and each runs phi(A), encode_a_at, phi(B), encode_b_at (t = 1)
     # on skinny and its own tc product; then one decode and one psi
-    "elastic_all_live": {"simt": 0, "tc": 1, "skinny": 6, "limbs": 2},
-    "elastic_traced": {"simt": 0, "tc": 8, "skinny": 34, "limbs": 16},
-    "elastic_race": {"simt": 0, "tc": 8, "skinny": 34, "limbs": 16},
+    "elastic_all_live": _launches(simt=0, tc=1, skinny=6, limbs=2),
+    "elastic_traced": _launches(simt=0, tc=8, skinny=34, limbs=16),
+    "elastic_race": _launches(simt=0, tc=8, skinny=34, limbs=16),
     # ep_rmfe_secure traced: the same per-worker rounds (masks are drawn by
     # torch.randint, not a ring matmul)
-    "elastic_secure": {"simt": 0, "tc": 8, "skinny": 34, "limbs": 16},
+    "elastic_secure": _launches(simt=0, tc=8, skinny=34, limbs=16),
     # ElasticStream steps: gcsa (n = 4) in two chunks; batch_ep_rmfe (n = 8)
-    # over GR(2^32, (3, 7)), D = 21, whose encode a/b, worker and decode
-    # matmuls only simt is instantiated for (the reference leaves this ring
-    # to XLA), while its phi/psi run on skinny; gcsa (n = 3) in three chunks
-    "stream_16": {"simt": 0, "tc": 2, "skinny": 6, "limbs": 4},
-    "stream_9": {"simt": 4, "tc": 0, "skinny": 6, "limbs": 0},
-    "stream_24": {"simt": 0, "tc": 3, "skinny": 9, "limbs": 6},
+    # over GR(2^32, (3, 7)), D = 21 (the reference leaves this ring to XLA):
+    # its worker product on tc, lifted onto GR(2^32, 3) (A's limb pre-pass
+    # and B's lift), encode a/b and the decode on tower, phi/psi on skinny;
+    # no simt launch; gcsa (n = 3) in three chunks
+    "stream_16": _launches(simt=0, tc=2, skinny=6, limbs=4),
+    "stream_9": _launches(tc=1, skinny=6, tower=3, limbs=1, lift=1),
+    "stream_24": _launches(simt=0, tc=3, skinny=9, limbs=6),
     # CodedQuantMatmul: one ep_rmfe1 round (N = 16, GR(2^32, 4))
-    "quantized": {"simt": 0, "tc": 1, "skinny": 6, "limbs": 2},
+    "quantized": _launches(simt=0, tc=1, skinny=6, limbs=2),
 }
 # phases 8-9, the worker pool: this process (the master) encodes each of the
 # 8 shares on its own (phi(A), encode_a_at, phi(B), encode_b_at on skinny,
 # as the elastic master) and runs the decode and psi; a re-dispatched share
 # is re-sent, not re-encoded.  The worker processes' launches: one tc
 # product (and its two pre-pass launches) per share, counted in the workers
-POOL_MASTER_LAUNCHES = {"simt": 0, "tc": 0, "skinny": 34, "limbs": 0}
-POOL_WORKER_LAUNCHES = {"simt": 0, "tc": 8, "skinny": 0, "limbs": 16}
+POOL_MASTER_LAUNCHES = _launches(simt=0, tc=0, skinny=34, limbs=0)
+POOL_WORKER_LAUNCHES = _launches(simt=0, tc=8, skinny=0, limbs=16)
 POOL_WORKERS = 8
 POOL_KILL = 2  # workers SIGKILLed in the middle of the request
 # every worker parks this long on a task, so the kill lands mid-request: at
@@ -252,6 +273,7 @@ RACE_SCALE = 10.0  # simulated latency: 10 ms of wall per model-ms
 # ElasticStream: (live workers, expected (groups, per-group batch))
 STREAM_PRODUCTS = 8
 STREAM_STEPS = [(16, (2, 4)), (9, (1, 8)), (24, (3, 3))]
+STREAM_WARM = 5  # warm steps at 9 live workers, timed
 # CodedQuantMatmul at gemma2-2b's FFN (src/repro/configs/gemma2_2b.py):
 # (tokens, d_model, d_ff), N workers, and the R live ones (12 dead)
 QUANT_SHAPE = (2048, 2304, 9216)
@@ -262,14 +284,22 @@ SLICE5_PATHS = ("pool_all_live", "pool_kill", "pool_secure", "serve")
 SLICE4_PATHS = ("elastic_all_live", "elastic_traced", "elastic_race", "elastic_secure",
                 "stream_16", "stream_9", "stream_24", "quantized")
 RING_SPECS = [(2, 32, ()), (2, 32, (3,)), (2, 32, (4,)), (2, 16, (5,)), (2, 8, (2, 3)),
-              (2, 32, (16,)), (2, 32, (3, 5)), (2, 32, (3, 7))]
+              (2, 32, (16,)), (2, 32, (3, 5)), (2, 32, (3, 7)), (2, 31, (3, 7))]
 # the shapes of tests/test_kernels.py, then extra shapes for the new routes:
 # t, s >= 64 and an r that runs several times round the tc route's ring of
 # 64-deep stages; and t, r <= 16 with ragged s for the skinny route
 SHAPES = [(8, 8, 8), (16, 32, 8), (128, 128, 128), (7, 13, 5), (1, 64, 1), (130, 17, 129)]
 TC_SHAPES = [(64, 64, 64), (96, 300, 160), (70, 520, 97)]
 SKINNY_SHAPES = [(8, 2, 4099), (16, 16, 333), (4, 4, 1000), (2, 3, 12345)]
-BATCHED = {"simt": (3, 9, 20, 11), "tc": (3, 33, 280, 65), "skinny": (3, 4, 5, 77)}
+# the tower route: ragged columns (odd s: no 16-byte rows), t r at the
+# (3, 7) tower's shared-memory limit of 108, a single element
+TOWER_SHAPES = [(8, 8, 4099), (12, 9, 1001), (1, 1, 77), (8, 2, 4100)]
+BATCHED = {"simt": (3, 9, 20, 11), "tc": (3, 33, 280, 65), "skinny": (3, 4, 5, 77),
+           "tower": (3, 4, 5, 77)}
+# ElasticStream's step at 9 live workers: batch_ep_rmfe (n = 8) over
+# GR(2^32, (3, 7)), 1024^3 in a (1, 8) group: (name, batch, t, r, s)
+STEP9_SHAPES = [("encode_a", None, 8, 2, 524288), ("encode_b", None, 8, 4, 262144),
+                ("workers", 8, 512, 1024, 256), ("decode", None, 8, 8, 131072)]
 
 
 def log(*a):
@@ -364,13 +394,16 @@ def phase_env_build(report: dict) -> None:
     from repro_torch.kernels.build import build_info, library_configs, load_library
     from repro_torch.kernels.gr_matmul import (
         TC_DEPTH,
+        TC_LIFT_TOWERS,
         kernel_tile,
         skinny_cols,
         skinny_configs,
         tc_configs,
         tc_instantiated,
         tc_smem_bytes,
+        tower_configs,
         tower_shape,
+        tower_smem_bytes,
     )
 
     log(f"python {sys.version.split()[0]} torch {torch.__version__} cuda {torch.version.cuda}")
@@ -390,7 +423,7 @@ def phase_env_build(report: dict) -> None:
     usage = ptxas_usage()
     log("ptxas " + json.dumps(usage, separators=(",", ":")))
     report["ptxas"] = usage
-    for route in ("simt", "tc", "skinny", "limbs_rows", "limbs_cols"):
+    for route in ("simt", "tc", "skinny", "tower", "limbs_rows", "limbs_cols", "lift"):
         if not any(k.startswith(route + "(") for k in usage):
             fail(f"no ptxas report for the {route} kernels")
     # the tc kernel's warpgroups trade registers with setmaxnreg (producer
@@ -404,6 +437,12 @@ def phase_env_build(report: dict) -> None:
         for line in (ROOT / "build" / "kernels" / "gr_matmul_tc.ptxas.txt").read_text().splitlines()
         if "warning" in line.lower()})
     log(f"ptxas tc warnings: {report['ptxas_tc_warnings']}")
+    for route in ("tower", "lift"):  # this slice's kernels
+        log(f"ptxas {route}: " + json.dumps({k: v for k, v in usage.items()
+                                            if k.startswith(route + "(")}))
+    spills = {k: v for k, v in usage.items() if k.startswith(("tower(", "lift("))
+              and (v.get("spill_st") or v.get("spill_ld"))}
+    report["ptxas_new_spills"] = spills
     # the library's own tile and instantiation choices must match the mirrors
     for spec in RING_SPECS:
         ring = make_ring(*spec)
@@ -420,9 +459,10 @@ def phase_env_build(report: dict) -> None:
         if library_configs("tc", d0, d1) != tc_configs(d0, d1):
             fail(f"tc mirror {tc_configs(d0, d1)} != library {library_configs('tc', d0, d1)} "
                  f"for tower {(d0, d1)}")
-        for config in tc_configs(d0, d1):
+        degrees = tuple(d for d in (d0, d1) if d > 1)
+        for config in tc_configs(d0, d1):  # a lifted tower: its inner ring's kernel
             for e in (8, 16, 24, 32):
-                ring = make_ring(2, e, (d0,) if d0 > 1 else ())
+                ring = make_ring(2, e, degrees)
                 lib_smem = lib.gr_matmul_tc_smem(d0, d1, *config, -(-e // 8))
                 if lib_smem != tc_smem_bytes(ring, config):
                     fail(f"tc shared-memory mirror {tc_smem_bytes(ring, config)} != library "
@@ -433,9 +473,21 @@ def phase_env_build(report: dict) -> None:
         if library_configs("skinny", d0, d1) != skinny_configs(d0, d1):
             fail(f"skinny mirror {skinny_configs(d0, d1)} != library "
                  f"{library_configs('skinny', d0, d1)} for tower {(d0, d1)}")
+        if library_configs("tower", d0, d1) != tower_configs(d0, d1):
+            fail(f"tower mirror {tower_configs(d0, d1)} != library "
+                 f"{library_configs('tower', d0, d1)} for tower {(d0, d1)}")
+        ring = make_ring(2, 32, degrees)
+        for t, r in ((1, 1), (8, 2), (8, 8), (16, 16)):
+            lib_smem = lib.gr_matmul_tower_smem(d0, d1, t, r)
+            want = tower_smem_bytes(ring, t, r) if tower_configs(d0, d1) else -1
+            if lib_smem != want:
+                fail(f"tower shared-memory mirror {want} != library {lib_smem} for tower "
+                     f"{(d0, d1)} at t={t}, r={r}")
     report["instantiations"] = {
         "tc": {str(t): tc_configs(*t) for t in towers if tc_instantiated(*t)},
+        "tc_lifted": [str(t) for t in TC_LIFT_TOWERS],
         "skinny": {str(t): skinny_configs(*t) for t in towers if skinny_cols(*t)},
+        "tower": {str(t): tower_configs(*t) for t in towers if tower_configs(*t)},
     }
     log(f"instantiations {json.dumps(report['instantiations'])}")
     # the library yardstick: PyTorch has no integer GEMM on CUDA
@@ -473,30 +525,39 @@ def _accepts(route: str, ring, t: int, r: int) -> bool:
     from repro_torch.kernels.gr_matmul import (
         SKINNY_MAX_R,
         SKINNY_MAX_T,
+        SMEM_BLOCK_BYTES,
         skinny_cols,
         tc_instantiated,
+        tower_configs,
         tower_shape,
+        tower_smem_bytes,
     )
 
     d0, d1 = tower_shape(ring)
+    small = 1 <= t <= SKINNY_MAX_T and 1 <= r <= SKINNY_MAX_R
     if route == "tc":
         return tc_instantiated(d0, d1)
     if route == "skinny":
-        return bool(skinny_cols(d0, d1)) and 1 <= t <= SKINNY_MAX_T and 1 <= r <= SKINNY_MAX_R
+        return bool(skinny_cols(d0, d1)) and small
+    if route == "tower":
+        return (bool(tower_configs(d0, d1)) and small
+                and tower_smem_bytes(ring, t, r) <= SMEM_BLOCK_BYTES)
     return True
 
 
-def _bounds(ring, b, t, r, s):
+def _bounds(ring, b, t, r, s, fold=True):
     """(bytes_ms, int8_ms, int32_ms): the byte bound (interleaved int32
     operands read once, result written once) and the operation bounds of the
     same matmul on the int8 tensor cores (L(L+1)/2 byte products per word
-    product) and as uint32 multiply-adds on the CUDA cores."""
+    product) and as uint32 multiply-adds on the CUDA cores (D^2 a (t, r, s),
+    with ``fold`` K D more an output, as a scheme with conv accumulators
+    needs)."""
     from repro_torch.kernels.ref import n_limbs
 
     L = n_limbs(ring)
     nbytes = 4 * ring.D * b * (t * r + r * s + t * s)
     int8_ops = 2 * b * t * s * r * ring.D ** 2 * L * (L + 1) // 2
-    mads = b * t * s * (ring.D * ring.D * r + ring.K * ring.D)
+    mads = b * t * s * (ring.D * ring.D * r + (ring.K * ring.D if fold else 0))
     return (1e3 * nbytes / HBM_BYTES_PER_S, 1e3 * int8_ops / INT8_OPS_PER_S,
             1e3 * mads / INT32_MAD_PER_S)
 
@@ -522,40 +583,51 @@ def _int8_yardstick_ms(ring, b, t, r, s):
 
 def _hold(route, ring, A, B, worst: dict, what: str, plain=None, every_config=False) -> None:
     """Hold ``route`` on (A, B) against the plain version, bit for bit (with
-    ``every_config``, each tc instantiation of the ring's tower), and for
-    ``tc`` its limb pre-pass against the pre-pass's plain version; the worst
-    error of each goes into ``worst``."""
+    ``every_config``, each tc or tower instantiation of the ring's tower),
+    and for ``tc`` its pre-passes (A's limb planes; B's, or over a
+    two-level tower B's lift) against their plain version; the worst error
+    of each goes into ``worst``."""
     from repro_torch.kernels import gr_matmul_ref, run_route
-    from repro_torch.kernels.gr_matmul import tc_configs, tc_limbs, tc_padded, tower_shape
-    from repro_torch.kernels.ref import limb_planes_ref
+    from repro_torch.kernels.gr_matmul import (
+        tc_configs,
+        tc_limbs,
+        tc_padded,
+        tc_shape,
+        tower_configs,
+        tower_shape,
+    )
+    from repro_torch.kernels.ref import tc_planes_ref
 
     shape = f"{tuple(A.shape[:-1])} x {tuple(B.shape[:-1])}"
     if plain is None:
         plain = gr_matmul_ref(A, B, ring)
-    configs = tc_configs(*tower_shape(ring)) if route == "tc" and every_config else (None,)
+    instantiations = {"tc": tc_configs, "tower": tower_configs}.get(route)
+    configs = instantiations(*tower_shape(ring)) if instantiations and every_config else (None,)
     for config in configs:
         err = max_abs_err(run_route(route, A, B, ring, config), plain)
         worst[route] = max(worst[route], err)
         if err:
             fail(f"{route} {config or ''} != plain on {ring} at {shape}{what}: max abs err {err}")
     if route == "tc":
-        Tp, Rp, Sp = tc_padded(A.shape[-3], A.shape[-2], B.shape[-2])
+        _, T, R1, S1 = tc_shape(ring, A.shape[-3], A.shape[-2], B.shape[-2])
         A8, B8 = tc_limbs(A, B, ring)
         A3, B3 = (A, B) if A.dim() == 4 else (A[None], B[None])
-        err = max(max_abs_err(A8, limb_planes_ref(A3, ring, Tp, Rp)),
-                  max_abs_err(B8, limb_planes_ref(B3, ring, Sp, Rp, transpose=True)))
-        worst["limbs"] = max(worst["limbs"], err)
-        if err:
-            fail(f"limb pre-pass != plain on {ring} at {shape}{what}: max abs err {err}")
+        want_a, want_b = tc_planes_ref(A3, B3, ring, *tc_padded(T, R1, S1))
+        b_pass = "lift" if len(ring.degrees) == 2 else "limbs"
+        for name, err in (("limbs", max_abs_err(A8, want_a)), (b_pass, max_abs_err(B8, want_b))):
+            worst[name] = max(worst[name], err)
+            if err:
+                fail(f"{name} pre-pass != plain on {ring} at {shape}{what}: max abs err {err}")
 
 
 def _timing_row(ring, A, B, route: str, plain_ms: float) -> dict:
     """Time ``route`` on (A, B) in turns with ``simt`` (simt, route, route,
     simt; replayed from CUDA graphs), eagerly and on the host, beside its
-    bounds; for ``tc`` also its limb pre-pass and the int8 yardstick."""
-    from repro_torch.kernels import run_route
-    from repro_torch.kernels.gr_matmul import tc_limbs, tc_padded
-    from repro_torch.kernels.ref import limb_planes_ref, n_limbs
+    bounds; for ``tc`` also its pre-passes (over a two-level tower the lift
+    alone too) and the int8 yardstick; for ``tower`` its own plain version."""
+    from repro_torch.kernels import gr_matmul_tower_ref, run_route
+    from repro_torch.kernels.gr_matmul import tc_lift, tc_limbs, tc_padded, tc_shape
+    from repro_torch.kernels.ref import lift_b_ref, limb_planes_ref, n_limbs, tc_planes_ref
 
     lead = A.dim() == 4
     b = A.shape[0] if lead else 1
@@ -564,7 +636,7 @@ def _timing_row(ring, A, B, route: str, plain_ms: float) -> dict:
              for rt in ("simt", route, route, "simt")]
     simt_ms = [m for rt, m in turns if rt == "simt"]
     route_ms = [m for rt, m in turns if rt == route]
-    bytes_ms, int8_ms, int32_ms = _bounds(ring, b, t, r, s)
+    bytes_ms, int8_ms, int32_ms = _bounds(ring, b, t, r, s, fold=route != "tower")
     row = {
         "route": route, "ms": sum(route_ms) / len(route_ms),
         "simt_ms": sum(simt_ms) / len(simt_ms), "turns": turns,
@@ -579,22 +651,34 @@ def _timing_row(ring, A, B, route: str, plain_ms: float) -> dict:
     row["bound_share"] = row["bound_ms"] / row["ms"]
     row["simt_over_route"] = row["simt_ms"] / row["ms"]
     if route == "tc":
-        Tp, Rp, Sp = tc_padded(t, r, s)
+        d0, _, R1, S1 = tc_shape(ring, t, r, s)
+        Tp, Rp, Sp = tc_padded(t, R1, S1)
         L = n_limbs(ring)
+        # both pre-passes: operands read once, limb planes written once
         row["limbs_ms"] = graph_ms(lambda: tc_limbs(A, B, ring))
-        limb_bytes = 4 * ring.D * b * (t * r + r * s) + b * ring.D * L * (Tp + Sp) * Rp
+        limb_bytes = 4 * ring.D * b * (t * r + r * s) + b * d0 * L * (Tp + Sp) * Rp
         row["limbs_bound_ms"] = 1e3 * limb_bytes / HBM_BYTES_PER_S
         A3, B3 = (A, B) if lead else (A[None], B[None])
-        row["limbs_plain_ms"] = cuda_ms(lambda: (
-            limb_planes_ref(A3, ring, Tp, Rp), limb_planes_ref(B3, ring, Sp, Rp, transpose=True)))
+        row["limbs_plain_ms"] = cuda_ms(lambda: tc_planes_ref(A3, B3, ring, Tp, Rp, Sp))
+        if len(ring.degrees) == 2:  # the lift alone: B in, the planes of M(B) out
+            row["lift_ms"] = graph_ms(lambda: tc_lift(B, ring))
+            row["lift_bound_ms"] = 1e3 * (4 * ring.D * b * r * s + b * d0 * L * Sp * Rp) / HBM_BYTES_PER_S
+            inner = ring.base_ring()
+            row["lift_plain_ms"] = cuda_ms(lambda: limb_planes_ref(lift_b_ref(B3, ring), inner, Sp, Rp,
+                                                                   transpose=True))
         row["int8_yardstick_ms"], row["int8_yardstick"] = _int8_yardstick_ms(ring, b, t, r, s)
+    if route == "tower":  # the kernel's own plain version (A lifted, no fold)
+        row["tower_plain_ms"] = cuda_ms(lambda: gr_matmul_tower_ref(A, B, ring))
     return row
 
 
 # all-0xFF operands: accumulator (c, s) of the middle conv plane at s = 3
 # chains 12 (D = 3) or 16 (D = 4) byte products of 255^2 per element of r,
-# so these r take a chain past 2^31 (and at 4160 and 8192 past 2^32)
-WRAP_CASES = [((3,), 2816), ((3,), 8192), ((4,), 2112), ((4,), 4160)]
+# so these r take a chain past 2^31 (and at 4160 and 8192 past 2^32); over
+# the (3, 7) tower the lifted chain (all-0xFF A against the lift of an
+# all-0xFF B, D1 r = 7 r deep) passes 2^31 at r = 512 and 2^32 at 1024
+WRAP_CASES = [((3,), 2816), ((3,), 8192), ((4,), 2112), ((4,), 4160), ((3, 7), 512),
+              ((3, 7), 1024)]
 
 
 def _tc_wrap_check(worst: dict) -> str:
@@ -605,7 +689,7 @@ def _tc_wrap_check(worst: dict) -> str:
 
     from repro_torch.core import make_ring
     from repro_torch.kernels import gr_matmul_ref
-    from repro_torch.kernels.gr_matmul import gr_matmul_tc, tc_configs
+    from repro_torch.kernels.gr_matmul import gr_matmul_tc, tc_configs, tower_shape
 
     errs = {}
     for deg, r in WRAP_CASES:
@@ -613,7 +697,7 @@ def _tc_wrap_check(worst: dict) -> str:
         A = torch.full((64, r, ring.D), -1, dtype=torch.int32, device="cuda")
         B = torch.full((r, 64, ring.D), -1, dtype=torch.int32, device="cuda")
         plain = gr_matmul_ref(A, B, ring)
-        for config in tc_configs(deg[0], 1):
+        for config in tc_configs(*tower_shape(ring)):
             errs[f"{deg} r={r} {config}"] = max_abs_err(gr_matmul_tc(A, B, ring, config), plain)
     worst["tc"] = max(worst["tc"], *errs.values())
     verdict = "wraps" if not any(errs.values()) else "saturates"
@@ -631,7 +715,7 @@ def phase_kernels(report: dict) -> dict:
     from repro_torch.kernels import gr_matmul_ref, pick_route
 
     rng = np.random.default_rng(SEED)
-    worst = dict.fromkeys(ROUTES + ("limbs",), 0)
+    worst = dict.fromkeys(COUNTED, 0)
     checked = {r: [] for r in ROUTES}
 
     def check(route, ring, lead, t, r, s, what=""):
@@ -642,7 +726,7 @@ def phase_kernels(report: dict) -> dict:
     for spec in RING_SPECS:
         ring = make_ring(*spec)
         for route in ROUTES:
-            extra = {"tc": TC_SHAPES, "skinny": SKINNY_SHAPES}.get(route, [])
+            extra = {"tc": TC_SHAPES, "skinny": SKINNY_SHAPES, "tower": TOWER_SHAPES}.get(route, [])
             shapes = [x for x in SHAPES + extra if _accepts(route, ring, x[0], x[1])]
             if not shapes:
                 continue
@@ -654,6 +738,21 @@ def phase_kernels(report: dict) -> dict:
     for route in ROUTES:
         log(f"{route} == plain: {checked[route]}")
     report["tc_accumulate"] = _tc_wrap_check(worst)
+    # ElasticStream's step over the (3, 7) tower: each of its ring matmuls
+    # on the route pick_route gives it, at every instantiation, and simt
+    tower = make_ring(2, 32, (3, 7))
+    for name, nb, t, r, s in STEP9_SHAPES:
+        lead = (nb,) if nb else ()
+        A = tower.random(rng, lead + (t, r), device="cuda")
+        B = tower.random(rng, lead + (r, s), device="cuda")
+        plain = gr_matmul_ref(A, B, tower)
+        route = pick_route(tower, t, r, s)
+        for rt in dict.fromkeys((route, "simt")):
+            _hold(rt, tower, A, B, worst, f" (step 9 {name})", plain=plain, every_config=True)
+        checked[route].append(f"step 9 {name} {lead + (t, r, s)}")
+        del A, B, plain
+        torch.cuda.empty_cache()
+    log(f"step 9 == plain: {[c for rt in ROUTES for c in checked[rt] if c.startswith('step')]}")
 
     timings = {}
     for name, (deg, nb, t, r, s) in _main_path_shapes().items():
@@ -878,7 +977,7 @@ def phase_main_path(report: dict) -> dict:
     rng = np.random.default_rng(SEED)
     Z32 = make_ring(2, 32, ())
     mask = torch.tensor(MASK, device="cuda")
-    totals = dict.fromkeys(ROUTES + ("limbs",), 0)
+    totals = dict.fromkeys(COUNTED, 0)
     calls: list = []
 
     def add(by_route):
@@ -1041,7 +1140,7 @@ def phase_elastic(report: dict, calls: list) -> dict:
     Z32 = make_ring(2, 32, ())
     mask = torch.tensor(MASK, device="cuda")
     trace = _slow_trace()
-    totals = dict.fromkeys(ROUTES + ("limbs",), 0)
+    totals = dict.fromkeys(COUNTED, 0)
     rows = {}
 
     def add(by_route):
@@ -1161,7 +1260,7 @@ def phase_stream(report: dict, calls: list) -> dict:
 
     rng = np.random.default_rng(SEED + 3)
     Z32 = make_ring(2, 32, ())
-    totals = dict.fromkeys(ROUTES + ("limbs",), 0)
+    totals = dict.fromkeys(COUNTED, 0)
     As = Z32.random(rng, (STREAM_PRODUCTS, SINGLE_SIZE, SINGLE_SIZE), device="cuda")
     Bs = Z32.random(rng, (STREAM_PRODUCTS, SINGLE_SIZE, SINGLE_SIZE), device="cuda")
     expect = _direct(As, Bs, Z32)
@@ -1187,6 +1286,22 @@ def phase_stream(report: dict, calls: list) -> dict:
         fail("stream: 7 live workers did not raise NotEnoughResponders")
     except NotEnoughResponders:
         pass
+    # step 9 warm: CUDA events around each of STREAM_WARM steps (after one
+    # step to replan back from 24 live workers), beside its first call
+    st.step(As, Bs, live=9)
+    warm = []
+    for _ in range(STREAM_WARM):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        Cs = st.step(As, Bs, live=9)
+        end.record()
+        torch.cuda.synchronize()
+        warm.append(start.elapsed_time(end))
+        if max_abs_err(Cs, expect):
+            fail("stream_9 warm: outputs != direct products")
+    row9 = next(r for r in rows if r["live"] == 9)
+    row9["warm_ms_runs"], row9["warm_ms"] = warm, sum(warm) / len(warm)
+    log(f"stream step 9 warm: {json.dumps({k: row9[k] for k in ('warm_ms', 'warm_ms_runs', 'first_call_wall_ms')})}")
     st.backend.close()
     report["stream"] = rows
     del As, Bs, expect
@@ -1285,7 +1400,7 @@ def _pool_counted(name, pool, fn, calls, worker_call, expect):
     Returns (fn's result, master's launches, workers' launches, wall ms)."""
     before = pool.master.worker_launches()
     out, master, wall_ms = _counted(name, fn, calls, expect=lambda out: expect(out)[0])
-    workers = dict.fromkeys(ROUTES + ("limbs",), 0)
+    workers = dict.fromkeys(COUNTED, 0)
     for wid, counts in pool.master.worker_launches().items():
         for route, n in counts.items():
             workers[route] += n - before.get(wid, {}).get(route, 0)
@@ -1359,7 +1474,7 @@ def phase_pool(report: dict, calls: list) -> dict:
 
     rng = np.random.default_rng(SEED + 4)
     Z32 = make_ring(2, 32, ())
-    totals = dict.fromkeys(ROUTES + ("limbs",), 0)
+    totals = dict.fromkeys(COUNTED, 0)
     rows = {}
 
     def add(*by_routes):
@@ -1609,7 +1724,7 @@ def phase_serve(report: dict, calls: list) -> dict:
     torch.cuda.empty_cache()
     log(f"serve: {json.dumps(row)}")
     report["serve"] = row
-    totals = dict.fromkeys(ROUTES + ("limbs",), 0)
+    totals = dict.fromkeys(COUNTED, 0)
     for by_route in (master, workers):
         for k, v in by_route.items():
             totals[k] += v
@@ -1688,7 +1803,7 @@ def phase_hedge(report: dict, calls: list) -> dict:
             master.task_delay_ms.clear()
         master_launches = dict(counters.launches_by_route)
         # the ping behind the parked tasks: the duplicates' products count
-        workers = dict.fromkeys(ROUTES + ("limbs",), 0)
+        workers = dict.fromkeys(COUNTED, 0)
         for wid, counts in master.worker_launches().items():
             for route, n in counts.items():
                 workers[route] += n - before.get(wid, {}).get(route, 0)
@@ -1716,7 +1831,7 @@ def phase_hedge(report: dict, calls: list) -> dict:
                                                            if "hedge" in k}}
     log(f"hedge: {json.dumps(row)}")
     report["hedge"] = row
-    totals = dict.fromkeys(ROUTES + ("limbs",), 0)
+    totals = dict.fromkeys(COUNTED, 0)
     for by_route in (master_launches, workers):
         for k, v in by_route.items():
             totals[k] += v
@@ -1733,7 +1848,7 @@ def _rank_rows(name: str, reports: list, N: int) -> dict:
     returns the ranks' launches summed and their spans (ms) by stage."""
     if len(reports) != N:
         fail(f"{name}: {len(reports)} rank reports, expected {N}")
-    summed = dict.fromkeys(ROUTES + ("limbs",), 0)
+    summed = dict.fromkeys(COUNTED, 0)
     stages: dict = {}
     for rep in reports:
         if rep["launches"] != SPMD_RANK_LAUNCHES:
@@ -1766,7 +1881,7 @@ def phase_spmd(report: dict, calls: list) -> dict:
     rng = np.random.default_rng(SEED + 7)
     Z32 = make_ring(2, 32, ())
     mask = torch.tensor(MASK, device="cuda")
-    totals = dict.fromkeys(ROUTES + ("limbs",), 0)
+    totals = dict.fromkeys(COUNTED, 0)
     rows = {}
     expect = lambda out: SPMD_RANK_LAUNCHES  # noqa: E731  (rank 0, this process)
 
@@ -2222,9 +2337,10 @@ def phase_lm(report: dict) -> None:
 
 
 def _kernel_rows(report: dict, totals: dict) -> list:
-    """The ``{"kernels": [...]}`` rows: one per route and one for the
-    pre-pass, each at its representative main-path shape, with the times of
-    every other timed shape of the route in ``per_shape_ms``."""
+    """The ``{"kernels": [...]}`` rows: one per route and one per pre-pass,
+    each at its representative main-path shape (the (3, 7) tower's lift and
+    ``tower`` at ElasticStream's step 9), with the times of every other
+    timed shape of the route in ``per_shape_ms``."""
     t = report["kernel_timings"]
     w, enc = t["workers"], t["encode_a"]
     shape = lambda row: (f"{row['batch']} x ({row['t']}x{row['r']} @ {row['r']}x{row['s']}) "
@@ -2242,7 +2358,25 @@ def _kernel_rows(report: dict, totals: dict) -> list:
         return None
 
     src = "src/repro_torch/kernels/csrc/"
-    return [
+    # this slice's kernels at ElasticStream's step 9 (phase 4's timings)
+    step9 = {(x["route"], tuple(x["a"])): x for x in report["path_kernel_timings"]
+             if x["ring"] == "(3, 7)"}
+    lift, tower = step9[("tc", (8, 512, 1024))], step9[("tower", (8, 8))]
+    shape9 = lambda row: f"{row['a']} @ {row['b']} over GR(2^32, (3, 7))"  # noqa: E731
+    new = [
+        {**base, "name": "gr_matmul_tc_lift", "source": src + "gr_matmul_tc.cu",
+         "launches": totals["lift"], "max_abs_err": report["kernel_max_abs_err"]["lift"],
+         "ms": lift["lift_ms"], "plain_ms": lift["lift_plain_ms"], "bound_ms": lift["lift_bound_ms"],
+         "bound_by": "bytes", "shape": shape9(lift),
+         "tc_with_prepasses_ms": lift["ms"], "tc_simt_ms": lift["simt_ms"],
+         "tc_bound_ms": lift["bound_ms"]},
+        {**base, "name": "gr_matmul_tower", "source": src + "gr_matmul_tower.cu",
+         "launches": totals["tower"], "max_abs_err": report["kernel_max_abs_err"]["tower"],
+         "ms": tower["ms"], "plain_ms": tower["tower_plain_ms"], "bound_ms": tower["bound_ms"],
+         "bound_by": tower["bound_by"], "int32_bound_ms": tower["int32_bound_ms"],
+         "simt_ms": tower["simt_ms"], "shape": shape9(tower), "per_shape_ms": d4("tower")},
+    ]
+    return new + [
         {**base, "name": "gr_matmul_simt", "source": src + "gr_matmul.cu",
          "launches": totals["simt"], "max_abs_err": report["kernel_max_abs_err"]["simt"],
          "ms": w["simt_ms"], "plain_ms": w["plain_ms"], "bound_ms": w["bound_ms"],
@@ -2275,7 +2409,8 @@ def main() -> int:
     args = ap.parse_args()
     globals()["SEED"] = args.seed
     csrc = SRC / "repro_torch" / "kernels" / "csrc"
-    if not all((csrc / f).is_file() for f in ("gr_matmul.cu", "gr_matmul_tc.cu", "gr_matmul_skinny.cu")):
+    if not all((csrc / f).is_file() for f in ("gr_matmul.cu", "gr_matmul_tc.cu", "gr_matmul_skinny.cu",
+                                               "gr_matmul_tower.cu")):
         print(f"chip_smoke: the port's sources are not under {SRC}", file=sys.stderr)
         return 2
     import torch
@@ -2293,7 +2428,7 @@ def main() -> int:
                   phase_hedge, phase_spmd):
         for route, n in phase(report, calls).items():
             totals[route] += n
-    for route in ROUTES + ("limbs",):
+    for route in COUNTED:
         if totals[route] == 0:
             fail(f"the main path never launched the {route} kernel")
     report["main_path_launches"] = totals

@@ -1,9 +1,12 @@
 """Hand-written Hopper kernels for the CDMM hot paths, with plain versions.
 
 gr_matmul: Galois-ring matmul (worker compute, encode, decode, RMFE
-phi/psi) in three routes, CUDA C++ under ``csrc/`` built at first use:
+phi/psi) in four routes, CUDA C++ under ``csrc/`` built at first use:
 ``simt`` (``gr_matmul.cu``), ``tc`` (``gr_matmul_tc.cu``, int8 tensor
-cores) and ``skinny`` (``gr_matmul_skinny.cu``); ``ops.pick_route`` picks.
+cores; two-level towers lifted onto their inner ring), ``skinny``
+(``gr_matmul_skinny.cu``) and ``tower`` (``gr_matmul_tower.cu``, the
+skinny calls of the rings ``skinny`` has no instantiation for);
+``ops.pick_route`` picks.
 """
 from .gr_matmul import MAX_D, counters, gr_matmul_planar
 from .ops import (
@@ -15,7 +18,13 @@ from .ops import (
     pick_route,
     run_route,
 )
-from .ref import gr_matmul_limbs_ref, gr_matmul_planar_ref, gr_matmul_ref
+from .ref import (
+    gr_matmul_limbs_ref,
+    gr_matmul_planar_ref,
+    gr_matmul_ref,
+    gr_matmul_tc_ref,
+    gr_matmul_tower_ref,
+)
 
 __all__ = [
     "MAX_D",
@@ -31,4 +40,6 @@ __all__ = [
     "gr_matmul_ref",
     "gr_matmul_limbs_ref",
     "gr_matmul_planar_ref",
+    "gr_matmul_tc_ref",
+    "gr_matmul_tower_ref",
 ]

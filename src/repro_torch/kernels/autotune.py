@@ -1,15 +1,17 @@
-"""Kernel autotuner: measured configurations of the ``tc`` and ``skinny``
-routes, counterpart of ``repro.kernels.autotune``.
+"""Kernel autotuner: measured configurations of the ``tc``, ``skinny`` and
+``tower`` routes, counterpart of ``repro.kernels.autotune``.
 
 The reference tunes the (bt, bs, br) blocks of its Pallas kernel against a
 VMEM budget.  On Hopper the routes are compiled CUDA, so a candidate is one
 of the instantiations the built library has (``gr_matmul.TC_CONFIGS``,
-``gr_matmul.SKINNY_CONFIGS``):
+``gr_matmul.SKINNY_CONFIGS``, ``gr_matmul.TOWER_CONFIGS``):
 
 * ``tc``: the width of the 64 x BN block tile and the number of TMA
-  stages, ``(bn, stages)``;
+  stages, ``(bn, stages)`` (a lifted tower: its inner ring's);
 * ``skinny``: threads per block and a multiple of the columns per thread,
   ``(threads, cm)``;
+* ``tower``: threads per block, rows and columns of C a thread,
+  ``(threads, tc, cpt)``;
 * ``simt`` keeps its static tile; its entry says so (``"static": true``).
 
 The budget is the card's: at most 227 KB of dynamic shared memory a block
@@ -67,6 +69,7 @@ from .gr_matmul import (
     tc_configs,
     tc_smem_bytes,
     tc_tile,
+    tower_configs,
     tower_shape,
 )
 from .ref import n_limbs
@@ -95,7 +98,7 @@ __all__ = [
 
 CACHE_PATH = Path(__file__).with_name("autotune_cache.json")
 CACHE_VERSION = 1
-TUNED_ROUTES = ("tc", "skinny")
+TUNED_ROUTES = ("tc", "skinny", "tower")
 SMEM_BUDGET_BYTES = SMEM_BLOCK_BYTES
 REGISTER_BUDGET = 255  # a thread
 REGISTER_FILE = 65536  # an SM, so one block's threads x registers
@@ -126,13 +129,13 @@ def tune_key(ring, t: int, r: int, s: int, device=None, *, route: Optional[str] 
     """Canonical cache key: device | route | tower and e | aligned dims.
 
     ``tc`` and ``simt`` dims are rounded up to 8 so ragged shapes inside one
-    tile share an entry; ``skinny``'s t and r (at most 16) stay exact and
-    only s is rounded.  ``route`` None: the one ``ops.pick_route`` takes.
+    tile share an entry; ``skinny``'s and ``tower``'s t and r (at most 16)
+    stay exact and only s is rounded.  ``route`` None: the one ``ops.pick_route`` takes.
     """
     dev = device_kind(device)
     route = _route_of(ring, t, r, s, route)
     d0, d1 = tower_shape(ring)
-    if route == "skinny":
+    if route in ("skinny", "tower"):
         T, R = t, r
     else:
         T, R = _round_up(t, 8), _round_up(r, 8)
@@ -141,12 +144,14 @@ def tune_key(ring, t: int, r: int, s: int, device=None, *, route: Optional[str] 
 
 def config_name(route: str, config) -> str:
     """Short name of a configuration: ``n32s3`` (tc), ``t128m1`` (skinny),
-    ``b64x64k16`` (simt's static tile)."""
+    ``t256r2c2`` (tower), ``b64x64k16`` (simt's static tile)."""
     c = tuple(config)
     if route == "tc":
         return "n{}s{}".format(*c)
     if route == "skinny":
         return "t{}m{}".format(*c)
+    if route == "tower":
+        return "t{}r{}c{}".format(*c)
     return "b{}x{}k{}".format(*c)
 
 
@@ -156,9 +161,10 @@ def _tower_K(d0: int, d1: int) -> int:
 
 def _tc_register_estimate(ring, config) -> int:
     """Registers a tc consumer thread needs: its warpgroup's share of the
-    tile's K * L accumulators, ceil(K * L / 2) of them, BN / 2 words each a
-    thread, plus the A fragments and ptxas' overhead."""
-    pairs = -(-ring.K * n_limbs(ring) // 2)
+    tile's K0 * L accumulators (K0 = 2 D0 - 1 of the ring the main kernel
+    runs over), ceil(K0 * L / 2) of them, BN / 2 words each a thread, plus
+    the A fragments and ptxas' overhead."""
+    pairs = -(-(2 * tower_shape(ring)[0] - 1) * n_limbs(ring) // 2)
     return pairs * config[0] // 2 + _TC_REG_OVERHEAD
 
 
@@ -177,6 +183,11 @@ def fits_budget(route: str, ring, config) -> bool:
         cols = skinny_cols(d0, d1) or 0
         regs = _tower_K(d0, d1) * cols * cm + cols * cm * ring.D + 32
         return threads * min(regs, REGISTER_BUDGET) <= REGISTER_FILE and regs <= REGISTER_BUDGET
+    if route == "tower":
+        # tc x cpt x D accumulators and cpt x D words of B a thread
+        threads, rows, cols = config
+        regs = (rows + 1) * cols * ring.D + 32
+        return threads * regs <= REGISTER_FILE and regs <= REGISTER_BUDGET
     return True
 
 
@@ -185,6 +196,8 @@ def _instantiated(route: str, d0: int, d1: int) -> tuple:
         return tc_configs(d0, d1)
     if route == "skinny":
         return skinny_configs(d0, d1)
+    if route == "tower":
+        return tower_configs(d0, d1)
     raise ValueError(f"route {route!r} is not tuned")
 
 
@@ -238,7 +251,7 @@ def _valid_config(route: str, tower: Tuple[int, int], config) -> bool:
     return tuple(config) in _instantiated(route, d0, d1)
 
 
-_KEY = re.compile(r"^[^|]+(?:\|[^|]+)?\|(tc|skinny|simt)\|(\d+)x(\d+)e(\d+)\|(\d+)x(\d+)x(\d+)$")
+_KEY = re.compile(r"^[^|]+(?:\|[^|]+)?\|(tc|skinny|simt|tower)\|(\d+)x(\d+)e(\d+)\|(\d+)x(\d+)x(\d+)$")
 
 
 def load_cache(path: Optional[Path] = None) -> Dict[str, dict]:
@@ -324,12 +337,14 @@ def cached_blocks(ring, t: int, r: int, s: int, device=None, *,
 
 
 # ptxas entry names -> route; the template arguments follow as Li<n>E
-# (tc: d0, d1, bn, stages, L)
+# (tc: d0, d1, bn, stages, L; tower: d0, d1, threads, tc, cpt)
 _ENTRY = re.compile(r"Compiling entry function '.*?(gr_matmul_kernel|gr_matmul_tc_kernel|"
-                    r"gr_matmul_skinny_kernel|limbs_rows_kernel|limbs_cols_kernel)I((?:Li\d+E)+)")
+                    r"gr_matmul_skinny_kernel|gr_matmul_tower_kernel|limbs_rows_kernel|"
+                    r"limbs_cols_kernel|lift_cols_kernel)I((?:Li\d+E)+)")
 _ROUTE_OF = {"gr_matmul_kernel": "simt", "gr_matmul_tc_kernel": "tc",
-             "gr_matmul_skinny_kernel": "skinny", "limbs_rows_kernel": "limbs_rows",
-             "limbs_cols_kernel": "limbs_cols"}
+             "gr_matmul_skinny_kernel": "skinny", "gr_matmul_tower_kernel": "tower",
+             "limbs_rows_kernel": "limbs_rows", "limbs_cols_kernel": "limbs_cols",
+             "lift_cols_kernel": "lift"}
 
 
 def ptxas_usage(build_dir: Path = BUILD_DIR) -> Dict[str, dict]:
@@ -361,7 +376,8 @@ def ptxas_usage(build_dir: Path = BUILD_DIR) -> Dict[str, dict]:
 def _usage_of(usage: dict, route: str, ring, config) -> dict:
     tower = tower_shape(ring)
     args = (tuple(tower) if route == "simt"  # simt: one per tower
-            else (*tower, *config, n_limbs(ring)) if route == "tc" else (*tower, *config))
+            # tc: the main kernel of the ring, or of a lifted tower's inner ring
+            else (tower[0], 1, *config, n_limbs(ring)) if route == "tc" else (*tower, *config))
     return usage.get(f"{route}({','.join(map(str, args))})", {})
 
 
@@ -493,9 +509,10 @@ def _card_meta(device) -> dict:
 # psi, the encodes and the decode over GR(2^32, 3), the worker products, a
 # worker's own encode), of its secure and GCSA paths over GR(2^32, 4)
 # (gcsa, ep_rmfe_secure at 2048^3; gcsa_general, ep_secure at 1024^3) and
-# of CodedQuantMatmul at gemma2-2b's FFN (N = 16); and simt's two main
-# uses, ep's 48-row worker blocks at 96^3 and ElasticStream's (3, 7) tower,
-# whose entries record the static tile
+# of CodedQuantMatmul at gemma2-2b's FFN (N = 16); ElasticStream's step
+# over the (3, 7) tower (the worker products on tc, lifted; the two encodes
+# and the decode on tower); and simt's static tile at ep's 48-row worker
+# blocks at 96^3 and at the (3, 7) worker shape, its yardstick there
 DEFAULT_POINTS: Tuple[Tuple[str, Tuple[int, int, Tuple[int, ...]], int, Tuple[int, int, int]], ...] = (
     ("simt", (2, 32, (3,)), 8, (48, 96, 48)),
     ("simt", (2, 32, (3, 7)), 8, (512, 1024, 256)),
@@ -505,6 +522,7 @@ DEFAULT_POINTS: Tuple[Tuple[str, Tuple[int, int, Tuple[int, ...]], int, Tuple[in
     ("tc", (2, 32, (4,)), 8, (1024, 2048, 1024)),
     ("tc", (2, 32, (4,)), 8, (1024, 1024, 512)),
     ("tc", (2, 32, (4,)), 16, (1024, 1152, 4608)),
+    ("tc", (2, 32, (3, 7)), 8, (512, 1024, 256)),
     ("skinny", (2, 32, ()), 1, (2, 2, 4194304)),
     ("skinny", (2, 32, ()), 1, (2, 3, 4194304)),
     ("skinny", (2, 32, (3,)), 1, (8, 2, 2097152)),
@@ -515,6 +533,9 @@ DEFAULT_POINTS: Tuple[Tuple[str, Tuple[int, int, Tuple[int, ...]], int, Tuple[in
     ("skinny", (2, 32, (4,)), 1, (2, 5, 2097152)),
     ("skinny", (2, 32, (4,)), 1, (16, 2, 5308416)),
     ("skinny", (2, 32, (4,)), 1, (4, 4, 4718592)),
+    ("tower", (2, 32, (3, 7)), 1, (8, 2, 524288)),
+    ("tower", (2, 32, (3, 7)), 1, (8, 4, 262144)),
+    ("tower", (2, 32, (3, 7)), 1, (8, 8, 131072)),
 )
 
 

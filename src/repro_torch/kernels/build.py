@@ -37,8 +37,8 @@ CSRC_DIR = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 NVCC_FLAGS = ["-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
-# the general (simt), tensor-core (tc) and bandwidth (skinny) routes
-SOURCES = ("gr_matmul", "gr_matmul_tc", "gr_matmul_skinny")
+# the general (simt), tensor-core (tc), bandwidth (skinny) and tower routes
+SOURCES = ("gr_matmul", "gr_matmul_tc", "gr_matmul_skinny", "gr_matmul_tower")
 LIB_NAME = "gr_matmul"
 
 _lock = threading.Lock()
@@ -65,16 +65,23 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.gr_matmul_tc_limbs.argtypes = [vp, vp, ci, ci, ci, ci, ci, ci, ci, ci, vp]
     lib.gr_matmul_tc_u32.argtypes = [vp, vp, vp, ci, ci, ci, ci, ci, ci, ci, ci, ci, ci, ci,
                                      fold, u32, vp]
+    lib.gr_matmul_tc_lift.argtypes = [vp, vp, ci, ci, ci, ci, ci, ci, ci, ci, fold, vp]
     lib.gr_matmul_tc_configs.argtypes = [ci, ci, ip, ci]
     lib.gr_matmul_tc_smem.argtypes = [ci, ci, ci, ci, ci]
     lib.gr_matmul_tc_depth.argtypes = []
     lib.gr_matmul_skinny_u32.argtypes = [vp, vp, vp, ci, ci, ci, ci, ci, ci, ci, ci, fold, u32, vp]
     lib.gr_matmul_skinny_cols.argtypes = [ci, ci]
     lib.gr_matmul_skinny_configs.argtypes = [ci, ci, ip, ci]
+    lib.gr_matmul_tower_u32.argtypes = [vp, vp, vp, ci, ci, ci, ci, ci, ci, ci, ci, ci, fold, u32,
+                                        vp]
+    lib.gr_matmul_tower_configs.argtypes = [ci, ci, ip, ci]
+    lib.gr_matmul_tower_smem.argtypes = [ci, ci, ci, ci]
+    lib.gr_matmul_tower_smem.restype = ctypes.c_int64
     for fn in ("gr_matmul_planar_u32", "gr_matmul_tile", "gr_matmul_tc_limbs",
-               "gr_matmul_tc_u32", "gr_matmul_tc_configs", "gr_matmul_tc_smem",
-               "gr_matmul_tc_depth",
-               "gr_matmul_skinny_u32", "gr_matmul_skinny_cols", "gr_matmul_skinny_configs"):
+               "gr_matmul_tc_lift", "gr_matmul_tc_u32", "gr_matmul_tc_configs",
+               "gr_matmul_tc_smem", "gr_matmul_tc_depth",
+               "gr_matmul_skinny_u32", "gr_matmul_skinny_cols", "gr_matmul_skinny_configs",
+               "gr_matmul_tower_u32", "gr_matmul_tower_configs"):
         getattr(lib, fn).restype = ci
 
 
@@ -149,11 +156,13 @@ def load_library() -> ctypes.CDLL:
 
 def library_configs(route: str, d0: int, d1: int) -> tuple:
     """The instantiations the built library has for ``route`` (``tc``:
-    (bn, stages); ``skinny``: (threads, cm)) on the tower (d0, d1),
-    default first, as the library itself reports them."""
+    (bn, stages); ``skinny``: (threads, cm); ``tower``: (threads, tc,
+    cpt)) on the tower (d0, d1), default first, as the library itself
+    reports them."""
     lib = load_library()
     fn, width = {"tc": (lib.gr_matmul_tc_configs, 2),
-                 "skinny": (lib.gr_matmul_skinny_configs, 2)}[route]
+                 "skinny": (lib.gr_matmul_skinny_configs, 2),
+                 "tower": (lib.gr_matmul_tower_configs, 3)}[route]
     n = fn(d0, d1, None, 0)
     out = (ctypes.c_int * (width * max(n, 1)))()
     fn(d0, d1, out, n)

@@ -83,6 +83,15 @@
 //  * The box is 64 bytes deep, not 128: a 128-byte box of every limb plane
 //    of both operands would hold 147 KB a stage at D = 3, L = 4 (one stage
 //    in all); at 64 the ring holds 2-4 stages.
+//  * The two-level towers of TC_LIFT_TOWERS (D0, D1) run as
+//    products over their inner ring GR(2^e, D0): A is read as it lies, at
+//    D1 times its depth, by the limb pre-pass of the inner ring, and B goes
+//    through a lift pre-pass (gr_matmul_tc_lift, below) that writes the
+//    limb planes of its outer-level lift M(B) directly; the main kernel
+//    runs the inner ring's instantiation (T, D1 S, D1 R) with the inner
+//    FOLD, and its (T, D1 S, D0) output is C.  The (3, 7) tower's K = 65
+//    accumulators a output (260 with limbs) never meet the register file:
+//    the inner ring's 5 x 4 do.
 //
 // Measured (chip_smoke.py, an H100 80GB HBM3 at 700 W): at the worker
 // shape the pre-pass and this kernel take 2.56 ms, 61% of the int8 bound
@@ -503,6 +512,112 @@ int launch_limbs(const uint32_t* X, uint32_t* Y, int batch, int rows, int cols,
   return (int)cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// lift pre-pass: the B operand of a two-level tower
+// ---------------------------------------------------------------------------
+//
+// GR(2^e, (D0, D1)) keeps an element as D1 outer coefficients, each an
+// element of the inner ring GR(2^e, D0) (flat index = outer * D0 + inner),
+// and FOLD = kron(RED, FOLD0): RED (2 D1 - 1, D1) reduces the powers of the
+// outer variable over Z_q, FOLD0 is the inner ring's fold.  So a tower
+// product is an inner-ring product of lifted operands:
+//
+//   A (T, R, D0 D1), read as it lies, is A' (T, D1 R, D0);
+//   M(B)[(r, i), (s, m)] = sum_j RED[i + j, m] * B[r, s, j]   (D1 R x D1 S)
+//   C' = A' (x)_D0 M(B) (T, D1 S, D0) is C (T, S, D0 D1) as it lies,
+//
+// with D0^2 D1^2 word products per (t, r, s), as the tower product has.
+// The main kernel runs C' at the inner ring's instantiation and FOLD0.
+//
+// This pass reads B (batch, R, S, D0 D1) once and writes the limb planes
+// of M(B) straight in the layout the main kernel reads for B: (batch, D0,
+// L, Sp, Rp) u8, K-major, zero-padded to Sp >= D1 S and Rp >= D1 R.  The
+// RED combination runs in uint32 (wrapping) before the bytes are split, so
+// the int32 M(B), D1 times B's size, never goes to device memory.
+//
+// A block is (batch entry, s, 128 rows of r), one warp per outer index m:
+// lane g owns rows r = 4g .. 4g + 3, i.e. 4 D1 consecutive bytes of every
+// output row (s' = D1 s + m, r'), which it computes from its 4 D1 words
+// of B and the column RED[., m] (registers, indices fixed at compile
+// time), then stages through shared memory so that the warp writes D1
+// runs of 128 contiguous bytes per (inner coefficient d, limb l).
+constexpr int kMaxD1 = 7;
+constexpr int kLiftRows = 128;  // rows of r a block: 32 lanes x 4
+
+struct RedTable {
+  uint32_t f[(2 * kMaxD1 - 1) * kMaxD1];  // row-major (2 D1 - 1, D1)
+};
+
+template <int D0, int D1>
+__global__ void __launch_bounds__(32 * D1)
+    lift_cols_kernel(const uint32_t* __restrict__ X, uint32_t* __restrict__ Y, int R, int S,
+                     int L, int Rp, int Sp, const __grid_constant__ RedTable red) {
+  constexpr int D = D0 * D1;
+  constexpr int DX = D | 1;  // odd stride: the 32 lanes' rows fall in distinct banks
+  __shared__ uint32_t tile[kLiftRows * DX];    // row 4g + rr at (rr * 32 + g) * DX
+  __shared__ uint32_t stage[D1][32 * D1];      // a warp's output words of one (d, l)
+  const int64_t z = blockIdx.z;
+  const int s = blockIdx.x, r0 = blockIdx.y * kLiftRows;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const uint32_t* Xb = X + z * R * (int64_t)S * D;
+  for (int idx = threadIdx.x; idx < kLiftRows * D; idx += 32 * D1) {
+    const int rl = idx / D, w = idx - rl * D, r = r0 + rl;
+    tile[((rl & 3) * 32 + (rl >> 2)) * DX + w] =
+        (r < R && s < S) ? Xb[((int64_t)r * S + s) * D + w] : 0u;
+  }
+  __syncthreads();
+  const int m = warp;
+  uint32_t rm[2 * D1 - 1];  // RED[., m]: a warp-uniform read of the parameter bank
+#pragma unroll
+  for (int k = 0; k < 2 * D1 - 1; ++k) rm[k] = red.f[k * D1 + m];
+  const int row = D1 * s + m;  // s' of this warp's output rows
+  const int words = Rp / 4, w0 = blockIdx.y * (kLiftRows * D1 / 4);
+  uint32_t* out = stage[warp];
+  for (int d = 0; d < D0; ++d) {
+    uint32_t v[4 * D1];  // byte p = 4 D1-run position rr * D1 + i
+#pragma unroll
+    for (int rr = 0; rr < 4; ++rr) {
+      uint32_t x[D1];
+#pragma unroll
+      for (int j = 0; j < D1; ++j) x[j] = tile[(rr * 32 + lane) * DX + j * D0 + d];
+#pragma unroll
+      for (int i = 0; i < D1; ++i) {
+        uint32_t acc = 0u;
+#pragma unroll
+        for (int j = 0; j < D1; ++j) acc += rm[i + j] * x[j];
+        v[rr * D1 + i] = acc;
+      }
+    }
+    for (int l = 0; l < L; ++l) {
+#pragma unroll
+      for (int u = 0; u < D1; ++u) {
+        uint32_t packed = 0u;
+#pragma unroll
+        for (int k = 0; k < 4; ++k) packed |= ((v[4 * u + k] >> (8 * l)) & 0xFFu) << (8 * k);
+        out[lane * D1 + u] = packed;
+      }
+      __syncwarp();
+      uint32_t* Yrow = Y + (((z * D0 + d) * L + l) * (int64_t)Sp + row) * words;
+#pragma unroll
+      for (int u = 0; u < D1; ++u) {
+        const int q = u * 32 + lane, w = w0 + q;
+        if (row < Sp && w < words) Yrow[w] = out[q];
+      }
+      __syncwarp();
+    }
+  }
+}
+
+template <int D0, int D1>
+int launch_lift(const uint32_t* X, uint32_t* Y, int batch, int R, int S, int L, int Rp, int Sp,
+                const RedTable& red, cudaStream_t st) {
+  // every s' < Sp and every word of Rp: blocks past S and R write zeros
+  const int rows = (Rp + D1 - 1) / D1;
+  dim3 grid((Sp + D1 - 1) / D1, (rows + kLiftRows - 1) / kLiftRows, batch);
+  lift_cols_kernel<D0, D1><<<grid, 32 * D1, 0, st>>>(X, Y, R, S, L, Rp, Sp, red);
+  return (int)cudaGetLastError();
+}
+
 
 // ---------------------------------------------------------------------------
 // main kernel
@@ -778,6 +893,24 @@ constexpr int tc_key(int d0, int d1, int bn, int st) {
   X(3, 1, 32, 3) X(3, 1, 32, 2) X(3, 1, 24, 3)               \
   X(4, 1, 24, 2) X(4, 1, 16, 2)
 
+// Two-level towers (d0, d1) with a lift pre-pass: each runs the main kernel
+// at the instantiations of its inner ring (d0, 1).  The Python mirror is
+// repro_torch.kernels.gr_matmul.TC_LIFT_TOWERS.
+#define TC_LIFT_TOWERS(X) \
+  X(2, 3) X(3, 5) X(3, 7)
+
+namespace {
+
+bool lifted(int d0, int d1) {
+#define TC_LIFTED(x, y) \
+  if (x == d0 && y == d1) return true;
+  TC_LIFT_TOWERS(TC_LIFTED)
+#undef TC_LIFTED
+  return false;
+}
+
+}  // namespace
+
 extern "C" {
 
 // Limb pre-pass: X (batch, rows, cols, D) uint32 -> Y uint8 limb planes,
@@ -798,6 +931,32 @@ int gr_matmul_tc_limbs(const void* X, void* Y, int batch, int rows, int cols,
     case 3: return launch_limbs<3>(x, y, batch, rows, cols, L, rows_p, cols_p, transpose, st);
     case 4: return launch_limbs<4>(x, y, batch, rows, cols, L, rows_p, cols_p, transpose, st);
     default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+// Lift pre-pass of a two-level tower (d0, d1): B (batch, R, S, d0 d1)
+// uint32 -> the limb planes of M(B), (batch, d0, L, Sp, Rp) u8, K-major and
+// zero-padded; red_host: (2 d1 - 1, d1) uint32 row-major.  Rp must be a
+// multiple of KS and at least d1 R, Sp a multiple of 32 and at least d1 S.
+int gr_matmul_tc_lift(const void* B, void* Y, int batch, int R, int S, int d0, int d1, int L,
+                      int Rp, int Sp, const uint32_t* red_host, void* stream) {
+  if (d1 < 2 || d1 > kMaxD1 || L < 1 || L > kMaxL || Rp % KS || Sp % 32 || Rp < d1 * R ||
+      Sp < d1 * S)
+    return (int)cudaErrorInvalidValue;
+  RedTable red;
+  memset(&red, 0, sizeof(red));
+  memcpy(red.f, red_host, sizeof(uint32_t) * (2 * d1 - 1) * d1);
+  const uint32_t* x = static_cast<const uint32_t*>(B);
+  uint32_t* y = static_cast<uint32_t*>(Y);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (d0 * 32 + d1) {
+#define TC_LIFT_LAUNCH(a, b) \
+  case a * 32 + b:           \
+    return launch_lift<a, b>(x, y, batch, R, S, L, Rp, Sp, red, st);
+    TC_LIFT_TOWERS(TC_LIFT_LAUNCH)
+#undef TC_LIFT_LAUNCH
+    default:
+      return (int)cudaErrorInvalidValue;
   }
 }
 
@@ -832,8 +991,10 @@ int gr_matmul_tc_u32(const void* A8, const void* B8, void* C, int batch, int T,
 }
 
 // The instantiations of the tower (d0, d1), default first: writes up to
-// `cap` (bn, stages) pairs to `out` and returns how many there are.
+// `cap` (bn, stages) pairs to `out` and returns how many there are.  A
+// lifted tower runs its inner ring's.
 int gr_matmul_tc_configs(int d0, int d1, int* out, int cap) {
+  if (lifted(d0, d1)) d1 = 1;
   int n = 0;
 #define TC_CONFIG(x, y, n_, s)   \
   if (x == d0 && y == d1) {      \
@@ -849,8 +1010,10 @@ int gr_matmul_tc_configs(int d0, int d1, int* out, int cap) {
 }
 
 // Dynamic shared memory a launch of the (bn, stages) instantiation of the
-// tower (d0, d1) at L limbs asks for; -1 without one.
+// tower (d0, d1) at L limbs asks for (a lifted tower: its inner ring's); -1
+// without one.
 int gr_matmul_tc_smem(int d0, int d1, int bn, int stages, int L) {
+  if (lifted(d0, d1)) d1 = 1;
   switch (tc_key(d0, d1, bn, stages) * 8 + L) {
 #define TC_SMEM(x, y, n, s)                                   \
   case tc_key(x, y, n, s) * 8 + 1: return Tc<x, y, n, s, 1>::kSmem; \

@@ -1,7 +1,7 @@
-"""Hopper kernel wrappers: the three routes of the Galois-ring matmul over
+"""Hopper kernel wrappers: the four routes of the Galois-ring matmul over
 GR(2^e, D).
 
-All three replace the Pallas TPU kernel
+All four replace the Pallas TPU kernel
 ``src/repro/kernels/gr_matmul.py:_kernel`` (launched by
 ``gr_matmul_planar``); each is hand-written CUDA C++ under ``csrc/`` whose
 header notes its design and what bounds it:
@@ -12,25 +12,38 @@ header notes its design and what bounds it:
 * ``tc`` (``csrc/gr_matmul_tc.cu``): interleaved layout, a limb pre-pass
   (counted as ``limbs``) into u8 planes, then a warp-specialised kernel:
   TMA loads into a ring of stages, ``wgmma`` u8 x u8 -> s32 on the int8
-  tensor cores; single-level towers with D <= 4.
+  tensor cores; single-level towers with D <= 4, and the two-level towers
+  of ``TC_LIFT_TOWERS`` ((2, 3), (3, 5) and the (3, 7) tower) as
+  products over their inner ring: A's limb pre-pass reads A as it
+  lies, and a lift pre-pass (counted as ``lift``) writes the limb planes
+  of B's outer-level lift M(B) (``ref.lift_b_ref``).
 * ``skinny`` (``csrc/gr_matmul_skinny.cu``): interleaved layout, a
-  bandwidth kernel for T, R <= 16.
+  bandwidth kernel for T, R <= 16 over the towers with K * CPT <= 64
+  (``skinny_cols``): single-level D <= 8 and the even D to 16, and (2, 3),
+  (2, 5), (3, 2), (3, 4), (4, 3), (5, 2).
+* ``tower`` (``csrc/gr_matmul_tower.cu``): interleaved layout, T, R <= 16
+  over the towers ``skinny`` has no instantiation for (``TOWER_CONFIGS``:
+  the (3, 7) tower, (3, 5), ...), A lifted in shared memory to its
+  multiplication matrices (``ref.gr_matmul_tower_ref``), within
+  ``SMEM_BLOCK_BYTES`` (``tower_smem_bytes``).
 
-``tc`` and ``skinny`` come in a few instantiations per tower
+``tc``, ``skinny`` and ``tower`` come in a few instantiations per tower
 (``TC_CONFIGS``: tile width and stages; ``SKINNY_CONFIGS``: threads per
-block and a multiple of the columns per thread), the default first; the
-wrappers take a ``config`` and launch exactly that one (``None``: the
-default).  ``kernels.autotune`` times them and ``ops.pick_blocks`` picks.
+block and a multiple of the columns per thread; ``TOWER_CONFIGS``: threads,
+rows and columns a thread), the default first; the wrappers take a
+``config`` and launch exactly that one (``None``: the default).
+``kernels.autotune`` times them and ``ops.pick_blocks`` picks.
 
 This module validates the operands, launches on PyTorch's current stream
 through ctypes, and counts launches.  Which route a ring matmul takes is
 decided in ``ops.pick_route``.
 
-Envelope: p = 2, e <= 32, D <= MAX_D = 16 (the reference's), widened on
-``simt`` by the (3, 7) tower (D = 21), the ring ``batch_ep_rmfe`` takes at
-n = 8 over Z_2^32, which ``ElasticStream`` plans for a group of eight
-products (the reference leaves it to XLA).  Towers of at most two coprime
-levels cover every D <= 16.
+Envelope: p = 2, e <= 32, D <= MAX_D = 16 (the reference's), widened by
+the (3, 7) tower (D = 21), the ring ``batch_ep_rmfe`` takes at n = 8 over
+Z_2^32, which ``ElasticStream`` plans for a group of eight products (the
+reference leaves it to XLA): ``simt`` takes it at every shape, ``tc`` (by
+the lift) and ``tower`` at theirs.  Towers of at most two coprime levels
+cover every D <= 16.
 """
 from __future__ import annotations
 
@@ -43,10 +56,11 @@ import numpy as np
 import torch
 
 from .build import load_library
-from .ref import n_limbs
+from .ref import n_limbs, outer_reduction
 
 __all__ = [
     "MAX_D",
+    "PREPASSES",
     "ROUTES",
     "SKINNY_MAX_T",
     "SKINNY_MAX_R",
@@ -56,29 +70,39 @@ __all__ = [
     "TC_CONFIGS",
     "TC_BM",
     "TC_DEPTH",
+    "TC_LIFT_TOWERS",
     "TC_PAD",
+    "TOWER_CONFIGS",
     "counters",
     "gr_matmul_planar",
     "gr_matmul_skinny",
     "gr_matmul_tc",
+    "gr_matmul_tower",
     "kernel_tile",
     "simt_instantiated",
     "skinny_cols",
     "skinny_configs",
     "tc_configs",
     "tc_instantiated",
+    "tc_lift",
     "tc_limbs",
     "tc_padded",
+    "tc_shape",
     "tc_smem_bytes",
     "tc_tile",
+    "tower_configs",
     "tower_shape",
+    "tower_smem_bytes",
 ]
 
 MAX_D = 16
 # two-level towers with D > MAX_D that the simt kernel is instantiated for
 # (mirrors the tail of GR_TOWERS in csrc/gr_matmul.cu)
 SIMT_WIDE_TOWERS = ((3, 7),)
-ROUTES = ("simt", "tc", "skinny")
+ROUTES = ("simt", "tc", "skinny", "tower")
+# the tc route's pre-passes: A's (and a single-level B's) limb planes, and
+# the limb planes of a two-level tower's lifted B
+PREPASSES = ("limbs", "lift")
 # the skinny kernel keeps A (T x R x D words) in shared memory
 SKINNY_MAX_T = SKINNY_MAX_R = 16
 # (bn, stages) instantiations of the tc kernel per tower, the default
@@ -92,6 +116,11 @@ TC_CONFIGS = {
     (3, 1): ((32, 3), (32, 2), (24, 3)),
     (4, 1): ((24, 2), (16, 2)),
 }
+# two-level towers (d0, d1) the tc route takes through the lift pre-pass,
+# at the instantiations of their inner ring (d0, 1): the (3, 7) tower of
+# ElasticStream and the two the kernel checks hold, (2, 3) and (3, 5)
+# (mirrors TC_LIFT_TOWERS in csrc/gr_matmul_tc.cu)
+TC_LIFT_TOWERS = ((2, 3), (3, 5), (3, 7))
 # KS: bytes of R per stage (the TMA box depth, one 64-byte swizzle row),
 # the multiple the limb planes' R is padded to
 TC_DEPTH = 64
@@ -107,14 +136,23 @@ SMEM_BLOCK_BYTES = 227 * 1024
 # skinny_cols columns (mirrors SKINNY_EXTRA in csrc/gr_matmul_skinny.cu)
 SKINNY_DEFAULT = (128, 1)
 SKINNY_CONFIGS = {(d, 1): (SKINNY_DEFAULT, (256, 1), (128, 2)) for d in (1, 2, 3, 4)}
+# (threads, tc, cpt) instantiations of the tower kernel, default first: a
+# thread holds tc rows x cpt columns of C (mirrors TOWER_CONFIGS in
+# csrc/gr_matmul_tower.cu)
+TOWER_CONFIGS = {
+    (3, 7): ((256, 1, 4), (256, 2, 2), (256, 4, 1), (128, 2, 2)),
+    **{t: ((256, 2, 2),) for t in ((9, 1), (11, 1), (13, 1), (15, 1),
+                                    (2, 7), (3, 5), (5, 3), (7, 2))},
+}
 
 
 class KernelCounters:
     """Plain counts that let a run show it went through the kernel.
 
     ``launches_by_route``: launches of each route's matmul kernel (``simt``,
-    ``tc``, ``skinny``) and of the tc route's limb pre-pass (``limbs``, two
-    per tc matmul: one per operand).
+    ``tc``, ``skinny``, ``tower``) and of the tc route's pre-passes
+    (``limbs``, two per tc matmul, one per operand, or one for A over a
+    two-level tower; ``lift``, one for B over a two-level tower).
     ``launches``: matmul kernel launches of all routes, one per ring matmul
     on the card (the pre-pass not included).
 
@@ -128,7 +166,7 @@ class KernelCounters:
 
     def reset(self) -> None:
         with self._lock:
-            self.launches_by_route = dict.fromkeys(ROUTES + ("limbs",), 0)
+            self.launches_by_route = dict.fromkeys(ROUTES + PREPASSES, 0)
 
     @property
     def launches(self) -> int:
@@ -158,15 +196,22 @@ def simt_instantiated(d0: int, d1: int) -> bool:
 
 
 def tc_instantiated(d0: int, d1: int) -> bool:
-    """Whether the tc kernel has an instantiation for the tower (d0, d1);
-    mirrors ``TC_CONFIGS`` in ``csrc/gr_matmul_tc.cu``."""
-    return (d0, d1) in TC_CONFIGS
+    """Whether the tc route takes the tower (d0, d1): an instantiation of
+    its own, or a lift onto its inner ring's; mirrors ``TC_CONFIGS`` and
+    ``TC_LIFT_TOWERS`` in ``csrc/gr_matmul_tc.cu``."""
+    return (d0, d1) in TC_CONFIGS or (d0, d1) in TC_LIFT_TOWERS
 
 
 def tc_configs(d0: int, d1: int) -> Tuple[Tuple[int, int], ...]:
     """The tc kernel's (bn, stages) instantiations for the tower (d0, d1),
-    default first; empty without any."""
-    return TC_CONFIGS.get((d0, d1), ())
+    default first (a lifted tower: its inner ring's); empty without any."""
+    return TC_CONFIGS.get((d0, 1) if (d0, d1) in TC_LIFT_TOWERS else (d0, d1), ())
+
+
+def tower_configs(d0: int, d1: int) -> Tuple[Tuple[int, int, int], ...]:
+    """The tower kernel's (threads, tc, cpt) instantiations for the tower
+    (d0, d1), default first; empty without any."""
+    return TOWER_CONFIGS.get((d0, d1), ())
 
 
 def skinny_configs(d0: int, d1: int) -> Tuple[Tuple[int, int], ...]:
@@ -187,12 +232,23 @@ def tc_smem_bytes(ring, config: Tuple[int, int]) -> int:
     for (mirrors ``Tc::kSmem`` in ``csrc/gr_matmul_tc.cu``): a ring of
     ``stages`` stages, each a KS-deep box of the 64 + BN rows of every limb
     plane of both operands rounded up to 1 KB (or, if larger, the
-    epilogue's exchange of D * BN * 256 bytes, which reuses the ring), 1 KB
-    of alignment slack and two mbarriers a stage."""
+    epilogue's exchange of D0 * BN * 256 bytes, which reuses the ring), 1 KB
+    of alignment slack and two mbarriers a stage.  The main kernel runs at
+    D0 = D, or at a lifted tower's inner degree."""
     bn, stages = config
-    planes = ring.D * n_limbs(ring)
+    d0 = tower_shape(ring)[0]
+    planes = d0 * n_limbs(ring)
     stage = -(-planes * (TC_BM + bn) * TC_DEPTH // 1024) * 1024
-    return 1024 + max(stages * stage, ring.D * bn * 256) + 16 * stages
+    return 1024 + max(stages * stage, d0 * bn * 256) + 16 * stages
+
+
+def tower_smem_bytes(ring, t: int, r: int) -> int:
+    """Dynamic shared memory a tower launch of (t, r) over ``ring`` asks for
+    (mirrors ``Tower::words`` in ``csrc/gr_matmul_tower.cu``): the t r
+    lifted matrices, D rows of DP = D rounded up to 4 words each, FOLD and
+    A itself."""
+    D, K = ring.D, ring.K
+    return 4 * (t * r * D * (-(-D // 4) * 4) + K * D + t * r * D)
 
 
 def skinny_cols(d0: int, d1: int) -> Optional[int]:
@@ -202,6 +258,14 @@ def skinny_cols(d0: int, d1: int) -> Optional[int]:
     D, K = d0 * d1, (2 * d0 - 1) * (2 * d1 - 1)
     cpt = 1 if D % 4 == 0 else 2 if D % 2 == 0 else 4
     return cpt if D <= MAX_D and K * cpt <= 64 else None
+
+
+def tc_shape(ring, t: int, r: int, s: int) -> Tuple[int, int, int, int]:
+    """(D0, T, R, S) of the main tc kernel's launch for a (t, r) x (r, s)
+    matmul over ``ring``: the ring's own, or over a lifted tower's inner
+    ring GR(2^e, D0), (t, D1 r) x (D1 r, D1 s)."""
+    d0, d1 = tower_shape(ring)
+    return d0, t, d1 * r, d1 * s
 
 
 def tc_padded(t: int, r: int, s: int) -> Tuple[int, int, int]:
@@ -245,6 +309,18 @@ def _check_layout(ring):
             raise ValueError(f"{ring}: CONVPOS does not match the kernel's tower layout")
         fold = np.ascontiguousarray(ring.FOLD_U32.reshape(-1))
         hit = _layouts[ring] = (fold, fold.ctypes.data_as(ctypes.POINTER(ctypes.c_uint32)))
+        return hit
+
+
+def _lift_table(ring):
+    """RED of a two-level tower (``ref.outer_reduction``) as a contiguous
+    uint32 array and a ctypes pointer to it, cached per ring."""
+    key = ("lift", ring)
+    with _layouts_lock:
+        hit = _layouts.get(key)
+        if hit is None:
+            red = np.ascontiguousarray(outer_reduction(ring), dtype=np.uint32)
+            hit = _layouts[key] = (red, red.ctypes.data_as(ctypes.POINTER(ctypes.c_uint32)))
         return hit
 
 
@@ -371,28 +447,67 @@ def gr_matmul_skinny(A: torch.Tensor, B: torch.Tensor, ring, config=None) -> tor
     return C[0] if squeeze else C
 
 
+def tc_lift(B: torch.Tensor, ring) -> torch.Tensor:
+    """The tc route's lift pre-pass on the card, for a two-level tower
+    (D0, D1) of ``TC_LIFT_TOWERS``: B (b?, r, s, D) int32 -> B8 (b, D0, L,
+    Sp, Rp) uint8, the limb planes of M(B) (``ref.lift_b_ref``), K-major and
+    zero-padded to ``tc_padded(., D1 r, D1 s)``.  One launch, counted as
+    ``lift``; the plain version is ``ref.tc_planes_ref``'s B side."""
+    _check_operand(B, "B")
+    if ring.p != 2 or ring.e > 32:
+        raise ValueError(f"{ring} lies outside the kernels' envelope (p=2, e<=32)")
+    d0, d1 = tower_shape(ring)
+    if (d0, d1) not in TC_LIFT_TOWERS:
+        raise ValueError(f"{ring}: the lift pre-pass has no instantiation for tower {(d0, d1)}")
+    if B.dim() == 3:
+        B = B.unsqueeze(0)
+    if B.dim() != 4 or B.shape[-1] != ring.D:
+        raise ValueError(f"expected (b?, r, s, D) for {ring}, got {tuple(B.shape)}")
+    nb, R, S, _ = B.shape
+    _, Rp, Sp = tc_padded(1, d1 * R, d1 * S)
+    L = n_limbs(ring)
+    B8 = torch.empty((nb, d0, L, Sp, Rp), dtype=torch.uint8, device=B.device)
+    if B8.numel():
+        lib = load_library()
+        ctx, stream = _stream(B.device)
+        with ctx:
+            err = lib.gr_matmul_tc_lift(B.data_ptr(), B8.data_ptr(), nb, R, S, d0, d1, L, Rp, Sp,
+                                        _lift_table(ring)[1], stream)
+        _check_launch(err, "lift pre-pass")
+        counters.count("lift")
+    return B8
+
+
 def tc_limbs(A: torch.Tensor, B: torch.Tensor, ring):
-    """The tc route's limb pre-pass on the card: two launches, counted as
-    ``limbs``.  Returns (A8, B8): A8 (b, D, L, Tp, Rp) and B8 (b, D, L, Sp,
-    Rp) uint8, K-major and zero-padded (``tc_padded``); the plain version
-    is ``ref.limb_planes_ref``."""
+    """The tc route's pre-passes on the card.  Returns (A8, B8): A8 (b, D0,
+    L, Tp, Rp) and B8 (b, D0, L, Sp, Rp) uint8, K-major and zero-padded to
+    ``tc_padded`` of the main kernel's (T, R, S) (``tc_shape``).  A
+    single-level ring: two limb pre-pass launches, counted as ``limbs``.  A
+    lifted tower (D0, D1): one ``limbs`` launch on A read as (t, D1 r, D0)
+    and the lift of B (:func:`tc_lift`).  The plain version is
+    ``ref.tc_planes_ref``."""
     A, B, _, (nb, T, R, S) = _interleaved(A, B, ring)
     d0, d1 = tower_shape(ring)
     if not tc_instantiated(d0, d1):
         raise ValueError(f"{ring}: the tc kernel has no instantiation for tower {(d0, d1)}")
-    Tp, Rp, Sp = tc_padded(T, R, S)
+    _, T, R1, S1 = tc_shape(ring, T, R, S)
+    Tp, Rp, Sp = tc_padded(T, R1, S1)
     L = n_limbs(ring)
-    A8 = torch.empty((nb, ring.D, L, Tp, Rp), dtype=torch.uint8, device=A.device)
-    B8 = torch.empty((nb, ring.D, L, Sp, Rp), dtype=torch.uint8, device=A.device)
+    A8 = torch.empty((nb, d0, L, Tp, Rp), dtype=torch.uint8, device=A.device)
     lib = load_library()
     ctx, stream = _stream(A.device)
     with ctx:
-        for X, Y, rows, cols, rows_p, cols_p, tr in ((A, A8, T, R, Tp, Rp, 0),
-                                                     (B, B8, R, S, Rp, Sp, 1)):
-            if Y.numel() == 0:
-                continue
-            err = lib.gr_matmul_tc_limbs(X.data_ptr(), Y.data_ptr(), nb, rows, cols, ring.D, L,
-                                         rows_p, cols_p, tr, stream)
+        if A8.numel():
+            err = lib.gr_matmul_tc_limbs(A.data_ptr(), A8.data_ptr(), nb, T, R1, d0, L, Tp, Rp,
+                                         0, stream)
+            _check_launch(err, "limb pre-pass")
+            counters.count("limbs")
+        if d1 > 1:
+            return A8, tc_lift(B, ring)
+        B8 = torch.empty((nb, d0, L, Sp, Rp), dtype=torch.uint8, device=A.device)
+        if B8.numel():
+            err = lib.gr_matmul_tc_limbs(B.data_ptr(), B8.data_ptr(), nb, R, S, d0, L, Rp, Sp,
+                                         1, stream)
             _check_launch(err, "limb pre-pass")
             counters.count("limbs")
     return A8, B8
@@ -401,13 +516,14 @@ def tc_limbs(A: torch.Tensor, B: torch.Tensor, ring):
 def gr_matmul_tc(A: torch.Tensor, B: torch.Tensor, ring, config=None) -> torch.Tensor:
     """The tensor-core route on the card: A (b?, t, r, D) x B (b?, r, s, D)
     -> C (b?, t, s, D), interleaved int32, with the (bn, stages)
-    instantiation ``config`` (None: the tower's default).  Runs the limb
-    pre-pass (:func:`tc_limbs`), then the wgmma kernel.
+    instantiation ``config`` (None: the tower's default).  Runs the
+    pre-passes (:func:`tc_limbs`), then the wgmma kernel over the ring, or
+    over a lifted tower's inner ring with the inner FOLD: its (t, D1 s, D0)
+    output is C as it lies.
 
     Launches the CUDA kernels or raises; it never falls back.
     """
     A, B, squeeze, (nb, T, R, S) = _interleaved(A, B, ring)
-    _, fold = _check_layout(ring)
     d0, d1 = tower_shape(ring)
     configs = tc_configs(d0, d1)
     if not configs:
@@ -418,9 +534,11 @@ def gr_matmul_tc(A: torch.Tensor, B: torch.Tensor, ring, config=None) -> torch.T
     if tc_smem_bytes(ring, config) > SMEM_BLOCK_BYTES:
         raise ValueError(f"{ring}: tc {config} needs {tc_smem_bytes(ring, config)} B of shared "
                          f"memory, more than a block's {SMEM_BLOCK_BYTES}")
-    Tp, Rp, Sp = tc_padded(T, R, S)
-    if -(-T // TC_BM) > 65535:
-        raise ValueError(f"t={T} exceeds the tc kernel's launch grid")
+    _, fold = _check_layout(ring.base_ring() if d1 > 1 else ring)
+    _, T, R1, S1 = tc_shape(ring, T, R, S)
+    Tp, Rp, Sp = tc_padded(T, R1, S1)
+    if -(-T // TC_BM) > 65535 or max(R1, S1) >= 2**31 - 256:
+        raise ValueError(f"{(T, R1, S1)} exceeds the tc kernel's launch grid")
     C = torch.empty((nb, T, S, ring.D), dtype=torch.int32, device=A.device)
     if C.numel() == 0:
         return C[0] if squeeze else C
@@ -428,8 +546,44 @@ def gr_matmul_tc(A: torch.Tensor, B: torch.Tensor, ring, config=None) -> torch.T
     lib = load_library()
     ctx, stream = _stream(A.device)
     with ctx:
-        err = lib.gr_matmul_tc_u32(A8.data_ptr(), B8.data_ptr(), C.data_ptr(), nb, T, S, Tp, Sp,
-                                   Rp, n_limbs(ring), d0, d1, *config, fold, _mask(ring), stream)
+        err = lib.gr_matmul_tc_u32(A8.data_ptr(), B8.data_ptr(), C.data_ptr(), nb, T, S1, Tp, Sp,
+                                   Rp, n_limbs(ring), d0, 1, *config, fold, _mask(ring), stream)
     _check_launch(err, "tc")
     counters.count("tc")
+    return C[0] if squeeze else C
+
+
+def gr_matmul_tower(A: torch.Tensor, B: torch.Tensor, ring, config=None) -> torch.Tensor:
+    """The tower route on the card: A (b?, t, r, D) x B (b?, r, s, D) ->
+    C (b?, t, s, D), interleaved int32, for 1 <= t, r <= 16 whose lifted A
+    fits a block (``tower_smem_bytes``), with the (threads, tc, cpt)
+    instantiation ``config`` (None: the tower's default).
+
+    Launches the CUDA kernel or raises; it never falls back.
+    """
+    A, B, squeeze, (nb, T, R, S) = _interleaved(A, B, ring)
+    d0, d1 = tower_shape(ring)
+    configs = tower_configs(d0, d1)
+    if not configs:
+        raise ValueError(f"{ring}: the tower kernel has no instantiation for tower {(d0, d1)}")
+    config = configs[0] if config is None else tuple(config)
+    if config not in configs:
+        raise ValueError(f"{ring}: the tower kernel has no instantiation {config}; "
+                         f"built: {configs}")
+    if not (1 <= T <= SKINNY_MAX_T and 1 <= R <= SKINNY_MAX_R):
+        raise ValueError(f"the tower kernel takes 1 <= t, r <= 16, got t={T}, r={R}")
+    if tower_smem_bytes(ring, T, R) > SMEM_BLOCK_BYTES:
+        raise ValueError(f"{ring}: the tower kernel's lifted A at t={T}, r={R} needs "
+                         f"{tower_smem_bytes(ring, T, R)} B of shared memory, more than a "
+                         f"block's {SMEM_BLOCK_BYTES}")
+    _, fold = _check_layout(ring)
+    C = torch.empty((nb, T, S, ring.D), dtype=torch.int32, device=A.device)
+    if C.numel():
+        lib = load_library()
+        ctx, stream = _stream(A.device)
+        with ctx:
+            err = lib.gr_matmul_tower_u32(A.data_ptr(), B.data_ptr(), C.data_ptr(), nb, T, R, S,
+                                          d0, d1, *config, fold, _mask(ring), stream)
+        _check_launch(err, "tower")
+        counters.count("tower")
     return C[0] if squeeze else C

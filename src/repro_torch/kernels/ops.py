@@ -5,23 +5,28 @@ of the port, which all come through :func:`gr_matmul`:
 
 * CPU tensors take the plain PyTorch version (``ref.gr_matmul_ref``);
 * CUDA tensors of a ring inside the envelope (``kernel_supported``) launch
-  one of three hand-written kernels, or raise.  :func:`pick_route` decides
+  one of four hand-written kernels, or raise.  :func:`pick_route` decides
   which, before any launch, from the ring and the shape alone:
-  ``skinny`` for t, r <= 16 (the RMFE packs, encode and decode of a CDMM
-  round), ``tc`` for t, s >= 64 on towers it is instantiated for (the worker
-  products), ``simt`` for everything else;
+  for t, r <= 16 (the RMFE packs, encode and decode of a CDMM round)
+  ``skinny`` where it has an instantiation, else ``tower`` where the
+  lifted A fits a block (t r <= 108 over the (3, 7) tower, t r <= 225 over
+  (3, 5)); ``tc`` for t >= 64 and D1 s >= 64 on the single-level
+  towers with D <= 4 and the two-level towers (2, 3), (3, 5), (3, 7) (the
+  worker products; a tower (D0, D1) is lifted onto GR(2^e, D0)),
+  ``simt`` for everything else (a (3, 7) product with t < 64 and r > 16,
+  say);
 * CUDA tensors of a ring outside it raise ValueError: on the card a ring
   matmul runs on a kernel or not at all (the reference hands such rings to
   XLA, ``repro/kernels/ops.py:66``).  The envelope is the reference's (p = 2,
   e <= 32, D <= 16) plus the towers of ``SIMT_WIDE_TOWERS``.
 
-``tc`` and ``skinny`` come in a few instantiations each; :func:`pick_blocks`
+``tc``, ``skinny`` and ``tower`` come in a few instantiations each; :func:`pick_blocks`
 names the one a launch uses: the caller's, else the tuned entry of
 ``kernels.autotune``'s cache for this (card, ring, shape), else the
 route's default.  ``simt`` keeps its static tile.
 
-``tc`` and ``skinny`` take the interleaved (t, r, D) layout as it is;
-``simt`` takes planar (D, t, r) copies.  The kernels mask ragged edges
+``tc``, ``skinny`` and ``tower`` take the interleaved (t, r, D) layout as
+it is; ``simt`` takes planar (D, t, r) copies.  The kernels mask ragged edges
 themselves (``tc`` pads inside its limb pre-pass), so nothing is padded
 here.
 """
@@ -36,15 +41,19 @@ from .gr_matmul import (
     SIMT_WIDE_TOWERS,
     SKINNY_MAX_R,
     SKINNY_MAX_T,
+    SMEM_BLOCK_BYTES,
     gr_matmul_planar,
     gr_matmul_skinny,
     gr_matmul_tc,
+    gr_matmul_tower,
     kernel_tile,
     skinny_cols,
     skinny_configs,
     tc_configs,
     tc_instantiated,
+    tower_configs,
     tower_shape,
+    tower_smem_bytes,
 )
 from .ref import gr_matmul_ref
 
@@ -74,9 +83,10 @@ def pick_blocks(ring, t: Optional[int] = None, r: Optional[int] = None,
 
     * ``simt``, or no shape given: the static (BM, BN, BK) tile of the
       ring's instantiation;
-    * ``tc`` (bn, stages) and ``skinny`` (threads, cm): the tuned entry
-      of the autotune cache for this card, ring and shape, else the route's
-      default (its first instantiation), None for a tower it has none for.
+    * ``tc`` (bn, stages), ``skinny`` (threads, cm) and ``tower``
+      (threads, tc, cpt): the tuned entry of the autotune cache for this
+      card, ring and shape, else the route's default (its first
+      instantiation), None for a tower it has none for.
 
     ``device``: a torch device, or a device kind (``cuda|<card>``).
     """
@@ -91,7 +101,8 @@ def pick_blocks(ring, t: Optional[int] = None, r: Optional[int] = None,
     tuned = cached_blocks(ring, t, r, s, device, route=route)
     if tuned is not None:
         return tuned
-    configs = (tc_configs if route == "tc" else skinny_configs)(*tower_shape(ring))
+    configs = {"tc": tc_configs, "skinny": skinny_configs,
+               "tower": tower_configs}[route](*tower_shape(ring))
     return configs[0] if configs else None  # the wrapper raises: no instantiation
 
 
@@ -113,9 +124,12 @@ def pick_route(ring, t: int, r: int, s: int) -> str:
     if not kernel_supported(ring):
         return "plain"
     d0, d1 = tower_shape(ring)
-    if 1 <= t <= SKINNY_MAX_T and 1 <= r <= SKINNY_MAX_R and skinny_cols(d0, d1):
-        return "skinny"
-    if t >= TC_MIN_TS and s >= TC_MIN_TS and tc_instantiated(d0, d1):
+    if 1 <= t <= SKINNY_MAX_T and 1 <= r <= SKINNY_MAX_R:
+        if skinny_cols(d0, d1):
+            return "skinny"
+        if tower_configs(d0, d1) and tower_smem_bytes(ring, t, r) <= SMEM_BLOCK_BYTES:
+            return "tower"
+    if t >= TC_MIN_TS and d1 * s >= TC_MIN_TS and tc_instantiated(d0, d1):
         return "tc"
     return "simt"
 
@@ -125,13 +139,15 @@ def run_route(route: str, A: torch.Tensor, B: torch.Tensor, ring, config=None) -
     (b?, r, s, D) -> (b?, t, s, D) with ``config`` (None:
     :func:`pick_blocks`'); raises where the route's kernel does not take
     them."""
-    if route in ("skinny", "tc") and config is None:
+    if route in ("skinny", "tc", "tower") and config is None:
         config = pick_blocks(ring, A.shape[-3], A.shape[-2], B.shape[-2], route=route,
                              device=A.device)
     if route == "skinny":
         return gr_matmul_skinny(A, B, ring, config)
     if route == "tc":
         return gr_matmul_tc(A, B, ring, config)
+    if route == "tower":
+        return gr_matmul_tower(A, B, ring, config)
     if route == "simt":
         Ap = A.movedim(-1, -3).contiguous()
         Bp = B.movedim(-1, -3).contiguous()

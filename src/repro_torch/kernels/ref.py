@@ -22,8 +22,14 @@ __all__ = [
     "gr_matmul_ref",
     "gr_matmul_planar_ref",
     "gr_matmul_limbs_ref",
+    "gr_matmul_tc_ref",
+    "gr_matmul_tower_ref",
+    "lift_b_ref",
     "limb_planes_ref",
+    "mult_matrices_ref",
     "n_limbs",
+    "outer_reduction",
+    "tc_planes_ref",
     "to_i32",
     "u32_to_signed",
 ]
@@ -167,3 +173,103 @@ def gr_matmul_limbs_ref(A: torch.Tensor, B: torch.Tensor, ring) -> torch.Tensor:
     for (c, sh), a in acc.items():
         conv[c] = (conv[c] + (a << (8 * sh))) & _U32
     return _fold(conv, ring).movedim(-3, -1)
+
+
+# -- the tensor-core route over a two-level tower: the outer-level lift --------
+
+
+def outer_reduction(ring):
+    """RED (2 D1 - 1, D1) uint32 of a two-level tower (D0, D1): row k holds
+    the outer variable's x^k reduced by the outer modulus over Z_q.  FOLD is
+    kron(RED, FOLD0) and FOLD0[0, 0] = 1, so RED is FOLD's (c * K0, m * D0)
+    entries (K0 = 2 D0 - 1)."""
+    d0 = ring.degrees[0]
+    return ring.FOLD_U32[:: 2 * d0 - 1, ::d0]
+
+
+def lift_b_ref(B: torch.Tensor, ring) -> torch.Tensor:
+    """Plain version of the ``tc`` route's lift over a two-level tower
+    (D0, D1): B (..., r, s, D0 D1) -> M(B) (..., D1 r, D1 s, D0) int32,
+
+        M(B)[(r, i), (s, m)] = sum_j RED[i + j, m] * B[r, s, j]  (mod 2^32),
+
+    each B[r, s, j] an element of the inner ring GR(2^e, D0).  Then
+    ``A (t, r, D)`` read as ``(t, D1 r, D0)`` times M(B) over the inner
+    ring is A B over the tower, read as ``(t, D1 s, D0)``."""
+    d0, d1 = ring.degrees
+    *lead, r, s, _ = B.shape
+    Bt = B.to(torch.int64).reshape(*lead, r, s, d1, d0)
+    red = torch.tensor([[u32_to_signed(int(v)) for v in row] for row in outer_reduction(ring)],
+                       dtype=torch.int64, device=B.device)
+    M = torch.zeros((*lead, r, d1, s, d1, d0), dtype=torch.int64, device=B.device)
+    for i in range(d1):
+        for j in range(d1):
+            # signed 32-bit lifts of both factors: |product| < 2^62
+            M[..., i, :, :, :] += (Bt[..., j, None, :] * red[i + j][:, None]) & _U32
+    return to_i32(M).reshape(*lead, d1 * r, d1 * s, d0)
+
+
+def _lifted(ring) -> bool:
+    return len(ring.degrees) == 2
+
+
+def tc_planes_ref(A: torch.Tensor, B: torch.Tensor, ring, Tp: int, Rp: int, Sp: int):
+    """Plain version of the ``tc`` route's pre-passes: the limb planes the
+    main kernel reads, A8 (..., D0, L, Tp, Rp) and B8 (..., D0, L, Sp, Rp).
+    A single-level ring splits both operands as they are (D0 = D); a
+    two-level tower splits A read as (t, D1 r, D0) and the lift M(B)."""
+    if not _lifted(ring):
+        return (limb_planes_ref(A, ring, Tp, Rp),
+                limb_planes_ref(B, ring, Sp, Rp, transpose=True))
+    inner = ring.base_ring()
+    d0, d1 = ring.degrees
+    A1 = A.reshape(*A.shape[:-2], d1 * A.shape[-2], d0)
+    return (limb_planes_ref(A1, inner, Tp, Rp),
+            limb_planes_ref(lift_b_ref(B, ring), inner, Sp, Rp, transpose=True))
+
+
+def gr_matmul_tc_ref(A: torch.Tensor, B: torch.Tensor, ring) -> torch.Tensor:
+    """The ``tc`` route's algorithm on the CPU, composed as the route runs
+    it: :func:`gr_matmul_limbs_ref` over the ring itself, or over the inner
+    ring GR(2^e, D0) of a two-level tower on A read as (t, D1 r, D0) and
+    the lift M(B) (:func:`lift_b_ref`), whose (t, D1 s, D0) product is the
+    tower's (t, s, D)."""
+    if not _lifted(ring):
+        return gr_matmul_limbs_ref(A, B, ring)
+    d0, d1 = ring.degrees
+    A1 = A.reshape(*A.shape[:-2], d1 * A.shape[-2], d0)
+    C1 = gr_matmul_limbs_ref(A1, lift_b_ref(B, ring), ring.base_ring())
+    return C1.reshape(*C1.shape[:-2], C1.shape[-2] // d1, ring.D)
+
+
+# -- the tower route: A lifted to its multiplication matrices -------------------
+
+
+def mult_matrices_ref(A: torch.Tensor, ring) -> torch.Tensor:
+    """M(a) (..., D, D) int64 in [0, 2^32) of every element a (..., D):
+    ``M(a)[j, k] = sum_i a_i FOLD[CONVPOS(i, j), k]``, so that
+    ``(a b)_k = sum_j M(a)[j, k] b_j`` (mod 2^32)."""
+    T = torch.tensor([[[u32_to_signed(int(v)) for v in ring.FOLD_U32[c]] for c in row]
+                      for row in ring.CONVPOS], dtype=torch.int64, device=A.device)
+    A64 = A.to(torch.int64)
+    M = torch.zeros(A.shape + (ring.D,), dtype=torch.int64, device=A.device)
+    for i in range(ring.D):
+        M += (A64[..., i, None, None] * T[i]) & _U32
+    return M & _U32
+
+
+def gr_matmul_tower_ref(A: torch.Tensor, B: torch.Tensor, ring) -> torch.Tensor:
+    """Plain version of the ``tower`` route: (..., t, r, D) x (..., r, s, D)
+    -> (..., t, s, D) as ``C[t, s, :] = sum_r M(A[t, r])^T B[r, s, :]``
+    (:func:`mult_matrices_ref`): D^2 word products per (t, r, s), no fold.
+    Only for p = 2, e <= 32."""
+    assert ring.p == 2 and ring.e <= 32, ring
+    M = to_i32(mult_matrices_ref(A, ring)).to(torch.int64)  # (..., t, r, D, D)
+    B64 = B.to(torch.int64)
+    *lead, t, r, _ = A.shape
+    out = torch.zeros((*lead, t, B.shape[-2], ring.D), dtype=torch.int64, device=A.device)
+    for k in range(r):
+        for j in range(ring.D):
+            out += (M[..., :, None, k, j, :] * B64[..., None, k, :, j, None]) & _U32
+    out = to_i32(out)
+    return out & ring._mask if ring._mask is not None else out

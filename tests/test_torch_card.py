@@ -1,5 +1,5 @@
-"""repro_torch on the card: the three CUDA routes of the ring matmul
-(``simt``, ``tc``, ``skinny``) against their plain version, and the main path
+"""repro_torch on the card: the four CUDA routes of the ring matmul
+(``simt``, ``tc``, ``skinny``, ``tower``) against their plain version, and the main path
 through them: ``coded_matmul`` for every family, the elastic backend's
 traced path, the coded int8 matmul, a pool of CUDA worker processes (every
 worker product a ``tc`` launch, read from the workers' heartbeats) and one
@@ -25,29 +25,36 @@ from repro_torch.cdmm import (
 from repro_torch.core import WorkerTrace, make_ring
 from repro_torch.kernels import counters, gr_matmul, gr_matmul_ref, pick_route, run_route
 from repro_torch.kernels.gr_matmul import (
+    PREPASSES,
+    ROUTES,
     SKINNY_CONFIGS,
     TC_CONFIGS,
     gr_matmul_planar,
     gr_matmul_skinny,
     gr_matmul_tc,
+    gr_matmul_tower,
     skinny_cols,
     skinny_configs,
     tc_configs,
     tc_instantiated,
+    tower_configs,
     tower_shape,
 )
 
 pytestmark = pytest.mark.cuda
 
-# (3, 7): D = 21, beyond the reference's envelope, on simt only
+# (3, 7): D = 21, beyond the reference's envelope (simt at every shape, tc
+# by the lift, tower for t, r <= 16 with t r <= 108)
 RING_SPECS = [(2, 32, ()), (2, 32, (3,)), (2, 32, (4,)), (2, 16, (5,)), (2, 8, (2, 3)),
               (2, 32, (16,)), (2, 32, (3, 5)), (2, 32, (3, 7))]
 SHAPES = [(8, 8, 8), (16, 32, 8), (128, 128, 128), (7, 13, 5), (1, 64, 1), (130, 17, 129)]
 # t, s >= 64 and an r across several of the tc route's 64-deep stages; t, r <= 16
-# with ragged s for the skinny route
+# with ragged s for the skinny route, and within the (3, 7) tower's t r <= 108
+# for the tower route
 ROUTE_SHAPES = {"simt": SHAPES, "tc": SHAPES + [(64, 64, 64), (96, 300, 160)],
                 "skinny": [x for x in SHAPES if x[0] <= 16 and x[1] <= 16]
-                + [(8, 2, 4099), (16, 16, 333), (2, 3, 12345)]}
+                + [(8, 2, 4099), (16, 16, 333), (2, 3, 12345)],
+                "tower": [(8, 8, 8), (7, 13, 5), (1, 1, 77), (8, 2, 4099), (2, 3, 12345)]}
 
 
 @pytest.fixture
@@ -69,18 +76,21 @@ def test_kernel_matches_plain(cuda, spec):
             counters.reset()
             out = gr_matmul(A, B, ring)
             route = pick_route(ring, t, r, s)
-            expect = {"simt": 0, "tc": 0, "skinny": 0, "limbs": 2 if route == "tc" else 0}
+            expect = dict.fromkeys(ROUTES + PREPASSES, 0)
             expect[route] = 1
+            if route == "tc":  # one limb pre-pass an operand, or A's and B's lift
+                expect["limbs"], expect["lift"] = (2, 0) if len(ring.degrees) < 2 else (1, 1)
             assert counters.launches_by_route == expect
             assert torch.equal(out, gr_matmul_ref(A, B, ring)), (lead, t, r, s)
 
 
 def _takes(route, ring):
     d0, d1 = tower_shape(ring)
-    return {"simt": True, "tc": tc_instantiated(d0, d1), "skinny": bool(skinny_cols(d0, d1))}[route]
+    return {"simt": True, "tc": tc_instantiated(d0, d1), "skinny": bool(skinny_cols(d0, d1)),
+            "tower": bool(tower_configs(d0, d1))}[route]
 
 
-@pytest.mark.parametrize("route", ["simt", "tc", "skinny"])
+@pytest.mark.parametrize("route", ["simt", "tc", "skinny", "tower"])
 @pytest.mark.parametrize("spec", RING_SPECS, ids=str)
 def test_route_matches_plain(cuda, spec, route):
     ring = make_ring(*spec)
@@ -97,9 +107,10 @@ def test_route_matches_plain(cuda, spec, route):
             assert torch.equal(run_route(route, A, B, ring), gr_matmul_ref(A, B, ring)), (lead, t, r, s)
 
 
-@pytest.mark.parametrize("wrapper", [gr_matmul_tc, gr_matmul_skinny], ids=["tc", "skinny"])
-def test_new_route_wrappers_reject_what_they_do_not_take(cuda, wrapper):
-    ring = make_ring(2, 32, (3,))
+@pytest.mark.parametrize("wrapper,deg", [(gr_matmul_tc, (3,)), (gr_matmul_skinny, (3,)),
+                                         (gr_matmul_tower, (3, 7))], ids=["tc", "skinny", "tower"])
+def test_new_route_wrappers_reject_what_they_do_not_take(cuda, wrapper, deg):
+    ring = make_ring(2, 32, deg)
     A = ring.random(np.random.default_rng(0), (8, 8), device=cuda)
     with pytest.raises(ValueError, match="contiguous"):
         wrapper(A.transpose(0, 1), A, ring)
@@ -171,7 +182,8 @@ def test_elastic_traced_path_on_the_card(cuda):
     eb.drain()  # dead and slow workers compute too, after the decode
     # per dispatched worker (all 8 join at 0): phi(A), encode_a_at, phi(B),
     # encode_b_at on skinny and one tc product; then decode and psi
-    assert counters.launches_by_route == {"simt": 0, "tc": 8, "skinny": 34, "limbs": 16}
+    assert counters.launches_by_route == {"simt": 0, "tc": 8, "skinny": 34, "tower": 0,
+                                          "limbs": 16, "lift": 0}
     assert eb.last_stats.live_idx == (0, 4, 6, 7)
     direct = torch.stack([Z.matmul(A[i], B[i]) for i in range(2)])
     assert torch.equal(C, direct)
@@ -199,7 +211,7 @@ def test_coded_quant_matmul_on_the_card(cuda):
 
 
 def _summed(by_wid):
-    out = {"simt": 0, "tc": 0, "skinny": 0, "limbs": 0}
+    out = dict.fromkeys(ROUTES + PREPASSES, 0)
     for counts in by_wid.values():
         for route, n in counts.items():
             out[route] += n
@@ -226,9 +238,9 @@ def test_pool_of_cuda_workers_runs_every_product_on_a_kernel(cuda):
         master = dict(counters.launches_by_route)
         after = _summed(pool.master.worker_launches())
     workers = {k: after[k] - before[k] for k in after}
-    assert workers == {"simt": 0, "tc": 8, "skinny": 0, "limbs": 16}
+    assert workers == {"simt": 0, "tc": 8, "skinny": 0, "tower": 0, "limbs": 16, "lift": 0}
     # per share phi(A), encode_a_at, phi(B), encode_b_at; then decode and psi
-    assert master == {"simt": 0, "tc": 0, "skinny": 34, "limbs": 0}
+    assert master == {"simt": 0, "tc": 0, "skinny": 34, "tower": 0, "limbs": 0, "lift": 0}
     assert torch.equal(C, coded_matmul(A, B, scheme, backend="local"))
     assert torch.equal(C, torch.stack([gr_matmul_ref(A[i], B[i], Z) for i in range(2)]))
 

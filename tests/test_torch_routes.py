@@ -31,16 +31,23 @@ from repro_torch.kernels.gr_matmul import (
     TC_BM,
     TC_CONFIGS,
     TC_DEPTH,
+    TC_LIFT_TOWERS,
     TC_PAD,
+    TOWER_CONFIGS,
     gr_matmul_skinny,
     gr_matmul_tc,
+    gr_matmul_tower,
     simt_instantiated,
     skinny_cols,
+    tc_configs,
     tc_instantiated,
     tc_limbs,
     tc_padded,
+    tc_shape,
     tc_smem_bytes,
     tc_tile,
+    tower_configs,
+    tower_smem_bytes,
 )
 from repro_torch.kernels.ref import limb_planes_ref, n_limbs
 
@@ -173,10 +180,23 @@ ROUTE_CASES = [
     ((3,), 63, 2048, 1024, "simt"),
     ((3,), 1024, 2048, 63, "simt"),
     ((5,), 1024, 2048, 1024, "simt"),   # no tc instantiation for D = 5
-    ((3, 5), 4, 4, 1048576, "simt"),    # no skinny instantiation for (3, 5)
+    ((3, 5), 4, 4, 1048576, "tower"),   # no skinny instantiation for (3, 5)
     ((17,), 4, 4, 1048576, "plain"),    # D > MAX_D: outside the envelope
-    ((3, 7), 512, 1024, 256, "simt"),   # D = 21: simt's widened envelope
-    ((3, 7), 8, 2, 131072, "simt"),     # no skinny instantiation for D = 21
+    # D = 21: the worker product lifted onto GR(2^32, 3), the encodes and
+    # the decode of ElasticStream's step on the tower kernel
+    ((3, 7), 512, 1024, 256, "tc"),
+    ((3, 7), 8, 2, 131072, "tower"),
+    ((3, 7), 8, 4, 262144, "tower"),
+    ((3, 7), 8, 8, 131072, "tower"),
+    ((3, 7), 12, 9, 1000, "tower"),     # t r = 108: the lifted A still fits a block
+    ((3, 7), 16, 16, 100, "simt"),      # t r = 256: it does not
+    ((3, 7), 32, 20, 4096, "simt"),     # t < 64 and r > 16
+    ((3, 7), 64, 1024, 10, "tc"),       # D1 s = 70 >= 64
+    ((3, 7), 64, 1024, 9, "simt"),      # D1 s = 63
+    ((2, 3), 1024, 2048, 1024, "tc"),   # lifted onto GR(2^32, 2)
+    ((3, 4), 1024, 2048, 1024, "simt"),  # no lift for (3, 4)
+    ((5, 3), 1024, 2048, 1024, "simt"),  # inner degree 5: no tc instantiation
+    ((5, 3), 4, 4, 1048576, "tower"),
 ]
 
 
@@ -206,11 +226,19 @@ def test_instantiation_mirrors_match_the_sources():
     assert len(towers) == 27
     assert [t for t in towers if t[0] * t[1] > MAX_D] == list(SIMT_WIDE_TOWERS)
     assert all(simt_instantiated(*t) for t in towers) and not simt_instantiated(17, 1)
-    # the tc instantiations (tower, tile width, stages), default first; the
-    # skinny ones: every tower's default plus SKINNY_EXTRA
+    # the tc instantiations (tower, tile width, stages), default first, and
+    # the two-level towers lifted onto their inner ring's; the skinny ones:
+    # every tower's default plus SKINNY_EXTRA
     tc = _configs("gr_matmul_tc.cu", "TC_CONFIGS")
-    assert sorted({c[:2] for c in tc}) == [t for t in towers if tc_instantiated(*t)]
+    assert sorted({c[:2] for c in tc}) == sorted(TC_CONFIGS)
+    assert _towers("gr_matmul_tc.cu", "TC_LIFT_TOWERS") == sorted(TC_LIFT_TOWERS)
+    assert [t for t in towers if tc_instantiated(*t)] == sorted({*TC_CONFIGS, *TC_LIFT_TOWERS})
+    assert all(t[1] > 1 and (t[0], 1) in TC_CONFIGS for t in TC_LIFT_TOWERS)
     assert {t: tuple(c[2:] for c in tc if c[:2] == t) for t in TC_CONFIGS} == TC_CONFIGS
+    # the tower kernel: every simt tower without a skinny instantiation
+    tower = _configs("gr_matmul_tower.cu", "TOWER_CONFIGS")
+    assert sorted({c[:2] for c in tower}) == [t for t in towers if not skinny_cols(*t)]
+    assert {t: tuple(c[2:] for c in tower if c[:2] == t) for t in TOWER_CONFIGS} == TOWER_CONFIGS
     assert _towers("gr_matmul_skinny.cu", "SKINNY_TOWERS") == [t for t in towers if skinny_cols(*t)]
     extra = _configs("gr_matmul_skinny.cu", "SKINNY_EXTRA")
     assert {t: (SKINNY_DEFAULT,) + tuple(c[2:] for c in extra if c[:2] == t)
@@ -225,7 +253,7 @@ def test_route_wrappers_take_cuda_tensors_only():
     ring = make_ring(2, 32, (3,))
     A = ring.random(np.random.default_rng(0), (4, 4), device="cpu")
     counters.reset()
-    for wrapper in (gr_matmul_tc, gr_matmul_skinny, tc_limbs):
+    for wrapper in (gr_matmul_tc, gr_matmul_skinny, gr_matmul_tower, tc_limbs):
         with pytest.raises(ValueError, match="CUDA"):
             wrapper(A, A, ring)
     assert counters.launches == 0 and not any(counters.launches_by_route.values())
@@ -257,3 +285,29 @@ def test_counters_and_layout_cache_are_safe_under_concurrent_callers():
     assert counters.launches_by_route["limbs"] == 16 * 2000
     assert all(x is layouts[0] for x in layouts)
     counters.reset()
+
+
+@pytest.mark.parametrize("deg", sorted(TC_LIFT_TOWERS), ids=str)
+def test_lifted_towers_run_their_inner_rings_tc_kernel(deg):
+    # the main kernel's instantiation, shared memory and padding are the
+    # inner ring's, at the lifted depth and width
+    ring = make_ring(2, 32, deg)
+    inner = make_ring(2, 32, deg[:1])
+    assert tc_instantiated(*deg) and tc_configs(*deg) == TC_CONFIGS[(deg[0], 1)]
+    for config in tc_configs(*deg):
+        assert tc_smem_bytes(ring, config) == tc_smem_bytes(inner, config)
+    assert tc_shape(ring, 512, 1024, 256) == (deg[0], 512, deg[1] * 1024, deg[1] * 256)
+
+
+def test_tower_kernel_fits_its_instantiations():
+    # the lifted A (t r D x DP words, DP = D rounded up to 4), FOLD and A;
+    # every instantiation within the register file
+    from repro_torch.kernels import autotune as at
+
+    ring = make_ring(2, 32, (3, 7))
+    assert tower_smem_bytes(ring, 8, 8) == 4 * (64 * 21 * 24 + 65 * 21 + 64 * 21) == 139860
+    assert tower_smem_bytes(ring, 12, 9) <= 227 * 1024 < tower_smem_bytes(ring, 16, 7)
+    for tower, configs in TOWER_CONFIGS.items():
+        r = make_ring(2, 32, tower if tower[1] > 1 else tower[:1])
+        assert tower_configs(*tower) == configs
+        assert all(at.fits_budget("tower", r, c) for c in configs), tower
