@@ -15,14 +15,17 @@ Phases (any mismatch fails the run with a non-zero exit):
    ``tc`` kernel's shared memory per tile and L (a lifted tower's too) and
    the ``tower`` kernel's per (t, r) held against the library;
 2. every route of ``gr_matmul`` (``simt``, ``tc``, ``skinny``, ``tower``)
-   and the tc route's pre-passes (limb planes, a two-level tower's lift)
+   and the tc route's pre-passes (limb planes, a lifted ring's lift)
    against their plain PyTorch versions on the card, bit for bit, on nine
    rings (K up to 65: the (3, 7) tower, D = 21, at e = 32 and 31) at the
    shapes each route takes (``tc`` and ``tower`` at every instantiation of
-   the ring's tower), batched and unbatched; the ``tc`` accumulators'
+   the ring's tower), batched and unbatched; ``tc`` on every ring it lifts
+   (``LIFT_SPECS``: GR(2^32, D) for D = 5..16 and the towers (3, 4), (4, 3),
+   (2, 5), (2, 7), (3, 2)); the widened ``skinny`` at t = 64 and r = 32
+   (``SKINNY_WIDE_SHAPES``, ragged s); the ``tc`` accumulators'
    overflow rule (all-0xFF operands, chains past 2^31 and 2^32, the lifted
-   (3, 7) chain among them, every instantiation; printed as
-   ``tc_accumulate: wraps``, and the run fails if they saturate);
+   (3, 7), (3, 4) and D = 6 chains among them, every instantiation; printed
+   as ``tc_accumulate: wraps``, and the run fails if they saturate);
    ``ElasticStream``'s step over the (3, 7) tower (three ``tower`` calls
    and the lifted ``tc`` worker product) at every instantiation and on
    ``simt``; and at every shape the main path hands the
@@ -38,8 +41,14 @@ Phases (any mismatch fails the run with a non-zero exit):
    96^3; then the GCSA and secure families over GR(2^32, 4) through
    ``plan(spec, schemes=[name])``: ``gcsa`` (n = 2) and ``ep_rmfe_secure``
    (n = 2, privacy_t = 1) at 2048^3, ``ep_secure`` (privacy_t = 1) and
-   ``gcsa_general`` (n = 4) at 1024^3.  Every output must equal the direct
-   product computed by the plain version.  Launch counts per route are
+   ``gcsa_general`` (n = 4) at 1024^3; then the planner's wider rings
+   (``WIDE_PATHS``, each the best plan of ``plan(spec, calibration=False)``,
+   its ring, partition and R asserted, with non-prefix dead workers):
+   ``batch_ep_rmfe_n4`` (n = 4, N = 16, 2048^3, GR(2^32, (3, 4))),
+   ``batch_ep_rmfe_n64`` (n = 2, N = 64, 2048^3, GR(2^32, 6)) and
+   ``ep_secure_n16`` (keyed, N = 16, 1024^3, GR(2^32, 5)), each with its
+   worker product on the lifted ``tc`` and no ``simt`` launch.  Every
+   output must equal the direct product computed by the plain version.  Launch counts per route are
    zeroed before each path, read after it and held against the expected
    ones.  Stage device times are kept per run (5 warm runs each).  For the
    secure paths the keyed encode is checked on the card: a worker's own
@@ -49,12 +58,15 @@ Phases (any mismatch fails the run with a non-zero exit):
 4. every route at every distinct (ring, shape) that phases 3 and 5-9
    handed it, recorded as the paths ran (the pool workers' products from
    the plan), against the plain version on fresh operands of that shape,
-   bit for bit (all batch slices of a worker launch included); the shapes
-   of the GR(2^32, 4) paths, of ep's 96^3 request and of phases 5-9 are
-   also timed as phase 2 times the main path's: the route in turns with ``simt`` from CUDA
-   graphs, beside its byte, int8 and INT32 bounds, the plain version and,
-   for ``tc``, its pre-passes (the lift alone over the (3, 7) tower) and the
-   int8 yardstick.  It runs last, once phases 5-9 have recorded;
+   bit for bit (all batch slices of a worker launch included; a call past
+   ``PLAIN_WORDS_CAP`` word products against the plain version on its
+   first batch entry and against ``simt`` on all); the shapes
+   of the GR(2^32, 4) paths, of the wider-ring paths, of ep's 96^3 request
+   and of phases 5-9 are also timed as phase 2 times the main path's: the
+   route in turns with ``simt`` from CUDA graphs, beside its byte, int8
+   and INT32 bounds, the plain version and, for ``tc``, its pre-passes
+   (the lift alone over a lifted ring) and the int8 yardstick.  It runs
+   last, once phases 5-9 have recorded;
 5. the elastic any-R master (``coded_matmul(..., backend=ElasticBackend)``)
    on ``batch_ep_rmfe`` at 2048^3: (a) the all-live fast path, equal to
    ``local`` with ``local``'s launches; (b) the traced event loop under a
@@ -243,6 +255,16 @@ EXPECTED_LAUNCHES = {
     "stream_24": _launches(simt=0, tc=3, skinny=9, limbs=6),
     # CodedQuantMatmul: one ep_rmfe1 round (N = 16, GR(2^32, 4))
     "quantized": _launches(simt=0, tc=1, skinny=6, limbs=2),
+    # the planner's wider rings (WIDE_PATHS): every worker product on tc
+    # through the lift (A's limb pre-pass and B's lift), every encode,
+    # decode and pack on skinny, no simt launch.  n = 4 over GR(2^32, (3, 4)):
+    # phi and psi in two levels (over Z_2^32, then GR(2^32, 3)) for A and B
+    "batch_ep_rmfe_n4": _launches(simt=0, tc=1, skinny=9, limbs=1, lift=1),
+    # n = 2 for 64 workers over GR(2^32, 6): 64-row encodes, a 32 x 32 decode
+    "batch_ep_rmfe_n64": _launches(simt=0, tc=1, skinny=6, limbs=1, lift=1),
+    # keyed, 16 workers over GR(2^32, 5): encode a/b (k = 3 with the mask
+    # row) and the 4 x 9 decode
+    "ep_secure_n16": _launches(simt=0, tc=1, skinny=3, limbs=1, lift=1),
 }
 # phases 8-9, the worker pool: this process (the master) encodes each of the
 # 8 shares on its own (phi(A), encode_a_at, phi(B), encode_b_at on skinny,
@@ -266,6 +288,22 @@ SERVE_POLICY = {"target_batch_n": 4, "max_wait_ms": 50.0}
 SLICE3_PATHS = [("gcsa", 2, MAIN_SIZE, 0), ("ep_rmfe_secure", 2, MAIN_SIZE, 1),
                 ("ep_secure", 1, SINGLE_SIZE, 1), ("gcsa_general", 4, SINGLE_SIZE, 0)]
 KEY = 20251017  # the secure paths' mask key; KEY + 1 is the second key
+# the planner's wider rings, each its best plan under the analytic cost
+# model (plan(spec, calibration=False)), with non-prefix dead workers:
+# (path, family, n, N, straggler budget, privacy_t, size, the plan's
+# (ring degrees, (u, v, w), R), dead workers)
+WIDE_PATHS = [
+    ("batch_ep_rmfe_n4", "batch_ep_rmfe", 4, 16, 4, 0, MAIN_SIZE, ((3, 4), (2, 4, 1), 8),
+     (1, 4, 9, 14)),
+    ("batch_ep_rmfe_n64", "batch_ep_rmfe", 2, 64, 16, 0, MAIN_SIZE, ((6,), (4, 8, 1), 32),
+     tuple(range(1, 64, 4))),
+    ("ep_secure_n16", "ep_secure", 1, 16, 4, 1, SINGLE_SIZE, ((5,), (2, 2, 1), 9),
+     (2, 5, 11, 13)),
+]
+# phase 4 holds a call whose plain version needs more word products than
+# this (b t r s D^2) on its first batch entry, and the route against simt
+# on every entry: the (3, 4) worker product is 2.47e12 of them
+PLAIN_WORDS_CAP = 5e11
 # the elastic trace: workers 1 and 3 slow, 2 and 5 dead (MASK); the R = 4
 # fastest responders are (0, 4, 6, 7), not the first R live (0, 1, 3, 4)
 TRACE_COMPUTE_MS = [1, 50, 1, 40, 1, 1, 1, 1]
@@ -285,12 +323,22 @@ SLICE4_PATHS = ("elastic_all_live", "elastic_traced", "elastic_race", "elastic_s
                 "stream_16", "stream_9", "stream_24", "quantized")
 RING_SPECS = [(2, 32, ()), (2, 32, (3,)), (2, 32, (4,)), (2, 16, (5,)), (2, 8, (2, 3)),
               (2, 32, (16,)), (2, 32, (3, 5)), (2, 32, (3, 7)), (2, 31, (3, 7))]
+# the rings the tc route lifts since the planner's wider rings moved off
+# simt: every single-level D = 5..16 as (1, D) and five two-level towers;
+# each held at TC_SHAPES at every instantiation, and (3, 4), D = 6 at e = 31
+LIFT_SPECS = ([(2, 32, (d,)) for d in range(5, 17)]
+              + [(2, 32, t) for t in ((3, 4), (4, 3), (2, 5), (2, 7), (3, 2))]
+              + [(2, 31, (6,)), (2, 31, (3, 4))])
 # the shapes of tests/test_kernels.py, then extra shapes for the new routes:
 # t, s >= 64 and an r that runs several times round the tc route's ring of
 # 64-deep stages; and t, r <= 16 with ragged s for the skinny route
 SHAPES = [(8, 8, 8), (16, 32, 8), (128, 128, 128), (7, 13, 5), (1, 64, 1), (130, 17, 129)]
 TC_SHAPES = [(64, 64, 64), (96, 300, 160), (70, 520, 97)]
 SKINNY_SHAPES = [(8, 2, 4099), (16, 16, 333), (4, 4, 1000), (2, 3, 12345)]
+# the widened skinny route: 64-row encodes, 32 x 32 decodes, both edges at
+# once, ragged s; over the skinny rings of RING_SPECS and WIDE_SKINNY_SPECS
+SKINNY_WIDE_SHAPES = [(64, 8, 4099), (32, 32, 333), (64, 32, 1001), (17, 3, 12345)]
+WIDE_SKINNY_SPECS = [(2, 32, (6,)), (2, 32, (7,)), (2, 32, (12,)), (2, 32, (3, 4))]
 # the tower route: ragged columns (odd s: no 16-byte rows), t r at the
 # (3, 7) tower's shared-memory limit of 108, a single element
 TOWER_SHAPES = [(8, 8, 4099), (12, 9, 1001), (1, 1, 77), (8, 2, 4100)]
@@ -317,9 +365,13 @@ def u32(x):
 
 
 def max_abs_err(a, b) -> int:
+    import torch
+
     if a.shape != b.shape:
         fail(f"shape {tuple(a.shape)} != {tuple(b.shape)}")
-    return int((u32(a) - u32(b)).abs().max().item()) if a.numel() else 0
+    if a.numel() == 0 or (a.dtype == b.dtype and torch.equal(a, b)):
+        return 0  # without the int64 copies (gigabytes at the lifted worker shapes)
+    return int((u32(a) - u32(b)).abs().max().item())
 
 
 def cuda_ms(fn, iters: int = 1, warmup: int = 0) -> float:
@@ -398,6 +450,8 @@ def phase_env_build(report: dict) -> None:
         kernel_tile,
         skinny_cols,
         skinny_configs,
+        skinny_block,
+        skinny_smem_bytes,
         tc_configs,
         tc_instantiated,
         tc_smem_bytes,
@@ -437,12 +491,13 @@ def phase_env_build(report: dict) -> None:
         for line in (ROOT / "build" / "kernels" / "gr_matmul_tc.ptxas.txt").read_text().splitlines()
         if "warning" in line.lower()})
     log(f"ptxas tc warnings: {report['ptxas_tc_warnings']}")
-    for route in ("tower", "lift"):  # this slice's kernels
+    for route in ("lift", "skinny", "tower"):  # the kernels of this slice and the last
         log(f"ptxas {route}: " + json.dumps({k: v for k, v in usage.items()
                                             if k.startswith(route + "(")}))
-    spills = {k: v for k, v in usage.items() if k.startswith(("tower(", "lift("))
-              and (v.get("spill_st") or v.get("spill_ld"))}
-    report["ptxas_new_spills"] = spills
+    spills = {k: v for k, v in usage.items() if v.get("spill_st") or v.get("spill_ld")}
+    report["ptxas_spills"] = spills
+    if spills:
+        fail(f"ptxas reports spills: {spills}")
     # the library's own tile and instantiation choices must match the mirrors
     for spec in RING_SPECS:
         ring = make_ring(*spec)
@@ -470,6 +525,16 @@ def phase_env_build(report: dict) -> None:
         cols = lib.gr_matmul_skinny_cols(d0, d1)
         if (cols if cols > 0 else None) != skinny_cols(d0, d1):
             fail(f"skinny mirror {skinny_cols(d0, d1)} != library {cols} for tower {(d0, d1)}")
+        for config in skinny_configs(d0, d1):  # the block's threads and shared memory
+            ring = make_ring(2, 32, degrees)
+            for t, r in ((1, 1), (8, 2), (16, 16), (64, 8), (32, 32), (64, 32)):
+                threads, groups = ctypes.c_int(), ctypes.c_int()
+                lib_smem = lib.gr_matmul_skinny_smem(d0, d1, *config, t, r, threads, groups)
+                got = (lib_smem, threads.value, groups.value)
+                want = (skinny_smem_bytes(ring, t, r, config), *skinny_block(ring, t, r, config))
+                if got != want:
+                    fail(f"skinny shared-memory mirror {want} != library {got} for tower "
+                         f"{(d0, d1)} {config} at t={t}, r={r}")
         if library_configs("skinny", d0, d1) != skinny_configs(d0, d1):
             fail(f"skinny mirror {skinny_configs(d0, d1)} != library "
                  f"{library_configs('skinny', d0, d1)} for tower {(d0, d1)}")
@@ -520,31 +585,6 @@ def _main_path_shapes():
     }
 
 
-def _accepts(route: str, ring, t: int, r: int) -> bool:
-    """Whether ``route``'s kernel takes a (t, r) x (r, s) matmul over ``ring``."""
-    from repro_torch.kernels.gr_matmul import (
-        SKINNY_MAX_R,
-        SKINNY_MAX_T,
-        SMEM_BLOCK_BYTES,
-        skinny_cols,
-        tc_instantiated,
-        tower_configs,
-        tower_shape,
-        tower_smem_bytes,
-    )
-
-    d0, d1 = tower_shape(ring)
-    small = 1 <= t <= SKINNY_MAX_T and 1 <= r <= SKINNY_MAX_R
-    if route == "tc":
-        return tc_instantiated(d0, d1)
-    if route == "skinny":
-        return bool(skinny_cols(d0, d1)) and small
-    if route == "tower":
-        return (bool(tower_configs(d0, d1)) and small
-                and tower_smem_bytes(ring, t, r) <= SMEM_BLOCK_BYTES)
-    return True
-
-
 def _bounds(ring, b, t, r, s, fold=True):
     """(bytes_ms, int8_ms, int32_ms): the byte bound (interleaved int32
     operands read once, result written once) and the operation bounds of the
@@ -581,12 +621,15 @@ def _int8_yardstick_ms(ring, b, t, r, s):
     return one * n, f"{n} x torch._int_mm ({t}x{r} @ {r}x{s}) at {one:.4f} ms each"
 
 
-def _hold(route, ring, A, B, worst: dict, what: str, plain=None, every_config=False) -> None:
+def _hold(route, ring, A, B, worst: dict, what: str, plain=None, every_config=False,
+          first=False, planes_first=False) -> None:
     """Hold ``route`` on (A, B) against the plain version, bit for bit (with
     ``every_config``, each tc or tower instantiation of the ring's tower),
-    and for ``tc`` its pre-passes (A's limb planes; B's, or over a
-    two-level tower B's lift) against their plain version; the worst error
-    of each goes into ``worst``."""
+    and for ``tc`` its pre-passes (A's limb planes; B's, or over a lifted
+    ring B's lift) against their plain version; the worst error of each
+    goes into ``worst``.  With ``first``, ``plain`` is the product of the
+    first batch entry only; with ``first`` or ``planes_first``, so are the
+    pre-passes' plain versions (``PLAIN_WORDS_CAP``)."""
     from repro_torch.kernels import gr_matmul_ref, run_route
     from repro_torch.kernels.gr_matmul import (
         tc_configs,
@@ -596,7 +639,7 @@ def _hold(route, ring, A, B, worst: dict, what: str, plain=None, every_config=Fa
         tower_configs,
         tower_shape,
     )
-    from repro_torch.kernels.ref import tc_planes_ref
+    from repro_torch.kernels.ref import tc_lifted, tc_planes_ref
 
     shape = f"{tuple(A.shape[:-1])} x {tuple(B.shape[:-1])}"
     if plain is None:
@@ -604,30 +647,42 @@ def _hold(route, ring, A, B, worst: dict, what: str, plain=None, every_config=Fa
     instantiations = {"tc": tc_configs, "tower": tower_configs}.get(route)
     configs = instantiations(*tower_shape(ring)) if instantiations and every_config else (None,)
     for config in configs:
-        err = max_abs_err(run_route(route, A, B, ring, config), plain)
+        out = run_route(route, A, B, ring, config)
+        err = max_abs_err(out[:1] if first else out, plain)
         worst[route] = max(worst[route], err)
         if err:
             fail(f"{route} {config or ''} != plain on {ring} at {shape}{what}: max abs err {err}")
+        del out
     if route == "tc":
         _, T, R1, S1 = tc_shape(ring, A.shape[-3], A.shape[-2], B.shape[-2])
         A8, B8 = tc_limbs(A, B, ring)
         A3, B3 = (A, B) if A.dim() == 4 else (A[None], B[None])
+        if first or planes_first:
+            A8, B8, A3, B3 = A8[:1], B8[:1], A3[:1], B3[:1]
         want_a, want_b = tc_planes_ref(A3, B3, ring, *tc_padded(T, R1, S1))
-        b_pass = "lift" if len(ring.degrees) == 2 else "limbs"
+        b_pass = "lift" if tc_lifted(ring) else "limbs"
         for name, err in (("limbs", max_abs_err(A8, want_a)), (b_pass, max_abs_err(B8, want_b))):
             worst[name] = max(worst[name], err)
             if err:
                 fail(f"{name} pre-pass != plain on {ring} at {shape}{what}: max abs err {err}")
 
 
-def _timing_row(ring, A, B, route: str, plain_ms: float) -> dict:
+def _timing_row(ring, A, B, route: str, plain_ms: float, plain_batch=None) -> dict:
     """Time ``route`` on (A, B) in turns with ``simt`` (simt, route, route,
     simt; replayed from CUDA graphs), eagerly and on the host, beside its
-    bounds; for ``tc`` also its pre-passes (over a two-level tower the lift
-    alone too) and the int8 yardstick; for ``tower`` its own plain version."""
+    bounds; for ``tc`` also its pre-passes (over a lifted ring the lift
+    alone too) and the int8 yardstick; for ``tower`` its own plain version.
+    ``plain_batch``: the batch entries ``plain_ms`` covers (None: all); the
+    pre-passes' plain versions are timed on as many."""
     from repro_torch.kernels import gr_matmul_tower_ref, run_route
     from repro_torch.kernels.gr_matmul import tc_lift, tc_limbs, tc_padded, tc_shape
-    from repro_torch.kernels.ref import lift_b_ref, limb_planes_ref, n_limbs, tc_planes_ref
+    from repro_torch.kernels.ref import (
+        lift_b_ref,
+        limb_planes_ref,
+        n_limbs,
+        tc_lifted,
+        tc_planes_ref,
+    )
 
     lead = A.dim() == 4
     b = A.shape[0] if lead else 1
@@ -640,7 +695,7 @@ def _timing_row(ring, A, B, route: str, plain_ms: float) -> dict:
     row = {
         "route": route, "ms": sum(route_ms) / len(route_ms),
         "simt_ms": sum(simt_ms) / len(simt_ms), "turns": turns,
-        "plain_ms": plain_ms,
+        "plain_ms": plain_ms, "plain_batch": plain_batch or b,
         # launched from Python in a loop: bounded below by the host time
         "eager_ms": cuda_ms(lambda: run_route(route, A, B, ring), iters=10, warmup=2),
         "host_us": host_us(lambda: run_route(route, A, B, ring)),
@@ -659,8 +714,9 @@ def _timing_row(ring, A, B, route: str, plain_ms: float) -> dict:
         limb_bytes = 4 * ring.D * b * (t * r + r * s) + b * d0 * L * (Tp + Sp) * Rp
         row["limbs_bound_ms"] = 1e3 * limb_bytes / HBM_BYTES_PER_S
         A3, B3 = (A, B) if lead else (A[None], B[None])
+        A3, B3 = A3[:plain_batch], B3[:plain_batch]
         row["limbs_plain_ms"] = cuda_ms(lambda: tc_planes_ref(A3, B3, ring, Tp, Rp, Sp))
-        if len(ring.degrees) == 2:  # the lift alone: B in, the planes of M(B) out
+        if tc_lifted(ring):  # the lift alone: B in, the planes of M(B) out
             row["lift_ms"] = graph_ms(lambda: tc_lift(B, ring))
             row["lift_bound_ms"] = 1e3 * (4 * ring.D * b * r * s + b * d0 * L * Sp * Rp) / HBM_BYTES_PER_S
             inner = ring.base_ring()
@@ -676,9 +732,11 @@ def _timing_row(ring, A, B, route: str, plain_ms: float) -> dict:
 # chains 12 (D = 3) or 16 (D = 4) byte products of 255^2 per element of r,
 # so these r take a chain past 2^31 (and at 4160 and 8192 past 2^32); over
 # the (3, 7) tower the lifted chain (all-0xFF A against the lift of an
-# all-0xFF B, D1 r = 7 r deep) passes 2^31 at r = 512 and 2^32 at 1024
+# all-0xFF B, D1 r = 7 r deep) passes 2^31 at r = 512 and 2^32 at 1024;
+# over GR(2^32, 6) (1300500 an element of r) at 1800 and 3400, over the
+# (3, 4) tower (2340900) at 1000 and 1900
 WRAP_CASES = [((3,), 2816), ((3,), 8192), ((4,), 2112), ((4,), 4160), ((3, 7), 512),
-              ((3, 7), 1024)]
+              ((3, 7), 1024), ((6,), 1800), ((6,), 3400), ((3, 4), 1000), ((3, 4), 1900)]
 
 
 def _tc_wrap_check(worst: dict) -> str:
@@ -713,6 +771,7 @@ def phase_kernels(report: dict) -> dict:
 
     from repro_torch.core import make_ring
     from repro_torch.kernels import gr_matmul_ref, pick_route
+    from repro_torch.kernels.ops import route_takes
 
     rng = np.random.default_rng(SEED)
     worst = dict.fromkeys(COUNTED, 0)
@@ -727,7 +786,7 @@ def phase_kernels(report: dict) -> dict:
         ring = make_ring(*spec)
         for route in ROUTES:
             extra = {"tc": TC_SHAPES, "skinny": SKINNY_SHAPES, "tower": TOWER_SHAPES}.get(route, [])
-            shapes = [x for x in SHAPES + extra if _accepts(route, ring, x[0], x[1])]
+            shapes = [x for x in SHAPES + extra if route_takes(route, ring, x[0], x[1])]
             if not shapes:
                 continue
             for t, r, s in shapes:
@@ -735,6 +794,23 @@ def phase_kernels(report: dict) -> dict:
             nb, t, r, s = BATCHED[route]
             check(route, ring, (nb,), t, r, s, " (batched)")
             checked[route].append(f"{ring.degrees}:K={ring.K}:{len(shapes) + 1} shapes")
+    # every ring the tc route lifts, at every instantiation of its inner
+    # ring, and the widened skinny route at its new t and r
+    for spec in LIFT_SPECS:
+        ring = make_ring(*spec)
+        for t, r, s in TC_SHAPES:
+            check("tc", ring, (), t, r, s, " (lifted)")
+        nb, t, r, s = BATCHED["tc"]
+        check("tc", ring, (nb,), t, r, s, " (lifted, batched)")
+        checked["tc"].append(f"lifted {ring.degrees} e={ring.e}:{len(TC_SHAPES) + 1} shapes")
+    for spec in RING_SPECS + WIDE_SKINNY_SPECS:
+        ring = make_ring(*spec)
+        shapes = [x for x in SKINNY_WIDE_SHAPES if route_takes("skinny", ring, x[0], x[1])]
+        for t, r, s in shapes:
+            check("skinny", ring, (), t, r, s, " (widened)")
+        if shapes and route_takes("skinny", ring, 64, 32):
+            check("skinny", ring, (2,), 64, 32, 77, " (widened, batched)")
+            checked["skinny"].append(f"widened {ring.degrees}:{len(shapes) + 1} shapes")
     for route in ROUTES:
         log(f"{route} == plain: {checked[route]}")
     report["tc_accumulate"] = _tc_wrap_check(worst)
@@ -781,14 +857,18 @@ def phase_kernels(report: dict) -> dict:
     return timings
 
 
-# shapes at the edges of the dispatch rule (ops.pick_route), over GR(2^32, 3):
-# (batch, t, r, s); every route whose kernel takes the shape is timed
+# shapes at the edges of the dispatch rule (ops.pick_route): (ring degrees,
+# batch, t, r, s); every route whose kernel takes the shape is timed
 EDGE_SHAPES = {
-    "skinny_t16": (None, 16, 16, 1 << 16),
-    "simt_t17": (None, 17, 2, 1 << 20),
-    "simt_t48": (8, 48, 96, 32),           # the worker product of ep at 96^3
-    "tc_t64": (8, 64, 1024, 64),
-    "tc_t128": (8, 128, 512, 128),
+    "skinny_t16": ((3,), None, 16, 16, 1 << 16),
+    "skinny_t17": ((3,), None, 17, 2, 1 << 20),  # simt's until skinny took t <= 64
+    "simt_t48": ((3,), 8, 48, 96, 32),           # the worker product of ep at 96^3
+    "tc_t64": ((3,), 8, 64, 1024, 64),
+    "tc_t128": ((3,), 8, 128, 512, 128),
+    # 64 workers over GR(2^32, 6): encode a, where skinny and the lifted tc
+    # both take t = 64, and the 32 x 32 decode
+    "skinny_t64": ((6,), None, 64, 4, 1 << 20),
+    "skinny_r32": ((6,), None, 32, 32, 1 << 17),
 }
 
 
@@ -798,14 +878,15 @@ def _threshold_timings(rng, worst: dict) -> dict:
     thresholds of ops.pick_route rest on this run's numbers."""
     from repro_torch.core import make_ring
     from repro_torch.kernels import gr_matmul_ref, pick_route, run_route
+    from repro_torch.kernels.ops import route_takes
 
-    ring = make_ring(2, 32, (3,))
     out = {}
-    for name, (nb, t, r, s) in EDGE_SHAPES.items():
+    for name, (deg, nb, t, r, s) in EDGE_SHAPES.items():
+        ring = make_ring(2, 32, deg)
         lead = (nb,) if nb else ()
         A = ring.random(rng, lead + (t, r), device="cuda")
         B = ring.random(rng, lead + (r, s), device="cuda")
-        routes = [rt for rt in ROUTES if _accepts(rt, ring, t, r)]
+        routes = [rt for rt in ROUTES if route_takes(rt, ring, t, r)]
         plain = gr_matmul_ref(A, B, ring)
         for rt in routes:
             _hold(rt, ring, A, B, worst, f" (edge shape {name})", plain=plain)
@@ -819,7 +900,8 @@ def _threshold_timings(rng, worst: dict) -> dict:
             eager[rt] += cuda_ms(fn, iters=10, warmup=2) / 2
         # device time decides where a kernel dominates; eager time (launched
         # from Python, host overhead included) is what a small call costs
-        row = {"shape": [nb or 1, t, r, s], "picked": pick_route(ring, t, r, s), "ms": ms,
+        row = {"ring": str(deg), "shape": [nb or 1, t, r, s], "picked": pick_route(ring, t, r, s),
+               "ms": ms,
                "eager_ms": eager, "fastest": min(ms, key=ms.get),
                "fastest_eager": min(eager, key=eager.get)}
         out[name] = row
@@ -902,8 +984,10 @@ def _run_path(name, family, scheme_or_plan, A, B, mask, report, calls, key=None)
     from repro_torch.cdmm import coded_matmul, decode_from, encode_all, live_indices
     from repro_torch.cdmm.planner import Plan
 
+    torch.cuda.reset_peak_memory_stats()
     C, by_route, wall_ms = _counted(name, lambda: coded_matmul(
         A, B, scheme_or_plan, backend="local", mask=mask, key=key, device="cuda"), calls)
+    peak_bytes = torch.cuda.max_memory_allocated()  # the round's, beside what earlier paths hold
     scheme = (scheme_or_plan.instantiate(device="cuda")
               if isinstance(scheme_or_plan, Plan) else scheme_or_plan)
     expect = _direct(A, B, scheme.base)
@@ -912,7 +996,7 @@ def _run_path(name, family, scheme_or_plan, A, B, mask, report, calls, key=None)
         fail(f"{name}: coded result != direct product (err {err})")
     # stage device times of 5 warm runs each (mean, and every run), through
     # the helpers the local backend uses
-    idx = live_indices(scheme, torch.tensor(MASK, device="cuda"))
+    idx = live_indices(scheme, mask)
     st = {}
     stages = {}
     for stage, fn in [
@@ -927,7 +1011,8 @@ def _run_path(name, family, scheme_or_plan, A, B, mask, report, calls, key=None)
         fail(f"{name}: staged run != direct product")
     row = {"path": name, "scheme": family, "partition": list(scheme.partition),
            "ring": str(scheme.ring), "R": scheme.R, "live": idx.tolist(), "shape": list(A.shape),
-           "launches_by_route": by_route, "first_call_wall_ms": wall_ms, **stages}
+           "launches_by_route": by_route, "first_call_wall_ms": wall_ms, "peak_bytes": peak_bytes,
+           **stages}
     if getattr(scheme, "kappa", None):
         row["kappa"] = scheme.kappa
     log(f"path {json.dumps(row)}")
@@ -935,15 +1020,17 @@ def _run_path(name, family, scheme_or_plan, A, B, mask, report, calls, key=None)
     return by_route, scheme, expect
 
 
-def _secure_checks(name, scheme, A, B, expect, report) -> None:
+def _secure_checks(name, scheme, A, B, expect, report, mask=None) -> None:
     """The keyed encode on the card: worker i's own share is row i of the
     master encode (both sides), a second key gives other shares and the
-    same product, and the mask words are uniform in their top bit."""
+    same product, and the mask words are uniform in their top bit.
+    ``mask``: the path's live workers (None: ``MASK``)."""
     import torch
 
     from repro_torch.cdmm import coded_matmul, live_indices
 
-    mask = torch.tensor(MASK, device="cuda")
+    if mask is None:
+        mask = torch.tensor(MASK, device="cuda")
     i = int(live_indices(scheme, mask)[2])  # a live worker, not worker 0
     FA, GB = scheme.encode_a(A, key=KEY), scheme.encode_b(B, key=KEY)
     if max_abs_err(scheme.encode_a_at(A, i, key=KEY), FA[i]) or \
@@ -1020,6 +1107,33 @@ def phase_main_path(report: dict) -> dict:
             _secure_checks(name, scheme, A, B, expect, report)
         del A, B, expect
         torch.cuda.empty_cache()
+
+    # the planner's wider rings: its best plan (analytic cost model) for 16
+    # workers at n = 4, 64 workers at n = 2 and a keyed single product on 16
+    # workers, each over the ring and partition the plan must name
+    for name, family, n, N, budget, privacy_t, size, want, dead in WIDE_PATHS:
+        spec = ProblemSpec(size, size, size, n=n, ring=Z32, N=N, straggler_budget=budget,
+                           privacy_t=privacy_t)
+        p = plan(spec, calibration=False)
+        c = p.candidates[0]
+        got = (c.scheme, (c.u, c.v, c.w), c.costs.R)
+        if got != (family, want[1], want[2]):
+            fail(f"{name}: planned {got}, expected {(family, want[1], want[2])}")
+        wide_mask = torch.ones(N, dtype=torch.bool, device="cuda")
+        wide_mask[list(dead)] = False
+        lead = (n,) if n > 1 else ()
+        A = Z32.random(rng, lead + (size, size), device="cuda")
+        B = Z32.random(rng, lead + (size, size), device="cuda")
+        key = KEY if privacy_t else None
+        by_route, scheme, expect = _run_path(name, family, p, A, B, wide_mask, report, calls,
+                                             key=key)
+        add(by_route)
+        if scheme.ring.degrees != want[0]:
+            fail(f"{name}: planned over {scheme.ring}, expected degrees {want[0]}")
+        if privacy_t:
+            _secure_checks(name, scheme, A, B, expect, report, mask=wide_mask)
+        del A, B, expect
+        torch.cuda.empty_cache()
     report["main_path_launches"] = totals
     return totals, calls
 
@@ -1029,19 +1143,21 @@ def phase_path_calls(report: dict, calls: list) -> None:
     gave it, on fresh random operands of that shape, bit for bit: this
     covers every batch slice of a worker launch, the dead workers' ones too,
     which the end-to-end check cannot see because decode never reads them.
-    The shapes of the GCSA and secure paths, of ep's 96^3 request and of
+    A call past ``PLAIN_WORDS_CAP`` is held against the plain version on
+    its first batch entry and against ``simt`` on all of them.  The shapes
+    of the GCSA, secure and wider-ring paths, of ep's 96^3 request and of
     phases 5-9 are timed as well (``_timing_row``), with the plain
     version's time from the same call that holds them."""
     import numpy as np
     import torch
 
-    from repro_torch.kernels import gr_matmul_ref
+    from repro_torch.kernels import gr_matmul_ref, run_route
 
     rng = np.random.default_rng(SEED + 1)
     worst = report["kernel_max_abs_err"]
     # and ep's 96^3 request, whose 48-row worker blocks are simt's one main-path call
     timed_paths = ({name for name, *_ in SLICE3_PATHS} | set(SLICE4_PATHS) | set(SLICE5_PATHS)
-                   | {"ep_small"})
+                   | {name for name, *_ in WIDE_PATHS} | {"ep_small"})
     seen = {}
     for path, route, ring, a_shape, b_shape in calls:
         key = (route, ring.p, ring.e, ring.degrees, a_shape, b_shape)
@@ -1050,17 +1166,29 @@ def phase_path_calls(report: dict, calls: list) -> None:
     for (route, _, _, _, a_shape, b_shape), (ring, paths) in seen.items():
         A = ring.random(rng, a_shape[:-1], device="cuda")
         B = ring.random(rng, b_shape[:-1], device="cuda")
+        b = a_shape[0] if len(a_shape) == 4 else 1
+        words = b * a_shape[-3] * a_shape[-2] * b_shape[-2] * ring.D ** 2
+        first = len(a_shape) == 4 and words > PLAIN_WORDS_CAP
         holder = {}
-        plain_ms = cuda_ms(lambda: holder.__setitem__("C", gr_matmul_ref(A, B, ring)))
+        plain_ms = cuda_ms(lambda: holder.__setitem__(
+            "C", gr_matmul_ref(A[:1], B[:1], ring) if first else gr_matmul_ref(A, B, ring)))
         plain = holder.pop("C")
         timed = bool(timed_paths.intersection(paths))
-        for rt in dict.fromkeys(("simt", route) if timed else (route,)):
-            _hold(rt, ring, A, B, worst, " (a phase-3 call)", plain=plain)
+        if first:  # simt on every entry, itself held on the first
+            _hold("simt", ring, A, B, worst, " (a phase-3 call)", plain=plain, first=True)
+            del plain
+            plain = run_route("simt", A, B, ring)
+            if route != "simt":
+                _hold(route, ring, A, B, worst, " (a phase-3 call, against simt)", plain=plain,
+                      planes_first=True)
+        else:
+            for rt in dict.fromkeys(("simt", route) if timed else (route,)):
+                _hold(rt, ring, A, B, worst, " (a phase-3 call)", plain=plain)
         del plain
         if timed:
             row = {"paths": sorted(set(paths)), "ring": str(ring.degrees),
                    "a": list(a_shape[:-1]), "b": list(b_shape[:-1]),
-                   **_timing_row(ring, A, B, route, plain_ms)}
+                   **_timing_row(ring, A, B, route, plain_ms, plain_batch=1 if first else None)}
             timings.append(row)
             log(f"timed path shape: {json.dumps(row)}")
         del A, B
@@ -2369,7 +2497,9 @@ def _kernel_rows(report: dict, totals: dict) -> list:
          "ms": lift["lift_ms"], "plain_ms": lift["lift_plain_ms"], "bound_ms": lift["lift_bound_ms"],
          "bound_by": "bytes", "shape": shape9(lift),
          "tc_with_prepasses_ms": lift["ms"], "tc_simt_ms": lift["simt_ms"],
-         "tc_bound_ms": lift["bound_ms"]},
+         "tc_bound_ms": lift["bound_ms"],
+         "per_shape_ms": {f"{'+'.join(x['paths'])} {x['a']} @ {x['b']} degrees {x['ring']}":
+                          x["lift_ms"] for x in report["path_kernel_timings"] if "lift_ms" in x}},
         {**base, "name": "gr_matmul_tower", "source": src + "gr_matmul_tower.cu",
          "launches": totals["tower"], "max_abs_err": report["kernel_max_abs_err"]["tower"],
          "ms": tower["ms"], "plain_ms": tower["tower_plain_ms"], "bound_ms": tower["bound_ms"],

@@ -64,15 +64,17 @@ from .gr_matmul import (
     SIMT_WIDE_TOWERS,
     SMEM_BLOCK_BYTES,
     kernel_tile,
+    skinny_block,
     skinny_cols,
     skinny_configs,
+    skinny_smem_bytes,
     tc_configs,
     tc_smem_bytes,
     tc_tile,
     tower_configs,
     tower_shape,
 )
-from .ref import n_limbs
+from .ref import n_limbs, tc_view
 
 __all__ = [
     "CACHE_PATH",
@@ -129,8 +131,8 @@ def tune_key(ring, t: int, r: int, s: int, device=None, *, route: Optional[str] 
     """Canonical cache key: device | route | tower and e | aligned dims.
 
     ``tc`` and ``simt`` dims are rounded up to 8 so ragged shapes inside one
-    tile share an entry; ``skinny``'s and ``tower``'s t and r (at most 16)
-    stay exact and only s is rounded.  ``route`` None: the one ``ops.pick_route`` takes.
+    tile share an entry; ``skinny``'s and ``tower``'s t and r (at most 64
+    and 32) stay exact and only s is rounded.  ``route`` None: the one ``ops.pick_route`` takes.
     """
     dev = device_kind(device)
     route = _route_of(ring, t, r, s, route)
@@ -164,7 +166,7 @@ def _tc_register_estimate(ring, config) -> int:
     tile's K0 * L accumulators (K0 = 2 D0 - 1 of the ring the main kernel
     runs over), ceil(K0 * L / 2) of them, BN / 2 words each a thread, plus
     the A fragments and ptxas' overhead."""
-    pairs = -(-(2 * tower_shape(ring)[0] - 1) * n_limbs(ring) // 2)
+    pairs = -(-(2 * tc_view(*tower_shape(ring))[0] - 1) * n_limbs(ring) // 2)
     return pairs * config[0] // 2 + _TC_REG_OVERHEAD
 
 
@@ -217,7 +219,10 @@ def candidate_blocks(ring, t: int, r: int, s: int, *, route: Optional[str] = Non
     inst = _instantiated(route, d0, d1)
     if not inst:
         return []
-    default, rest = inst[0], [c for c in inst[1:] if fits_budget(route, ring, c)]
+    # skinny: a block's A and slab of B must fit its shared memory at (t, r)
+    fits = lambda c: fits_budget(route, ring, c) and (  # noqa: E731
+        route != "skinny" or skinny_smem_bytes(ring, t, r, c) <= SMEM_BUDGET_BYTES)
+    default, rest = inst[0], [c for c in inst[1:] if fits(c)]
 
     def order(c):
         if route == "tc":
@@ -337,7 +342,8 @@ def cached_blocks(ring, t: int, r: int, s: int, device=None, *,
 
 
 # ptxas entry names -> route; the template arguments follow as Li<n>E
-# (tc: d0, d1, bn, stages, L; tower: d0, d1, threads, tc, cpt)
+# (tc: d0, d1, bn, stages, L; skinny: d0, d1, threads, cm, row groups; tower:
+# d0, d1, threads, tc, cpt)
 _ENTRY = re.compile(r"Compiling entry function '.*?(gr_matmul_kernel|gr_matmul_tc_kernel|"
                     r"gr_matmul_skinny_kernel|gr_matmul_tower_kernel|limbs_rows_kernel|"
                     r"limbs_cols_kernel|lift_cols_kernel)I((?:Li\d+E)+)")
@@ -373,11 +379,16 @@ def ptxas_usage(build_dir: Path = BUILD_DIR) -> Dict[str, dict]:
     return usage
 
 
-def _usage_of(usage: dict, route: str, ring, config) -> dict:
+def _usage_of(usage: dict, route: str, ring, config, t: int = 1, r: int = 1) -> dict:
     tower = tower_shape(ring)
-    args = (tuple(tower) if route == "simt"  # simt: one per tower
-            # tc: the main kernel of the ring, or of a lifted tower's inner ring
-            else (tower[0], 1, *config, n_limbs(ring)) if route == "tc" else (*tower, *config))
+    if route == "simt":  # one per tower
+        args = tuple(tower)
+    elif route == "tc":  # the main kernel of the ring, or of a lifted tower's inner ring
+        args = (tc_view(*tower)[0], 1, *config, n_limbs(ring))
+    elif route == "skinny":  # the kernel that splits C's rows among groups, or not
+        args = (*tower, *config, skinny_block(ring, t, r, config)[1])
+    else:
+        args = (*tower, *config)
     return usage.get(f"{route}({','.join(map(str, args))})", {})
 
 
@@ -474,7 +485,7 @@ def autotune(
         "route": route, "config": list(names[best]), "name": best, "ms": times[best],
         "default": default_name, "default_ms": times[default_name], "batch": batch,
         "tried": len(cands), "candidates": times,
-        "usage": {n: _usage_of(usage, route, ring, c) for n, c in names.items()},
+        "usage": {n: _usage_of(usage, route, ring, c, t, r) for n, c in names.items()},
         "checked": "plain version (batch slice 0) and the default (all slices), bit for bit",
     }
     if route not in TUNED_ROUTES:
@@ -511,8 +522,13 @@ def _card_meta(device) -> dict:
 # (gcsa, ep_rmfe_secure at 2048^3; gcsa_general, ep_secure at 1024^3) and
 # of CodedQuantMatmul at gemma2-2b's FFN (N = 16); ElasticStream's step
 # over the (3, 7) tower (the worker products on tc, lifted; the two encodes
-# and the decode on tower); and simt's static tile at ep's 48-row worker
-# blocks at 96^3 and at the (3, 7) worker shape, its yardstick there
+# and the decode on tower); the planner's wider rings that chip_smoke.py
+# drives (batch_ep_rmfe n = 4 over the (3, 4) tower and n = 2 for 64
+# workers over GR(2^32, 6) at 2048^3, ep_secure for 16 workers over
+# GR(2^32, 5) at 1024^3: the worker products on tc, lifted, the 64-row
+# encodes and the 32 x 32 decode on skinny); and simt's static tile at
+# ep's 48-row worker blocks at 96^3 and at the (3, 7) worker shape, its
+# yardstick there
 DEFAULT_POINTS: Tuple[Tuple[str, Tuple[int, int, Tuple[int, ...]], int, Tuple[int, int, int]], ...] = (
     ("simt", (2, 32, (3,)), 8, (48, 96, 48)),
     ("simt", (2, 32, (3, 7)), 8, (512, 1024, 256)),
@@ -536,6 +552,12 @@ DEFAULT_POINTS: Tuple[Tuple[str, Tuple[int, int, Tuple[int, ...]], int, Tuple[in
     ("tower", (2, 32, (3, 7)), 1, (8, 2, 524288)),
     ("tower", (2, 32, (3, 7)), 1, (8, 4, 262144)),
     ("tower", (2, 32, (3, 7)), 1, (8, 8, 131072)),
+    ("tc", (2, 32, (3, 4)), 16, (1024, 2048, 512)),
+    ("tc", (2, 32, (6,)), 64, (512, 2048, 256)),
+    ("tc", (2, 32, (5,)), 16, (512, 1024, 512)),
+    ("skinny", (2, 32, (6,)), 1, (64, 4, 1048576)),
+    ("skinny", (2, 32, (6,)), 1, (64, 8, 524288)),
+    ("skinny", (2, 32, (6,)), 1, (32, 32, 131072)),
 )
 
 

@@ -72,6 +72,8 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.gr_matmul_skinny_u32.argtypes = [vp, vp, vp, ci, ci, ci, ci, ci, ci, ci, ci, fold, u32, vp]
     lib.gr_matmul_skinny_cols.argtypes = [ci, ci]
     lib.gr_matmul_skinny_configs.argtypes = [ci, ci, ip, ci]
+    lib.gr_matmul_skinny_smem.argtypes = [ci, ci, ci, ci, ci, ci, ip, ip]
+    lib.gr_matmul_skinny_smem.restype = ctypes.c_int64
     lib.gr_matmul_tower_u32.argtypes = [vp, vp, vp, ci, ci, ci, ci, ci, ci, ci, ci, ci, fold, u32,
                                         vp]
     lib.gr_matmul_tower_configs.argtypes = [ci, ci, ip, ci]

@@ -1,20 +1,23 @@
 // Skinny Galois-ring matmul over GR(2^e, D), e <= 32, for sm_90a: the
-// bandwidth route of the port's gr_matmul, for T <= 16 and R <= 16.
+// bandwidth route of the port's gr_matmul, for T <= 64 and R <= 32.
 //
 // Replaces the Pallas TPU kernel src/repro/kernels/gr_matmul.py:_kernel
 // (launched by gr_matmul_planar) for the skinny calls of a CDMM round: RMFE
-// phi/psi (2x2 @ 2x4M, 2x3 @ 3x4M), the Vandermonde encodes (8x2 @ 2x2M)
-// and the Lagrange decode (4x4 @ 4x1M).  Same function, in the port's
-// interleaved layout end to end:
+// phi/psi (2x2 @ 2x4M, 2x3 @ 3x4M), the Vandermonde encodes (8x2 @ 2x2M;
+// 64x8 @ 8x1M for 64 workers) and the Lagrange decode (4x4 @ 4x1M; 32x32 @
+// 32x128K).  Same function, in the port's interleaved layout end to end:
 //
 //   A (batch, T, R, D) x B (batch, R, S, D) -> C (batch, T, S, D), uint32,
 //   conv[CONVPOS(i, j)] += A[.., i] * B[.., j]   (wrapping mod 2^32)
 //   C[.., d] = (sum_c FOLD[c, d] * conv[c]) & mask
 //
-// What bounds it: bytes.  A is at most 16 x 16 x D words; B and C are
-// R x S x D and T x S x D words with S in the millions, and each column of C
-// costs T * R * D^2 multiply-adds, far below the card's byte rate times its
-// INT32 rate.  So the design moves each byte of B and C once, with no padded
+// What bounds it: bytes at T, R <= 16.  A is at most 64 x 32 x D words; B
+// and C are R x S x D and T x S x D words with S in the millions, and each
+// column of C costs T * R * D^2 multiply-adds: below the card's byte rate
+// times its INT32 rate up to T, R = 16, and above it for the widest calls
+// (a 64 x 8 encode or a 32 x 32 decode over GR(2^32, 6) needs 5-20
+// multiply-adds a byte, the card 5), which the INT32 rate then bounds.
+// Either way the design moves each byte of B and C once, with no padded
 // rows (the general kernel in gr_matmul.cu tiles T by 64 and wastes most of
 // the tile here):
 //  * A block stages A (all of it) and its slab of B (all R rows, NB columns)
@@ -30,6 +33,18 @@
 //    thread: a block covers NT * CPT * CM columns.  The default is NT = 128,
 //    CM = 1; SKINNY_CONFIGS adds two more for the towers with D <= 4, which
 //    the autotuner (repro_torch.kernels.autotune) times per shape.
+//  * The B slab is sized from the block's shared memory (two blocks an SM,
+//    kSmemCap = 100 KB, where they fit).  A widened call (T or R past 16)
+//    whose slab would not fit splits its rows of C among G = kGroups = 4
+//    groups of its NT threads that share one slab of NT / G * CPT columns,
+//    each group taking every G-th row (a template instantiation of its own,
+//    so the kernel every other call runs is unchanged); any other call
+//    halves its NT threads instead, down to 32.  So a 32 x 32 decode over
+//    GR(2^32, 6) runs 128 threads in 4 groups on a 48 KB slab, three blocks
+//    an SM, where one group would need 192 KB and 32 threads 72 KB (three
+//    warps an SM).  A block that still needs more than kSmemCap runs alone
+//    on its SM, up to kSmemMax; beyond that the call is refused (the Python
+//    mirror, skinny_smem_bytes, keeps such calls off this route).
 //  * Ragged columns, and operands whose rows are not 16-byte aligned, take
 //    4-byte loads and stores in the same kernel.
 //
@@ -42,10 +57,15 @@ namespace {
 
 constexpr int kMaxD = 16;
 constexpr int kMaxK = 45;
-constexpr int kMaxT = 16;
-constexpr int kMaxR = 16;
-// dynamic shared memory a launch may ask for (above 48 KB needs the attribute)
+constexpr int kMaxT = 64;
+constexpr int kMaxR = 32;
+// dynamic shared memory a block asks for before its thread count stops
+// halving, and the most a launch may ask for (above 48 KB needs the
+// attribute)
 constexpr int kSmemCap = 100 * 1024;
+constexpr int kSmemMax = 227 * 1024;
+// row groups of a widened call whose slab of B would not fit otherwise
+constexpr int kGroups = 4;
 constexpr int kMaxDevices = 64;
 
 struct FoldTable {
@@ -65,7 +85,11 @@ struct Skinny {
   static constexpr int W = CPT * D;  // words per thread per row
 };
 
-template <int D0, int D1, int NT, int CM>
+// NG = kGroups: NT threads in NG groups share the slab's columns, each
+// group taking every NG-th row of C (a widened call whose slab would not
+// fit otherwise); NG = 1: every thread takes every row, at NT or fewer
+// threads
+template <int D0, int D1, int NT, int CM, int NG>
 __global__ void __launch_bounds__(NT)
     gr_matmul_skinny_kernel(const uint32_t* __restrict__ A,
                             const uint32_t* __restrict__ B,
@@ -80,7 +104,8 @@ __global__ void __launch_bounds__(NT)
   uint32_t* Bs = As + a_words;  // [r][NB * D]
 
   const int tid = threadIdx.x;
-  const int NB = blockDim.x * CPT;
+  const int cols = NG > 1 ? NT / NG : blockDim.x;  // threads a row of C
+  const int NB = cols * CPT;
   const int row_words = NB * D;
   const int64_t z = blockIdx.y;
   const int s0 = blockIdx.x * NB;
@@ -108,10 +133,10 @@ __global__ void __launch_bounds__(NT)
   }
   __syncthreads();
 
-  const int c0 = tid * CPT;  // first column of this thread within the slab
+  const int c0 = (NG > 1 ? tid % cols : tid) * CPT;  // first column of this thread in the slab
   if (c0 >= ncols) return;
   const bool full = vec && c0 + CPT <= ncols;
-  for (int t = 0; t < T; ++t) {
+  for (int t = NG > 1 ? tid / cols : 0; t < T; t += NG) {
     uint32_t acc[K][CPT];
 #pragma unroll
     for (int c = 0; c < K; ++c)
@@ -169,20 +194,33 @@ __global__ void __launch_bounds__(NT)
   }
 }
 
+// A block's threads and row groups for a (T, R) call, and its dynamic
+// shared memory in bytes: all of A and an R-row slab of B for th / g
+// threads' columns.  Past kSmemCap, a widened call (T or R past 16, T >=
+// kGroups) splits its rows among kGroups groups of its NT threads; any
+// other halves its threads while it needs more, down to 32.
+template <int D0, int D1, int NT, int CM>
+size_t block_smem(int T, int R, int* threads, int* groups) {
+  using G = Skinny<D0, D1, CM>;
+  const size_t a_words = (T * R * G::D + 3) & ~3;
+  auto smem_for = [&](int th, int g) { return 4 * (a_words + (size_t)R * (th / g) * G::W); };
+  int th = NT, g = 1;
+  if (smem_for(th, g) > (size_t)kSmemCap && (T > 16 || R > 16) && T >= kGroups)
+    g = kGroups;
+  while (g == 1 && th > 32 && smem_for(th, g) > (size_t)kSmemCap) th /= 2;
+  *threads = th;
+  *groups = g;
+  return smem_for(th, g);
+}
+
 template <int D0, int D1, int NT, int CM>
 int launch(const uint32_t* A, const uint32_t* B, uint32_t* C, int batch, int T,
            int R, int S, const FoldTable& fold, uint32_t mask,
            cudaStream_t stream) {
   using G = Skinny<D0, D1, CM>;
-  const size_t a_words = (T * R * G::D + 3) & ~3;
-  // NT threads, halved while the slab of B would not fit
-  int threads = NT;
-  auto smem_for = [&](int th) {
-    return 4 * (a_words + (size_t)R * th * G::W);
-  };
-  while (threads > 32 && smem_for(threads) > (size_t)kSmemCap) threads /= 2;
-  const size_t smem = smem_for(threads);
-  if (smem > (size_t)kSmemCap) return (int)cudaErrorInvalidValue;
+  int threads = NT, groups = 1;
+  const size_t smem = block_smem<D0, D1, NT, CM>(T, R, &threads, &groups);
+  if (smem > (size_t)kSmemMax) return (int)cudaErrorInvalidValue;
   if (smem > 48 * 1024) {
     // once per device (the attribute persists): launches may be captured
     // in a CUDA graph
@@ -192,8 +230,11 @@ int launch(const uint32_t* A, const uint32_t* B, uint32_t* C, int batch, int T,
     if (e != cudaSuccess) return (int)e;
     if (dev >= kMaxDevices) return (int)cudaErrorInvalidDevice;
     if (!raised[dev]) {
-      e = cudaFuncSetAttribute(gr_matmul_skinny_kernel<D0, D1, NT, CM>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemCap);
+      e = cudaFuncSetAttribute(gr_matmul_skinny_kernel<D0, D1, NT, CM, 1>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemMax);
+      if (e == cudaSuccess)
+        e = cudaFuncSetAttribute(gr_matmul_skinny_kernel<D0, D1, NT, CM, kGroups>,
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemMax);
       if (e != cudaSuccess) return (int)e;
       raised[dev] = true;
     }
@@ -201,10 +242,14 @@ int launch(const uint32_t* A, const uint32_t* B, uint32_t* C, int batch, int T,
   // 16-byte paths need every row of B and C to start on a 16-byte boundary
   const int vec = ((int64_t)S * G::D) % 4 == 0 &&
                   ((uintptr_t)B | (uintptr_t)C) % 16 == 0;
-  const int nb = threads * G::CPT;
+  const int nb = threads / groups * G::CPT;
   dim3 grid((S + nb - 1) / nb, batch);
-  gr_matmul_skinny_kernel<D0, D1, NT, CM><<<grid, threads, smem, stream>>>(
-      A, B, C, T, R, S, fold, mask, vec);
+  if (groups > 1)
+    gr_matmul_skinny_kernel<D0, D1, NT, CM, kGroups><<<grid, threads, smem, stream>>>(
+        A, B, C, T, R, S, fold, mask, vec);
+  else
+    gr_matmul_skinny_kernel<D0, D1, NT, CM, 1><<<grid, threads, smem, stream>>>(
+        A, B, C, T, R, S, fold, mask, vec);
   return (int)cudaGetLastError();
 }
 
@@ -232,8 +277,8 @@ extern "C" {
 // A (batch, T, R, D), B (batch, R, S, D) -> C (batch, T, S, D), all uint32
 // words, contiguous, with the (threads, cm) instantiation of the tower
 // (d0, d1).  Returns cudaGetLastError() after the launch, and
-// cudaErrorInvalidValue for a configuration without an instantiation or
-// T, R > 16.
+// cudaErrorInvalidValue for a configuration without an instantiation,
+// T > 64, R > 32, or a block beyond 227 KB of shared memory.
 int gr_matmul_skinny_u32(const void* A, const void* B, void* C, int batch,
                          int T, int R, int S, int d0, int d1, int threads,
                          int cm, const uint32_t* fold_host, uint32_t mask,
@@ -259,6 +304,26 @@ int gr_matmul_skinny_u32(const void* A, const void* B, void* C, int batch,
 #undef SKINNY_LAUNCH4
     default:
       return (int)cudaErrorInvalidValue;
+  }
+}
+
+// Dynamic shared memory of a (T, R) launch with the (threads, cm)
+// instantiation of the tower (d0, d1), in bytes (threads_out, groups_out:
+// the block's threads and row groups); -1 without the instantiation.  The
+// Python mirror is repro_torch.kernels.gr_matmul.skinny_smem_bytes.
+long long gr_matmul_skinny_smem(int d0, int d1, int threads, int cm, int T, int R,
+                                int* threads_out, int* groups_out) {
+  switch (skinny_key(d0, d1, threads, cm)) {
+#define SKINNY_SMEM4(x, y, nt, m) \
+  case skinny_key(x, y, nt, m):   \
+    return (long long)block_smem<x, y, nt, m>(T, R, threads_out, groups_out);
+#define SKINNY_SMEM(x, y) SKINNY_SMEM4(x, y, 128, 1)
+    SKINNY_TOWERS(SKINNY_SMEM)
+    SKINNY_EXTRA(SKINNY_SMEM4)
+#undef SKINNY_SMEM
+#undef SKINNY_SMEM4
+    default:
+      return -1;
   }
 }
 

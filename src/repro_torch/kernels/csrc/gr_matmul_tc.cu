@@ -83,20 +83,38 @@
 //  * The box is 64 bytes deep, not 128: a 128-byte box of every limb plane
 //    of both operands would hold 147 KB a stage at D = 3, L = 4 (one stage
 //    in all); at 64 the ring holds 2-4 stages.
-//  * The two-level towers of TC_LIFT_TOWERS (D0, D1) run as
-//    products over their inner ring GR(2^e, D0): A is read as it lies, at
-//    D1 times its depth, by the limb pre-pass of the inner ring, and B goes
-//    through a lift pre-pass (gr_matmul_tc_lift, below) that writes the
-//    limb planes of its outer-level lift M(B) directly; the main kernel
-//    runs the inner ring's instantiation (T, D1 S, D1 R) with the inner
-//    FOLD, and its (T, D1 S, D0) output is C.  The (3, 7) tower's K = 65
-//    accumulators a output (260 with limbs) never meet the register file:
-//    the inner ring's 5 x 4 do.
+//  * The towers of TC_LIFT_TOWERS (D0, D1) run as products over their
+//    inner ring GR(2^e, D0): A is read as it lies, at D1 times its depth,
+//    by the limb pre-pass of the inner ring, and B goes through a lift
+//    pre-pass (gr_matmul_tc_lift, below) that writes the limb planes of its
+//    outer-level lift M(B) directly; the main kernel runs the inner ring's
+//    instantiation (T, D1 S, D1 R) with the inner FOLD, and its (T, D1 S,
+//    D0) output is C.  The (3, 7) tower's K = 65 accumulators a output (260
+//    with limbs) never meet the register file: the inner ring's 5 x 4 do.
+//    A single-level GR(2^e, D) with 5 <= D <= 16 is the tower (1, D) over
+//    Z_2^e (FOLD = kron(FOLD, [[1]]), so RED is its FOLD): A (T, R, D) is
+//    A' (T, D R) over Z_2^e, M(B) is (D R, D S), and the main kernel runs its
+//    D = 1 instantiation (BN = 128, K * L = 4 accumulators an output), with
+//    the D^2 word products per (t, r, s) the conv scheme has.  Widening the
+//    own instantiations to D = 5..8 instead would put 36-60 accumulators
+//    on every output and BN below 16.
+//  * What the lift costs in memory: M(B)'s limb planes are D1 times B's
+//    size (L bytes for every 4-byte word of B, D1^2 / D1 times the words):
+//    3.2 GB for 16 x (2048 x 512) over the (3, 4) tower and 4.8 GB for
+//    64 x (2048 x 256) over GR(2^32, 6), the two largest worker products
+//    chip_smoke.py drives, beside A's planes (1.6 and 1.6 GB).  Both fit
+//    the card: the whole round of those paths (batch_ep_rmfe at 2048^3, n
+//    = 4 on 16 workers and n = 2 on 64) peaks at 7.78 and 9.13 GB of
+//    torch.cuda.max_memory_allocated, operands and shares included (an
+//    H100 80GB HBM3 at 700 W).
 //
 // Measured (chip_smoke.py, an H100 80GB HBM3 at 700 W): at the worker
-// shape the pre-pass and this kernel take 2.56 ms, 61% of the int8 bound
-// (the mma.sync kernel it replaces took 7.27 ms); every instantiation
-// enters with 168 registers and spills nothing; the accumulators wrap.
+// shape the pre-pass and this kernel take 2.42 ms, 65% of the int8 bound
+// (the mma.sync kernel it replaces took 7.27 ms); lifted, 37.7 ms over the
+// (3, 4) tower (66%), 15.1 and 2.43 ms over GR(2^32, 6) and GR(2^32, 5) as
+// (1, D) (41 and 45%: the D = 1 tile does 107 byte products per byte it
+// loads and waits on L2); every instantiation enters with 168 registers
+// and spills nothing; the accumulators wrap.
 //
 // C interface (loaded with ctypes); the functions return cudaGetLastError().
 #include <cuda.h>  // CUtensorMap and its enums (types only)
@@ -541,7 +559,7 @@ int launch_limbs(const uint32_t* X, uint32_t* Y, int batch, int rows, int cols,
 // of B and the column RED[., m] (registers, indices fixed at compile
 // time), then stages through shared memory so that the warp writes D1
 // runs of 128 contiguous bytes per (inner coefficient d, limb l).
-constexpr int kMaxD1 = 7;
+constexpr int kMaxD1 = 16;       // a single-level GR(2^e, 16) as the tower (1, 16)
 constexpr int kLiftRows = 128;  // rows of r a block: 32 lanes x 4
 
 struct RedTable {
@@ -893,13 +911,26 @@ constexpr int tc_key(int d0, int d1, int bn, int st) {
   X(3, 1, 32, 3) X(3, 1, 32, 2) X(3, 1, 24, 3)               \
   X(4, 1, 24, 2) X(4, 1, 16, 2)
 
-// Two-level towers (d0, d1) with a lift pre-pass: each runs the main kernel
-// at the instantiations of its inner ring (d0, 1).  The Python mirror is
+// Towers (d0, d1) with a lift pre-pass: each runs the main kernel at the
+// instantiations of its inner ring (d0, 1).  A single-level GR(2^e, D) with
+// D > kMaxD is the tower (1, D) over Z_2^e; the two-level towers are those
+// with an inner degree <= kMaxD.  The Python mirror is
 // repro_torch.kernels.gr_matmul.TC_LIFT_TOWERS.
-#define TC_LIFT_TOWERS(X) \
-  X(2, 3) X(3, 5) X(3, 7)
+#define TC_LIFT_TOWERS(X)                                                 \
+  X(1, 5) X(1, 6) X(1, 7) X(1, 8) X(1, 9) X(1, 10) X(1, 11) X(1, 12)      \
+  X(1, 13) X(1, 14) X(1, 15) X(1, 16)                                     \
+  X(2, 3) X(2, 5) X(2, 7) X(3, 2) X(3, 4) X(3, 5) X(3, 7) X(4, 3)
 
 namespace {
+
+// The tower the tc route runs (d0, d1) as: a single-level ring past the
+// kernel's own instantiations as (1, D), every other as it is.
+void view(int& d0, int& d1) {
+  if (d1 == 1 && d0 > kMaxD) {
+    d1 = d0;
+    d0 = 1;
+  }
+}
 
 bool lifted(int d0, int d1) {
 #define TC_LIFTED(x, y) \
@@ -934,10 +965,11 @@ int gr_matmul_tc_limbs(const void* X, void* Y, int batch, int rows, int cols,
   }
 }
 
-// Lift pre-pass of a two-level tower (d0, d1): B (batch, R, S, d0 d1)
-// uint32 -> the limb planes of M(B), (batch, d0, L, Sp, Rp) u8, K-major and
-// zero-padded; red_host: (2 d1 - 1, d1) uint32 row-major.  Rp must be a
-// multiple of KS and at least d1 R, Sp a multiple of 32 and at least d1 S.
+// Lift pre-pass of a lifted tower (d0, d1) of TC_LIFT_TOWERS (a single-level
+// GR(2^e, D) as (1, D)): B (batch, R, S, d0 d1) uint32 -> the limb planes of
+// M(B), (batch, d0, L, Sp, Rp) u8, K-major and zero-padded; red_host:
+// (2 d1 - 1, d1) uint32 row-major (a single-level ring's FOLD).  Rp must be
+// a multiple of KS and at least d1 R, Sp a multiple of 32 and at least d1 S.
 int gr_matmul_tc_lift(const void* B, void* Y, int batch, int R, int S, int d0, int d1, int L,
                       int Rp, int Sp, const uint32_t* red_host, void* stream) {
   if (d1 < 2 || d1 > kMaxD1 || L < 1 || L > kMaxL || Rp % KS || Sp % 32 || Rp < d1 * R ||
@@ -992,8 +1024,10 @@ int gr_matmul_tc_u32(const void* A8, const void* B8, void* C, int batch, int T,
 
 // The instantiations of the tower (d0, d1), default first: writes up to
 // `cap` (bn, stages) pairs to `out` and returns how many there are.  A
-// lifted tower runs its inner ring's.
+// lifted tower (a single-level ring with D > 4 among them) runs its inner
+// ring's.
 int gr_matmul_tc_configs(int d0, int d1, int* out, int cap) {
+  view(d0, d1);
   if (lifted(d0, d1)) d1 = 1;
   int n = 0;
 #define TC_CONFIG(x, y, n_, s)   \
@@ -1013,6 +1047,7 @@ int gr_matmul_tc_configs(int d0, int d1, int* out, int cap) {
 // tower (d0, d1) at L limbs asks for (a lifted tower: its inner ring's); -1
 // without one.
 int gr_matmul_tc_smem(int d0, int d1, int bn, int stages, int L) {
+  view(d0, d1);
   if (lifted(d0, d1)) d1 = 1;
   switch (tc_key(d0, d1, bn, stages) * 8 + L) {
 #define TC_SMEM(x, y, n, s)                                   \

@@ -12,15 +12,19 @@ header notes its design and what bounds it:
 * ``tc`` (``csrc/gr_matmul_tc.cu``): interleaved layout, a limb pre-pass
   (counted as ``limbs``) into u8 planes, then a warp-specialised kernel:
   TMA loads into a ring of stages, ``wgmma`` u8 x u8 -> s32 on the int8
-  tensor cores; single-level towers with D <= 4, and the two-level towers
-  of ``TC_LIFT_TOWERS`` ((2, 3), (3, 5) and the (3, 7) tower) as
-  products over their inner ring: A's limb pre-pass reads A as it
-  lies, and a lift pre-pass (counted as ``lift``) writes the limb planes
-  of B's outer-level lift M(B) (``ref.lift_b_ref``).
+  tensor cores; single-level towers with D <= 4 as they are, and the
+  lifted towers of ``TC_LIFT_TOWERS`` as products over their inner ring
+  (``ref.tc_view``): every single-level GR(2^e, D) with 5 <= D <= 16 as the
+  tower (1, D) over Z_2^e, and the two-level towers (2, 3), (2, 5), (2, 7),
+  (3, 2), (3, 4), (3, 5), (4, 3) and the (3, 7) tower.  A's limb pre-pass
+  reads A as it lies, and a lift pre-pass (counted as ``lift``) writes
+  the limb planes of B's outer-level lift M(B) (``ref.lift_b_ref``).
 * ``skinny`` (``csrc/gr_matmul_skinny.cu``): interleaved layout, a
-  bandwidth kernel for T, R <= 16 over the towers with K * CPT <= 64
+  bandwidth kernel for T <= 64, R <= 32 over the towers with K * CPT <= 64
   (``skinny_cols``): single-level D <= 8 and the even D to 16, and (2, 3),
-  (2, 5), (3, 2), (3, 4), (4, 3), (5, 2).
+  (2, 5), (3, 2), (3, 4), (4, 3), (5, 2); A and a slab of B live in
+  shared memory, whose need (``skinny_smem_bytes``) decides where it
+  runs.
 * ``tower`` (``csrc/gr_matmul_tower.cu``): interleaved layout, T, R <= 16
   over the towers ``skinny`` has no instantiation for (``TOWER_CONFIGS``:
   the (3, 7) tower, (3, 5), ...), A lifted in shared memory to its
@@ -36,7 +40,8 @@ rows and columns a thread), the default first; the wrappers take a
 
 This module validates the operands, launches on PyTorch's current stream
 through ctypes, and counts launches.  Which route a ring matmul takes is
-decided in ``ops.pick_route``.
+decided in ``ops.pick_route``, whose docstring states every route's
+envelope.
 
 Envelope: p = 2, e <= 32, D <= MAX_D = 16 (the reference's), widened by
 the (3, 7) tower (D = 21), the ring ``batch_ep_rmfe`` takes at n = 8 over
@@ -56,7 +61,7 @@ import numpy as np
 import torch
 
 from .build import load_library
-from .ref import n_limbs, outer_reduction
+from .ref import n_limbs, outer_reduction, tc_view
 
 __all__ = [
     "MAX_D",
@@ -66,6 +71,8 @@ __all__ = [
     "SKINNY_MAX_R",
     "SIMT_WIDE_TOWERS",
     "SKINNY_CONFIGS",
+    "SKINNY_GROUPS",
+    "SKINNY_SMEM_CAP",
     "SMEM_BLOCK_BYTES",
     "TC_CONFIGS",
     "TC_BM",
@@ -73,6 +80,7 @@ __all__ = [
     "TC_LIFT_TOWERS",
     "TC_PAD",
     "TOWER_CONFIGS",
+    "TOWER_MAX_TR",
     "counters",
     "gr_matmul_planar",
     "gr_matmul_skinny",
@@ -82,6 +90,8 @@ __all__ = [
     "simt_instantiated",
     "skinny_cols",
     "skinny_configs",
+    "skinny_block",
+    "skinny_smem_bytes",
     "tc_configs",
     "tc_instantiated",
     "tc_lift",
@@ -103,8 +113,20 @@ ROUTES = ("simt", "tc", "skinny", "tower")
 # the tc route's pre-passes: A's (and a single-level B's) limb planes, and
 # the limb planes of a two-level tower's lifted B
 PREPASSES = ("limbs", "lift")
-# the skinny kernel keeps A (T x R x D words) in shared memory
-SKINNY_MAX_T = SKINNY_MAX_R = 16
+# the skinny kernel keeps A (T x R x D words) in shared memory: the encodes
+# (N x k, k <= 8) and decodes (R x R) of up to N = 64 workers
+SKINNY_MAX_T, SKINNY_MAX_R = 64, 32
+# shared memory a skinny block keeps under where it can (two blocks an SM):
+# past it a block halves its threads, or a widened call splits its rows
+# (SKINNY_GROUPS); a block may ask for up to SMEM_BLOCK_BYTES (mirrors
+# kSmemCap in csrc/gr_matmul_skinny.cu)
+SKINNY_SMEM_CAP = 100 * 1024
+# row groups of a widened skinny call whose slab of B would not fit otherwise
+# (mirrors kGroups in csrc/gr_matmul_skinny.cu)
+SKINNY_GROUPS = 4
+# the tower kernel keeps A lifted to its multiplication matrices in shared
+# memory: t, r <= 16 (mirrors kMaxT in csrc/gr_matmul_tower.cu)
+TOWER_MAX_TR = 16
 # (bn, stages) instantiations of the tc kernel per tower, the default
 # first: a 64 x bn block tile (two consumer warpgroups, each with half of
 # the tile's (conv plane, shift) accumulators) and a ring of `stages` TMA
@@ -116,11 +138,15 @@ TC_CONFIGS = {
     (3, 1): ((32, 3), (32, 2), (24, 3)),
     (4, 1): ((24, 2), (16, 2)),
 }
-# two-level towers (d0, d1) the tc route takes through the lift pre-pass,
-# at the instantiations of their inner ring (d0, 1): the (3, 7) tower of
-# ElasticStream and the two the kernel checks hold, (2, 3) and (3, 5)
-# (mirrors TC_LIFT_TOWERS in csrc/gr_matmul_tc.cu)
-TC_LIFT_TOWERS = ((2, 3), (3, 5), (3, 7))
+# towers (d0, d1) the tc route takes through the lift pre-pass, at the
+# instantiations of their inner ring (d0, 1): every single-level ring with
+# 5 <= D <= 16 as (1, D) (``ref.tc_view``), the two-level towers with an
+# inner degree <= 4 that the planner's RMFE chains and the kernel checks
+# reach, and the (3, 7) tower of ElasticStream; (5, 2), (5, 3) and (7, 2)
+# have no inner instantiation (mirrors TC_LIFT_TOWERS in
+# csrc/gr_matmul_tc.cu)
+TC_LIFT_TOWERS = tuple((1, d) for d in range(5, MAX_D + 1)) + (
+    (2, 3), (2, 5), (2, 7), (3, 2), (3, 4), (3, 5), (3, 7), (4, 3))
 # KS: bytes of R per stage (the TMA box depth, one 64-byte swizzle row),
 # the multiple the limb planes' R is padded to
 TC_DEPTH = 64
@@ -199,13 +225,15 @@ def tc_instantiated(d0: int, d1: int) -> bool:
     """Whether the tc route takes the tower (d0, d1): an instantiation of
     its own, or a lift onto its inner ring's; mirrors ``TC_CONFIGS`` and
     ``TC_LIFT_TOWERS`` in ``csrc/gr_matmul_tc.cu``."""
-    return (d0, d1) in TC_CONFIGS or (d0, d1) in TC_LIFT_TOWERS
+    view = tc_view(d0, d1)
+    return view in TC_CONFIGS or view in TC_LIFT_TOWERS
 
 
 def tc_configs(d0: int, d1: int) -> Tuple[Tuple[int, int], ...]:
     """The tc kernel's (bn, stages) instantiations for the tower (d0, d1),
     default first (a lifted tower: its inner ring's); empty without any."""
-    return TC_CONFIGS.get((d0, 1) if (d0, d1) in TC_LIFT_TOWERS else (d0, d1), ())
+    view = tc_view(d0, d1)
+    return TC_CONFIGS.get((view[0], 1) if view in TC_LIFT_TOWERS else view, ())
 
 
 def tower_configs(d0: int, d1: int) -> Tuple[Tuple[int, int, int], ...]:
@@ -236,7 +264,7 @@ def tc_smem_bytes(ring, config: Tuple[int, int]) -> int:
     of alignment slack and two mbarriers a stage.  The main kernel runs at
     D0 = D, or at a lifted tower's inner degree."""
     bn, stages = config
-    d0 = tower_shape(ring)[0]
+    d0 = tc_view(*tower_shape(ring))[0]
     planes = d0 * n_limbs(ring)
     stage = -(-planes * (TC_BM + bn) * TC_DEPTH // 1024) * 1024
     return 1024 + max(stages * stage, d0 * bn * 256) + 16 * stages
@@ -260,11 +288,47 @@ def skinny_cols(d0: int, d1: int) -> Optional[int]:
     return cpt if D <= MAX_D and K * cpt <= 64 else None
 
 
+def skinny_block(ring, t: int, r: int, config=None) -> Tuple[int, int]:
+    """(threads, groups) of a block of the skinny launch of (t, r) over
+    ``ring`` with ``config`` (None: the default); mirrors ``block_smem`` in
+    ``csrc/gr_matmul_skinny.cu``.  Where the block would need more than
+    ``SKINNY_SMEM_CAP`` of shared memory (two blocks an SM), a widened call
+    (t > 16 or r > 16, t >= ``SKINNY_GROUPS``) splits its rows of C among
+    ``SKINNY_GROUPS`` groups of its threads sharing one slab of columns;
+    any other halves its threads while it needs more, down to 32."""
+    threads, cm = config or SKINNY_DEFAULT
+    groups = 1
+    if (_skinny_words(ring, t, r, threads, cm) * 4 > SKINNY_SMEM_CAP and (t > 16 or r > 16)
+            and t >= SKINNY_GROUPS):
+        groups = SKINNY_GROUPS
+    while (groups == 1 and threads > 32
+           and _skinny_words(ring, t, r, threads, cm) * 4 > SKINNY_SMEM_CAP):
+        threads //= 2
+    return threads, groups
+
+
+def _skinny_words(ring, t: int, r: int, cols: int, cm: int) -> int:
+    # all of A (rounded up to a 16-byte vector) and the slab of B: r rows
+    # of `cols` threads' CPT columns, CPT * D words a thread
+    cpt = skinny_cols(*tower_shape(ring)) or 0
+    return (t * r * ring.D + 3) // 4 * 4 + r * cols * cpt * cm * ring.D
+
+
+def skinny_smem_bytes(ring, t: int, r: int, config=None) -> int:
+    """Dynamic shared memory the skinny launch of (t, r) over ``ring`` with
+    ``config`` (None: the default) asks for: all of A and an r-row slab of
+    B for the columns of :func:`skinny_block`'s threads.  The kernel takes
+    the call only within ``SMEM_BLOCK_BYTES``."""
+    cm = (config or SKINNY_DEFAULT)[1]
+    threads, groups = skinny_block(ring, t, r, config)
+    return 4 * _skinny_words(ring, t, r, threads // groups, cm)
+
+
 def tc_shape(ring, t: int, r: int, s: int) -> Tuple[int, int, int, int]:
     """(D0, T, R, S) of the main tc kernel's launch for a (t, r) x (r, s)
     matmul over ``ring``: the ring's own, or over a lifted tower's inner
     ring GR(2^e, D0), (t, D1 r) x (D1 r, D1 s)."""
-    d0, d1 = tower_shape(ring)
+    d0, d1 = tc_view(*tower_shape(ring))
     return d0, t, d1 * r, d1 * s
 
 
@@ -418,8 +482,9 @@ def _stream(device: torch.device):
 
 def gr_matmul_skinny(A: torch.Tensor, B: torch.Tensor, ring, config=None) -> torch.Tensor:
     """The bandwidth route on the card: A (b?, t, r, D) x B (b?, r, s, D) ->
-    C (b?, t, s, D), interleaved int32, for t, r <= 16, with the (threads,
-    cm) instantiation ``config`` (None: the tower's default).
+    C (b?, t, s, D), interleaved int32, for t <= 64 and r <= 32 within a
+    block's shared memory (``skinny_smem_bytes``), with the (threads, cm)
+    instantiation ``config`` (None: the tower's default).
 
     Launches the CUDA kernel or raises; it never falls back.
     """
@@ -433,7 +498,12 @@ def gr_matmul_skinny(A: torch.Tensor, B: torch.Tensor, ring, config=None) -> tor
         raise ValueError(f"{ring}: the skinny kernel has no instantiation {config}; "
                          f"built: {configs}")
     if not (1 <= T <= SKINNY_MAX_T and 1 <= R <= SKINNY_MAX_R):
-        raise ValueError(f"the skinny kernel takes 1 <= t, r <= 16, got t={T}, r={R}")
+        raise ValueError(f"the skinny kernel takes 1 <= t <= {SKINNY_MAX_T}, 1 <= r <= "
+                         f"{SKINNY_MAX_R}, got t={T}, r={R}")
+    if skinny_smem_bytes(ring, T, R, config) > SMEM_BLOCK_BYTES:
+        raise ValueError(f"{ring}: skinny {config} at t={T}, r={R} needs "
+                         f"{skinny_smem_bytes(ring, T, R, config)} B of shared memory, more than "
+                         f"a block's {SMEM_BLOCK_BYTES}")
     _, fold = _check_layout(ring)
     C = torch.empty((nb, T, S, ring.D), dtype=torch.int32, device=A.device)
     if C.numel():
@@ -448,15 +518,16 @@ def gr_matmul_skinny(A: torch.Tensor, B: torch.Tensor, ring, config=None) -> tor
 
 
 def tc_lift(B: torch.Tensor, ring) -> torch.Tensor:
-    """The tc route's lift pre-pass on the card, for a two-level tower
-    (D0, D1) of ``TC_LIFT_TOWERS``: B (b?, r, s, D) int32 -> B8 (b, D0, L,
-    Sp, Rp) uint8, the limb planes of M(B) (``ref.lift_b_ref``), K-major and
-    zero-padded to ``tc_padded(., D1 r, D1 s)``.  One launch, counted as
-    ``lift``; the plain version is ``ref.tc_planes_ref``'s B side."""
+    """The tc route's lift pre-pass on the card, for a lifted tower
+    (D0, D1) of ``TC_LIFT_TOWERS`` (``ref.tc_view``; a single-level ring as
+    (1, D)): B (b?, r, s, D) int32 -> B8 (b, D0, L, Sp, Rp) uint8, the limb
+    planes of M(B) (``ref.lift_b_ref``), K-major and zero-padded to
+    ``tc_padded(., D1 r, D1 s)``.  One launch, counted as ``lift``; the
+    plain version is ``ref.tc_planes_ref``'s B side."""
     _check_operand(B, "B")
     if ring.p != 2 or ring.e > 32:
         raise ValueError(f"{ring} lies outside the kernels' envelope (p=2, e<=32)")
-    d0, d1 = tower_shape(ring)
+    d0, d1 = tc_view(*tower_shape(ring))
     if (d0, d1) not in TC_LIFT_TOWERS:
         raise ValueError(f"{ring}: the lift pre-pass has no instantiation for tower {(d0, d1)}")
     if B.dim() == 3:
@@ -482,12 +553,12 @@ def tc_limbs(A: torch.Tensor, B: torch.Tensor, ring):
     """The tc route's pre-passes on the card.  Returns (A8, B8): A8 (b, D0,
     L, Tp, Rp) and B8 (b, D0, L, Sp, Rp) uint8, K-major and zero-padded to
     ``tc_padded`` of the main kernel's (T, R, S) (``tc_shape``).  A
-    single-level ring: two limb pre-pass launches, counted as ``limbs``.  A
-    lifted tower (D0, D1): one ``limbs`` launch on A read as (t, D1 r, D0)
-    and the lift of B (:func:`tc_lift`).  The plain version is
-    ``ref.tc_planes_ref``."""
+    ring the kernel takes as it is: two limb pre-pass launches, counted as
+    ``limbs``.  A lifted tower (D0, D1): one ``limbs`` launch on A read as
+    (t, D1 r, D0) and the lift of B (:func:`tc_lift`).  The plain version
+    is ``ref.tc_planes_ref``."""
     A, B, _, (nb, T, R, S) = _interleaved(A, B, ring)
-    d0, d1 = tower_shape(ring)
+    d0, d1 = tc_view(*tower_shape(ring))
     if not tc_instantiated(d0, d1):
         raise ValueError(f"{ring}: the tc kernel has no instantiation for tower {(d0, d1)}")
     _, T, R1, S1 = tc_shape(ring, T, R, S)
@@ -524,7 +595,7 @@ def gr_matmul_tc(A: torch.Tensor, B: torch.Tensor, ring, config=None) -> torch.T
     Launches the CUDA kernels or raises; it never falls back.
     """
     A, B, squeeze, (nb, T, R, S) = _interleaved(A, B, ring)
-    d0, d1 = tower_shape(ring)
+    d0, d1 = tc_view(*tower_shape(ring))
     configs = tc_configs(d0, d1)
     if not configs:
         raise ValueError(f"{ring}: the tc kernel has no instantiation for tower {(d0, d1)}")
@@ -570,8 +641,8 @@ def gr_matmul_tower(A: torch.Tensor, B: torch.Tensor, ring, config=None) -> torc
     if config not in configs:
         raise ValueError(f"{ring}: the tower kernel has no instantiation {config}; "
                          f"built: {configs}")
-    if not (1 <= T <= SKINNY_MAX_T and 1 <= R <= SKINNY_MAX_R):
-        raise ValueError(f"the tower kernel takes 1 <= t, r <= 16, got t={T}, r={R}")
+    if not (1 <= T <= TOWER_MAX_TR and 1 <= R <= TOWER_MAX_TR):
+        raise ValueError(f"the tower kernel takes 1 <= t, r <= {TOWER_MAX_TR}, got t={T}, r={R}")
     if tower_smem_bytes(ring, T, R) > SMEM_BLOCK_BYTES:
         raise ValueError(f"{ring}: the tower kernel's lifted A at t={T}, r={R} needs "
                          f"{tower_smem_bytes(ring, T, R)} B of shared memory, more than a "

@@ -6,19 +6,37 @@ of the port, which all come through :func:`gr_matmul`:
 * CPU tensors take the plain PyTorch version (``ref.gr_matmul_ref``);
 * CUDA tensors of a ring inside the envelope (``kernel_supported``) launch
   one of four hand-written kernels, or raise.  :func:`pick_route` decides
-  which, before any launch, from the ring and the shape alone:
-  for t, r <= 16 (the RMFE packs, encode and decode of a CDMM round)
-  ``skinny`` where it has an instantiation, else ``tower`` where the
-  lifted A fits a block (t r <= 108 over the (3, 7) tower, t r <= 225 over
-  (3, 5)); ``tc`` for t >= 64 and D1 s >= 64 on the single-level
-  towers with D <= 4 and the two-level towers (2, 3), (3, 5), (3, 7) (the
-  worker products; a tower (D0, D1) is lifted onto GR(2^e, D0)),
-  ``simt`` for everything else (a (3, 7) product with t < 64 and r > 16,
-  say);
-* CUDA tensors of a ring outside it raise ValueError: on the card a ring
-  matmul runs on a kernel or not at all (the reference hands such rings to
-  XLA, ``repro/kernels/ops.py:66``).  The envelope is the reference's (p = 2,
-  e <= 32, D <= 16) plus the towers of ``SIMT_WIDE_TOWERS``.
+  which, before any launch, from the ring and the shape alone.
+
+The routes' envelope (what :func:`route_takes` says each kernel takes;
+:func:`pick_route` asks in this order):
+
+* ``skinny`` for t <= 64 and r <= 32 (the RMFE packs, the encodes and the
+  decode of a CDMM round with up to N = 64 workers) over the towers with
+  K * CPT <= 64 (``gr_matmul.skinny_cols``: GR(2^e, D) for D <= 8 and the
+  even D to 16, and (2, 3), (2, 5), (3, 2), (3, 4), (4, 3), (5, 2)), where
+  A and its slab of B fit a block's shared memory
+  (``gr_matmul.skinny_smem_bytes``);
+* ``tower`` for t, r <= 16 over the towers ``skinny`` has no instantiation
+  for (``gr_matmul.TOWER_CONFIGS``: the (3, 7) tower, (3, 5), (5, 3),
+  (7, 2), ...), where the lifted A fits a block (t r <= 108 over the (3, 7)
+  tower, t r <= 225 over (3, 5));
+* ``tc`` for t >= 64 and D1 s >= 64 (the worker products): GR(2^e, D)
+  with D <= 4 as it is; every other ring of ``gr_matmul.TC_LIFT_TOWERS``
+  lifted onto its inner ring (``ref.tc_view``): GR(2^e, D) with
+  5 <= D <= 16 as the tower (1, D) over Z_2^e, and the two-level towers
+  (2, 3), (2, 5), (2, 7), (3, 2), (3, 4), (3, 5), (4, 3), (3, 7) over
+  GR(2^e, D0) (D1 = 1 for a ring taken as it is);
+* ``simt`` for everything else: products below ``TC_MIN_TS`` that the
+  bandwidth routes do not take (a 48 x 96 worker block, say), the towers
+  (5, 2), (5, 3) and (7, 2) at t >= 64, the (3, 7) tower's calls with
+  t > 16 or r > 16 below t = 64, and a decode with r > 32 (the R = 33 of
+  the secure plans for 64 workers);
+* CUDA tensors of a ring outside the envelope raise ValueError: on the
+  card a ring matmul runs on a kernel or not at all (the reference hands
+  such rings to XLA, ``repro/kernels/ops.py:66``).  The envelope is the
+  reference's (p = 2, e <= 32, D <= 16) plus the towers of
+  ``SIMT_WIDE_TOWERS``.
 
 ``tc``, ``skinny`` and ``tower`` come in a few instantiations each; :func:`pick_blocks`
 names the one a launch uses: the caller's, else the tuned entry of
@@ -42,6 +60,7 @@ from .gr_matmul import (
     SKINNY_MAX_R,
     SKINNY_MAX_T,
     SMEM_BLOCK_BYTES,
+    TOWER_MAX_TR,
     gr_matmul_planar,
     gr_matmul_skinny,
     gr_matmul_tc,
@@ -49,13 +68,14 @@ from .gr_matmul import (
     kernel_tile,
     skinny_cols,
     skinny_configs,
+    skinny_smem_bytes,
     tc_configs,
     tc_instantiated,
     tower_configs,
     tower_shape,
     tower_smem_bytes,
 )
-from .ref import gr_matmul_ref
+from .ref import gr_matmul_ref, tc_view
 
 # the tc route needs at least this many rows and columns.  Below it (a
 # 48-row worker product, say) tc can still be faster on the device, but the
@@ -67,6 +87,7 @@ __all__ = [
     "TC_MIN_TS",
     "gr_matmul",
     "pick_route",
+    "route_takes",
     "run_route",
     "coded_encode",
     "kernel_supported",
@@ -117,19 +138,37 @@ def kernel_auto_enabled(ring, x: torch.Tensor) -> bool:
     return x.is_cuda and kernel_supported(ring)
 
 
+def route_takes(route: str, ring, t: int, r: int) -> bool:
+    """Whether ``route``'s kernel takes a (t, r) x (r, s) matmul over
+    ``ring`` (inside the envelope; for ``tc`` at any t and s, which
+    :func:`pick_route` holds to ``TC_MIN_TS``): the instantiations and, for
+    ``skinny`` and ``tower``, the shapes and the shared memory a block
+    needs at them."""
+    d0, d1 = tower_shape(ring)
+    if route == "tc":
+        return tc_instantiated(d0, d1)
+    if route == "skinny":
+        return (bool(skinny_cols(d0, d1)) and 1 <= t <= SKINNY_MAX_T and 1 <= r <= SKINNY_MAX_R
+                and skinny_smem_bytes(ring, t, r) <= SMEM_BLOCK_BYTES)
+    if route == "tower":
+        return (bool(tower_configs(d0, d1)) and 1 <= t <= TOWER_MAX_TR and 1 <= r <= TOWER_MAX_TR
+                and tower_smem_bytes(ring, t, r) <= SMEM_BLOCK_BYTES)
+    return route == "simt"
+
+
 def pick_route(ring, t: int, r: int, s: int) -> str:
     """The route of a (t, r) x (r, s) matmul over ``ring`` on the card:
-    ``skinny``, ``tc``, ``simt``, or ``plain`` outside the envelope (which
-    only CPU tensors take: :func:`gr_matmul` raises on the card)."""
+    ``skinny``, ``tower``, ``tc`` or ``simt`` (the first of them that takes
+    it, tc from t, D1 s >= ``TC_MIN_TS``), or ``plain`` outside the
+    envelope (which only CPU tensors take: :func:`gr_matmul` raises on the
+    card)."""
     if not kernel_supported(ring):
         return "plain"
-    d0, d1 = tower_shape(ring)
-    if 1 <= t <= SKINNY_MAX_T and 1 <= r <= SKINNY_MAX_R:
-        if skinny_cols(d0, d1):
-            return "skinny"
-        if tower_configs(d0, d1) and tower_smem_bytes(ring, t, r) <= SMEM_BLOCK_BYTES:
-            return "tower"
-    if t >= TC_MIN_TS and d1 * s >= TC_MIN_TS and tc_instantiated(d0, d1):
+    for route in ("skinny", "tower"):
+        if route_takes(route, ring, t, r):
+            return route
+    d1 = tc_view(*tower_shape(ring))[1]
+    if t >= TC_MIN_TS and d1 * s >= TC_MIN_TS and route_takes("tc", ring, t, r):
         return "tc"
     return "simt"
 

@@ -15,6 +15,8 @@ every sum exact.
 """
 from __future__ import annotations
 
+from typing import Tuple
+
 import torch
 import torch.nn.functional as F
 
@@ -29,7 +31,9 @@ __all__ = [
     "mult_matrices_ref",
     "n_limbs",
     "outer_reduction",
+    "tc_lifted",
     "tc_planes_ref",
+    "tc_view",
     "to_i32",
     "u32_to_signed",
 ]
@@ -175,28 +179,55 @@ def gr_matmul_limbs_ref(A: torch.Tensor, B: torch.Tensor, ring) -> torch.Tensor:
     return _fold(conv, ring).movedim(-3, -1)
 
 
-# -- the tensor-core route over a two-level tower: the outer-level lift --------
+# -- the tensor-core route over a lifted ring: the outer-level lift ------------
+
+# the tc kernel's own instantiations stop at D = 4 (kMaxD in
+# csrc/gr_matmul_tc.cu): a single-level ring above it is lifted
+TC_MAX_D = 4
+
+
+def tc_view(d0: int, d1: int = 1) -> Tuple[int, int]:
+    """(D0, D1): the tower the ``tc`` route runs a ring of tower shape
+    (d0, d1) as.  A two-level tower is itself, lifted onto its inner ring
+    GR(2^e, D0) when D1 > 1; a single-level ring GR(2^e, D) with D > 4 is
+    the tower (1, D), lifted onto Z_2^e (its FOLD = kron(FOLD, [[1]]), so
+    the outer reduction is FOLD itself); GR(2^e, D <= 4) is (D, 1)."""
+    return (1, d0) if d1 == 1 and d0 > TC_MAX_D else (d0, d1)
+
+
+def _view(ring) -> Tuple[int, int]:
+    deg = ring.degrees
+    return tc_view(*deg) if len(deg) == 2 else tc_view(ring.D)
+
+
+def tc_lifted(ring) -> bool:
+    """Whether the ``tc`` route lifts ``ring``'s B (``lift_b_ref``): a
+    two-level tower, or a single-level ring with D > 4."""
+    return _view(ring)[1] > 1
 
 
 def outer_reduction(ring):
-    """RED (2 D1 - 1, D1) uint32 of a two-level tower (D0, D1): row k holds
-    the outer variable's x^k reduced by the outer modulus over Z_q.  FOLD is
-    kron(RED, FOLD0) and FOLD0[0, 0] = 1, so RED is FOLD's (c * K0, m * D0)
-    entries (K0 = 2 D0 - 1)."""
-    d0 = ring.degrees[0]
+    """RED (2 D1 - 1, D1) uint32 of a lifted ring (D0, D1) (:func:`tc_view`):
+    row k holds the outer variable's x^k reduced by the outer modulus over
+    Z_q.  FOLD is kron(RED, FOLD0) and FOLD0[0, 0] = 1, so RED is FOLD's
+    (c * K0, m * D0) entries (K0 = 2 D0 - 1); for a single-level ring
+    (D0 = 1) it is FOLD itself."""
+    d0 = _view(ring)[0]
     return ring.FOLD_U32[:: 2 * d0 - 1, ::d0]
 
 
 def lift_b_ref(B: torch.Tensor, ring) -> torch.Tensor:
-    """Plain version of the ``tc`` route's lift over a two-level tower
-    (D0, D1): B (..., r, s, D0 D1) -> M(B) (..., D1 r, D1 s, D0) int32,
+    """Plain version of the ``tc`` route's lift over a lifted ring (D0, D1)
+    (:func:`tc_view`): B (..., r, s, D0 D1) -> M(B) (..., D1 r, D1 s, D0)
+    int32,
 
         M(B)[(r, i), (s, m)] = sum_j RED[i + j, m] * B[r, s, j]  (mod 2^32),
 
-    each B[r, s, j] an element of the inner ring GR(2^e, D0).  Then
-    ``A (t, r, D)`` read as ``(t, D1 r, D0)`` times M(B) over the inner
-    ring is A B over the tower, read as ``(t, D1 s, D0)``."""
-    d0, d1 = ring.degrees
+    each B[r, s, j] an element of the inner ring GR(2^e, D0) (Z_2^e for a
+    single-level ring).  Then ``A (t, r, D)`` read as ``(t, D1 r, D0)``
+    times M(B) over the inner ring is A B over the ring, read as
+    ``(t, D1 s, D0)``."""
+    d0, d1 = _view(ring)
     *lead, r, s, _ = B.shape
     Bt = B.to(torch.int64).reshape(*lead, r, s, d1, d0)
     red = torch.tensor([[u32_to_signed(int(v)) for v in row] for row in outer_reduction(ring)],
@@ -209,20 +240,17 @@ def lift_b_ref(B: torch.Tensor, ring) -> torch.Tensor:
     return to_i32(M).reshape(*lead, d1 * r, d1 * s, d0)
 
 
-def _lifted(ring) -> bool:
-    return len(ring.degrees) == 2
-
-
 def tc_planes_ref(A: torch.Tensor, B: torch.Tensor, ring, Tp: int, Rp: int, Sp: int):
     """Plain version of the ``tc`` route's pre-passes: the limb planes the
     main kernel reads, A8 (..., D0, L, Tp, Rp) and B8 (..., D0, L, Sp, Rp).
-    A single-level ring splits both operands as they are (D0 = D); a
-    two-level tower splits A read as (t, D1 r, D0) and the lift M(B)."""
-    if not _lifted(ring):
+    A ring the kernel takes as it is splits both operands as they are
+    (D0 = D); a lifted ring (:func:`tc_view`) splits A read as
+    (t, D1 r, D0) and the lift M(B)."""
+    if not tc_lifted(ring):
         return (limb_planes_ref(A, ring, Tp, Rp),
                 limb_planes_ref(B, ring, Sp, Rp, transpose=True))
     inner = ring.base_ring()
-    d0, d1 = ring.degrees
+    d0, d1 = _view(ring)
     A1 = A.reshape(*A.shape[:-2], d1 * A.shape[-2], d0)
     return (limb_planes_ref(A1, inner, Tp, Rp),
             limb_planes_ref(lift_b_ref(B, ring), inner, Sp, Rp, transpose=True))
@@ -231,12 +259,13 @@ def tc_planes_ref(A: torch.Tensor, B: torch.Tensor, ring, Tp: int, Rp: int, Sp: 
 def gr_matmul_tc_ref(A: torch.Tensor, B: torch.Tensor, ring) -> torch.Tensor:
     """The ``tc`` route's algorithm on the CPU, composed as the route runs
     it: :func:`gr_matmul_limbs_ref` over the ring itself, or over the inner
-    ring GR(2^e, D0) of a two-level tower on A read as (t, D1 r, D0) and
-    the lift M(B) (:func:`lift_b_ref`), whose (t, D1 s, D0) product is the
-    tower's (t, s, D)."""
-    if not _lifted(ring):
+    ring GR(2^e, D0) of a lifted ring (:func:`tc_view`; Z_2^e for a
+    single-level one) on A read as (t, D1 r, D0) and the lift M(B)
+    (:func:`lift_b_ref`), whose (t, D1 s, D0) product is the ring's
+    (t, s, D)."""
+    if not tc_lifted(ring):
         return gr_matmul_limbs_ref(A, B, ring)
-    d0, d1 = ring.degrees
+    d0, d1 = _view(ring)
     A1 = A.reshape(*A.shape[:-2], d1 * A.shape[-2], d0)
     C1 = gr_matmul_limbs_ref(A1, lift_b_ref(B, ring), ring.base_ring())
     return C1.reshape(*C1.shape[:-2], C1.shape[-2] // d1, ring.D)

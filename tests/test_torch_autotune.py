@@ -236,4 +236,6 @@ def test_ptxas_usage_reads_every_instantiation(tmp_path):
     simt = {"simt(3,7)": {"regs": 123}}
     assert at._usage_of(simt, "simt", make_ring(2, 32, (3, 7)), (16, 16, 16)) == {"regs": 123}
     assert at.config_name("tc", (32, 2)) == "n32s2" and at.config_name("skinny", (128, 2)) == "t128m2"
-    assert skinny_configs(5, 1) == ((128, 1),) and not tc_configs(5, 1)
+    # GR(2^32, 5): skinny's default only; tc lifted onto Z_2^32, its (1, 1) tiles
+    assert skinny_configs(5, 1) == ((128, 1),) and tc_configs(5, 1) == TC_CONFIGS[(1, 1)]
+    assert not tc_configs(5, 2)

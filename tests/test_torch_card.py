@@ -40,6 +40,7 @@ from repro_torch.kernels.gr_matmul import (
     tower_configs,
     tower_shape,
 )
+from repro_torch.kernels.ref import tc_lifted
 
 pytestmark = pytest.mark.cuda
 
@@ -79,7 +80,7 @@ def test_kernel_matches_plain(cuda, spec):
             expect = dict.fromkeys(ROUTES + PREPASSES, 0)
             expect[route] = 1
             if route == "tc":  # one limb pre-pass an operand, or A's and B's lift
-                expect["limbs"], expect["lift"] = (2, 0) if len(ring.degrees) < 2 else (1, 1)
+                expect["limbs"], expect["lift"] = (1, 1) if tc_lifted(ring) else (2, 0)
             assert counters.launches_by_route == expect
             assert torch.equal(out, gr_matmul_ref(A, B, ring)), (lead, t, r, s)
 
@@ -291,6 +292,46 @@ def test_every_skinny_configuration_matches_plain(cuda, tower):
         want = gr_matmul_ref(A, B, ring)
         for config in skinny_configs(*tower):
             assert torch.equal(gr_matmul_skinny(A, B, ring, config), want), (config, lead, t, r, s)
+
+
+# -- slice 10: the lift of every ring the planner picks, the widened skinny ----
+
+
+@pytest.mark.parametrize("deg", [(5,), (6,), (7,), (8,), (12,), (16,), (3, 4), (4, 3), (2, 5),
+                                 (2, 7), (3, 2)], ids=str)
+def test_every_new_lift_matches_plain(cuda, deg):
+    """The tc route over a ring it lifts (a single-level D >= 5 as (1, D),
+    a two-level tower onto its inner ring): every instantiation against the
+    plain version, batched and ragged, with one limb pre-pass and one lift."""
+    ring = make_ring(2, 32, deg)
+    rng = np.random.default_rng(15)
+    for lead, (t, r, s) in [((), (64, 64, 64)), ((2,), (96, 300, 160)), ((), (70, 17, 97))]:
+        A = ring.random(rng, lead + (t, r), device=cuda)
+        B = ring.random(rng, lead + (r, s), device=cuda)
+        want = gr_matmul_ref(A, B, ring)
+        for config in tc_configs(*tower_shape(ring)):
+            counters.reset()
+            assert torch.equal(gr_matmul_tc(A, B, ring, config), want), (config, lead, t, r, s)
+            assert counters.launches_by_route["lift"] == counters.launches_by_route["limbs"] == 1
+
+
+@pytest.mark.parametrize("deg", [(), (3,), (5,), (6,), (7,), (12,), (3, 4)], ids=str)
+def test_widened_skinny_matches_plain(cuda, deg):
+    """skinny at t = 64 and r = 32 (the encodes and decodes of 64 workers)
+    with ragged s, against the plain version; one past either edge it
+    refuses the call."""
+    ring = make_ring(2, 32, deg)
+    rng = np.random.default_rng(16)
+    for lead, (t, r, s) in [((), (64, 8, 4099)), ((2,), (32, 32, 333)), ((), (64, 32, 257)),
+                            ((), (17, 3, 100001))]:
+        A = ring.random(rng, lead + (t, r), device=cuda)
+        B = ring.random(rng, lead + (r, s), device=cuda)
+        assert torch.equal(gr_matmul_skinny(A, B, ring), gr_matmul_ref(A, B, ring)), (lead, t, r, s)
+    for t, r in ((65, 2), (2, 33)):
+        A = ring.random(rng, (t, r), device=cuda)
+        B = ring.random(rng, (r, 5), device=cuda)
+        with pytest.raises(ValueError, match="skinny kernel takes"):
+            gr_matmul_skinny(A, B, ring)
 
 
 def test_tuned_entry_is_what_the_route_launches(cuda, monkeypatch):

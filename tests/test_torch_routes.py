@@ -28,12 +28,17 @@ from repro_torch.kernels.gr_matmul import (
     SIMT_WIDE_TOWERS,
     SKINNY_CONFIGS,
     SKINNY_DEFAULT,
+    SKINNY_GROUPS,
+    SKINNY_MAX_R,
+    SKINNY_MAX_T,
+    SKINNY_SMEM_CAP,
     TC_BM,
     TC_CONFIGS,
     TC_DEPTH,
     TC_LIFT_TOWERS,
     TC_PAD,
     TOWER_CONFIGS,
+    TOWER_MAX_TR,
     gr_matmul_skinny,
     gr_matmul_tc,
     gr_matmul_tower,
@@ -49,7 +54,7 @@ from repro_torch.kernels.gr_matmul import (
     tower_configs,
     tower_smem_bytes,
 )
-from repro_torch.kernels.ref import limb_planes_ref, n_limbs
+from repro_torch.kernels.ref import limb_planes_ref, n_limbs, tc_view
 
 CSRC = Path(__file__).resolve().parents[1] / "src" / "repro_torch" / "kernels" / "csrc"
 # the seven rings of tests/test_torch_kernels.py, by tower degrees
@@ -173,13 +178,14 @@ ROUTE_CASES = [
     ((3,), 4, 4, 1048576, "skinny"),
     ((), 2, 3, 4194304, "skinny"),
     ((3,), 16, 16, 100, "skinny"),
-    ((3,), 17, 2, 1048576, "simt"),     # t > 16 and t < 64
-    ((3,), 8, 17, 1048576, "simt"),     # r > 16
+    ((3,), 17, 2, 1048576, "skinny"),   # t > 16: the widened skinny takes t <= 64
+    ((3,), 8, 17, 1048576, "skinny"),   # r > 16: and r <= 32
+    ((3,), 8, 33, 1048576, "simt"),     # r > 32 and t < 64
     ((3,), 16, 0, 100, "simt"),         # nothing to reduce: not the skinny kernel
     ((3,), 64, 2048, 64, "tc"),
     ((3,), 63, 2048, 1024, "simt"),
     ((3,), 1024, 2048, 63, "simt"),
-    ((5,), 1024, 2048, 1024, "simt"),   # no tc instantiation for D = 5
+    ((5,), 1024, 2048, 1024, "tc"),     # D = 5: lifted onto Z_2^32 as the tower (1, 5)
     ((3, 5), 4, 4, 1048576, "tower"),   # no skinny instantiation for (3, 5)
     ((17,), 4, 4, 1048576, "plain"),    # D > MAX_D: outside the envelope
     # D = 21: the worker product lifted onto GR(2^32, 3), the encodes and
@@ -194,7 +200,7 @@ ROUTE_CASES = [
     ((3, 7), 64, 1024, 10, "tc"),       # D1 s = 70 >= 64
     ((3, 7), 64, 1024, 9, "simt"),      # D1 s = 63
     ((2, 3), 1024, 2048, 1024, "tc"),   # lifted onto GR(2^32, 2)
-    ((3, 4), 1024, 2048, 1024, "simt"),  # no lift for (3, 4)
+    ((3, 4), 1024, 2048, 1024, "tc"),   # lifted onto GR(2^32, 3)
     ((5, 3), 1024, 2048, 1024, "simt"),  # inner degree 5: no tc instantiation
     ((5, 3), 4, 4, 1048576, "tower"),
 ]
@@ -232,8 +238,13 @@ def test_instantiation_mirrors_match_the_sources():
     tc = _configs("gr_matmul_tc.cu", "TC_CONFIGS")
     assert sorted({c[:2] for c in tc}) == sorted(TC_CONFIGS)
     assert _towers("gr_matmul_tc.cu", "TC_LIFT_TOWERS") == sorted(TC_LIFT_TOWERS)
-    assert [t for t in towers if tc_instantiated(*t)] == sorted({*TC_CONFIGS, *TC_LIFT_TOWERS})
+    # a single-level ring past the kernel's own D <= 4 is lifted as (1, D):
+    # every simt tower but (5, 2), (5, 3) and (7, 2) has a tc route
+    assert sorted({tc_view(*t) for t in towers if tc_instantiated(*t)}) == sorted(
+        {*TC_CONFIGS, *TC_LIFT_TOWERS})
+    assert [t for t in towers if not tc_instantiated(*t)] == [(5, 2), (5, 3), (7, 2)]
     assert all(t[1] > 1 and (t[0], 1) in TC_CONFIGS for t in TC_LIFT_TOWERS)
+    assert [t for t in TC_LIFT_TOWERS if t[0] == 1] == [(1, d) for d in range(5, MAX_D + 1)]
     assert {t: tuple(c[2:] for c in tc if c[:2] == t) for t in TC_CONFIGS} == TC_CONFIGS
     # the tower kernel: every simt tower without a skinny instantiation
     tower = _configs("gr_matmul_tower.cu", "TOWER_CONFIGS")
@@ -247,6 +258,17 @@ def test_instantiation_mirrors_match_the_sources():
     src = (CSRC / "gr_matmul_tc.cu").read_text()
     assert [int(v) for v in re.findall(r"constexpr int KS = (\d+);", src)] == [TC_DEPTH]
     assert [int(v) for v in re.findall(r"constexpr int kBM = (\d+);", src)] == [TC_BM]
+    # the lift's widest outer level, and the bandwidth kernels' shape limits
+    assert [int(v) for v in re.findall(r"constexpr int kMaxD1 = (\d+);", src)] == [
+        max(t[1] for t in TC_LIFT_TOWERS)]
+    const = lambda source, name: [int(v) for v in re.findall(  # noqa: E731
+        rf"constexpr int {name} = (\d+)(?: \* 1024)?;", (CSRC / source).read_text())]
+    assert const("gr_matmul_skinny.cu", "kMaxT") == [SKINNY_MAX_T]
+    assert const("gr_matmul_skinny.cu", "kMaxR") == [SKINNY_MAX_R]
+    assert [x * 1024 for x in const("gr_matmul_skinny.cu", "kSmemCap")] == [SKINNY_SMEM_CAP]
+    assert const("gr_matmul_skinny.cu", "kGroups") == [SKINNY_GROUPS]
+    assert const("gr_matmul_tower.cu", "kMaxT") == const("gr_matmul_tower.cu", "kMaxR") == [
+        TOWER_MAX_TR]
 
 
 def test_route_wrappers_take_cuda_tensors_only():
@@ -290,11 +312,13 @@ def test_counters_and_layout_cache_are_safe_under_concurrent_callers():
 @pytest.mark.parametrize("deg", sorted(TC_LIFT_TOWERS), ids=str)
 def test_lifted_towers_run_their_inner_rings_tc_kernel(deg):
     # the main kernel's instantiation, shared memory and padding are the
-    # inner ring's, at the lifted depth and width
-    ring = make_ring(2, 32, deg)
-    inner = make_ring(2, 32, deg[:1])
-    assert tc_instantiated(*deg) and tc_configs(*deg) == TC_CONFIGS[(deg[0], 1)]
-    for config in tc_configs(*deg):
+    # inner ring's, at the lifted depth and width (a tower (1, D) is the
+    # single-level GR(2^32, D) over Z_2^32)
+    ring = make_ring(2, 32, deg if deg[0] > 1 else deg[1:])
+    inner = make_ring(2, 32, deg[:1] if deg[0] > 1 else ())
+    tower = deg if deg[0] > 1 else (deg[1], 1)
+    assert tc_instantiated(*tower) and tc_configs(*tower) == TC_CONFIGS[(deg[0], 1)]
+    for config in tc_configs(*tower):
         assert tc_smem_bytes(ring, config) == tc_smem_bytes(inner, config)
     assert tc_shape(ring, 512, 1024, 256) == (deg[0], 512, deg[1] * 1024, deg[1] * 256)
 
