@@ -8,24 +8,31 @@ Phases (any mismatch fails the run with a non-zero exit):
 1. environment and build: torch/CUDA versions, the card's name and power
    limit, the kernels built from ``src/repro_torch/kernels/csrc`` with nvcc
    (``-Xptxas -v`` registers and spills per instantiation of every route,
-   the ``tower`` kernels and the ``lift`` pre-pass printed on their own;
+   the ``lift`` and ``stack`` pre-passes printed on their own;
    every ``tc`` instantiation must enter with 168 registers, which its
    ``setmaxnreg`` split needs, and ptxas' warnings on it are reported),
    and the Python mirrors of each route's tiles, instantiations and the
    ``tc`` kernel's shared memory per tile and L (a lifted tower's too) and
    the ``tower`` kernel's per (t, r) held against the library;
-2. every route of ``gr_matmul`` (``simt``, ``tc``, ``skinny``, ``tower``)
-   and the tc route's pre-passes (limb planes, a lifted ring's lift)
-   against their plain PyTorch versions on the card, bit for bit, on nine
+2. every route of ``gr_matmul`` (``simt``, ``tc``, ``skinny``, ``tower``,
+   ``tc_left``) and the tc routes' pre-passes (limb planes, a lifted ring's
+   lift, tc_left's lift of A and stack of B) against their plain PyTorch
+   versions on the card, bit for bit, on nine
    rings (K up to 65: the (3, 7) tower, D = 21, at e = 32 and 31) at the
    shapes each route takes (``tc`` and ``tower`` at every instantiation of
    the ring's tower), batched and unbatched; ``tc`` on every ring it lifts
    (``LIFT_SPECS``: GR(2^32, D) for D = 5..16 and the towers (3, 4), (4, 3),
-   (2, 5), (2, 7), (3, 2)); the widened ``skinny`` at t = 64 and r = 32
-   (``SKINNY_WIDE_SHAPES``, ragged s); the ``tc`` accumulators'
-   overflow rule (all-0xFF operands, chains past 2^31 and 2^32, the lifted
-   (3, 7), (3, 4) and D = 6 chains among them, every instantiation; printed
-   as ``tc_accumulate: wraps``, and the run fails if they saturate);
+   (2, 5), (2, 7), (3, 2)) and ``tc_left`` on the same rings
+   (``TC_LEFT_SHAPES``); the widened ``skinny`` at t = 64 and r = 32
+   (``SKINNY_WIDE_SHAPES``, ragged s); the ``tc`` and ``tc_left``
+   accumulators' overflow rule (all-0xFF operands, chains past 2^31 and
+   2^32, the lifted (3, 7), (3, 4) and D = 6 chains among them, every
+   instantiation; printed as ``tc_accumulate: wraps``, and the run fails
+   if they saturate); ``tc_left`` at the calls of the planner's 64-worker
+   rounds at 2048^3 (``LEFT_SHAPES``: the R = 33 decode over GR(2^32, 7),
+   the (3, 7) tower's 32 x 32 decode and 64-row encodes), held at every
+   instantiation, with ``simt`` and the B-lifted ``tc`` it replaces, then
+   timed in turns with both;
    ``ElasticStream``'s step over the (3, 7) tower (three ``tower`` calls
    and the lifted ``tc`` worker product) at every instantiation and on
    ``simt``; and at every shape the main path hands the
@@ -46,8 +53,12 @@ Phases (any mismatch fails the run with a non-zero exit):
    its ring, partition and R asserted, with non-prefix dead workers):
    ``batch_ep_rmfe_n4`` (n = 4, N = 16, 2048^3, GR(2^32, (3, 4))),
    ``batch_ep_rmfe_n64`` (n = 2, N = 64, 2048^3, GR(2^32, 6)) and
-   ``ep_secure_n16`` (keyed, N = 16, 1024^3, GR(2^32, 5)), each with its
-   worker product on the lifted ``tc`` and no ``simt`` launch.  Every
+   ``ep_secure_n16`` (keyed, N = 16, 1024^3, GR(2^32, 5)), and the
+   64-worker rounds at 2048^3: ``batch_ep_rmfe_n8_n64`` (n = 8, 16 dead,
+   GR(2^32, (3, 7)), R = 32; its decode and 64-row encodes on ``tc_left``)
+   and ``ep_secure_n64`` (keyed, no straggler budget, 16 dead, GR(2^32, 7),
+   R = 33; its decode on ``tc_left``), each with its worker product on the
+   lifted ``tc`` and no ``simt`` launch.  Every
    output must equal the direct product computed by the plain version.  Launch counts per route are
    zeroed before each path, read after it and held against the expected
    ones.  Stage device times are kept per run (5 warm runs each).  For the
@@ -63,9 +74,11 @@ Phases (any mismatch fails the run with a non-zero exit):
    first batch entry and against ``simt`` on all); the shapes
    of the GR(2^32, 4) paths, of the wider-ring paths, of ep's 96^3 request
    and of phases 5-9 are also timed as phase 2 times the main path's: the
-   route in turns with ``simt`` from CUDA graphs, beside its byte, int8
+   route in turns with ``simt`` from CUDA graphs (of 10 launches, fewer
+   past 2e10 word products: ``GRAPH_WORDS``), beside its byte, int8
    and INT32 bounds, the plain version and, for ``tc``, its pre-passes
-   (the lift alone over a lifted ring) and the int8 yardstick.  It runs
+   (the lift alone over a lifted ring; for ``tc_left`` the lift of A and
+   the stack) and the int8 yardstick.  It runs
    last, once phases 5-9 have recorded;
 5. the elastic any-R master (``coded_matmul(..., backend=ElasticBackend)``)
    on ``batch_ep_rmfe`` at 2048^3: (a) the all-live fast path, equal to
@@ -189,7 +202,6 @@ SEED = 0
 # launches per call (phi(A), encode_a_at, phi(B), encode_b_at, decode, psi
 # on skinny, or the master encode's pack and encode; its product on tc)
 SPMD_N = 8
-SPMD_RANK_LAUNCHES = dict(simt=0, tc=1, skinny=6, tower=0, limbs=2, lift=0)
 # the sharded CodedQuantMatmul at gemma2-2b's FFN widths, its tokens cut
 # from 2048 to 256: 16 ranks gather 16 responses each through gloo on the
 # host (9.4 MB a response at 256 tokens, 2.4 GB for all ranks)
@@ -205,15 +217,19 @@ SINGLE_SIZE = 1024
 SMALL_SIZE = 96
 # dead workers 2 and 5: the first R = 4 live workers are (0, 1, 3, 4), not a prefix
 MASK = [True, True, False, True, True, False, True, True]
-ROUTES = ("simt", "tc", "skinny", "tower")
-# every count a wrapper keeps: the routes' matmul kernels and the tc route's
-# pre-passes (limbs: A's, and a single-level B's; lift: a tower's B)
-COUNTED = ROUTES + ("limbs", "lift")
+ROUTES = ("simt", "tc", "skinny", "tower", "tc_left")
+# every count a wrapper keeps: the routes' matmul kernels and the tc routes'
+# pre-passes (limbs: A's, and a single-level B's; lift: a lifted ring's B on
+# tc, its A on tc_left; stack: B on tc_left)
+COUNTED = ROUTES + ("limbs", "lift", "stack")
 
 
 def _launches(**counts) -> dict:
     """Launches per counted kernel, 0 for those not named."""
     return {**dict.fromkeys(COUNTED, 0), **counts}
+
+
+SPMD_RANK_LAUNCHES = _launches(simt=0, tc=1, skinny=6, tower=0, limbs=2, lift=0)
 
 
 # launches per route for one coded_matmul of each path (limbs: the tc
@@ -265,6 +281,15 @@ EXPECTED_LAUNCHES = {
     # keyed, 16 workers over GR(2^32, 5): encode a/b (k = 3 with the mask
     # row) and the 4 x 9 decode
     "ep_secure_n16": _launches(simt=0, tc=1, skinny=3, limbs=1, lift=1),
+    # the planner's 64-worker rounds at 2048^3.  n = 8 over GR(2^32, (3, 7)):
+    # phi and psi in two levels on skinny, the worker product on tc through
+    # the lift of B, the 64-row encodes and the 32 x 32 decode on tc_left
+    # (the lift of A and the stack of B each); no simt launch
+    "batch_ep_rmfe_n8_n64": _launches(simt=0, tc=1, skinny=6, tc_left=3, limbs=1, lift=4,
+                                      stack=3),
+    # keyed, 64 workers over GR(2^32, 7): encode a/b (k = 5 with the mask
+    # row) on skinny, the worker product on tc, the 16 x 33 decode on tc_left
+    "ep_secure_n64": _launches(simt=0, tc=1, skinny=2, tc_left=1, limbs=1, lift=2, stack=1),
 }
 # phases 8-9, the worker pool: this process (the master) encodes each of the
 # 8 shares on its own (phi(A), encode_a_at, phi(B), encode_b_at on skinny,
@@ -299,11 +324,22 @@ WIDE_PATHS = [
      tuple(range(1, 64, 4))),
     ("ep_secure_n16", "ep_secure", 1, 16, 4, 1, SINGLE_SIZE, ((5,), (2, 2, 1), 9),
      (2, 5, 11, 13)),
+    # the paper's Table 1 setting at its largest batch (N = 64, n = 8), and
+    # the keyed plan for 64 workers with no straggler budget (R = 33)
+    ("batch_ep_rmfe_n8_n64", "batch_ep_rmfe", 8, 64, 16, 0, MAIN_SIZE, ((3, 7), (4, 8, 1), 32),
+     tuple(range(3, 64, 4))),
+    ("ep_secure_n64", "ep_secure", 1, 64, 0, 1, MAIN_SIZE, ((7,), (4, 4, 1), 33),
+     tuple(range(2, 64, 4))),
 ]
 # phase 4 holds a call whose plain version needs more word products than
 # this (b t r s D^2) on its first batch entry, and the route against simt
 # on every entry: the (3, 4) worker product is 2.47e12 of them
 PLAIN_WORDS_CAP = 5e11
+# a timed call is replayed from a CUDA graph of 10 launches, or of
+# GRAPH_WORDS // (its word products) down to 1 past 2e10 of them: simt takes
+# ~0.2 s on a 64-row encode over the (3, 7) tower (1.2e11) and ~0.7 s on
+# the (3, 7) worker product of 64 workers (7.6e12)
+GRAPH_WORDS = 2e11
 # the elastic trace: workers 1 and 3 slow, 2 and 5 dead (MASK); the R = 4
 # fastest responders are (0, 4, 6, 7), not the first R live (0, 1, 3, 4)
 TRACE_COMPUTE_MS = [1, 50, 1, 40, 1, 1, 1, 1]
@@ -343,7 +379,19 @@ WIDE_SKINNY_SPECS = [(2, 32, (6,)), (2, 32, (7,)), (2, 32, (12,)), (2, 32, (3, 4
 # (3, 7) tower's shared-memory limit of 108, a single element
 TOWER_SHAPES = [(8, 8, 4099), (12, 9, 1001), (1, 1, 77), (8, 2, 4100)]
 BATCHED = {"simt": (3, 9, 20, 11), "tc": (3, 33, 280, 65), "skinny": (3, 4, 5, 77),
-           "tower": (3, 4, 5, 77)}
+           "tower": (3, 4, 5, 77), "tc_left": (3, 4, 5, 77)}
+# the tc_left route on every lifted ring: a decode past r = 32, a 32 x 32
+# decode, the 64-row encodes (ragged s) and a deep r at three rows
+TC_LEFT_SHAPES = [(16, 33, 333), (32, 32, 200), (64, 4, 1001), (64, 8, 4099), (3, 70, 64)]
+# the calls of the planner's 64-worker rounds that tc_left takes, at 2048^3:
+# (ring degrees, batch, t, r, s), each held against the plain version and
+# timed in turns with simt and with the B-lifted tc
+LEFT_SHAPES = {
+    "decode_r33": ((7,), None, 16, 33, 262144),     # ep_secure / ep_rmfe_secure, N = 64
+    "decode_3_7": ((3, 7), None, 32, 32, 131072),   # batch_ep_rmfe n = 8, N = 64
+    "encode_a_3_7": ((3, 7), None, 64, 4, 1048576),
+    "encode_b_3_7": ((3, 7), None, 64, 8, 524288),
+}
 # ElasticStream's step at 9 live workers: batch_ep_rmfe (n = 8) over
 # GR(2^32, (3, 7)), 1024^3 in a (1, 8) group: (name, batch, t, r, s)
 STEP9_SHAPES = [("encode_a", None, 8, 2, 524288), ("encode_b", None, 8, 4, 262144),
@@ -477,7 +525,7 @@ def phase_env_build(report: dict) -> None:
     usage = ptxas_usage()
     log("ptxas " + json.dumps(usage, separators=(",", ":")))
     report["ptxas"] = usage
-    for route in ("simt", "tc", "skinny", "tower", "limbs_rows", "limbs_cols", "lift"):
+    for route in ("simt", "tc", "skinny", "tower", "limbs_rows", "limbs_cols", "lift", "stack"):
         if not any(k.startswith(route + "(") for k in usage):
             fail(f"no ptxas report for the {route} kernels")
     # the tc kernel's warpgroups trade registers with setmaxnreg (producer
@@ -491,7 +539,7 @@ def phase_env_build(report: dict) -> None:
         for line in (ROOT / "build" / "kernels" / "gr_matmul_tc.ptxas.txt").read_text().splitlines()
         if "warning" in line.lower()})
     log(f"ptxas tc warnings: {report['ptxas_tc_warnings']}")
-    for route in ("lift", "skinny", "tower"):  # the kernels of this slice and the last
+    for route in ("stack", "lift"):  # the pre-passes of this slice's tc_left
         log(f"ptxas {route}: " + json.dumps({k: v for k, v in usage.items()
                                             if k.startswith(route + "(")}))
     spills = {k: v for k, v in usage.items() if v.get("spill_st") or v.get("spill_ld")}
@@ -622,29 +670,31 @@ def _int8_yardstick_ms(ring, b, t, r, s):
 
 
 def _hold(route, ring, A, B, worst: dict, what: str, plain=None, every_config=False,
-          first=False, planes_first=False) -> None:
+          first=False, planes_first=False, planes=True) -> None:
     """Hold ``route`` on (A, B) against the plain version, bit for bit (with
-    ``every_config``, each tc or tower instantiation of the ring's tower),
-    and for ``tc`` its pre-passes (A's limb planes; B's, or over a lifted
-    ring B's lift) against their plain version; the worst error of each
-    goes into ``worst``.  With ``first``, ``plain`` is the product of the
-    first batch entry only; with ``first`` or ``planes_first``, so are the
-    pre-passes' plain versions (``PLAIN_WORDS_CAP``)."""
+    ``every_config``, each tc, tc_left or tower instantiation of the ring's
+    tower), and (with ``planes``) for ``tc`` its pre-passes (A's limb
+    planes; B's, or over a lifted ring B's lift), for ``tc_left`` the lift
+    of A and the stack of B, against their plain version; the worst error
+    of each goes into ``worst``.  With ``first``, ``plain`` is the product
+    of the first batch entry only; with ``first`` or ``planes_first``, so
+    are the pre-passes' plain versions (``PLAIN_WORDS_CAP``)."""
     from repro_torch.kernels import gr_matmul_ref, run_route
     from repro_torch.kernels.gr_matmul import (
         tc_configs,
+        tc_left_limbs,
         tc_limbs,
         tc_padded,
         tc_shape,
         tower_configs,
         tower_shape,
     )
-    from repro_torch.kernels.ref import tc_lifted, tc_planes_ref
+    from repro_torch.kernels.ref import tc_left_planes_ref, tc_lifted, tc_planes_ref, tc_view
 
     shape = f"{tuple(A.shape[:-1])} x {tuple(B.shape[:-1])}"
     if plain is None:
         plain = gr_matmul_ref(A, B, ring)
-    instantiations = {"tc": tc_configs, "tower": tower_configs}.get(route)
+    instantiations = {"tc": tc_configs, "tc_left": tc_configs, "tower": tower_configs}.get(route)
     configs = instantiations(*tower_shape(ring)) if instantiations and every_config else (None,)
     for config in configs:
         out = run_route(route, A, B, ring, config)
@@ -653,6 +703,21 @@ def _hold(route, ring, A, B, worst: dict, what: str, plain=None, every_config=Fa
         if err:
             fail(f"{route} {config or ''} != plain on {ring} at {shape}{what}: max abs err {err}")
         del out
+    if not planes:
+        return
+    if route == "tc_left":
+        d1 = tc_view(*tower_shape(ring))[1]
+        t, r, s = A.shape[-3], A.shape[-2], B.shape[-2]
+        A8, B8 = tc_left_limbs(A, B, ring)
+        A3, B3 = (A, B) if A.dim() == 4 else (A[None], B[None])
+        if first or planes_first:
+            A8, B8, A3, B3 = A8[:1], B8[:1], A3[:1], B3[:1]
+        want_a, want_b = tc_left_planes_ref(A3, B3, ring, *tc_padded(d1 * t, d1 * r, s))
+        for name, err in (("lift", max_abs_err(A8, want_a)), ("stack", max_abs_err(B8, want_b))):
+            worst[name] = max(worst[name], err)
+            if err:
+                fail(f"{name} pre-pass (tc_left) != plain on {ring} at {shape}{what}: "
+                     f"max abs err {err}")
     if route == "tc":
         _, T, R1, S1 = tc_shape(ring, A.shape[-3], A.shape[-2], B.shape[-2])
         A8, B8 = tc_limbs(A, B, ring)
@@ -667,28 +732,41 @@ def _hold(route, ring, A, B, worst: dict, what: str, plain=None, every_config=Fa
                 fail(f"{name} pre-pass != plain on {ring} at {shape}{what}: max abs err {err}")
 
 
-def _timing_row(ring, A, B, route: str, plain_ms: float, plain_batch=None) -> dict:
-    """Time ``route`` on (A, B) in turns with ``simt`` (simt, route, route,
-    simt; replayed from CUDA graphs), eagerly and on the host, beside its
-    bounds; for ``tc`` also its pre-passes (over a lifted ring the lift
-    alone too) and the int8 yardstick; for ``tower`` its own plain version.
+def _timing_row(ring, A, B, route: str, plain_ms: float, plain_batch=None, rivals=()) -> dict:
+    """Time ``route`` on (A, B) in turns with ``simt`` and the ``rivals``
+    (simt, rivals, route, route, rivals reversed, simt; replayed from CUDA
+    graphs), eagerly and on the host, beside its bounds; for ``tc`` also
+    its pre-passes (over a lifted ring the lift alone too) and the int8
+    yardstick, for ``tc_left`` its pre-passes (the lift of A, the stack of
+    B) and the yardstick; for ``tower`` its own plain version.
     ``plain_batch``: the batch entries ``plain_ms`` covers (None: all); the
     pre-passes' plain versions are timed on as many."""
     from repro_torch.kernels import gr_matmul_tower_ref, run_route
-    from repro_torch.kernels.gr_matmul import tc_lift, tc_limbs, tc_padded, tc_shape
+    from repro_torch.kernels.gr_matmul import (
+        tc_left_limbs,
+        tc_lift,
+        tc_limbs,
+        tc_padded,
+        tc_shape,
+        tc_stack,
+        tower_shape,
+    )
     from repro_torch.kernels.ref import (
         lift_b_ref,
         limb_planes_ref,
         n_limbs,
+        stacked_planes_ref,
         tc_lifted,
         tc_planes_ref,
+        tc_view,
     )
 
     lead = A.dim() == 4
     b = A.shape[0] if lead else 1
     t, r, s = A.shape[-3], A.shape[-2], B.shape[-2]
-    turns = [(rt, graph_ms(lambda rt=rt: run_route(rt, A, B, ring)))
-             for rt in ("simt", route, route, "simt")]
+    iters = int(min(10, max(1, GRAPH_WORDS // (b * t * r * s * ring.D ** 2))))
+    order = ("simt", *rivals, route, route, *rivals[::-1], "simt")
+    turns = [(rt, graph_ms(lambda rt=rt: run_route(rt, A, B, ring), iters)) for rt in order]
     simt_ms = [m for rt, m in turns if rt == "simt"]
     route_ms = [m for rt, m in turns if rt == route]
     bytes_ms, int8_ms, int32_ms = _bounds(ring, b, t, r, s, fold=route != "tower")
@@ -705,6 +783,23 @@ def _timing_row(ring, A, B, route: str, plain_ms: float, plain_batch=None) -> di
     }
     row["bound_share"] = row["bound_ms"] / row["ms"]
     row["simt_over_route"] = row["simt_ms"] / row["ms"]
+    row["graph_launches"] = iters
+    if rivals:
+        row["rivals_ms"] = {rv: sum(m for rt, m in turns if rt == rv) / 2 for rv in rivals}
+    if route == "tc_left":
+        d0, d1 = tc_view(*tower_shape(ring))
+        Tp, Rp, Sp = tc_padded(d1 * t, d1 * r, s)
+        L = n_limbs(ring)
+        At = A.transpose(-3, -2).contiguous()
+        row["prepasses_ms"] = graph_ms(lambda: tc_left_limbs(A, B, ring))
+        row["lift_a_ms"] = graph_ms(lambda: tc_lift(At, ring))
+        row["stack_ms"] = graph_ms(lambda: tc_stack(B, ring))
+        # the stack alone: B read once, its limb planes written once
+        stack_bytes = 4 * ring.D * b * r * s + b * d0 * L * Sp * Rp
+        row["stack_bound_ms"] = 1e3 * stack_bytes / HBM_BYTES_PER_S
+        B3 = (B if lead else B[None])[:plain_batch]
+        row["stack_plain_ms"] = cuda_ms(lambda: stacked_planes_ref(B3, ring, Sp, Rp))
+        row["int8_yardstick_ms"], row["int8_yardstick"] = _int8_yardstick_ms(ring, b, t, r, s)
     if route == "tc":
         d0, _, R1, S1 = tc_shape(ring, t, r, s)
         Tp, Rp, Sp = tc_padded(t, R1, S1)
@@ -737,6 +832,10 @@ def _timing_row(ring, A, B, route: str, plain_ms: float, plain_batch=None) -> di
 # (3, 4) tower (2340900) at 1000 and 1900
 WRAP_CASES = [((3,), 2816), ((3,), 8192), ((4,), 2112), ((4,), 4160), ((3, 7), 512),
               ((3, 7), 1024), ((6,), 1800), ((6,), 3400), ((3, 4), 1000), ((3, 4), 1900)]
+# the same chains on tc_left, which lifts all-0xFF A instead (16 rows): the
+# lift's column over k for each m is M(B)'s over i, so the same r pass 2^31
+# and 2^32
+LEFT_WRAP_CASES = [((3, 7), 512), ((3, 7), 1024), ((6,), 1800), ((6,), 3400)]
 
 
 def _tc_wrap_check(worst: dict) -> str:
@@ -747,17 +846,25 @@ def _tc_wrap_check(worst: dict) -> str:
 
     from repro_torch.core import make_ring
     from repro_torch.kernels import gr_matmul_ref
-    from repro_torch.kernels.gr_matmul import gr_matmul_tc, tc_configs, tower_shape
+    from repro_torch.kernels.gr_matmul import (
+        gr_matmul_tc,
+        gr_matmul_tc_left,
+        tc_configs,
+        tower_shape,
+    )
 
     errs = {}
-    for deg, r in WRAP_CASES:
-        ring = make_ring(2, 32, deg)
-        A = torch.full((64, r, ring.D), -1, dtype=torch.int32, device="cuda")
-        B = torch.full((r, 64, ring.D), -1, dtype=torch.int32, device="cuda")
-        plain = gr_matmul_ref(A, B, ring)
-        for config in tc_configs(*tower_shape(ring)):
-            errs[f"{deg} r={r} {config}"] = max_abs_err(gr_matmul_tc(A, B, ring, config), plain)
-    worst["tc"] = max(worst["tc"], *errs.values())
+    for route, cases, t in (("tc", WRAP_CASES, 64), ("tc_left", LEFT_WRAP_CASES, 16)):
+        fn = {"tc": gr_matmul_tc, "tc_left": gr_matmul_tc_left}[route]
+        for deg, r in cases:
+            ring = make_ring(2, 32, deg)
+            A = torch.full((t, r, ring.D), -1, dtype=torch.int32, device="cuda")
+            B = torch.full((r, 64, ring.D), -1, dtype=torch.int32, device="cuda")
+            plain = gr_matmul_ref(A, B, ring)
+            for config in tc_configs(*tower_shape(ring)):
+                err = max_abs_err(fn(A, B, ring, config), plain)
+                errs[f"{route} {deg} r={r} {config}"] = err
+                worst[route] = max(worst[route], err)
     verdict = "wraps" if not any(errs.values()) else "saturates"
     log(f"tc_accumulate: {verdict} {json.dumps(errs)}")
     if verdict != "wraps":
@@ -785,7 +892,8 @@ def phase_kernels(report: dict) -> dict:
     for spec in RING_SPECS:
         ring = make_ring(*spec)
         for route in ROUTES:
-            extra = {"tc": TC_SHAPES, "skinny": SKINNY_SHAPES, "tower": TOWER_SHAPES}.get(route, [])
+            extra = {"tc": TC_SHAPES, "skinny": SKINNY_SHAPES, "tower": TOWER_SHAPES,
+                     "tc_left": TC_LEFT_SHAPES}.get(route, [])
             shapes = [x for x in SHAPES + extra if route_takes(route, ring, x[0], x[1])]
             if not shapes:
                 continue
@@ -803,6 +911,13 @@ def phase_kernels(report: dict) -> dict:
         nb, t, r, s = BATCHED["tc"]
         check("tc", ring, (nb,), t, r, s, " (lifted, batched)")
         checked["tc"].append(f"lifted {ring.degrees} e={ring.e}:{len(TC_SHAPES) + 1} shapes")
+        # and tc_left (every stack instantiation): the decode past r = 32
+        # and the deep r at three rows
+        for t, r, s in TC_LEFT_SHAPES[::4]:
+            check("tc_left", ring, (), t, r, s, " (lifted)")
+        nb, t, r, s = BATCHED["tc_left"]
+        check("tc_left", ring, (nb,), t, r, s, " (lifted, batched)")
+        checked["tc_left"].append(f"lifted {ring.degrees} e={ring.e}:3 shapes")
     for spec in RING_SPECS + WIDE_SKINNY_SPECS:
         ring = make_ring(*spec)
         shapes = [x for x in SKINNY_WIDE_SHAPES if route_takes("skinny", ring, x[0], x[1])]
@@ -854,7 +969,43 @@ def phase_kernels(report: dict) -> dict:
     report["kernel_max_abs_err"] = worst
     report["kernel_timings"] = timings
     report["thresholds"] = _threshold_timings(rng, worst)
+    report["left_timings"] = _left_timings(rng, worst)
     return timings
+
+
+def _left_timings(rng, worst: dict) -> dict:
+    """tc_left at each call of ``LEFT_SHAPES`` (the planner's 64-worker
+    rounds at 2048^3), at every instantiation, with simt and the B-lifted
+    tc, held against the plain version bit for bit, then timed in turns
+    (simt, tc, tc_left, tc_left, tc, simt) beside its bounds."""
+    import torch
+
+    from repro_torch.core import make_ring
+    from repro_torch.kernels import gr_matmul_ref, pick_route
+
+    out = {}
+    for name, (deg, nb, t, r, s) in LEFT_SHAPES.items():
+        ring = make_ring(2, 32, deg)
+        lead = (nb,) if nb else ()
+        A = ring.random(rng, lead + (t, r), device="cuda")
+        B = ring.random(rng, lead + (r, s), device="cuda")
+        holder = {}
+        plain_ms = cuda_ms(lambda: holder.__setitem__("C", gr_matmul_ref(A, B, ring)))
+        plain = holder.pop("C")
+        what = f" (64-worker shape {name})"
+        _hold("tc_left", ring, A, B, worst, what, plain=plain, every_config=True)
+        for rt in ("simt", "tc"):  # the routes it replaces, held before they are timed
+            _hold(rt, ring, A, B, worst, what, plain=plain, planes=False)
+        del plain
+        row = {"ring": str(deg), "batch": nb or 1, "t": t, "r": r, "s": s,
+               "picked": pick_route(ring, t, r, s),
+               **_timing_row(ring, A, B, "tc_left", plain_ms, rivals=("tc",))}
+        row["tc_over_route"] = row["rivals_ms"]["tc"] / row["ms"]
+        out[name] = row
+        log(f"tc_left shape {name}: {json.dumps(row)}")
+        del A, B
+        torch.cuda.empty_cache()
+    return out
 
 
 # shapes at the edges of the dispatch rule (ops.pick_route): (ring degrees,
@@ -2491,7 +2642,26 @@ def _kernel_rows(report: dict, totals: dict) -> list:
              if x["ring"] == "(3, 7)"}
     lift, tower = step9[("tc", (8, 512, 1024))], step9[("tower", (8, 8))]
     shape9 = lambda row: f"{row['a']} @ {row['b']} over GR(2^32, (3, 7))"  # noqa: E731
-    new = [
+    # this slice's tc_left and its stack pre-pass at the (3, 7) tower's
+    # 32 x 32 decode for 64 workers (phase 2), the other shapes beside it
+    left = report["left_timings"]
+    dec = left["decode_3_7"]
+    shape_l = lambda row: (f"{row['t']}x{row['r']} @ {row['r']}x{row['s']} over GR(2^32) "  # noqa: E731
+                           f"degrees {row['ring']}")
+    left_rows = [
+        {**base, "name": "gr_matmul_tc_left", "source": src + "gr_matmul_tc.cu",
+         "launches": totals["tc_left"], "max_abs_err": report["kernel_max_abs_err"]["tc_left"],
+         "ms": dec["ms"], "plain_ms": dec["plain_ms"], "bound_ms": dec["bound_ms"],
+         "bound_by": dec["bound_by"], "int8_yardstick_ms": dec["int8_yardstick_ms"],
+         "simt_ms": dec["simt_ms"], "tc_ms": dec["rivals_ms"]["tc"], "shape": shape_l(dec),
+         "per_shape_ms": {**{k: v["ms"] for k, v in left.items()}, **d4("tc_left")}},
+        {**base, "name": "gr_matmul_tc_stack", "source": src + "gr_matmul_tc.cu",
+         "launches": totals["stack"], "max_abs_err": report["kernel_max_abs_err"]["stack"],
+         "ms": dec["stack_ms"], "plain_ms": dec["stack_plain_ms"], "bound_ms": dec["stack_bound_ms"],
+         "bound_by": "bytes", "shape": shape_l(dec),
+         "per_shape_ms": {k: v["stack_ms"] for k, v in left.items()}},
+    ]
+    new = left_rows + [
         {**base, "name": "gr_matmul_tc_lift", "source": src + "gr_matmul_tc.cu",
          "launches": totals["lift"], "max_abs_err": report["kernel_max_abs_err"]["lift"],
          "ms": lift["lift_ms"], "plain_ms": lift["lift_plain_ms"], "bound_ms": lift["lift_bound_ms"],

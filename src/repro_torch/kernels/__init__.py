@@ -22,6 +22,7 @@ from .ref import (
     gr_matmul_limbs_ref,
     gr_matmul_planar_ref,
     gr_matmul_ref,
+    gr_matmul_tc_left_ref,
     gr_matmul_tc_ref,
     gr_matmul_tower_ref,
 )
@@ -40,6 +41,7 @@ __all__ = [
     "gr_matmul_ref",
     "gr_matmul_limbs_ref",
     "gr_matmul_planar_ref",
+    "gr_matmul_tc_left_ref",
     "gr_matmul_tc_ref",
     "gr_matmul_tower_ref",
 ]

@@ -346,11 +346,11 @@ def cached_blocks(ring, t: int, r: int, s: int, device=None, *,
 # d0, d1, threads, tc, cpt)
 _ENTRY = re.compile(r"Compiling entry function '.*?(gr_matmul_kernel|gr_matmul_tc_kernel|"
                     r"gr_matmul_skinny_kernel|gr_matmul_tower_kernel|limbs_rows_kernel|"
-                    r"limbs_cols_kernel|lift_cols_kernel)I((?:Li\d+E)+)")
+                    r"limbs_cols_kernel|lift_cols_kernel|stack_cols_kernel)I((?:Li\d+E)+)")
 _ROUTE_OF = {"gr_matmul_kernel": "simt", "gr_matmul_tc_kernel": "tc",
              "gr_matmul_skinny_kernel": "skinny", "gr_matmul_tower_kernel": "tower",
              "limbs_rows_kernel": "limbs_rows", "limbs_cols_kernel": "limbs_cols",
-             "lift_cols_kernel": "lift"}
+             "lift_cols_kernel": "lift", "stack_cols_kernel": "stack"}
 
 
 def ptxas_usage(build_dir: Path = BUILD_DIR) -> Dict[str, dict]:

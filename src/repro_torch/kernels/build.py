@@ -37,7 +37,7 @@ CSRC_DIR = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 NVCC_FLAGS = ["-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
-# the general (simt), tensor-core (tc), bandwidth (skinny) and tower routes
+# the general (simt), tensor-core (tc and tc_left), bandwidth (skinny) and tower routes
 SOURCES = ("gr_matmul", "gr_matmul_tc", "gr_matmul_skinny", "gr_matmul_tower")
 LIB_NAME = "gr_matmul"
 
@@ -64,8 +64,9 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.gr_matmul_tile.argtypes = [ci, ci, ip, ip, ip]
     lib.gr_matmul_tc_limbs.argtypes = [vp, vp, ci, ci, ci, ci, ci, ci, ci, ci, vp]
     lib.gr_matmul_tc_u32.argtypes = [vp, vp, vp, ci, ci, ci, ci, ci, ci, ci, ci, ci, ci, ci,
-                                     fold, u32, vp]
+                                     fold, u32, ci, vp]
     lib.gr_matmul_tc_lift.argtypes = [vp, vp, ci, ci, ci, ci, ci, ci, ci, ci, fold, vp]
+    lib.gr_matmul_tc_stack.argtypes = [vp, vp, ci, ci, ci, ci, ci, ci, ci, ci, vp]
     lib.gr_matmul_tc_configs.argtypes = [ci, ci, ip, ci]
     lib.gr_matmul_tc_smem.argtypes = [ci, ci, ci, ci, ci]
     lib.gr_matmul_tc_depth.argtypes = []
@@ -80,7 +81,7 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.gr_matmul_tower_smem.argtypes = [ci, ci, ci, ci]
     lib.gr_matmul_tower_smem.restype = ctypes.c_int64
     for fn in ("gr_matmul_planar_u32", "gr_matmul_tile", "gr_matmul_tc_limbs",
-               "gr_matmul_tc_lift", "gr_matmul_tc_u32", "gr_matmul_tc_configs",
+               "gr_matmul_tc_lift", "gr_matmul_tc_stack", "gr_matmul_tc_u32", "gr_matmul_tc_configs",
                "gr_matmul_tc_smem", "gr_matmul_tc_depth",
                "gr_matmul_skinny_u32", "gr_matmul_skinny_cols", "gr_matmul_skinny_configs",
                "gr_matmul_tower_u32", "gr_matmul_tower_configs"):

@@ -108,6 +108,18 @@
 //    torch.cuda.max_memory_allocated, operands and shares included (an
 //    H100 80GB HBM3 at 700 W).
 //
+//  * The tc_left route (gr_matmul_tc_stack, below) runs the same main
+//    kernel with the lift on the other side, for a lifted tower's calls
+//    whose left operand is small (the decodes and encodes of a round: at
+//    most 64 rows against up to millions of columns): the lift pre-pass on
+//    A transposed writes M(A)'s limb planes (D1 T rows, D1 R deep), the
+//    stack pre-pass writes B's as it lies (S rows, D1 R deep), and the
+//    epilogue puts product row (t, m) at C[t, s, m].  Its grid runs the few
+//    row tiles of one column block next to each other, so B's planes come
+//    from HBM about once.  M(B) would be D1 times B's size and its depth
+//    D1 R (28 at r = 4 over the (3, 7) tower) pads to the 64-byte stage
+//    either way; lifting A instead keeps the large side at its own size.
+//
 // Measured (chip_smoke.py, an H100 80GB HBM3 at 700 W): at the worker
 // shape the pre-pass and this kernel take 2.42 ms, 65% of the int8 bound
 // (the mma.sync kernel it replaces took 7.27 ms); lifted, 37.7 ms over the
@@ -636,6 +648,81 @@ int launch_lift(const uint32_t* X, uint32_t* Y, int batch, int R, int S, int L, 
   return (int)cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// stack pre-pass: the B operand of the tc_left route
+// ---------------------------------------------------------------------------
+//
+// The tc_left route lifts the small left operand instead of B (a decode
+// or encode matrix of at most 64 rows against millions of columns):
+//
+//   M(A)[(t, m), (r, k)] = sum_j RED[k + j, m] * A[t, r, j]   (D1 T x D1 R)
+//   B'[(r, k), s] = B[r, s, k]                                 (D1 R x S)
+//   C' = M(A) (x)_D0 B' (D1 T, S, D0) is C (T, S, D0 D1) with row (t, m)
+//   at C[t, s, m],
+//
+// again D0^2 D1^2 word products per (t, r, s).  M(A)'s limb planes are the
+// lift pre-pass run on A transposed (its M[(r, i), (t, m)] is M(A) read
+// K-major); B' is B as it lies, each outer coefficient an element of the
+// inner ring, its K index (r, k) merging r (stride S D) with k (stride D0).
+// This pass writes B''s limb planes, (batch, D0, L, Sp, Rp) u8 with byte l
+// of B[r, s, k, d] at plane (d, l), row s, column D1 r + k, zero-padded:
+// it reads B once and writes L bytes for every 4-byte word, no more.
+//
+// A block is (batch entry, 16 columns of s, 32 rows of r).  It reads the
+// 16 D contiguous words of each row r into shared memory laid out by
+// output row (s, d), K-contiguous, at a row stride of 32 D1 + 8 words (8
+// mod 32 banks: a warp's stores, whose words run over (s, k, d), spread
+// over the banks), then every thread packs 4 consecutive K bytes of one
+// (s, d) row from one 16-byte load (a warp's loads conflict-free) and
+// writes one word per limb plane, a warp's words consecutive along K.
+constexpr int kStackR = 32;  // rows of r a block: 32 D1 bytes of K per (s, d, l)
+constexpr int kStackS = 16;  // columns of s a block (Sp is a multiple of 32)
+
+template <int D0, int D1>
+__global__ void __launch_bounds__(256)
+    stack_cols_kernel(const uint32_t* __restrict__ X, uint32_t* __restrict__ Y, int R, int S,
+                      int L, int Rp, int Sp) {
+  constexpr int D = D0 * D1;
+  constexpr int KP = kStackR * D1 + 8;  // words a tile row: a multiple of 4, 8 mod 32
+  constexpr int W4 = kStackR * D1 / 4;  // words of K a block writes per (s, d, l) row
+  static_assert(kStackS * D0 * KP * 4 <= 48 * 1024, "static shared memory");
+  __shared__ __align__(16) uint32_t tile[kStackS * D0 * KP];  // [(s, d)][(r, k)]
+  const int64_t z = blockIdx.z;
+  const int s0 = blockIdx.x * kStackS, r0 = blockIdx.y * kStackR;
+  const uint32_t* Xb = X + z * R * (int64_t)S * D;
+  for (int idx = threadIdx.x; idx < kStackR * kStackS * D; idx += blockDim.x) {
+    const int rr = idx / (kStackS * D), w = idx - rr * (kStackS * D);
+    const int cc = w / D, kd = w - cc * D, k = kd / D0, d = kd - k * D0;
+    const int r = r0 + rr;
+    tile[(cc * D0 + d) * KP + rr * D1 + k] =
+        (r < R && s0 + cc < S) ? Xb[((int64_t)r * S + s0) * D + w] : 0u;
+  }
+  __syncthreads();
+  const int words = Rp / 4, w0 = blockIdx.y * W4;
+  const int64_t plane = (int64_t)Sp * words;  // words of one (d, l) plane
+  for (int idx = threadIdx.x; idx < kStackS * D0 * W4; idx += blockDim.x) {
+    const int j = idx / W4, q = idx - j * W4;  // tile row j = (s, d), word q of K
+    if (w0 + q >= words) continue;
+    const int cc = j / D0, d = j - cc * D0;
+    const uint4 x = *reinterpret_cast<const uint4*>(&tile[j * KP + 4 * q]);
+    uint32_t* dst = Y + ((z * D0 + d) * L) * plane + (int64_t)(s0 + cc) * words + w0 + q;
+    for (int l = 0; l < L; ++l) {
+      const int sh = 8 * l;
+      dst[l * plane] = ((x.x >> sh) & 0xFFu) | (((x.y >> sh) & 0xFFu) << 8) |
+                       (((x.z >> sh) & 0xFFu) << 16) | (((x.w >> sh) & 0xFFu) << 24);
+    }
+  }
+}
+
+template <int D0, int D1>
+int launch_stack(const uint32_t* X, uint32_t* Y, int batch, int R, int S, int L, int Rp, int Sp,
+                 cudaStream_t st) {
+  // every s < Sp and every word of Rp: blocks past S and R write zeros
+  const int words = Rp / 4, w4 = kStackR * D1 / 4;
+  dim3 grid(Sp / kStackS, (words + w4 - 1) / w4, batch);
+  stack_cols_kernel<D0, D1><<<grid, 256, 0, st>>>(X, Y, R, S, L, Rp, Sp);
+  return (int)cudaGetLastError();
+}
 
 // ---------------------------------------------------------------------------
 // main kernel
@@ -648,7 +735,7 @@ template <int D0, int D1, int BN, int ST, int L, int W>
 __device__ __forceinline__ void consume(uint8_t* smem, uint32_t full, uint32_t empty,
                                         int ktiles, uint32_t* __restrict__ C, int T, int S,
                                         int64_t z, int m0, int n0, const FoldTable& fold,
-                                        uint32_t mask) {
+                                        uint32_t mask, int split) {
   using G = Tc<D0, D1, BN, ST, L>;
   constexpr int D = G::D, P = G::P, E = BN / 2, EH = E / 2;
   using Me = ConsumerAt<D, L, W>;
@@ -743,7 +830,9 @@ __device__ __forceinline__ void consume(uint8_t* smem, uint32_t full, uint32_t e
   });
   named_barrier_sync(1, 128 * kConsumers);
   // the s32 accumulator fragment: entry e of a thread is row g (+ 8 for
-  // e % 4 >= 2) of its warp's 16, column 8 * (e / 4) + 2 * (lane % 4) + e % 2
+  // e % 4 >= 2) of its warp's 16, column 8 * (e / 4) + 2 * (lane % 4) + e % 2.
+  // Row (t, m) = split t + m of the product lands at C[t, col, m] (split =
+  // D1 on the tc_left route, 1 otherwise: then C[row, col])
   const int g = lane >> 2, qd = lane & 3;
   uint32_t* Cb = C + z * T * (int64_t)S * D;
 #pragma unroll
@@ -752,7 +841,8 @@ __device__ __forceinline__ void consume(uint8_t* smem, uint32_t full, uint32_t e
     const int row = m0 + warp * 16 + g + ((e >> 1) & 1) * 8;
     const int col = n0 + 8 * (e >> 2) + 2 * qd + (e & 1);
     if (row < T && col < S) {
-      uint32_t* dst = Cb + ((int64_t)row * S + col) * D;
+      const int t = row / split, m = row - t * split;
+      uint32_t* dst = Cb + (((int64_t)t * S + col) * split + m) * D;
 #pragma unroll
       for (int d = 0; d < D; ++d)
         dst[d] = (mine[el][d] + xch[(((1 - W) * D + d) * EH + el) * 128 + tid]) & mask;
@@ -764,13 +854,16 @@ template <int D0, int D1, int BN, int ST, int L>
 __global__ void __launch_bounds__(kThreads, 1)
     gr_matmul_tc_kernel(const __grid_constant__ CUtensorMap mapA,
                         const __grid_constant__ CUtensorMap mapB, uint32_t* __restrict__ C,
-                        int T, int S, int Rp, const FoldTable fold, uint32_t mask) {
+                        int T, int S, int Rp, const FoldTable fold, uint32_t mask, int split) {
   using G = Tc<D0, D1, BN, ST, L>;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = smem_raw + ((kAlign - (smem_addr(smem_raw) & (kAlign - 1))) & (kAlign - 1));
   const uint32_t full = smem_addr(smem + G::kRing), empty = full + 8 * ST;
   const int64_t z = blockIdx.z;
-  const int m0 = blockIdx.y * kBM, n0 = blockIdx.x * BN;
+  // the tc_left route (split > 1) runs the row tiles of one column block
+  // next to each other, so that B's planes come from HBM about once
+  const int m0 = (split > 1 ? blockIdx.x : blockIdx.y) * kBM;
+  const int n0 = (split > 1 ? blockIdx.y : blockIdx.x) * BN;
   const int ktiles = Rp / KS;
   if (threadIdx.x == 0) {
     for (int s = 0; s < ST; ++s) {
@@ -803,9 +896,11 @@ __global__ void __launch_bounds__(kThreads, 1)
   } else {
     asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kConsumerRegs));
     if (wg == 0)
-      consume<D0, D1, BN, ST, L, 0>(smem, full, empty, ktiles, C, T, S, z, m0, n0, fold, mask);
+      consume<D0, D1, BN, ST, L, 0>(smem, full, empty, ktiles, C, T, S, z, m0, n0, fold, mask,
+                                    split);
     else
-      consume<D0, D1, BN, ST, L, 1>(smem, full, empty, ktiles, C, T, S, z, m0, n0, fold, mask);
+      consume<D0, D1, BN, ST, L, 1>(smem, full, empty, ktiles, C, T, S, z, m0, n0, fold, mask,
+                                    split);
   }
 }
 
@@ -858,9 +953,11 @@ int encode_planes(CUtensorMap* map, const void* base, int planes, int rows, int 
 
 template <int D0, int D1, int BN, int ST, int L>
 int launch(const uint8_t* A8, const uint8_t* B8, uint32_t* C, int batch, int T, int S, int Tp,
-           int Sp, int Rp, const FoldTable& fold, uint32_t mask, cudaStream_t stream) {
+           int Sp, int Rp, const FoldTable& fold, uint32_t mask, int split, cudaStream_t stream) {
   using G = Tc<D0, D1, BN, ST, L>;
   if (G::kSmem > kSmemMax) return (int)cudaErrorInvalidValue;
+  const int row_tiles = (T + kBM - 1) / kBM, col_tiles = (S + BN - 1) / BN;
+  if ((split > 1 ? col_tiles : row_tiles) > 65535) return (int)cudaErrorInvalidValue;
   // raise the kernel's shared-memory limit once per device (the attribute
   // persists), not on every launch: launches may be captured in a CUDA graph
   static int smem_set[kMaxDevices] = {};
@@ -878,20 +975,22 @@ int launch(const uint8_t* A8, const uint8_t* B8, uint32_t* C, int batch, int T, 
   int err = encode_planes(&mapA, A8, batch * G::P, Tp, Rp, kBM, G::P);
   if (err == 0) err = encode_planes(&mapB, B8, batch * G::P, Sp, Rp, BN, G::P);
   if (err != 0) return err;
-  dim3 grid((S + BN - 1) / BN, (T + kBM - 1) / kBM, batch);
+  const dim3 grid = split > 1 ? dim3(row_tiles, col_tiles, batch) : dim3(col_tiles, row_tiles, batch);
   gr_matmul_tc_kernel<D0, D1, BN, ST, L><<<grid, kThreads, G::kSmem, stream>>>(
-      mapA, mapB, C, T, S, Rp, fold, mask);
+      mapA, mapB, C, T, S, Rp, fold, mask, split);
   return (int)cudaGetLastError();
 }
 
 template <int D0, int D1, int BN, int ST>
 int launch_l(const uint8_t* A8, const uint8_t* B8, uint32_t* C, int batch, int T, int S, int Tp,
-             int Sp, int Rp, int L, const FoldTable& fold, uint32_t mask, cudaStream_t st) {
+             int Sp, int Rp, int L, const FoldTable& fold, uint32_t mask, int split,
+             cudaStream_t st) {
   switch (L) {
-    case 1: return launch<D0, D1, BN, ST, 1>(A8, B8, C, batch, T, S, Tp, Sp, Rp, fold, mask, st);
-    case 2: return launch<D0, D1, BN, ST, 2>(A8, B8, C, batch, T, S, Tp, Sp, Rp, fold, mask, st);
-    case 3: return launch<D0, D1, BN, ST, 3>(A8, B8, C, batch, T, S, Tp, Sp, Rp, fold, mask, st);
-    case 4: return launch<D0, D1, BN, ST, 4>(A8, B8, C, batch, T, S, Tp, Sp, Rp, fold, mask, st);
+#define TC_LAUNCH_L(l) \
+  case l:              \
+    return launch<D0, D1, BN, ST, l>(A8, B8, C, batch, T, S, Tp, Sp, Rp, fold, mask, split, st);
+    TC_LAUNCH_L(1) TC_LAUNCH_L(2) TC_LAUNCH_L(3) TC_LAUNCH_L(4)
+#undef TC_LAUNCH_L
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -992,17 +1091,44 @@ int gr_matmul_tc_lift(const void* B, void* Y, int batch, int R, int S, int d0, i
   }
 }
 
+// Stack pre-pass of the tc_left route over a lifted tower (d0, d1) of
+// TC_LIFT_TOWERS (a single-level GR(2^e, D) as (1, D)): B (batch, R, S,
+// d0 d1) uint32 -> the limb planes of B' (B[r, s, k] at row s, column
+// d1 r + k), (batch, d0, L, Sp, Rp) u8, K-major and zero-padded.  Rp must
+// be a multiple of KS and at least d1 R, Sp a multiple of 32 and at least S.
+int gr_matmul_tc_stack(const void* B, void* Y, int batch, int R, int S, int d0, int d1, int L,
+                       int Rp, int Sp, void* stream) {
+  if (d1 < 2 || d1 > kMaxD1 || L < 1 || L > kMaxL || Rp % KS || Sp % 32 || Rp < d1 * R ||
+      Sp < S || batch > 65535)
+    return (int)cudaErrorInvalidValue;
+  const uint32_t* x = static_cast<const uint32_t*>(B);
+  uint32_t* y = static_cast<uint32_t*>(Y);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (d0 * 32 + d1) {
+#define TC_STACK_LAUNCH(a, b) \
+  case a * 32 + b:            \
+    return launch_stack<a, b>(x, y, batch, R, S, L, Rp, Sp, st);
+    TC_LIFT_TOWERS(TC_STACK_LAUNCH)
+#undef TC_STACK_LAUNCH
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+}
+
 // A8 (batch, D, L, Tp, Rp), B8 (batch, D, L, Sp, Rp) u8 limb planes ->
 // C (batch, T, S, D) uint32 with the (bn, stages) instantiation of the
 // tower (d0, d1); cudaErrorInvalidValue if it has none, if Rp is not a
-// multiple of KS, or if its shared memory exceeds 227 KB at L.
-// fold_host: (K, D) uint32 row-major.
+// multiple of KS, if its shared memory exceeds 227 KB at L, or if the grid
+// would. fold_host: (K, D) uint32 row-major.  split: 1, or D1 of the
+// tc_left route, whose product rows (t, m) = split t + m go to C[t, s, m]
+// of C (batch, T / split, S, split D), its row tiles run next to each other.
 int gr_matmul_tc_u32(const void* A8, const void* B8, void* C, int batch, int T,
                      int S, int Tp, int Sp, int Rp, int L, int d0, int d1,
                      int bn, int stages, const uint32_t* fold_host,
-                     uint32_t mask, void* stream) {
+                     uint32_t mask, int split, void* stream) {
   const int D = d0 * d1, K = (2 * d0 - 1) * (2 * d1 - 1);
-  if (D > kMaxD || K > kMaxK || L < 1 || L > kMaxL || Rp % KS || Tp < T || Sp < S)
+  if (D > kMaxD || K > kMaxK || L < 1 || L > kMaxL || Rp % KS || Tp < T || Sp < S ||
+      split < 1 || T % split)
     return (int)cudaErrorInvalidValue;
   FoldTable fold;
   memset(&fold, 0, sizeof(fold));
@@ -1014,7 +1140,7 @@ int gr_matmul_tc_u32(const void* A8, const void* B8, void* C, int batch, int T,
   switch (tc_key(d0, d1, bn, stages)) {
 #define TC_LAUNCH(x, y, n, s)                                                          \
   case tc_key(x, y, n, s):                                                             \
-    return launch_l<x, y, n, s>(a, b, c, batch, T, S, Tp, Sp, Rp, L, fold, mask, st);
+    return launch_l<x, y, n, s>(a, b, c, batch, T, S, Tp, Sp, Rp, L, fold, mask, split, st);
     TC_CONFIGS(TC_LAUNCH)
 #undef TC_LAUNCH
     default:

@@ -1,7 +1,7 @@
-"""Hopper kernel wrappers: the four routes of the Galois-ring matmul over
+"""Hopper kernel wrappers: the five routes of the Galois-ring matmul over
 GR(2^e, D).
 
-All four replace the Pallas TPU kernel
+All five replace the Pallas TPU kernel
 ``src/repro/kernels/gr_matmul.py:_kernel`` (launched by
 ``gr_matmul_planar``); each is hand-written CUDA C++ under ``csrc/`` whose
 header notes its design and what bounds it:
@@ -19,6 +19,11 @@ header notes its design and what bounds it:
   (3, 2), (3, 4), (3, 5), (4, 3) and the (3, 7) tower.  A's limb pre-pass
   reads A as it lies, and a lift pre-pass (counted as ``lift``) writes
   the limb planes of B's outer-level lift M(B) (``ref.lift_b_ref``).
+* ``tc_left`` (the same source and main kernel): a lifted tower's calls
+  whose left operand is small (``ref.gr_matmul_tc_left_ref``): the lift
+  pre-pass on A transposed writes the limb planes of M(A), a stack
+  pre-pass (counted as ``stack``) writes B's as it lies, K index (r, k),
+  and the main kernel's epilogue puts product row (t, m) at C[t, s, m].
 * ``skinny`` (``csrc/gr_matmul_skinny.cu``): interleaved layout, a
   bandwidth kernel for T <= 64, R <= 32 over the towers with K * CPT <= 64
   (``skinny_cols``): single-level D <= 8 and the even D to 16, and (2, 3),
@@ -85,6 +90,7 @@ __all__ = [
     "gr_matmul_planar",
     "gr_matmul_skinny",
     "gr_matmul_tc",
+    "gr_matmul_tc_left",
     "gr_matmul_tower",
     "kernel_tile",
     "simt_instantiated",
@@ -94,11 +100,13 @@ __all__ = [
     "skinny_smem_bytes",
     "tc_configs",
     "tc_instantiated",
+    "tc_left_limbs",
     "tc_lift",
     "tc_limbs",
     "tc_padded",
     "tc_shape",
     "tc_smem_bytes",
+    "tc_stack",
     "tc_tile",
     "tower_configs",
     "tower_shape",
@@ -109,10 +117,11 @@ MAX_D = 16
 # two-level towers with D > MAX_D that the simt kernel is instantiated for
 # (mirrors the tail of GR_TOWERS in csrc/gr_matmul.cu)
 SIMT_WIDE_TOWERS = ((3, 7),)
-ROUTES = ("simt", "tc", "skinny", "tower")
-# the tc route's pre-passes: A's (and a single-level B's) limb planes, and
-# the limb planes of a two-level tower's lifted B
-PREPASSES = ("limbs", "lift")
+ROUTES = ("simt", "tc", "skinny", "tower", "tc_left")
+# the tc routes' pre-passes: A's (and a single-level B's) limb planes, the
+# limb planes of a lifted tower's M(B) (tc) or M(A) (tc_left), and B's limb
+# planes stacked along (r, k) (tc_left)
+PREPASSES = ("limbs", "lift", "stack")
 # the skinny kernel keeps A (T x R x D words) in shared memory: the encodes
 # (N x k, k <= 8) and decodes (R x R) of up to N = 64 workers
 SKINNY_MAX_T, SKINNY_MAX_R = 64, 32
@@ -176,9 +185,10 @@ class KernelCounters:
     """Plain counts that let a run show it went through the kernel.
 
     ``launches_by_route``: launches of each route's matmul kernel (``simt``,
-    ``tc``, ``skinny``, ``tower``) and of the tc route's pre-passes
-    (``limbs``, two per tc matmul, one per operand, or one for A over a
-    two-level tower; ``lift``, one for B over a two-level tower).
+    ``tc``, ``skinny``, ``tower``, ``tc_left``) and of the tc routes'
+    pre-passes (``limbs``, two per tc matmul, one per operand, or one for A
+    over a lifted tower; ``lift``, one for B over a lifted tower, or one for
+    A on ``tc_left``; ``stack``, one for B on ``tc_left``).
     ``launches``: matmul kernel launches of all routes, one per ring matmul
     on the card (the pre-pass not included).
 
@@ -618,9 +628,103 @@ def gr_matmul_tc(A: torch.Tensor, B: torch.Tensor, ring, config=None) -> torch.T
     ctx, stream = _stream(A.device)
     with ctx:
         err = lib.gr_matmul_tc_u32(A8.data_ptr(), B8.data_ptr(), C.data_ptr(), nb, T, S1, Tp, Sp,
-                                   Rp, n_limbs(ring), d0, 1, *config, fold, _mask(ring), stream)
+                                   Rp, n_limbs(ring), d0, 1, *config, fold, _mask(ring), 1, stream)
     _check_launch(err, "tc")
     counters.count("tc")
+    return C[0] if squeeze else C
+
+
+def _left_view(ring) -> Tuple[int, int]:
+    """(D0, D1) of a ring the tc_left route takes (a lifted tower of
+    ``TC_LIFT_TOWERS``), or raise."""
+    d0, d1 = tc_view(*tower_shape(ring))
+    if d1 == 1 or (d0, d1) not in TC_LIFT_TOWERS:
+        raise ValueError(f"{ring}: the tc_left route has no instantiation for tower {(d0, d1)} "
+                         f"(it takes the lifted towers {TC_LIFT_TOWERS})")
+    return d0, d1
+
+
+def tc_stack(B: torch.Tensor, ring) -> torch.Tensor:
+    """The tc_left route's stack pre-pass on the card, for a lifted tower
+    (D0, D1): B (b?, r, s, D) int32 -> B8 (b, D0, L, Sp, Rp) uint8, byte l
+    of B[r, s, k, d] at plane (d, l), row s, column D1 r + k (B read as
+    (D1 r, s) over the inner ring), zero-padded to ``tc_padded(., D1 r,
+    s)``.  One launch, counted as ``stack``; the plain version is
+    ``ref.stacked_planes_ref``."""
+    _check_operand(B, "B")
+    if ring.p != 2 or ring.e > 32:
+        raise ValueError(f"{ring} lies outside the kernels' envelope (p=2, e<=32)")
+    d0, d1 = _left_view(ring)
+    if B.dim() == 3:
+        B = B.unsqueeze(0)
+    if B.dim() != 4 or B.shape[-1] != ring.D:
+        raise ValueError(f"expected (b?, r, s, D) for {ring}, got {tuple(B.shape)}")
+    nb, R, S, _ = B.shape
+    if nb > 65535:
+        raise ValueError(f"batch {nb} exceeds the launch grid")
+    _, Rp, Sp = tc_padded(1, d1 * R, S)
+    L = n_limbs(ring)
+    B8 = torch.empty((nb, d0, L, Sp, Rp), dtype=torch.uint8, device=B.device)
+    if B8.numel():
+        lib = load_library()
+        ctx, stream = _stream(B.device)
+        with ctx:
+            err = lib.gr_matmul_tc_stack(B.data_ptr(), B8.data_ptr(), nb, R, S, d0, d1, L, Rp, Sp,
+                                         stream)
+        _check_launch(err, "stack pre-pass")
+        counters.count("stack")
+    return B8
+
+
+def tc_left_limbs(A: torch.Tensor, B: torch.Tensor, ring):
+    """The tc_left route's pre-passes on the card.  Returns (A8, B8): A8
+    (b, D0, L, Tp, Rp), the limb planes of M(A) (rows (t, m), depth (r, k)),
+    from the lift pre-pass (:func:`tc_lift`, counted as ``lift``) on A
+    transposed, (b, r, t, D); B8 (b, D0, L, Sp, Rp) from the stack pre-pass
+    (:func:`tc_stack`).  Padded to ``tc_padded(D1 t, D1 r, s)``.  The plain
+    version is ``ref.tc_left_planes_ref``."""
+    A, B, _, _ = _interleaved(A, B, ring)
+    _left_view(ring)
+    return tc_lift(A.transpose(1, 2).contiguous(), ring), tc_stack(B, ring)
+
+
+def gr_matmul_tc_left(A: torch.Tensor, B: torch.Tensor, ring, config=None) -> torch.Tensor:
+    """The tensor-core route with the lift on the left operand, on the card:
+    A (b?, t, r, D) x B (b?, r, s, D) -> C (b?, t, s, D), interleaved int32,
+    over a lifted tower (D0, D1) of ``TC_LIFT_TOWERS``, with the tc
+    kernel's (bn, stages) instantiation ``config`` of the inner ring (None:
+    its default).  Runs the pre-passes (:func:`tc_left_limbs`), then the
+    wgmma kernel over the inner ring GR(2^e, D0) on M(A) (D1 t, D1 r) and
+    B read as (D1 r, s); the epilogue writes product row (t, m) to
+    C[t, s, m].  The plain version is ``ref.gr_matmul_tc_left_ref``.
+
+    Launches the CUDA kernels or raises; it never falls back.
+    """
+    A, B, squeeze, (nb, T, R, S) = _interleaved(A, B, ring)
+    d0, d1 = _left_view(ring)
+    configs = tc_configs(d0, d1)
+    config = configs[0] if config is None else tuple(config)
+    if config not in configs:
+        raise ValueError(f"{ring}: the tc kernel has no instantiation {config}; built: {configs}")
+    if tc_smem_bytes(ring, config) > SMEM_BLOCK_BYTES:
+        raise ValueError(f"{ring}: tc {config} needs {tc_smem_bytes(ring, config)} B of shared "
+                         f"memory, more than a block's {SMEM_BLOCK_BYTES}")
+    _, fold = _check_layout(ring.base_ring())
+    Tp, Rp, Sp = tc_padded(d1 * T, d1 * R, S)
+    if -(-S // config[0]) > 65535 or max(d1 * T, d1 * R, S) >= 2**31 - 256:
+        raise ValueError(f"{(d1 * T, d1 * R, S)} exceeds the tc_left kernel's launch grid")
+    C = torch.empty((nb, T, S, ring.D), dtype=torch.int32, device=A.device)
+    if C.numel() == 0:
+        return C[0] if squeeze else C
+    A8, B8 = tc_left_limbs(A, B, ring)
+    lib = load_library()
+    ctx, stream = _stream(A.device)
+    with ctx:
+        err = lib.gr_matmul_tc_u32(A8.data_ptr(), B8.data_ptr(), C.data_ptr(), nb, d1 * T, S, Tp,
+                                   Sp, Rp, n_limbs(ring), d0, 1, *config, fold, _mask(ring), d1,
+                                   stream)
+    _check_launch(err, "tc_left")
+    counters.count("tc_left")
     return C[0] if squeeze else C
 
 

@@ -5,7 +5,7 @@ of the port, which all come through :func:`gr_matmul`:
 
 * CPU tensors take the plain PyTorch version (``ref.gr_matmul_ref``);
 * CUDA tensors of a ring inside the envelope (``kernel_supported``) launch
-  one of four hand-written kernels, or raise.  :func:`pick_route` decides
+  one of five hand-written routes, or raise.  :func:`pick_route` decides
   which, before any launch, from the ring and the shape alone.
 
 The routes' envelope (what :func:`route_takes` says each kernel takes;
@@ -21,6 +21,14 @@ The routes' envelope (what :func:`route_takes` says each kernel takes;
   for (``gr_matmul.TOWER_CONFIGS``: the (3, 7) tower, (3, 5), (5, 3),
   (7, 2), ...), where the lifted A fits a block (t r <= 108 over the (3, 7)
   tower, t r <= 225 over (3, 5));
+* ``tc_left`` for t <= ``TC_LEFT_MAX_T`` = 64, D1 t >= 64 and s >= 64 over
+  the lifted rings of ``gr_matmul.TC_LIFT_TOWERS`` (below): the decodes
+  and encodes the bandwidth routes do not take, whose left operand is a
+  small host-built matrix (the 16 x 33 decode of the secure plans for 64
+  workers over GR(2^e, 7), the 32 x 32 decode and the 64-row encodes of
+  the (3, 7) tower's round for 64 workers).  The tc kernel over the inner
+  ring, with the lift on A (``ref.gr_matmul_tc_left_ref``): B is read as
+  it lies, not lifted to D1 times its size;
 * ``tc`` for t >= 64 and D1 s >= 64 (the worker products): GR(2^e, D)
   with D <= 4 as it is; every other ring of ``gr_matmul.TC_LIFT_TOWERS``
   lifted onto its inner ring (``ref.tc_view``): GR(2^e, D) with
@@ -29,9 +37,9 @@ The routes' envelope (what :func:`route_takes` says each kernel takes;
   GR(2^e, D0) (D1 = 1 for a ring taken as it is);
 * ``simt`` for everything else: products below ``TC_MIN_TS`` that the
   bandwidth routes do not take (a 48 x 96 worker block, say), the towers
-  (5, 2), (5, 3) and (7, 2) at t >= 64, the (3, 7) tower's calls with
-  t > 16 or r > 16 below t = 64, and a decode with r > 32 (the R = 33 of
-  the secure plans for 64 workers);
+  (5, 2), (5, 3) and (7, 2), whose inner degree has no tc instantiation,
+  and a lifted ring's calls with D1 t < 64 or s < 64 that ``skinny`` and
+  ``tower`` do not take;
 * CUDA tensors of a ring outside the envelope raise ValueError: on the
   card a ring matmul runs on a kernel or not at all (the reference hands
   such rings to XLA, ``repro/kernels/ops.py:66``).  The envelope is the
@@ -41,9 +49,10 @@ The routes' envelope (what :func:`route_takes` says each kernel takes;
 ``tc``, ``skinny`` and ``tower`` come in a few instantiations each; :func:`pick_blocks`
 names the one a launch uses: the caller's, else the tuned entry of
 ``kernels.autotune``'s cache for this (card, ring, shape), else the
-route's default.  ``simt`` keeps its static tile.
+route's default.  ``tc_left`` runs the default tc instantiation of the
+inner ring (the autotuner does not time it), ``simt`` its static tile.
 
-``tc``, ``skinny`` and ``tower`` take the interleaved (t, r, D) layout as
+``tc``, ``tc_left``, ``skinny`` and ``tower`` take the interleaved (t, r, D) layout as
 it is; ``simt`` takes planar (D, t, r) copies.  The kernels mask ragged edges
 themselves (``tc`` pads inside its limb pre-pass), so nothing is padded
 here.
@@ -64,6 +73,7 @@ from .gr_matmul import (
     gr_matmul_planar,
     gr_matmul_skinny,
     gr_matmul_tc,
+    gr_matmul_tc_left,
     gr_matmul_tower,
     kernel_tile,
     skinny_cols,
@@ -82,8 +92,14 @@ from .ref import gr_matmul_ref, tc_view
 # host time of its limb pre-pass launches makes the call slower end to end
 # (chip_smoke.py's thresholds block times both)
 TC_MIN_TS = 64
+# tc_left takes a lifted ring's calls up to this many rows (A's side is
+# lifted, so its D1 t rows are the main kernel's): the decodes and encodes,
+# up to the 64-row encodes of 64 workers, where chip_smoke.py phase 2 times
+# it against the B-lifted tc in turns
+TC_LEFT_MAX_T = 64
 
 __all__ = [
+    "TC_LEFT_MAX_T",
     "TC_MIN_TS",
     "gr_matmul",
     "pick_route",
@@ -107,7 +123,8 @@ def pick_blocks(ring, t: Optional[int] = None, r: Optional[int] = None,
     * ``tc`` (bn, stages), ``skinny`` (threads, cm) and ``tower``
       (threads, tc, cpt): the tuned entry of the autotune cache for this
       card, ring and shape, else the route's default (its first
-      instantiation), None for a tower it has none for.
+      instantiation), None for a tower it has none for;
+    * ``tc_left``: the tc kernel's default (bn, stages) of the inner ring.
 
     ``device``: a torch device, or a device kind (``cuda|<card>``).
     """
@@ -116,6 +133,9 @@ def pick_blocks(ring, t: Optional[int] = None, r: Optional[int] = None,
     route = route or pick_route(ring, t, r, s)
     if route == "simt":
         return kernel_tile(ring)
+    if route == "tc_left":
+        configs = tc_configs(*tower_shape(ring))
+        return configs[0] if configs else None
     # imported here: ``python -m repro_torch.kernels.autotune`` runs it as __main__
     from .autotune import cached_blocks
 
@@ -143,10 +163,12 @@ def route_takes(route: str, ring, t: int, r: int) -> bool:
     ``ring`` (inside the envelope; for ``tc`` at any t and s, which
     :func:`pick_route` holds to ``TC_MIN_TS``): the instantiations and, for
     ``skinny`` and ``tower``, the shapes and the shared memory a block
-    needs at them."""
+    needs at them; ``tc_left`` takes the lifted towers at any shape."""
     d0, d1 = tower_shape(ring)
     if route == "tc":
         return tc_instantiated(d0, d1)
+    if route == "tc_left":
+        return tc_view(d0, d1)[1] > 1 and tc_instantiated(d0, d1)
     if route == "skinny":
         return (bool(skinny_cols(d0, d1)) and 1 <= t <= SKINNY_MAX_T and 1 <= r <= SKINNY_MAX_R
                 and skinny_smem_bytes(ring, t, r) <= SMEM_BLOCK_BYTES)
@@ -158,16 +180,20 @@ def route_takes(route: str, ring, t: int, r: int) -> bool:
 
 def pick_route(ring, t: int, r: int, s: int) -> str:
     """The route of a (t, r) x (r, s) matmul over ``ring`` on the card:
-    ``skinny``, ``tower``, ``tc`` or ``simt`` (the first of them that takes
-    it, tc from t, D1 s >= ``TC_MIN_TS``), or ``plain`` outside the
-    envelope (which only CPU tensors take: :func:`gr_matmul` raises on the
-    card)."""
+    ``skinny``, ``tower``, ``tc_left``, ``tc`` or ``simt`` (the first of
+    them that takes it: tc_left up to t = ``TC_LEFT_MAX_T`` with its main
+    kernel's D1 t and s, tc with its t and D1 s, at least ``TC_MIN_TS``),
+    or ``plain`` outside the envelope (which only CPU tensors take:
+    :func:`gr_matmul` raises on the card)."""
     if not kernel_supported(ring):
         return "plain"
     for route in ("skinny", "tower"):
         if route_takes(route, ring, t, r):
             return route
     d1 = tc_view(*tower_shape(ring))[1]
+    if (t <= TC_LEFT_MAX_T and d1 * t >= TC_MIN_TS and s >= TC_MIN_TS
+            and route_takes("tc_left", ring, t, r)):
+        return "tc_left"
     if t >= TC_MIN_TS and d1 * s >= TC_MIN_TS and route_takes("tc", ring, t, r):
         return "tc"
     return "simt"
@@ -178,13 +204,15 @@ def run_route(route: str, A: torch.Tensor, B: torch.Tensor, ring, config=None) -
     (b?, r, s, D) -> (b?, t, s, D) with ``config`` (None:
     :func:`pick_blocks`'); raises where the route's kernel does not take
     them."""
-    if route in ("skinny", "tc", "tower") and config is None:
+    if route in ("skinny", "tc", "tower", "tc_left") and config is None:
         config = pick_blocks(ring, A.shape[-3], A.shape[-2], B.shape[-2], route=route,
                              device=A.device)
     if route == "skinny":
         return gr_matmul_skinny(A, B, ring, config)
     if route == "tc":
         return gr_matmul_tc(A, B, ring, config)
+    if route == "tc_left":
+        return gr_matmul_tc_left(A, B, ring, config)
     if route == "tower":
         return gr_matmul_tower(A, B, ring, config)
     if route == "simt":

@@ -24,6 +24,7 @@ __all__ = [
     "gr_matmul_ref",
     "gr_matmul_planar_ref",
     "gr_matmul_limbs_ref",
+    "gr_matmul_tc_left_ref",
     "gr_matmul_tc_ref",
     "gr_matmul_tower_ref",
     "lift_b_ref",
@@ -31,6 +32,8 @@ __all__ = [
     "mult_matrices_ref",
     "n_limbs",
     "outer_reduction",
+    "stacked_planes_ref",
+    "tc_left_planes_ref",
     "tc_lifted",
     "tc_planes_ref",
     "tc_view",
@@ -269,6 +272,55 @@ def gr_matmul_tc_ref(A: torch.Tensor, B: torch.Tensor, ring) -> torch.Tensor:
     A1 = A.reshape(*A.shape[:-2], d1 * A.shape[-2], d0)
     C1 = gr_matmul_limbs_ref(A1, lift_b_ref(B, ring), ring.base_ring())
     return C1.reshape(*C1.shape[:-2], C1.shape[-2] // d1, ring.D)
+
+
+# -- the tc_left route: the lift on the small left operand ---------------------
+
+
+def _stacked_b(B: torch.Tensor, d0: int, d1: int) -> torch.Tensor:
+    """B (..., r, s, D1 D0) read as B' (..., D1 r, s, D0): B'[(r, k), s] =
+    B[r, s, k], each outer coefficient an element of the inner ring."""
+    *lead, r, s, _ = B.shape
+    return B.reshape(*lead, r, s, d1, d0).transpose(-3, -2).reshape(*lead, d1 * r, s, d0)
+
+
+def stacked_planes_ref(B: torch.Tensor, ring, Sp: int, Rp: int) -> torch.Tensor:
+    """Plain version of the ``tc_left`` route's stack pre-pass over a lifted
+    ring (D0, D1): B (..., r, s, D) -> (..., D0, L, Sp, Rp) uint8, the limb
+    planes of B' (rows s, depth (r, k)), zero-padded."""
+    d0, d1 = _view(ring)
+    return limb_planes_ref(_stacked_b(B, d0, d1), ring.base_ring(), Sp, Rp, transpose=True)
+
+
+def tc_left_planes_ref(A: torch.Tensor, B: torch.Tensor, ring, Tp: int, Rp: int, Sp: int):
+    """Plain version of the ``tc_left`` route's pre-passes over a lifted ring
+    (D0, D1) (:func:`tc_view`): A8 (..., D0, L, Tp, Rp), the limb planes of
+    M(A) with rows (t, m) and depth (r, k), which are the lift of A
+    transposed (:func:`lift_b_ref` on (..., r, t, D) gives M(A) read
+    K-major), and B8 (..., D0, L, Sp, Rp), the limb planes of B' (rows s,
+    depth (r, k); :func:`stacked_planes_ref`)."""
+    MA = lift_b_ref(A.transpose(-3, -2), ring)
+    return (limb_planes_ref(MA, ring.base_ring(), Tp, Rp, transpose=True),
+            stacked_planes_ref(B, ring, Sp, Rp))
+
+
+def gr_matmul_tc_left_ref(A: torch.Tensor, B: torch.Tensor, ring) -> torch.Tensor:
+    """The ``tc_left`` route's algorithm on the CPU, over a lifted ring
+    (D0, D1) (:func:`tc_view`): (..., t, r, D) x (..., r, s, D) ->
+    (..., t, s, D) as
+
+        M(A)[(t, m), (r, k)] = sum_j RED[k + j, m] * A[t, r, j]   (D1 t x D1 r)
+        B'[(r, k), s] = B[r, s, k]                                 (D1 r x s)
+        C[t, s, m] = (M(A) B')[(t, m), s]   over the inner ring GR(2^e, D0)
+
+    (:func:`gr_matmul_limbs_ref`, the limb products the kernel runs): the
+    lift on A, whose rows are few, and B as it lies."""
+    d0, d1 = _view(ring)
+    MA = lift_b_ref(A.transpose(-3, -2), ring).transpose(-3, -2)  # (..., D1 t, D1 r, D0)
+    C1 = gr_matmul_limbs_ref(MA, _stacked_b(B, d0, d1), ring.base_ring())  # (..., D1 t, s, D0)
+    *lead, _, s, _ = C1.shape
+    t = A.shape[-3]
+    return C1.reshape(*lead, t, d1, s, d0).transpose(-3, -2).reshape(*lead, t, s, ring.D)
 
 
 # -- the tower route: A lifted to its multiplication matrices -------------------

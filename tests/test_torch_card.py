@@ -1,5 +1,5 @@
-"""repro_torch on the card: the four CUDA routes of the ring matmul
-(``simt``, ``tc``, ``skinny``, ``tower``) against their plain version, and the main path
+"""repro_torch on the card: the five CUDA routes of the ring matmul
+(``simt``, ``tc``, ``skinny``, ``tower``, ``tc_left``) against their plain version, and the main path
 through them: ``coded_matmul`` for every family, the elastic backend's
 traced path, the coded int8 matmul, a pool of CUDA worker processes (every
 worker product a ``tc`` launch, read from the workers' heartbeats) and one
@@ -55,7 +55,9 @@ SHAPES = [(8, 8, 8), (16, 32, 8), (128, 128, 128), (7, 13, 5), (1, 64, 1), (130,
 ROUTE_SHAPES = {"simt": SHAPES, "tc": SHAPES + [(64, 64, 64), (96, 300, 160)],
                 "skinny": [x for x in SHAPES if x[0] <= 16 and x[1] <= 16]
                 + [(8, 2, 4099), (16, 16, 333), (2, 3, 12345)],
-                "tower": [(8, 8, 8), (7, 13, 5), (1, 1, 77), (8, 2, 4099), (2, 3, 12345)]}
+                "tower": [(8, 8, 8), (7, 13, 5), (1, 1, 77), (8, 2, 4099), (2, 3, 12345)],
+                # a decode past r = 32, a 32 x 32 decode and a 64-row encode, ragged s
+                "tc_left": SHAPES + [(16, 33, 333), (32, 32, 200), (64, 4, 1001)]}
 
 
 @pytest.fixture
@@ -81,6 +83,8 @@ def test_kernel_matches_plain(cuda, spec):
             expect[route] = 1
             if route == "tc":  # one limb pre-pass an operand, or A's and B's lift
                 expect["limbs"], expect["lift"] = (1, 1) if tc_lifted(ring) else (2, 0)
+            if route == "tc_left":  # the lift of A, the stack of B
+                expect["lift"], expect["stack"] = 1, 1
             assert counters.launches_by_route == expect
             assert torch.equal(out, gr_matmul_ref(A, B, ring)), (lead, t, r, s)
 
@@ -88,10 +92,11 @@ def test_kernel_matches_plain(cuda, spec):
 def _takes(route, ring):
     d0, d1 = tower_shape(ring)
     return {"simt": True, "tc": tc_instantiated(d0, d1), "skinny": bool(skinny_cols(d0, d1)),
-            "tower": bool(tower_configs(d0, d1))}[route]
+            "tower": bool(tower_configs(d0, d1)),
+            "tc_left": tc_lifted(ring) and tc_instantiated(d0, d1)}[route]
 
 
-@pytest.mark.parametrize("route", ["simt", "tc", "skinny", "tower"])
+@pytest.mark.parametrize("route", ["simt", "tc", "skinny", "tower", "tc_left"])
 @pytest.mark.parametrize("spec", RING_SPECS, ids=str)
 def test_route_matches_plain(cuda, spec, route):
     ring = make_ring(*spec)
@@ -184,7 +189,7 @@ def test_elastic_traced_path_on_the_card(cuda):
     # per dispatched worker (all 8 join at 0): phi(A), encode_a_at, phi(B),
     # encode_b_at on skinny and one tc product; then decode and psi
     assert counters.launches_by_route == {"simt": 0, "tc": 8, "skinny": 34, "tower": 0,
-                                          "limbs": 16, "lift": 0}
+                                          "tc_left": 0, "limbs": 16, "lift": 0, "stack": 0}
     assert eb.last_stats.live_idx == (0, 4, 6, 7)
     direct = torch.stack([Z.matmul(A[i], B[i]) for i in range(2)])
     assert torch.equal(C, direct)
@@ -239,9 +244,11 @@ def test_pool_of_cuda_workers_runs_every_product_on_a_kernel(cuda):
         master = dict(counters.launches_by_route)
         after = _summed(pool.master.worker_launches())
     workers = {k: after[k] - before[k] for k in after}
-    assert workers == {"simt": 0, "tc": 8, "skinny": 0, "tower": 0, "limbs": 16, "lift": 0}
+    assert workers == {"simt": 0, "tc": 8, "skinny": 0, "tower": 0, "tc_left": 0, "limbs": 16,
+                       "lift": 0, "stack": 0}
     # per share phi(A), encode_a_at, phi(B), encode_b_at; then decode and psi
-    assert master == {"simt": 0, "tc": 0, "skinny": 34, "tower": 0, "limbs": 0, "lift": 0}
+    assert master == {"simt": 0, "tc": 0, "skinny": 34, "tower": 0, "tc_left": 0, "limbs": 0,
+                      "lift": 0, "stack": 0}
     assert torch.equal(C, coded_matmul(A, B, scheme, backend="local"))
     assert torch.equal(C, torch.stack([gr_matmul_ref(A[i], B[i], Z) for i in range(2)]))
 
@@ -332,6 +339,52 @@ def test_widened_skinny_matches_plain(cuda, deg):
         B = ring.random(rng, (r, 5), device=cuda)
         with pytest.raises(ValueError, match="skinny kernel takes"):
             gr_matmul_skinny(A, B, ring)
+
+
+# -- slice 11: tc_left, the lift on the small left operand ----------------------
+
+
+@pytest.mark.parametrize("deg", [(5,), (6,), (7,), (16,), (3, 4), (4, 3), (2, 5), (2, 7),
+                                 (3, 7)], ids=str)
+def test_tc_left_and_its_prepasses_match_plain(cuda, deg):
+    """tc_left over a lifted ring at every instantiation of its inner ring,
+    batched and ragged: the lift of A and the stack of B against their
+    plain version, the product against the ring's; one launch of each."""
+    from repro_torch.kernels.gr_matmul import gr_matmul_tc_left, tc_left_limbs, tc_padded
+    from repro_torch.kernels.ref import tc_left_planes_ref, tc_view
+
+    ring = make_ring(2, 32, deg)
+    d1 = tc_view(*tower_shape(ring))[1]
+    rng = np.random.default_rng(21)
+    for lead, (t, r, s) in [((), (16, 33, 333)), ((2,), (32, 32, 97)), ((), (64, 4, 1001)),
+                            ((), (3, 70, 64))]:
+        A = ring.random(rng, lead + (t, r), device=cuda)
+        B = ring.random(rng, lead + (r, s), device=cuda)
+        A8, B8 = tc_left_limbs(A, B, ring)
+        A3, B3 = (A, B) if lead else (A[None], B[None])
+        want_a, want_b = tc_left_planes_ref(A3, B3, ring, *tc_padded(d1 * t, d1 * r, s))
+        assert torch.equal(A8, want_a) and torch.equal(B8, want_b), (lead, t, r, s)
+        want = gr_matmul_ref(A, B, ring)
+        for config in tc_configs(*tower_shape(ring)):
+            counters.reset()
+            assert torch.equal(gr_matmul_tc_left(A, B, ring, config), want), (config, lead, t, r, s)
+            assert counters.launches_by_route["tc_left"] == counters.launches == 1
+            assert counters.launches_by_route["lift"] == counters.launches_by_route["stack"] == 1
+
+
+@pytest.mark.parametrize("deg,t,r", [((7,), 16, 33), ((3, 7), 32, 32), ((3, 7), 64, 4),
+                                     ((3, 7), 64, 8)], ids=str)
+def test_tc_left_takes_the_64_worker_calls(cuda, deg, t, r):
+    """The decodes and encodes of the planner's 64-worker rounds (s cut
+    to 4099) go to tc_left, not simt, and equal the plain version."""
+    ring = make_ring(2, 32, deg)
+    assert pick_route(ring, t, r, 1 << 17) == "tc_left"
+    rng = np.random.default_rng(22)
+    A = ring.random(rng, (t, r), device=cuda)
+    B = ring.random(rng, (r, 4099), device=cuda)
+    counters.reset()
+    assert torch.equal(gr_matmul(A, B, ring), gr_matmul_ref(A, B, ring))
+    assert counters.launches_by_route["tc_left"] == 1 and counters.launches_by_route["simt"] == 0
 
 
 def test_tuned_entry_is_what_the_route_launches(cuda, monkeypatch):

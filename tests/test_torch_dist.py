@@ -145,7 +145,8 @@ def test_hello_and_worker_launch_counts(pool):
     assert sorted(counts) == pool.master.live_workers()
     # CPU workers run the plain version: no kernel launches, every route listed
     for by_route in counts.values():
-        assert by_route == {"simt": 0, "tc": 0, "skinny": 0, "tower": 0, "limbs": 0, "lift": 0}
+        assert by_route == {"simt": 0, "tc": 0, "skinny": 0, "tower": 0, "tc_left": 0,
+                           "limbs": 0, "lift": 0, "stack": 0}
 
 
 def test_worker_error_is_retried_and_scheduler_serves(pool):

@@ -11,9 +11,10 @@ matmuls of the rounds the planner makes go.
   the lifted towers, at e in {8, 16, 31, 32} for D = 5, 6 and (3, 4);
 * ``pick_route`` sends each new ring's worker product to ``tc`` and the
   64-row encodes and 32 x 32 decodes to ``skinny``;
-* for each spec of the planner's probe (64 workers and batches of 4
+* for each spec of the planner's probe (64 workers and batches of 4 and 8
   among them), every ring matmul of the planned round at 2048^3 leaves
-  ``simt``, except the ones listed in ``SIMT_LEFT``.  The round's calls
+  ``simt`` (``SIMT_LEFT`` is empty since ``tc_left`` takes the decodes and
+  encodes of the 64-worker rounds).  The round's calls
   come from the plan's (u, v, w), n, N and R (``_round_calls``), held
   against a round at 64^3 whose ring matmuls are recorded, not computed.
 
@@ -179,7 +180,7 @@ ROUTE_CASES = [
     ((5,), 16, 3, 524288, "skinny"),
     ((5,), 4, 9, 262144, "skinny"),
     ((7,), 512, 1024, 512, "tc"),
-    ((7,), 16, 33, 131072, "simt"),         # the R = 33 decode: past r = 32
+    ((7,), 16, 33, 131072, "tc_left"),      # the R = 33 decode: past r = 32, A lifted
     ((12,), 1024, 2048, 1024, "tc"),
     ((16,), 1024, 2048, 1024, "tc"),
     ((16,), 64, 32, 1000, "skinny"),        # 192 KB of shared memory at 32 threads
@@ -193,8 +194,14 @@ ROUTE_CASES = [
     ((3,), 64, 33, 4096, "tc"),
     ((3,), 63, 33, 4096, "simt"),
     ((3,), 32, 33, 4096, "simt"),
-    ((3, 7), 64, 4, 1048576, "tc"),         # no skinny for (3, 7); tower stops at 16
-    ((3, 7), 32, 32, 8192, "simt"),
+    ((3, 7), 64, 4, 1048576, "tc_left"),    # no skinny for (3, 7); tower stops at 16
+    ((3, 7), 32, 32, 8192, "tc_left"),
+    # the calls of the planner's 64-worker rounds at 2048^3 (chip_smoke.py's
+    # LEFT_SHAPES): the R = 33 decode over GR(2^32, 7), and the (3, 7)
+    # tower's 32 x 32 decode and 64-row encodes for n = 8
+    ((7,), 16, 33, 262144, "tc_left"),
+    ((3, 7), 32, 32, 131072, "tc_left"),
+    ((3, 7), 64, 8, 524288, "tc_left"),
 ]
 
 
@@ -230,17 +237,12 @@ def test_skinny_sizes_its_slab_from_shared_memory():
 PROBE = [(16, 4, 0, 4), (24, 4, 0, 8), (64, 4, 0, 16), (16, 1, 1, 4), (24, 2, 0, 4),
          (24, 2, 0, 8), (32, 2, 0, 4), (32, 2, 0, 8), (32, 1, 0, 8), (64, 2, 0, 16),
          (64, 1, 1, 0), (64, 2, 1, 0), (8, 2, 0, 2), (16, 2, 0, 4), (8, 8, 0, 2),
-         (64, 8, 0, 16)]
-# ring matmuls of those rounds at 2048^3 that stay on simt: the R = 33
-# decode of the secure plans for 64 workers (past skinny's r <= 32), and
-# the 32 x 32 decode over the (3, 7) tower for 64 workers at n = 8 (no
-# skinny instantiation, tower takes t, r <= 16, tc t >= 64; its 64-row
-# encodes go to tc through the lift)
-SIMT_LEFT = {
-    (64, 1, 1, 0): [("decode", (7,), 16, 33)],
-    (64, 2, 1, 0): [("decode", (7,), 16, 33)],
-    (64, 8, 0, 16): [("decode", (3, 7), 32, 32)],
-}
+         (64, 8, 0, 16), (64, 8, 0, 0)]
+# ring matmuls of those rounds at 2048^3 that stay on simt: none.  The R =
+# 33 decode of the secure plans for 64 workers (past skinny's r <= 32) and
+# the decodes and 64-row encodes over the (3, 7) tower for 64 workers at n
+# = 8 (no skinny instantiation, tower takes t, r <= 16) go to tc_left
+SIMT_LEFT = {}
 SIZE = 2048
 
 

@@ -195,8 +195,8 @@ ROUTE_CASES = [
     ((3, 7), 8, 4, 262144, "tower"),
     ((3, 7), 8, 8, 131072, "tower"),
     ((3, 7), 12, 9, 1000, "tower"),     # t r = 108: the lifted A still fits a block
-    ((3, 7), 16, 16, 100, "simt"),      # t r = 256: it does not
-    ((3, 7), 32, 20, 4096, "simt"),     # t < 64 and r > 16
+    ((3, 7), 16, 16, 100, "tc_left"),   # t r = 256: it does not; A is lifted instead
+    ((3, 7), 32, 20, 4096, "tc_left"),  # t < 64 and r > 16
     ((3, 7), 64, 1024, 10, "tc"),       # D1 s = 70 >= 64
     ((3, 7), 64, 1024, 9, "simt"),      # D1 s = 63
     ((2, 3), 1024, 2048, 1024, "tc"),   # lifted onto GR(2^32, 2)
