@@ -28,11 +28,8 @@ Phases (any mismatch fails the run with a non-zero exit):
    accumulators' overflow rule (all-0xFF operands, chains past 2^31 and
    2^32, the lifted (3, 7), (3, 4) and D = 6 chains among them, every
    instantiation; printed as ``tc_accumulate: wraps``, and the run fails
-   if they saturate); ``tc_left`` at the calls of the planner's 64-worker
-   rounds at 2048^3 (``LEFT_SHAPES``: the R = 33 decode over GR(2^32, 7),
-   the (3, 7) tower's 32 x 32 decode and 64-row encodes), held at every
-   instantiation, with ``simt`` and the B-lifted ``tc`` it replaces, then
-   timed in turns with both;
+   if they saturate); ``tc_left`` past 65535 column tiles
+   (``LEFT_GRID_SHAPES``: its grid is flat);
    ``ElasticStream``'s step over the (3, 7) tower (three ``tower`` calls
    and the lifted ``tc`` worker product) at every instantiation and on
    ``simt``; and at every shape the main path hands the
@@ -78,7 +75,9 @@ Phases (any mismatch fails the run with a non-zero exit):
    past 2e10 word products: ``GRAPH_WORDS``), beside its byte, int8
    and INT32 bounds, the plain version and, for ``tc``, its pre-passes
    (the lift alone over a lifted ring; for ``tc_left`` the lift of A and
-   the stack) and the int8 yardstick.  It runs
+   the stack) and the int8 yardstick; ``tc_left`` (the decodes and 64-row
+   encodes of the 64-worker rounds) is held against the B-lifted ``tc``
+   as well and timed in turns with it and ``simt``.  It runs
    last, once phases 5-9 have recorded;
 5. the elastic any-R master (``coded_matmul(..., backend=ElasticBackend)``)
    on ``batch_ep_rmfe`` at 2048^3: (a) the all-live fast path, equal to
@@ -383,15 +382,10 @@ BATCHED = {"simt": (3, 9, 20, 11), "tc": (3, 33, 280, 65), "skinny": (3, 4, 5, 7
 # the tc_left route on every lifted ring: a decode past r = 32, a 32 x 32
 # decode, the 64-row encodes (ragged s) and a deep r at three rows
 TC_LEFT_SHAPES = [(16, 33, 333), (32, 32, 200), (64, 4, 1001), (64, 8, 4099), (3, 70, 64)]
-# the calls of the planner's 64-worker rounds that tc_left takes, at 2048^3:
-# (ring degrees, batch, t, r, s), each held against the plain version and
-# timed in turns with simt and with the B-lifted tc
-LEFT_SHAPES = {
-    "decode_r33": ((7,), None, 16, 33, 262144),     # ep_secure / ep_rmfe_secure, N = 64
-    "decode_3_7": ((3, 7), None, 32, 32, 131072),   # batch_ep_rmfe n = 8, N = 64
-    "encode_a_3_7": ((3, 7), None, 64, 4, 1048576),
-    "encode_b_3_7": ((3, 7), None, 64, 8, 524288),
-}
+# tc_left past 65535 column tiles (the default tile's BN: 32 at D0 = 3, 128
+# at D0 = 1), as the (3, 7) 64-row encode at 4096^3 has: (ring degrees, t,
+# r, s)
+LEFT_GRID_SHAPES = [((3, 7), 2, 1, 65535 * 32 + 33), ((7,), 1, 1, 65535 * 128 + 129)]
 # ElasticStream's step at 9 live workers: batch_ep_rmfe (n = 8) over
 # GR(2^32, (3, 7)), 1024^3 in a (1, 8) group: (name, batch, t, r, s)
 STEP9_SHAPES = [("encode_a", None, 8, 2, 524288), ("encode_b", None, 8, 4, 262144),
@@ -794,8 +788,9 @@ def _timing_row(ring, A, B, route: str, plain_ms: float, plain_batch=None, rival
         row["prepasses_ms"] = graph_ms(lambda: tc_left_limbs(A, B, ring))
         row["lift_a_ms"] = graph_ms(lambda: tc_lift(At, ring))
         row["stack_ms"] = graph_ms(lambda: tc_stack(B, ring))
-        # the stack alone: B read once, its limb planes written once
-        stack_bytes = 4 * ring.D * b * r * s + b * d0 * L * Sp * Rp
+        # the stack alone: B read once, its limb planes written once (the
+        # zero padding of Sp and Rp is not work the function needs)
+        stack_bytes = 4 * ring.D * b * r * s + b * d0 * L * s * (d1 * r)
         row["stack_bound_ms"] = 1e3 * stack_bytes / HBM_BYTES_PER_S
         B3 = (B if lead else B[None])[:plain_batch]
         row["stack_plain_ms"] = cuda_ms(lambda: stacked_planes_ref(B3, ring, Sp, Rp))
@@ -918,6 +913,11 @@ def phase_kernels(report: dict) -> dict:
         nb, t, r, s = BATCHED["tc_left"]
         check("tc_left", ring, (nb,), t, r, s, " (lifted, batched)")
         checked["tc_left"].append(f"lifted {ring.degrees} e={ring.e}:3 shapes")
+    for deg, t, r, s in LEFT_GRID_SHAPES:
+        ring = make_ring(2, 32, deg)
+        check("tc_left", ring, (), t, r, s, " (past 65535 column tiles)")
+        checked["tc_left"].append(f"{ring.degrees} {(t, r, s)} past 65535 column tiles")
+        torch.cuda.empty_cache()
     for spec in RING_SPECS + WIDE_SKINNY_SPECS:
         ring = make_ring(*spec)
         shapes = [x for x in SKINNY_WIDE_SHAPES if route_takes("skinny", ring, x[0], x[1])]
@@ -969,43 +969,7 @@ def phase_kernels(report: dict) -> dict:
     report["kernel_max_abs_err"] = worst
     report["kernel_timings"] = timings
     report["thresholds"] = _threshold_timings(rng, worst)
-    report["left_timings"] = _left_timings(rng, worst)
     return timings
-
-
-def _left_timings(rng, worst: dict) -> dict:
-    """tc_left at each call of ``LEFT_SHAPES`` (the planner's 64-worker
-    rounds at 2048^3), at every instantiation, with simt and the B-lifted
-    tc, held against the plain version bit for bit, then timed in turns
-    (simt, tc, tc_left, tc_left, tc, simt) beside its bounds."""
-    import torch
-
-    from repro_torch.core import make_ring
-    from repro_torch.kernels import gr_matmul_ref, pick_route
-
-    out = {}
-    for name, (deg, nb, t, r, s) in LEFT_SHAPES.items():
-        ring = make_ring(2, 32, deg)
-        lead = (nb,) if nb else ()
-        A = ring.random(rng, lead + (t, r), device="cuda")
-        B = ring.random(rng, lead + (r, s), device="cuda")
-        holder = {}
-        plain_ms = cuda_ms(lambda: holder.__setitem__("C", gr_matmul_ref(A, B, ring)))
-        plain = holder.pop("C")
-        what = f" (64-worker shape {name})"
-        _hold("tc_left", ring, A, B, worst, what, plain=plain, every_config=True)
-        for rt in ("simt", "tc"):  # the routes it replaces, held before they are timed
-            _hold(rt, ring, A, B, worst, what, plain=plain, planes=False)
-        del plain
-        row = {"ring": str(deg), "batch": nb or 1, "t": t, "r": r, "s": s,
-               "picked": pick_route(ring, t, r, s),
-               **_timing_row(ring, A, B, "tc_left", plain_ms, rivals=("tc",))}
-        row["tc_over_route"] = row["rivals_ms"]["tc"] / row["ms"]
-        out[name] = row
-        log(f"tc_left shape {name}: {json.dumps(row)}")
-        del A, B
-        torch.cuda.empty_cache()
-    return out
 
 
 # shapes at the edges of the dispatch rule (ops.pick_route): (ring degrees,
@@ -1335,11 +1299,17 @@ def phase_path_calls(report: dict, calls: list) -> None:
         else:
             for rt in dict.fromkeys(("simt", route) if timed else (route,)):
                 _hold(rt, ring, A, B, worst, " (a phase-3 call)", plain=plain)
+        # tc_left's rival: the B-lifted tc it replaced, held before it is timed
+        rivals = ("tc",) if timed and route == "tc_left" else ()
+        for rt in rivals:
+            _hold(rt, ring, A, B, worst, " (a phase-3 call, the route tc_left replaced)",
+                  plain=plain, planes=False)
         del plain
         if timed:
             row = {"paths": sorted(set(paths)), "ring": str(ring.degrees),
                    "a": list(a_shape[:-1]), "b": list(b_shape[:-1]),
-                   **_timing_row(ring, A, B, route, plain_ms, plain_batch=1 if first else None)}
+                   **_timing_row(ring, A, B, route, plain_ms, plain_batch=1 if first else None,
+                                 rivals=rivals)}
             timings.append(row)
             log(f"timed path shape: {json.dumps(row)}")
         del A, B
@@ -2643,22 +2613,21 @@ def _kernel_rows(report: dict, totals: dict) -> list:
     lift, tower = step9[("tc", (8, 512, 1024))], step9[("tower", (8, 8))]
     shape9 = lambda row: f"{row['a']} @ {row['b']} over GR(2^32, (3, 7))"  # noqa: E731
     # this slice's tc_left and its stack pre-pass at the (3, 7) tower's
-    # 32 x 32 decode for 64 workers (phase 2), the other shapes beside it
-    left = report["left_timings"]
-    dec = left["decode_3_7"]
-    shape_l = lambda row: (f"{row['t']}x{row['r']} @ {row['r']}x{row['s']} over GR(2^32) "  # noqa: E731
-                           f"degrees {row['ring']}")
+    # 32 x 32 decode for 64 workers (phase 4), the other shapes beside it
+    left = {f"{'+'.join(x['paths'])} {x['a']} @ {x['b']} degrees {x['ring']}": x
+            for x in report["path_kernel_timings"] if x["route"] == "tc_left"}
+    dec = next(x for x in left.values() if x["ring"] == "(3, 7)" and x["a"] == [32, 32])
     left_rows = [
         {**base, "name": "gr_matmul_tc_left", "source": src + "gr_matmul_tc.cu",
          "launches": totals["tc_left"], "max_abs_err": report["kernel_max_abs_err"]["tc_left"],
          "ms": dec["ms"], "plain_ms": dec["plain_ms"], "bound_ms": dec["bound_ms"],
          "bound_by": dec["bound_by"], "int8_yardstick_ms": dec["int8_yardstick_ms"],
-         "simt_ms": dec["simt_ms"], "tc_ms": dec["rivals_ms"]["tc"], "shape": shape_l(dec),
-         "per_shape_ms": {**{k: v["ms"] for k, v in left.items()}, **d4("tc_left")}},
+         "simt_ms": dec["simt_ms"], "tc_ms": dec["rivals_ms"]["tc"], "shape": shape9(dec),
+         "per_shape_ms": {k: v["ms"] for k, v in left.items()}},
         {**base, "name": "gr_matmul_tc_stack", "source": src + "gr_matmul_tc.cu",
          "launches": totals["stack"], "max_abs_err": report["kernel_max_abs_err"]["stack"],
          "ms": dec["stack_ms"], "plain_ms": dec["stack_plain_ms"], "bound_ms": dec["stack_bound_ms"],
-         "bound_by": "bytes", "shape": shape_l(dec),
+         "bound_by": "bytes", "shape": shape9(dec),
          "per_shape_ms": {k: v["stack_ms"] for k, v in left.items()}},
     ]
     new = left_rows + [
@@ -2719,24 +2688,32 @@ def main() -> int:
         print("chip_smoke: no CUDA device; this script runs only on the card", file=sys.stderr)
         return 2
     sys.path.insert(0, str(SRC))
-    report: dict = {}
+    report: dict = {"phase_seconds": {}}
     t0 = time.perf_counter()
-    phase_env_build(report)
-    phase_kernels(report)
-    totals, calls = phase_main_path(report)
+
+    def timed(phase, *args):  # the phase's wall seconds go into the report
+        start = time.perf_counter()
+        out = phase(report, *args)
+        report["phase_seconds"][phase.__name__] = time.perf_counter() - start
+        return out
+
+    timed(phase_env_build)
+    timed(phase_kernels)
+    totals, calls = timed(phase_main_path)
     for phase in (phase_elastic, phase_stream, phase_quantized, phase_pool, phase_serve,
                   phase_hedge, phase_spmd):
-        for route, n in phase(report, calls).items():
+        for route, n in timed(phase, calls).items():
             totals[route] += n
     for route in COUNTED:
         if totals[route] == 0:
             fail(f"the main path never launched the {route} kernel")
     report["main_path_launches"] = totals
-    phase_autotune(report)
-    phase_calibrate(report)
-    phase_lm(report)
-    phase_path_calls(report, calls)
+    timed(phase_autotune)
+    timed(phase_calibrate)
+    timed(phase_lm)
+    timed(phase_path_calls, calls)
     report["seconds"] = time.perf_counter() - t0
+    log(f"phase seconds: {json.dumps(report['phase_seconds'])}")
     kernels = _kernel_rows(report, totals)
     args.report.parent.mkdir(parents=True, exist_ok=True)
     args.report.write_text(json.dumps(report, indent=1, default=str))

@@ -832,17 +832,24 @@ __device__ __forceinline__ void consume(uint8_t* smem, uint32_t full, uint32_t e
   // the s32 accumulator fragment: entry e of a thread is row g (+ 8 for
   // e % 4 >= 2) of its warp's 16, column 8 * (e / 4) + 2 * (lane % 4) + e % 2.
   // Row (t, m) = split t + m of the product lands at C[t, col, m] (split =
-  // D1 on the tc_left route, 1 otherwise: then C[row, col])
+  // D1 on the tc_left route, 1 otherwise: then C[row, col]).  A thread's
+  // entries lie on two rows, whose offsets are found once: row (t, m),
+  // column col at element (t S split + m) + col split
   const int g = lane >> 2, qd = lane & 3;
   uint32_t* Cb = C + z * T * (int64_t)S * D;
+  int64_t row_at[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int row = m0 + warp * 16 + g + 8 * h, t = row / split;
+    row_at[h] = (int64_t)t * S * split + (row - t * split);
+  }
 #pragma unroll
   for (int el = 0; el < EH; ++el) {
-    const int e = W * EH + el;
-    const int row = m0 + warp * 16 + g + ((e >> 1) & 1) * 8;
+    const int e = W * EH + el, h = (e >> 1) & 1;
+    const int row = m0 + warp * 16 + g + 8 * h;
     const int col = n0 + 8 * (e >> 2) + 2 * qd + (e & 1);
     if (row < T && col < S) {
-      const int t = row / split, m = row - t * split;
-      uint32_t* dst = Cb + (((int64_t)t * S + col) * split + m) * D;
+      uint32_t* dst = Cb + (row_at[h] + (int64_t)col * split) * D;
 #pragma unroll
       for (int d = 0; d < D; ++d)
         dst[d] = (mine[el][d] + xch[(((1 - W) * D + d) * EH + el) * 128 + tid]) & mask;
@@ -861,9 +868,15 @@ __global__ void __launch_bounds__(kThreads, 1)
   const uint32_t full = smem_addr(smem + G::kRing), empty = full + 8 * ST;
   const int64_t z = blockIdx.z;
   // the tc_left route (split > 1) runs the row tiles of one column block
-  // next to each other, so that B's planes come from HBM about once
-  const int m0 = (split > 1 ? blockIdx.x : blockIdx.y) * kBM;
-  const int n0 = (split > 1 ? blockIdx.y : blockIdx.x) * BN;
+  // next to each other, so that B's planes come from HBM about once: its
+  // grid is flat, the row tile fastest, so the column tiles are not held
+  // to gridDim.y's 65535
+  int m0 = blockIdx.y * kBM, n0 = blockIdx.x * BN;
+  if (split > 1) {
+    const unsigned row_tiles = (T + kBM - 1) / kBM;
+    m0 = (int)(blockIdx.x % row_tiles) * kBM;
+    n0 = (int)(blockIdx.x / row_tiles) * BN;
+  }
   const int ktiles = Rp / KS;
   if (threadIdx.x == 0) {
     for (int s = 0; s < ST; ++s) {
@@ -956,8 +969,9 @@ int launch(const uint8_t* A8, const uint8_t* B8, uint32_t* C, int batch, int T, 
            int Sp, int Rp, const FoldTable& fold, uint32_t mask, int split, cudaStream_t stream) {
   using G = Tc<D0, D1, BN, ST, L>;
   if (G::kSmem > kSmemMax) return (int)cudaErrorInvalidValue;
-  const int row_tiles = (T + kBM - 1) / kBM, col_tiles = (S + BN - 1) / BN;
-  if ((split > 1 ? col_tiles : row_tiles) > 65535) return (int)cudaErrorInvalidValue;
+  const int64_t row_tiles = (T + kBM - 1) / kBM, col_tiles = (S + BN - 1) / BN;
+  if (split > 1 ? row_tiles * col_tiles > INT32_MAX : row_tiles > 65535)
+    return (int)cudaErrorInvalidValue;
   // raise the kernel's shared-memory limit once per device (the attribute
   // persists), not on every launch: launches may be captured in a CUDA graph
   static int smem_set[kMaxDevices] = {};
@@ -975,7 +989,8 @@ int launch(const uint8_t* A8, const uint8_t* B8, uint32_t* C, int batch, int T, 
   int err = encode_planes(&mapA, A8, batch * G::P, Tp, Rp, kBM, G::P);
   if (err == 0) err = encode_planes(&mapB, B8, batch * G::P, Sp, Rp, BN, G::P);
   if (err != 0) return err;
-  const dim3 grid = split > 1 ? dim3(row_tiles, col_tiles, batch) : dim3(col_tiles, row_tiles, batch);
+  const dim3 grid = split > 1 ? dim3((unsigned)(row_tiles * col_tiles), 1, batch)
+                              : dim3((unsigned)col_tiles, (unsigned)row_tiles, batch);
   gr_matmul_tc_kernel<D0, D1, BN, ST, L><<<grid, kThreads, G::kSmem, stream>>>(
       mapA, mapB, C, T, S, Rp, fold, mask, split);
   return (int)cudaGetLastError();

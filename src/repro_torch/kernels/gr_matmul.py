@@ -711,7 +711,9 @@ def gr_matmul_tc_left(A: torch.Tensor, B: torch.Tensor, ring, config=None) -> to
                          f"memory, more than a block's {SMEM_BLOCK_BYTES}")
     _, fold = _check_layout(ring.base_ring())
     Tp, Rp, Sp = tc_padded(d1 * T, d1 * R, S)
-    if -(-S // config[0]) > 65535 or max(d1 * T, d1 * R, S) >= 2**31 - 256:
+    # a flat grid of row tiles by column tiles
+    if (-(-(d1 * T) // TC_BM) * -(-S // config[0]) > 2**31 - 1
+            or max(d1 * T, d1 * R, S) >= 2**31 - 256):
         raise ValueError(f"{(d1 * T, d1 * R, S)} exceeds the tc_left kernel's launch grid")
     C = torch.empty((nb, T, S, ring.D), dtype=torch.int32, device=A.device)
     if C.numel() == 0:

@@ -94,7 +94,7 @@ from .ref import gr_matmul_ref, tc_view
 TC_MIN_TS = 64
 # tc_left takes a lifted ring's calls up to this many rows (A's side is
 # lifted, so its D1 t rows are the main kernel's): the decodes and encodes,
-# up to the 64-row encodes of 64 workers, where chip_smoke.py phase 2 times
+# up to the 64-row encodes of 64 workers, where chip_smoke.py phase 4 times
 # it against the B-lifted tc in turns
 TC_LEFT_MAX_T = 64
 

@@ -387,6 +387,21 @@ def test_tc_left_takes_the_64_worker_calls(cuda, deg, t, r):
     assert counters.launches_by_route["tc_left"] == 1 and counters.launches_by_route["simt"] == 0
 
 
+@pytest.mark.parametrize("deg,bn", [((3, 7), 32), ((7,), 128)], ids=str)
+def test_tc_left_runs_past_65535_column_tiles(cuda, deg, bn):
+    """More column tiles than gridDim.y takes (the (3, 7) 64-row encode at
+    4096^3 has 131072): tc_left's flat grid runs every one of them."""
+    from repro_torch.kernels.gr_matmul import gr_matmul_tc_left
+
+    ring = make_ring(2, 32, deg)
+    assert tc_configs(*tower_shape(ring))[0][0] == bn
+    s = 65535 * bn + bn + 1
+    rng = np.random.default_rng(23)
+    A = ring.random(rng, (2, 1), device=cuda)
+    B = ring.random(rng, (1, s), device=cuda)
+    assert torch.equal(gr_matmul_tc_left(A, B, ring), gr_matmul_ref(A, B, ring))
+
+
 def test_tuned_entry_is_what_the_route_launches(cuda, monkeypatch):
     """The committed cache covers this card's main-path shapes, or misses
     to the default; run_route launches what pick_blocks names, exactly."""

@@ -197,7 +197,7 @@ ROUTE_CASES = [
     ((3, 7), 64, 4, 1048576, "tc_left"),    # no skinny for (3, 7); tower stops at 16
     ((3, 7), 32, 32, 8192, "tc_left"),
     # the calls of the planner's 64-worker rounds at 2048^3 (chip_smoke.py's
-    # LEFT_SHAPES): the R = 33 decode over GR(2^32, 7), and the (3, 7)
+    # WIDE_PATHS): the R = 33 decode over GR(2^32, 7), and the (3, 7)
     # tower's 32 x 32 decode and 64-row encodes for n = 8
     ((7,), 16, 33, 262144, "tc_left"),
     ((3, 7), 32, 32, 131072, "tc_left"),

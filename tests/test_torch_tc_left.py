@@ -170,6 +170,7 @@ LEFT_ROUTES = [
     ((3, 7), 64, 4, 1048576, "tc_left"),   # and its encodes
     ((3, 7), 64, 8, 524288, "tc_left"),
     ((3, 7), 64, 64, 65536, "tc_left"),    # the (8, 8, 1) plan with no straggler budget
+    ((3, 7), 64, 4, 4194304, "tc_left"),   # the encode at 4096^3: 131072 column tiles
     ((3, 7), 8, 8, 131072, "tower"),       # ElasticStream's step 9 keeps its route
     ((3, 7), 512, 1024, 256, "tc"),        # worker products lift B
     ((6,), 32, 32, 131072, "skinny"),      # skinny keeps what it takes
