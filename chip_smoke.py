@@ -8,12 +8,14 @@ Phases (any mismatch fails the run with a non-zero exit):
 1. environment and build: torch/CUDA versions, the card's name and power
    limit, the kernels built from ``src/repro_torch/kernels/csrc`` with nvcc
    (``-Xptxas -v`` registers and spills per instantiation of every route,
-   the ``lift`` and ``stack`` pre-passes printed on their own;
-   every ``tc`` instantiation must enter with 168 registers, which its
-   ``setmaxnreg`` split needs, and ptxas' warnings on it are reported),
-   and the Python mirrors of each route's tiles, instantiations and the
-   ``tc`` kernel's shared memory per tile and L (a lifted tower's too) and
-   the ``tower`` kernel's per (t, r) held against the library;
+   the ``lift`` and ``stack`` pre-passes and the ``tc_left`` kernel printed
+   on their own; every ``tc`` and ``tc_left`` instantiation must enter with
+   168 registers, which its ``setmaxnreg`` split needs, and ptxas' warnings
+   on them are reported), and the Python mirrors of each route's tiles,
+   instantiations and the ``tc`` kernel's shared memory per tile and L (a
+   lifted tower's too), the ``tc_left`` kernel's layout (A resident,
+   stages, shared memory) per inner degree, L, tile and depth, and the
+   ``tower`` kernel's per (t, r) held against the library;
 2. every route of ``gr_matmul`` (``simt``, ``tc``, ``skinny``, ``tower``,
    ``tc_left``) and the tc routes' pre-passes (limb planes, a lifted ring's
    lift, tc_left's lift of A and stack of B) against their plain PyTorch
@@ -22,14 +24,17 @@ Phases (any mismatch fails the run with a non-zero exit):
    shapes each route takes (``tc`` and ``tower`` at every instantiation of
    the ring's tower), batched and unbatched; ``tc`` on every ring it lifts
    (``LIFT_SPECS``: GR(2^32, D) for D = 5..16 and the towers (3, 4), (4, 3),
-   (2, 5), (2, 7), (3, 2)) and ``tc_left`` on the same rings
-   (``TC_LEFT_SHAPES``); the widened ``skinny`` at t = 64 and r = 32
+   (2, 5), (2, 7), (3, 2)) and ``tc_left`` (its own persistent kernel at
+   every tile width, the lift of A and the stack of B) on the same rings
+   (``TC_LEFT_SHAPES``, and ``LEFT_EDGE_R``: both edges of its 32-byte
+   stage and of its A-resident layout); the widened ``skinny`` at t = 64
+   and r = 32
    (``SKINNY_WIDE_SHAPES``, ragged s); the ``tc`` and ``tc_left``
    accumulators' overflow rule (all-0xFF operands, chains past 2^31 and
    2^32, the lifted (3, 7), (3, 4) and D = 6 chains among them, every
    instantiation; printed as ``tc_accumulate: wraps``, and the run fails
    if they saturate); ``tc_left`` past 65535 column tiles
-   (``LEFT_GRID_SHAPES``: its grid is flat);
+   (``LEFT_GRID_SHAPES``: its persistent blocks walk them);
    ``ElasticStream``'s step over the (3, 7) tower (three ``tower`` calls
    and the lifted ``tc`` worker product) at every instantiation and on
    ``simt``; and at every shape the main path hands the
@@ -74,11 +79,12 @@ Phases (any mismatch fails the run with a non-zero exit):
    route in turns with ``simt`` from CUDA graphs (of 10 launches, fewer
    past 2e10 word products: ``GRAPH_WORDS``), beside its byte, int8
    and INT32 bounds, the plain version and, for ``tc``, its pre-passes
-   (the lift alone over a lifted ring; for ``tc_left`` the lift of A and
-   the stack) and the int8 yardstick; ``tc_left`` (the decodes and 64-row
-   encodes of the 64-worker rounds) is held against the B-lifted ``tc``
-   as well and timed in turns with it and ``simt``.  It runs
-   last, once phases 5-9 have recorded;
+   (the lift alone over a lifted ring; for ``tc_left`` the lift of A, the
+   stack and its main kernel alone, with its grid and layout) and the int8
+   yardstick; ``tc_left`` (the decodes and 64-row encodes of the
+   64-worker rounds) is held against the B-lifted ``tc`` as well and timed
+   in turns with it and ``simt``.  It runs last, once phases 5-9 have
+   recorded;
 5. the elastic any-R master (``coded_matmul(..., backend=ElasticBackend)``)
    on ``batch_ep_rmfe`` at 2048^3: (a) the all-live fast path, equal to
    ``local`` with ``local``'s launches; (b) the traced event loop under a
@@ -382,10 +388,28 @@ BATCHED = {"simt": (3, 9, 20, 11), "tc": (3, 33, 280, 65), "skinny": (3, 4, 5, 7
 # the tc_left route on every lifted ring: a decode past r = 32, a 32 x 32
 # decode, the 64-row encodes (ragged s) and a deep r at three rows
 TC_LEFT_SHAPES = [(16, 33, 333), (32, 32, 200), (64, 4, 1001), (64, 8, 4099), (3, 70, 64)]
-# tc_left past 65535 column tiles (the default tile's BN: 32 at D0 = 3, 128
-# at D0 = 1), as the (3, 7) 64-row encode at 4096^3 has: (ring degrees, t,
-# r, s)
-LEFT_GRID_SHAPES = [((3, 7), 2, 1, 65535 * 32 + 33), ((7,), 1, 1, 65535 * 128 + 129)]
+# tc_left past 65535 column tiles (the default tile width at r = 1: 80), as
+# the (3, 7) 64-row encode at 4096^3 has: (ring degrees, t, r, s)
+LEFT_GRID_SHAPES = [((3, 7), 2, 1, 65535 * 80 + 81), ((7,), 1, 1, 65535 * 80 + 81)]
+
+
+def _left_edges(ring) -> list:
+    """r at both edges of tc_left's 32-byte stage (D r at or just under
+    32, and the next r) and of its layout (the last r whose row tile of
+    M(A) stays in shared memory at the default tile width, and the next)."""
+    from repro_torch.kernels.gr_matmul import (
+        tc_left_configs,
+        tc_left_layout,
+        tc_left_padded,
+        tower_shape,
+    )
+    D = ring.D
+    config = tc_left_configs(*tower_shape(ring))[0]
+    resident = max(r for r in range(1, 400)
+                   if tc_left_layout(ring, config, tc_left_padded(1, D * r, 1)[1])[1])
+    return sorted({max(1, 32 // D), 32 // D + 1, resident, resident + 1})
+
+
 # ElasticStream's step at 9 live workers: batch_ep_rmfe (n = 8) over
 # GR(2^32, (3, 7)), 1024^3 in a (1, 8) group: (name, batch, t, r, s)
 STEP9_SHAPES = [("encode_a", None, 8, 2, 524288), ("encode_b", None, 8, 4, 262144),
@@ -488,6 +512,7 @@ def phase_env_build(report: dict) -> None:
     from repro_torch.kernels.build import build_info, library_configs, load_library
     from repro_torch.kernels.gr_matmul import (
         TC_DEPTH,
+        TC_LEFT_DEPTH,
         TC_LIFT_TOWERS,
         kernel_tile,
         skinny_cols,
@@ -496,6 +521,8 @@ def phase_env_build(report: dict) -> None:
         skinny_smem_bytes,
         tc_configs,
         tc_instantiated,
+        tc_left_configs,
+        tc_left_layout,
         tc_smem_bytes,
         tower_configs,
         tower_shape,
@@ -519,21 +546,23 @@ def phase_env_build(report: dict) -> None:
     usage = ptxas_usage()
     log("ptxas " + json.dumps(usage, separators=(",", ":")))
     report["ptxas"] = usage
-    for route in ("simt", "tc", "skinny", "tower", "limbs_rows", "limbs_cols", "lift", "stack"):
+    for route in ("simt", "tc", "tc_left", "skinny", "tower", "limbs_rows", "limbs_cols", "lift",
+                  "stack", "left_lift"):
         if not any(k.startswith(route + "(") for k in usage):
             fail(f"no ptxas report for the {route} kernels")
     # the tc kernel's warpgroups trade registers with setmaxnreg (producer
     # 40, consumers 232), which balances only at 168 a thread on entry;
     # ptxas' warnings (a serialised wgmma, an ignored setmaxnreg) are kept
-    tc_regs = {k: v.get("regs") for k, v in usage.items() if k.startswith("tc(")}
+    tc_regs = {k: v.get("regs") for k, v in usage.items() if k.startswith(("tc(", "tc_left("))}
     if set(tc_regs.values()) != {168}:
-        fail(f"tc instantiations must enter with 168 registers: {tc_regs}")
+        fail(f"tc and tc_left instantiations must enter with 168 registers: {tc_regs}")
     report["ptxas_tc_warnings"] = sorted({
         line.split("warning", 1)[-1].strip()[:200]
-        for line in (ROOT / "build" / "kernels" / "gr_matmul_tc.ptxas.txt").read_text().splitlines()
+        for source in ("gr_matmul_tc", "gr_matmul_tc_left")
+        for line in (ROOT / "build" / "kernels" / f"{source}.ptxas.txt").read_text().splitlines()
         if "warning" in line.lower()})
-    log(f"ptxas tc warnings: {report['ptxas_tc_warnings']}")
-    for route in ("stack", "lift"):  # the pre-passes of this slice's tc_left
+    log(f"ptxas tc and tc_left warnings: {report['ptxas_tc_warnings']}")
+    for route in ("stack", "left_lift", "lift", "tc_left"):  # tc_left's kernels, tc's lift
         log(f"ptxas {route}: " + json.dumps({k: v for k, v in usage.items()
                                             if k.startswith(route + "(")}))
     spills = {k: v for k, v in usage.items() if v.get("spill_st") or v.get("spill_ld")}
@@ -552,6 +581,24 @@ def phase_env_build(report: dict) -> None:
                                                 (4, 3), (5, 2), (5, 3), (7, 2), (3, 7)]
     if lib.gr_matmul_tc_depth() != TC_DEPTH:
         fail(f"tc stage depth mirror {TC_DEPTH} != library {lib.gr_matmul_tc_depth()}")
+    if lib.gr_matmul_tc_left_depth() != TC_LEFT_DEPTH:
+        fail(f"tc_left stage depth mirror {TC_LEFT_DEPTH} != library "
+             f"{lib.gr_matmul_tc_left_depth()}")
+    # the tc_left kernel's tile widths, and its layout (A resident, stages,
+    # shared memory) per limbs, tile width and depth
+    if library_configs("tc_left", 3, 7) != tc_left_configs(3, 7):
+        fail(f"tc_left mirror {tc_left_configs(3, 7)} != library "
+             f"{library_configs('tc_left', 3, 7)}")
+    for e in (8, 16, 24, 32):
+        ring = make_ring(2, e, (3, 7))
+        for config in tc_left_configs(3, 7):
+            for rp in (32, 96, 224, 256, 672, 1024, 24576):
+                out = (ctypes.c_int * 4)()
+                smem = lib.gr_matmul_tc_left_layout(-(-e // 8), *config, rp, out)
+                got = (bool(out[0]), bool(out[1]), out[2], out[3], smem)
+                if got != tc_left_layout(ring, config, rp):
+                    fail(f"tc_left layout mirror {tc_left_layout(ring, config, rp)} != library "
+                         f"{got} at e={e} {config} depth {rp}")
     for d0, d1 in towers:
         if library_configs("tc", d0, d1) != tc_configs(d0, d1):
             fail(f"tc mirror {tc_configs(d0, d1)} != library {library_configs('tc', d0, d1)} "
@@ -676,19 +723,22 @@ def _hold(route, ring, A, B, worst: dict, what: str, plain=None, every_config=Fa
     from repro_torch.kernels import gr_matmul_ref, run_route
     from repro_torch.kernels.gr_matmul import (
         tc_configs,
+        tc_left_configs,
         tc_left_limbs,
+        tc_left_padded,
         tc_limbs,
         tc_padded,
         tc_shape,
         tower_configs,
         tower_shape,
     )
-    from repro_torch.kernels.ref import tc_left_planes_ref, tc_lifted, tc_planes_ref, tc_view
+    from repro_torch.kernels.ref import tc_left_planes_ref, tc_lifted, tc_planes_ref
 
     shape = f"{tuple(A.shape[:-1])} x {tuple(B.shape[:-1])}"
     if plain is None:
         plain = gr_matmul_ref(A, B, ring)
-    instantiations = {"tc": tc_configs, "tc_left": tc_configs, "tower": tower_configs}.get(route)
+    instantiations = {"tc": tc_configs, "tc_left": tc_left_configs,
+                      "tower": tower_configs}.get(route)
     configs = instantiations(*tower_shape(ring)) if instantiations and every_config else (None,)
     for config in configs:
         out = run_route(route, A, B, ring, config)
@@ -700,13 +750,13 @@ def _hold(route, ring, A, B, worst: dict, what: str, plain=None, every_config=Fa
     if not planes:
         return
     if route == "tc_left":
-        d1 = tc_view(*tower_shape(ring))[1]
+        D = ring.D
         t, r, s = A.shape[-3], A.shape[-2], B.shape[-2]
         A8, B8 = tc_left_limbs(A, B, ring)
         A3, B3 = (A, B) if A.dim() == 4 else (A[None], B[None])
         if first or planes_first:
             A8, B8, A3, B3 = A8[:1], B8[:1], A3[:1], B3[:1]
-        want_a, want_b = tc_left_planes_ref(A3, B3, ring, *tc_padded(d1 * t, d1 * r, s))
+        want_a, want_b = tc_left_planes_ref(A3, B3, ring, *tc_left_padded(D * t, D * r, s))
         for name, err in (("lift", max_abs_err(A8, want_a)), ("stack", max_abs_err(B8, want_b))):
             worst[name] = max(worst[name], err)
             if err:
@@ -735,24 +785,31 @@ def _timing_row(ring, A, B, route: str, plain_ms: float, plain_batch=None, rival
     B) and the yardstick; for ``tower`` its own plain version.
     ``plain_batch``: the batch entries ``plain_ms`` covers (None: all); the
     pre-passes' plain versions are timed on as many."""
+    import torch
+
     from repro_torch.kernels import gr_matmul_tower_ref, run_route
     from repro_torch.kernels.gr_matmul import (
+        tc_left_default,
+        tc_left_grid,
+        tc_left_layout,
+        tc_left_lift,
         tc_left_limbs,
+        tc_left_main,
+        tc_left_padded,
         tc_lift,
         tc_limbs,
         tc_padded,
         tc_shape,
         tc_stack,
-        tower_shape,
     )
     from repro_torch.kernels.ref import (
+        left_lift_ref,
         lift_b_ref,
         limb_planes_ref,
         n_limbs,
         stacked_planes_ref,
         tc_lifted,
         tc_planes_ref,
-        tc_view,
     )
 
     lead = A.dim() == 4
@@ -781,16 +838,33 @@ def _timing_row(ring, A, B, route: str, plain_ms: float, plain_batch=None, rival
     if rivals:
         row["rivals_ms"] = {rv: sum(m for rt, m in turns if rt == rv) / 2 for rv in rivals}
     if route == "tc_left":
-        d0, d1 = tc_view(*tower_shape(ring))
-        Tp, Rp, Sp = tc_padded(d1 * t, d1 * r, s)
+        Tp, Rp, Sp = tc_left_padded(ring.D * t, ring.D * r, s)
         L = n_limbs(ring)
-        At = A.transpose(-3, -2).contiguous()
-        row["prepasses_ms"] = graph_ms(lambda: tc_left_limbs(A, B, ring))
-        row["lift_a_ms"] = graph_ms(lambda: tc_lift(At, ring))
+        # the main kernel alone on the pre-passes' planes, its grid and layout
+        A8, B8 = tc_left_limbs(A, B, ring)
+        config = tc_left_default(ring, r)
+        row["main_ms"] = graph_ms(lambda: tc_left_main(A8, B8, ring, t, s, config), iters)
+        row["main_bound_share"] = row["bound_ms"] / row["main_ms"]
+        sms = torch.cuda.get_device_properties(0).multi_processor_count
+        row["grid"] = dict(zip(("blocks", "row_tiles", "col_tiles"),
+                               tc_left_grid(ring, b, t, r, s, config, sms)), sms=sms)
+        row["layout"] = dict(zip(("pair", "a_resident", "stages", "buffers", "smem"),
+                                 tc_left_layout(ring, config, Rp)), depth=Rp)
+        del A8, B8
+        row["lift_a_ms"] = graph_ms(lambda: tc_left_lift(A, ring))
+        # the lift of A alone: A read once, M(A)'s planes written once, and
+        # D^3 multiply-adds an element of A at the INT32 rate
+        A3 = (A if lead else A[None])[:plain_batch]
+        row["lift_a_plain_ms"] = cuda_ms(lambda: limb_planes_ref(left_lift_ref(A3, ring)[..., None],
+                                                                 ring, Tp, Rp))
+        lift_bytes_ms = 1e3 * (4 * ring.D * b * t * r + b * L * Tp * Rp) / HBM_BYTES_PER_S
+        lift_ops_ms = 1e3 * b * t * r * ring.D ** 3 / INT32_MAD_PER_S
+        row["lift_a_bound_ms"] = max(lift_bytes_ms, lift_ops_ms)
+        row["lift_a_bound_by"] = "bytes" if lift_bytes_ms >= lift_ops_ms else "operations"
         row["stack_ms"] = graph_ms(lambda: tc_stack(B, ring))
         # the stack alone: B read once, its limb planes written once (the
         # zero padding of Sp and Rp is not work the function needs)
-        stack_bytes = 4 * ring.D * b * r * s + b * d0 * L * s * (d1 * r)
+        stack_bytes = 4 * ring.D * b * r * s + b * L * s * ring.D * r
         row["stack_bound_ms"] = 1e3 * stack_bytes / HBM_BYTES_PER_S
         B3 = (B if lead else B[None])[:plain_batch]
         row["stack_plain_ms"] = cuda_ms(lambda: stacked_planes_ref(B3, ring, Sp, Rp))
@@ -827,10 +901,11 @@ def _timing_row(ring, A, B, route: str, plain_ms: float, plain_batch=None, rival
 # (3, 4) tower (2340900) at 1000 and 1900
 WRAP_CASES = [((3,), 2816), ((3,), 8192), ((4,), 2112), ((4,), 4160), ((3, 7), 512),
               ((3, 7), 1024), ((6,), 1800), ((6,), 3400), ((3, 4), 1000), ((3, 4), 1900)]
-# the same chains on tc_left, which lifts all-0xFF A instead (16 rows): the
-# lift's column over k for each m is M(B)'s over i, so the same r pass 2^31
-# and 2^32
-LEFT_WRAP_CASES = [((3, 7), 512), ((3, 7), 1024), ((6,), 1800), ((6,), 3400)]
+# the same chains on tc_left, which lifts all-0xFF A to its multiplication
+# matrices over Z_2^32 instead (16 rows; D r deep): over the (3, 7) tower
+# they pass 2^31 at r = 700 and 2^32 at 1300, over GR(2^32, 6) at 1800 and
+# 3400
+LEFT_WRAP_CASES = [((3, 7), 700), ((3, 7), 1300), ((6,), 1800), ((6,), 3400)]
 
 
 def _tc_wrap_check(worst: dict) -> str:
@@ -845,18 +920,20 @@ def _tc_wrap_check(worst: dict) -> str:
         gr_matmul_tc,
         gr_matmul_tc_left,
         tc_configs,
+        tc_left_configs,
         tower_shape,
     )
 
     errs = {}
     for route, cases, t in (("tc", WRAP_CASES, 64), ("tc_left", LEFT_WRAP_CASES, 16)):
         fn = {"tc": gr_matmul_tc, "tc_left": gr_matmul_tc_left}[route]
+        configs = {"tc": tc_configs, "tc_left": tc_left_configs}[route]
         for deg, r in cases:
             ring = make_ring(2, 32, deg)
             A = torch.full((t, r, ring.D), -1, dtype=torch.int32, device="cuda")
             B = torch.full((r, 64, ring.D), -1, dtype=torch.int32, device="cuda")
             plain = gr_matmul_ref(A, B, ring)
-            for config in tc_configs(*tower_shape(ring)):
+            for config in configs(*tower_shape(ring)):
                 err = max_abs_err(fn(A, B, ring, config), plain)
                 errs[f"{route} {deg} r={r} {config}"] = err
                 worst[route] = max(worst[route], err)
@@ -873,7 +950,7 @@ def phase_kernels(report: dict) -> dict:
 
     from repro_torch.core import make_ring
     from repro_torch.kernels import gr_matmul_ref, pick_route
-    from repro_torch.kernels.ops import route_takes
+    from repro_torch.kernels.ops import TC_LEFT_MAX_T, route_takes
 
     rng = np.random.default_rng(SEED)
     worst = dict.fromkeys(COUNTED, 0)
@@ -889,7 +966,9 @@ def phase_kernels(report: dict) -> dict:
         for route in ROUTES:
             extra = {"tc": TC_SHAPES, "skinny": SKINNY_SHAPES, "tower": TOWER_SHAPES,
                      "tc_left": TC_LEFT_SHAPES}.get(route, [])
-            shapes = [x for x in SHAPES + extra if route_takes(route, ring, x[0], x[1])]
+            # (tc_left: its t <= TC_LEFT_MAX_T, which route_takes leaves to pick_route)
+            shapes = [x for x in SHAPES + extra if route_takes(route, ring, x[0], x[1])
+                      and (route != "tc_left" or x[0] <= TC_LEFT_MAX_T)]
             if not shapes:
                 continue
             for t, r, s in shapes:
@@ -906,13 +985,14 @@ def phase_kernels(report: dict) -> dict:
         nb, t, r, s = BATCHED["tc"]
         check("tc", ring, (nb,), t, r, s, " (lifted, batched)")
         checked["tc"].append(f"lifted {ring.degrees} e={ring.e}:{len(TC_SHAPES) + 1} shapes")
-        # and tc_left (every stack instantiation): the decode past r = 32
-        # and the deep r at three rows
-        for t, r, s in TC_LEFT_SHAPES[::4]:
+        # and tc_left (every stack instantiation, every tile width): its
+        # shapes, a batch, and both edges of its stage and of its layout
+        for t, r, s in TC_LEFT_SHAPES + [(9, r, 259) for r in _left_edges(ring)]:
             check("tc_left", ring, (), t, r, s, " (lifted)")
         nb, t, r, s = BATCHED["tc_left"]
         check("tc_left", ring, (nb,), t, r, s, " (lifted, batched)")
-        checked["tc_left"].append(f"lifted {ring.degrees} e={ring.e}:3 shapes")
+        checked["tc_left"].append(f"lifted {ring.degrees} e={ring.e}:"
+                                  f"{len(TC_LEFT_SHAPES) + 5} shapes")
     for deg, t, r, s in LEFT_GRID_SHAPES:
         ring = make_ring(2, 32, deg)
         check("tc_left", ring, (), t, r, s, " (past 65535 column tiles)")
@@ -2618,17 +2698,26 @@ def _kernel_rows(report: dict, totals: dict) -> list:
             for x in report["path_kernel_timings"] if x["route"] == "tc_left"}
     dec = next(x for x in left.values() if x["ring"] == "(3, 7)" and x["a"] == [32, 32])
     left_rows = [
-        {**base, "name": "gr_matmul_tc_left", "source": src + "gr_matmul_tc.cu",
+        {**base, "name": "gr_matmul_tc_left", "source": src + "gr_matmul_tc_left.cu",
          "launches": totals["tc_left"], "max_abs_err": report["kernel_max_abs_err"]["tc_left"],
          "ms": dec["ms"], "plain_ms": dec["plain_ms"], "bound_ms": dec["bound_ms"],
          "bound_by": dec["bound_by"], "int8_yardstick_ms": dec["int8_yardstick_ms"],
+         "main_ms": dec["main_ms"], "grid": dec["grid"],
          "simt_ms": dec["simt_ms"], "tc_ms": dec["rivals_ms"]["tc"], "shape": shape9(dec),
-         "per_shape_ms": {k: v["ms"] for k, v in left.items()}},
-        {**base, "name": "gr_matmul_tc_stack", "source": src + "gr_matmul_tc.cu",
+         "per_shape_ms": {k: v["ms"] for k, v in left.items()},
+         "per_shape_main_ms": {k: v["main_ms"] for k, v in left.items()}},
+        {**base, "name": "gr_matmul_tc_stack", "source": src + "gr_matmul_tc_left.cu",
          "launches": totals["stack"], "max_abs_err": report["kernel_max_abs_err"]["stack"],
          "ms": dec["stack_ms"], "plain_ms": dec["stack_plain_ms"], "bound_ms": dec["stack_bound_ms"],
          "bound_by": "bytes", "shape": shape9(dec),
          "per_shape_ms": {k: v["stack_ms"] for k, v in left.items()}},
+        # tc_left's lift of A, counted with tc's lift as "lift": one a tc_left launch
+        {**base, "name": "gr_matmul_tc_left_lift", "source": src + "gr_matmul_tc_left.cu",
+         "launches": totals["tc_left"], "counted_as": "lift",
+         "max_abs_err": report["kernel_max_abs_err"]["lift"],
+         "ms": dec["lift_a_ms"], "plain_ms": dec["lift_a_plain_ms"],
+         "bound_ms": dec["lift_a_bound_ms"], "bound_by": dec["lift_a_bound_by"], "shape": shape9(dec),
+         "per_shape_ms": {k: v["lift_a_ms"] for k, v in left.items()}},
     ]
     new = left_rows + [
         {**base, "name": "gr_matmul_tc_lift", "source": src + "gr_matmul_tc.cu",
@@ -2678,7 +2767,8 @@ def main() -> int:
     args = ap.parse_args()
     globals()["SEED"] = args.seed
     csrc = SRC / "repro_torch" / "kernels" / "csrc"
-    if not all((csrc / f).is_file() for f in ("gr_matmul.cu", "gr_matmul_tc.cu", "gr_matmul_skinny.cu",
+    if not all((csrc / f).is_file() for f in ("gr_matmul.cu", "gr_matmul_tc.cu", "gr_matmul_tc_left.cu",
+                                               "gr_matmul_tc_common.cuh", "gr_matmul_skinny.cu",
                                                "gr_matmul_tower.cu")):
         print(f"chip_smoke: the port's sources are not under {SRC}", file=sys.stderr)
         return 2

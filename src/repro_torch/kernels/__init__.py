@@ -1,11 +1,13 @@
 """Hand-written Hopper kernels for the CDMM hot paths, with plain versions.
 
 gr_matmul: Galois-ring matmul (worker compute, encode, decode, RMFE
-phi/psi) in four routes, CUDA C++ under ``csrc/`` built at first use:
+phi/psi) in five routes, CUDA C++ under ``csrc/`` built at first use:
 ``simt`` (``gr_matmul.cu``), ``tc`` (``gr_matmul_tc.cu``, int8 tensor
 cores; GR(2^e, D > 4) and two-level towers lifted onto their inner ring),
-``skinny`` (``gr_matmul_skinny.cu``) and ``tower`` (``gr_matmul_tower.cu``,
-the skinny calls of the rings ``skinny`` has no instantiation for);
+``tc_left`` (``gr_matmul_tc_left.cu``, a lifted ring's calls with a small
+left operand), ``skinny`` (``gr_matmul_skinny.cu``) and ``tower``
+(``gr_matmul_tower.cu``, the skinny calls of the rings ``skinny`` has no
+instantiation for);
 ``ops.pick_route`` picks (its docstring states the routes' envelope).
 """
 from .gr_matmul import MAX_D, counters, gr_matmul_planar

@@ -345,12 +345,15 @@ def cached_blocks(ring, t: int, r: int, s: int, device=None, *,
 # (tc: d0, d1, bn, stages, L; skinny: d0, d1, threads, cm, row groups; tower:
 # d0, d1, threads, tc, cpt)
 _ENTRY = re.compile(r"Compiling entry function '.*?(gr_matmul_kernel|gr_matmul_tc_kernel|"
-                    r"gr_matmul_skinny_kernel|gr_matmul_tower_kernel|limbs_rows_kernel|"
-                    r"limbs_cols_kernel|lift_cols_kernel|stack_cols_kernel)I((?:Li\d+E)+)")
+                    r"gr_matmul_tc_left_kernel|gr_matmul_skinny_kernel|gr_matmul_tower_kernel|"
+                    r"limbs_rows_kernel|limbs_cols_kernel|lift_cols_kernel|stack_cols_kernel|"
+                    r"left_lift_kernel)(?:I((?:Li\d+E)+)|E)")
 _ROUTE_OF = {"gr_matmul_kernel": "simt", "gr_matmul_tc_kernel": "tc",
+             "gr_matmul_tc_left_kernel": "tc_left",
              "gr_matmul_skinny_kernel": "skinny", "gr_matmul_tower_kernel": "tower",
              "limbs_rows_kernel": "limbs_rows", "limbs_cols_kernel": "limbs_cols",
-             "lift_cols_kernel": "lift", "stack_cols_kernel": "stack"}
+             "lift_cols_kernel": "lift", "stack_cols_kernel": "stack",
+             "left_lift_kernel": "left_lift"}
 
 
 def ptxas_usage(build_dir: Path = BUILD_DIR) -> Dict[str, dict]:
@@ -366,7 +369,7 @@ def ptxas_usage(build_dir: Path = BUILD_DIR) -> Dict[str, dict]:
         for line in ptxas.read_text().splitlines() if ptxas.exists() else []:
             m = _ENTRY.search(line)
             if m:
-                args = ",".join(re.findall(r"Li(\d+)E", m.group(2)))
+                args = ",".join(re.findall(r"Li(\d+)E", m.group(2) or ""))
                 cur = f"{_ROUTE_OF[m.group(1)]}({args})"
                 usage[cur] = {}
             elif cur:

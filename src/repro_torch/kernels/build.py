@@ -3,8 +3,9 @@
 ``nvcc`` compiles every source in ``SOURCES`` (plain C interface, no
 PyTorch headers) for ``sm_90a``, all at once in parallel, and links them
 into one library in ``build/kernels/`` at the repository root.  The
-library's file name carries a hash of every source and flag, so an edited
-source is never served by a stale build.  ``-Xptxas -v`` output (registers,
+library's file name carries a hash of every source, every header they
+share (``csrc/*.cuh``) and every flag, so an edited source is never served
+by a stale build.  ``-Xptxas -v`` output (registers,
 shared memory, spills) is kept beside the library as
 ``<source>.ptxas.txt``, one file per source.
 
@@ -37,8 +38,9 @@ CSRC_DIR = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 NVCC_FLAGS = ["-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
-# the general (simt), tensor-core (tc and tc_left), bandwidth (skinny) and tower routes
-SOURCES = ("gr_matmul", "gr_matmul_tc", "gr_matmul_skinny", "gr_matmul_tower")
+# the general (simt), tensor-core (tc; tc_left and its pre-passes), bandwidth
+# (skinny) and tower routes
+SOURCES = ("gr_matmul", "gr_matmul_tc", "gr_matmul_tc_left", "gr_matmul_skinny", "gr_matmul_tower")
 LIB_NAME = "gr_matmul"
 
 _lock = threading.Lock()
@@ -64,9 +66,14 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.gr_matmul_tile.argtypes = [ci, ci, ip, ip, ip]
     lib.gr_matmul_tc_limbs.argtypes = [vp, vp, ci, ci, ci, ci, ci, ci, ci, ci, vp]
     lib.gr_matmul_tc_u32.argtypes = [vp, vp, vp, ci, ci, ci, ci, ci, ci, ci, ci, ci, ci, ci,
-                                     fold, u32, ci, vp]
+                                     fold, u32, vp]
+    lib.gr_matmul_tc_left_u32.argtypes = [vp, vp, vp, ci, ci, ci, ci, ci, ci, ci, ci, ci, u32, vp]
+    lib.gr_matmul_tc_left_lift.argtypes = [vp, vp, vp, ci, ci, ci, ci, ci, ci, ci, vp]
+    lib.gr_matmul_tc_left_configs.argtypes = [ip, ci]
+    lib.gr_matmul_tc_left_layout.argtypes = [ci, ci, ci, ip]
+    lib.gr_matmul_tc_left_depth.argtypes = []
     lib.gr_matmul_tc_lift.argtypes = [vp, vp, ci, ci, ci, ci, ci, ci, ci, ci, fold, vp]
-    lib.gr_matmul_tc_stack.argtypes = [vp, vp, ci, ci, ci, ci, ci, ci, ci, ci, vp]
+    lib.gr_matmul_tc_stack.argtypes = [vp, vp, ci, ci, ci, ci, ci, ci, ci, vp]
     lib.gr_matmul_tc_configs.argtypes = [ci, ci, ip, ci]
     lib.gr_matmul_tc_smem.argtypes = [ci, ci, ci, ci, ci]
     lib.gr_matmul_tc_depth.argtypes = []
@@ -82,7 +89,9 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.gr_matmul_tower_smem.restype = ctypes.c_int64
     for fn in ("gr_matmul_planar_u32", "gr_matmul_tile", "gr_matmul_tc_limbs",
                "gr_matmul_tc_lift", "gr_matmul_tc_stack", "gr_matmul_tc_u32", "gr_matmul_tc_configs",
-               "gr_matmul_tc_smem", "gr_matmul_tc_depth",
+               "gr_matmul_tc_smem", "gr_matmul_tc_depth", "gr_matmul_tc_left_u32",
+               "gr_matmul_tc_left_lift", "gr_matmul_tc_left_configs", "gr_matmul_tc_left_layout",
+               "gr_matmul_tc_left_depth",
                "gr_matmul_skinny_u32", "gr_matmul_skinny_cols", "gr_matmul_skinny_configs",
                "gr_matmul_tower_u32", "gr_matmul_tower_configs"):
         getattr(lib, fn).restype = ci
@@ -139,6 +148,8 @@ def load_library() -> ctypes.CDLL:
         h = hashlib.sha256(" ".join(ARCH_FLAGS + NVCC_FLAGS).encode())
         for name in SOURCES:
             h.update((CSRC_DIR / f"{name}.cu").read_bytes())
+        for header in sorted(CSRC_DIR.glob("*.cuh")):
+            h.update(header.read_bytes())
         so = BUILD_DIR / f"lib{LIB_NAME}-{h.hexdigest()[:16]}.so"
         t0 = time.perf_counter()
         with _build_lock():
@@ -159,10 +170,15 @@ def load_library() -> ctypes.CDLL:
 
 def library_configs(route: str, d0: int, d1: int) -> tuple:
     """The instantiations the built library has for ``route`` (``tc``:
-    (bn, stages); ``skinny``: (threads, cm); ``tower``: (threads, tc,
-    cpt)) on the tower (d0, d1), default first, as the library itself
-    reports them."""
+    (bn, stages); ``tc_left``: (bn,), the same on every ring; ``skinny``:
+    (threads, cm); ``tower``: (threads, tc, cpt)) on the tower (d0, d1),
+    default first, as the library itself reports them."""
     lib = load_library()
+    if route == "tc_left":
+        n = lib.gr_matmul_tc_left_configs(None, 0)
+        out = (ctypes.c_int * max(n, 1))()
+        lib.gr_matmul_tc_left_configs(out, n)
+        return tuple((out[i],) for i in range(n))
     fn, width = {"tc": (lib.gr_matmul_tc_configs, 2),
                  "skinny": (lib.gr_matmul_skinny_configs, 2),
                  "tower": (lib.gr_matmul_tower_configs, 3)}[route]

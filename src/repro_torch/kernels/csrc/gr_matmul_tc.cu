@@ -108,17 +108,9 @@
 //    torch.cuda.max_memory_allocated, operands and shares included (an
 //    H100 80GB HBM3 at 700 W).
 //
-//  * The tc_left route (gr_matmul_tc_stack, below) runs the same main
-//    kernel with the lift on the other side, for a lifted tower's calls
-//    whose left operand is small (the decodes and encodes of a round: at
-//    most 64 rows against up to millions of columns): the lift pre-pass on
-//    A transposed writes M(A)'s limb planes (D1 T rows, D1 R deep), the
-//    stack pre-pass writes B's as it lies (S rows, D1 R deep), and the
-//    epilogue puts product row (t, m) at C[t, s, m].  Its grid runs the few
-//    row tiles of one column block next to each other, so B's planes come
-//    from HBM about once.  M(B) would be D1 times B's size and its depth
-//    D1 R (28 at r = 4 over the (3, 7) tower) pads to the 64-byte stage
-//    either way; lifting A instead keeps the large side at its own size.
+//  * The tc_left route (gr_matmul_tc_left.cu: its pre-passes and main
+//    kernel) takes a lifted ring's calls whose left operand is small.  The
+//    shared device and host helpers are in gr_matmul_tc_common.cuh.
 //
 // Measured (chip_smoke.py, an H100 80GB HBM3 at 700 W): at the worker
 // shape the pre-pass and this kernel take 2.42 ms, 65% of the int8 bound
@@ -129,10 +121,7 @@
 // and spills nothing; the accumulators wrap.
 //
 // C interface (loaded with ctypes); the functions return cudaGetLastError().
-#include <cuda.h>  // CUtensorMap and its enums (types only)
-#include <cuda_runtime.h>
-#include <stdint.h>
-#include <string.h>
+#include "gr_matmul_tc_common.cuh"
 
 namespace {
 
@@ -143,101 +132,6 @@ constexpr int kThreads = 128 * (kConsumers + 1);
 constexpr int kProducerRegs = 40;
 constexpr int kConsumerRegs = 232;  // 128 * 40 + 256 * 232 = 384 * 168
 constexpr int kAlign = 1024;     // slack to align the stages in dynamic shared memory
-constexpr int kMaxL = 4;         // e <= 32
-constexpr int kMaxD = 4;
-constexpr int kMaxK = 7;
-constexpr int kSmemMax = 227 * 1024;
-constexpr int kMaxDevices = 64;
-
-struct FoldTable {
-  uint32_t f[kMaxK * kMaxD];
-};
-
-template <int I>
-struct Int {
-  static constexpr int value = I;
-};
-
-// f(Int<I>{}) for I = B .. E - 1, unrolled at compile time
-template <int B, int E, class F>
-__device__ __forceinline__ void static_for(F&& f) {
-  if constexpr (B < E) {
-    f(Int<B>{});
-    static_for<B + 1, E>(f);
-  }
-}
-
-// The accumulators of a single-level tower of degree D with L limbs: pair
-// q = c * L + s for conv plane c < K = 2D - 1 and shift s < L, fed by
-// count(c) * (s + 1) MMAs a 32-deep step.  Greedily, heaviest first, each
-// pair goes to the consumer with fewer MMAs that still has room; a
-// consumer holds at most NP = ceil(K * L / 2) pairs.  Evaluated once, at
-// compile time (kT).
-template <int D, int L>
-struct Plan {
-  static constexpr int K = 2 * D - 1;
-  static constexpr int NQ = K * L;
-  static constexpr int NP = (NQ + 1) / 2;
-  static constexpr int P = D * L;  // A planes, p = i * L + a
-  struct Table {
-    int owner[NQ];      // consumer of pair q
-    int slot[NQ];       // its accumulator index there
-    int pairs[2];       // pairs a consumer owns
-    bool needs[2][P];   // does consumer w multiply by A plane p?
-    int rank[2][P];     // A planes consumer w needs before plane p
-    int planes[2];      // A planes consumer w needs
-  };
-  __host__ __device__ static constexpr int count(int c) {
-    return (c < D ? c : 2 * D - 2 - c) + 1;
-  }
-  __host__ __device__ static constexpr int mmas(int q) { return count(q / L) * (q % L + 1); }
-  __host__ __device__ static constexpr Table build() {
-    Table t{};
-    bool done[NQ] = {};
-    int load[2] = {0, 0};
-    for (int n = 0; n < NQ; ++n) {
-      int best = -1;
-      for (int q = 0; q < NQ; ++q)
-        if (!done[q] && (best < 0 || mmas(q) > mmas(best))) best = q;
-      const int w = t.pairs[0] < NP && (t.pairs[1] >= NP || load[0] <= load[1]) ? 0 : 1;
-      done[best] = true;
-      t.owner[best] = w;
-      t.slot[best] = t.pairs[w]++;
-      load[w] += mmas(best);
-    }
-    for (int w = 0; w < 2; ++w) {
-      for (int p = 0; p < P; ++p) {
-        t.rank[w][p] = t.planes[w];
-        for (int j = 0; j < D; ++j)
-          for (int b = 0; p % L + b < L; ++b)
-            if (t.owner[(p / L + j) * L + p % L + b] == w) t.needs[w][p] = true;
-        t.planes[w] += t.needs[w][p];
-      }
-    }
-    return t;
-  }
-  static constexpr Table kT = build();
-};
-
-// Plan<D, L>'s entries as scalar constants: device code may use a scalar
-// static constexpr member, not the table itself
-template <int D, int L, int Q>
-struct PairAt {  // accumulator pair q
-  static constexpr int owner = Plan<D, L>::kT.owner[Q];
-  static constexpr int slot = Plan<D, L>::kT.slot[Q];
-};
-
-template <int D, int L, int W, int Pl>
-struct PlaneAt {  // A plane p for consumer W
-  static constexpr bool needs = Plan<D, L>::kT.needs[W][Pl];
-  static constexpr int rank = Plan<D, L>::kT.rank[W][Pl];
-};
-
-template <int D, int L, int W>
-struct ConsumerAt {
-  static constexpr int pairs = Plan<D, L>::kT.pairs[W];
-  static constexpr int planes = Plan<D, L>::kT.planes[W];
-};
 
 // one instantiation: tower (D0, D1), block tile 64 x BN, ST stages, L limbs
 template <int D0, int D1, int BN, int ST, int L>
@@ -254,213 +148,6 @@ struct Tc {
   static_assert(D1 == 1, "the accumulator plan assumes a single-level tower");
   static_assert(ST >= 2, "the ring refills a stage while the other is read");
   static_assert(BN % 16 == 0 || BN == 24, "wgmma u8 takes N = 16, 24, 32, 48, 64, ...");
-};
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], uint32_t addr) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(addr));
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count));
-}
-
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done;
-  do {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-  } while (!done);
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
-               : "memory");
-}
-
-// a box of the 3-D tensor map into shared memory, completing on `bar`
-__device__ __forceinline__ void tma_load_3d(uint32_t dst, const CUtensorMap* map, uint32_t bar,
-                                            int c0, int c1, int c2) {
-  asm volatile(
-      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2)
-      : "memory");
-}
-
-__device__ __forceinline__ void named_barrier_sync(int id, int threads) {
-  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
-}
-
-// shared-memory matrix descriptor of a K-major operand in the 64-byte
-// swizzle: rows of 64 bytes, 8-row groups 512 bytes apart (SBO); LBO is
-// unused for swizzled K-major layouts
-__device__ __forceinline__ uint64_t sw64_desc(uint32_t addr) {
-  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) | (1ull << 16) |
-         (static_cast<uint64_t>(512 >> 4) << 32) | (2ull << 62);
-}
-
-// d (64 x N s32, the warpgroup's fragment) += a (64 x 32 u8, registers) @
-// b (32 x N u8, K-major in shared memory); integer, no saturation
-template <int N>
-struct Wgmma;
-
-template <>
-struct Wgmma<16> {
-  __device__ __forceinline__ static void mma(uint32_t (&d)[8], const uint32_t (&a)[4],
-                                             uint64_t desc) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n16k32.s32.u8.u8 {"
-        "%0, %1, %2, %3, %4, %5, %6, %7}, "
-        "{%8, %9, %10, %11}, %12, p;\n}\n"
-        : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]),
-          "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
-  }
-};
-
-template <>
-struct Wgmma<24> {
-  __device__ __forceinline__ static void mma(uint32_t (&d)[12], const uint32_t (&a)[4],
-                                             uint64_t desc) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %17, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n24k32.s32.u8.u8 {"
-        "%0, %1, %2, %3, %4, %5, %6, %7,"
-        "%8, %9, %10, %11}, "
-        "{%12, %13, %14, %15}, %16, p;\n}\n"
-        : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]),
-          "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]),
-          "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
-  }
-};
-
-template <>
-struct Wgmma<32> {
-  __device__ __forceinline__ static void mma(uint32_t (&d)[16], const uint32_t (&a)[4],
-                                             uint64_t desc) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n32k32.s32.u8.u8 {"
-        "%0, %1, %2, %3, %4, %5, %6, %7,"
-        "%8, %9, %10, %11, %12, %13, %14, %15}, "
-        "{%16, %17, %18, %19}, %20, p;\n}\n"
-        : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]),
-          "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]),
-          "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]),
-          "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
-  }
-};
-
-template <>
-struct Wgmma<48> {
-  __device__ __forceinline__ static void mma(uint32_t (&d)[24], const uint32_t (&a)[4],
-                                             uint64_t desc) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %29, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n48k32.s32.u8.u8 {"
-        "%0, %1, %2, %3, %4, %5, %6, %7,"
-        "%8, %9, %10, %11, %12, %13, %14, %15,"
-        "%16, %17, %18, %19, %20, %21, %22, %23}, "
-        "{%24, %25, %26, %27}, %28, p;\n}\n"
-        : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]),
-          "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]),
-          "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]),
-          "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]),
-          "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]),
-          "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
-  }
-};
-
-template <>
-struct Wgmma<64> {
-  __device__ __forceinline__ static void mma(uint32_t (&d)[32], const uint32_t (&a)[4],
-                                             uint64_t desc) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n64k32.s32.u8.u8 {"
-        "%0, %1, %2, %3, %4, %5, %6, %7,"
-        "%8, %9, %10, %11, %12, %13, %14, %15,"
-        "%16, %17, %18, %19, %20, %21, %22, %23,"
-        "%24, %25, %26, %27, %28, %29, %30, %31}, "
-        "{%32, %33, %34, %35}, %36, p;\n}\n"
-        : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]),
-          "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]),
-          "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]),
-          "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]),
-          "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]),
-          "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
-          "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]),
-          "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
-  }
-};
-
-template <>
-struct Wgmma<128> {
-  __device__ __forceinline__ static void mma(uint32_t (&d)[64], const uint32_t (&a)[4],
-                                             uint64_t desc) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n128k32.s32.u8.u8 {"
-        "%0, %1, %2, %3, %4, %5, %6, %7,"
-        "%8, %9, %10, %11, %12, %13, %14, %15,"
-        "%16, %17, %18, %19, %20, %21, %22, %23,"
-        "%24, %25, %26, %27, %28, %29, %30, %31,"
-        "%32, %33, %34, %35, %36, %37, %38, %39,"
-        "%40, %41, %42, %43, %44, %45, %46, %47,"
-        "%48, %49, %50, %51, %52, %53, %54, %55,"
-        "%56, %57, %58, %59, %60, %61, %62, %63}, "
-        "{%64, %65, %66, %67}, %68, p;\n}\n"
-        : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]),
-          "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]),
-          "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]),
-          "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]),
-          "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]),
-          "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
-          "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]),
-          "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31]),
-          "+r"(d[32]), "+r"(d[33]), "+r"(d[34]), "+r"(d[35]),
-          "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]),
-          "+r"(d[40]), "+r"(d[41]), "+r"(d[42]), "+r"(d[43]),
-          "+r"(d[44]), "+r"(d[45]), "+r"(d[46]), "+r"(d[47]),
-          "+r"(d[48]), "+r"(d[49]), "+r"(d[50]), "+r"(d[51]),
-          "+r"(d[52]), "+r"(d[53]), "+r"(d[54]), "+r"(d[55]),
-          "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]),
-          "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
-  }
 };
 
 // ---------------------------------------------------------------------------
@@ -649,82 +336,6 @@ int launch_lift(const uint32_t* X, uint32_t* Y, int batch, int R, int S, int L, 
 }
 
 // ---------------------------------------------------------------------------
-// stack pre-pass: the B operand of the tc_left route
-// ---------------------------------------------------------------------------
-//
-// The tc_left route lifts the small left operand instead of B (a decode
-// or encode matrix of at most 64 rows against millions of columns):
-//
-//   M(A)[(t, m), (r, k)] = sum_j RED[k + j, m] * A[t, r, j]   (D1 T x D1 R)
-//   B'[(r, k), s] = B[r, s, k]                                 (D1 R x S)
-//   C' = M(A) (x)_D0 B' (D1 T, S, D0) is C (T, S, D0 D1) with row (t, m)
-//   at C[t, s, m],
-//
-// again D0^2 D1^2 word products per (t, r, s).  M(A)'s limb planes are the
-// lift pre-pass run on A transposed (its M[(r, i), (t, m)] is M(A) read
-// K-major); B' is B as it lies, each outer coefficient an element of the
-// inner ring, its K index (r, k) merging r (stride S D) with k (stride D0).
-// This pass writes B''s limb planes, (batch, D0, L, Sp, Rp) u8 with byte l
-// of B[r, s, k, d] at plane (d, l), row s, column D1 r + k, zero-padded:
-// it reads B once and writes L bytes for every 4-byte word, no more.
-//
-// A block is (batch entry, 16 columns of s, 32 rows of r).  It reads the
-// 16 D contiguous words of each row r into shared memory laid out by
-// output row (s, d), K-contiguous, at a row stride of 32 D1 + 8 words (8
-// mod 32 banks: a warp's stores, whose words run over (s, k, d), spread
-// over the banks), then every thread packs 4 consecutive K bytes of one
-// (s, d) row from one 16-byte load (a warp's loads conflict-free) and
-// writes one word per limb plane, a warp's words consecutive along K.
-constexpr int kStackR = 32;  // rows of r a block: 32 D1 bytes of K per (s, d, l)
-constexpr int kStackS = 16;  // columns of s a block (Sp is a multiple of 32)
-
-template <int D0, int D1>
-__global__ void __launch_bounds__(256)
-    stack_cols_kernel(const uint32_t* __restrict__ X, uint32_t* __restrict__ Y, int R, int S,
-                      int L, int Rp, int Sp) {
-  constexpr int D = D0 * D1;
-  constexpr int KP = kStackR * D1 + 8;  // words a tile row: a multiple of 4, 8 mod 32
-  constexpr int W4 = kStackR * D1 / 4;  // words of K a block writes per (s, d, l) row
-  static_assert(kStackS * D0 * KP * 4 <= 48 * 1024, "static shared memory");
-  __shared__ __align__(16) uint32_t tile[kStackS * D0 * KP];  // [(s, d)][(r, k)]
-  const int64_t z = blockIdx.z;
-  const int s0 = blockIdx.x * kStackS, r0 = blockIdx.y * kStackR;
-  const uint32_t* Xb = X + z * R * (int64_t)S * D;
-  for (int idx = threadIdx.x; idx < kStackR * kStackS * D; idx += blockDim.x) {
-    const int rr = idx / (kStackS * D), w = idx - rr * (kStackS * D);
-    const int cc = w / D, kd = w - cc * D, k = kd / D0, d = kd - k * D0;
-    const int r = r0 + rr;
-    tile[(cc * D0 + d) * KP + rr * D1 + k] =
-        (r < R && s0 + cc < S) ? Xb[((int64_t)r * S + s0) * D + w] : 0u;
-  }
-  __syncthreads();
-  const int words = Rp / 4, w0 = blockIdx.y * W4;
-  const int64_t plane = (int64_t)Sp * words;  // words of one (d, l) plane
-  for (int idx = threadIdx.x; idx < kStackS * D0 * W4; idx += blockDim.x) {
-    const int j = idx / W4, q = idx - j * W4;  // tile row j = (s, d), word q of K
-    if (w0 + q >= words) continue;
-    const int cc = j / D0, d = j - cc * D0;
-    const uint4 x = *reinterpret_cast<const uint4*>(&tile[j * KP + 4 * q]);
-    uint32_t* dst = Y + ((z * D0 + d) * L) * plane + (int64_t)(s0 + cc) * words + w0 + q;
-    for (int l = 0; l < L; ++l) {
-      const int sh = 8 * l;
-      dst[l * plane] = ((x.x >> sh) & 0xFFu) | (((x.y >> sh) & 0xFFu) << 8) |
-                       (((x.z >> sh) & 0xFFu) << 16) | (((x.w >> sh) & 0xFFu) << 24);
-    }
-  }
-}
-
-template <int D0, int D1>
-int launch_stack(const uint32_t* X, uint32_t* Y, int batch, int R, int S, int L, int Rp, int Sp,
-                 cudaStream_t st) {
-  // every s < Sp and every word of Rp: blocks past S and R write zeros
-  const int words = Rp / 4, w4 = kStackR * D1 / 4;
-  dim3 grid(Sp / kStackS, (words + w4 - 1) / w4, batch);
-  stack_cols_kernel<D0, D1><<<grid, 256, 0, st>>>(X, Y, R, S, L, Rp, Sp);
-  return (int)cudaGetLastError();
-}
-
-// ---------------------------------------------------------------------------
 // main kernel
 // ---------------------------------------------------------------------------
 
@@ -735,7 +346,7 @@ template <int D0, int D1, int BN, int ST, int L, int W>
 __device__ __forceinline__ void consume(uint8_t* smem, uint32_t full, uint32_t empty,
                                         int ktiles, uint32_t* __restrict__ C, int T, int S,
                                         int64_t z, int m0, int n0, const FoldTable& fold,
-                                        uint32_t mask, int split) {
+                                        uint32_t mask) {
   using G = Tc<D0, D1, BN, ST, L>;
   constexpr int D = G::D, P = G::P, E = BN / 2, EH = E / 2;
   using Me = ConsumerAt<D, L, W>;
@@ -830,26 +441,16 @@ __device__ __forceinline__ void consume(uint8_t* smem, uint32_t full, uint32_t e
   });
   named_barrier_sync(1, 128 * kConsumers);
   // the s32 accumulator fragment: entry e of a thread is row g (+ 8 for
-  // e % 4 >= 2) of its warp's 16, column 8 * (e / 4) + 2 * (lane % 4) + e % 2.
-  // Row (t, m) = split t + m of the product lands at C[t, col, m] (split =
-  // D1 on the tc_left route, 1 otherwise: then C[row, col]).  A thread's
-  // entries lie on two rows, whose offsets are found once: row (t, m),
-  // column col at element (t S split + m) + col split
+  // e % 4 >= 2) of its warp's 16, column 8 * (e / 4) + 2 * (lane % 4) + e % 2
   const int g = lane >> 2, qd = lane & 3;
   uint32_t* Cb = C + z * T * (int64_t)S * D;
-  int64_t row_at[2];
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    const int row = m0 + warp * 16 + g + 8 * h, t = row / split;
-    row_at[h] = (int64_t)t * S * split + (row - t * split);
-  }
 #pragma unroll
   for (int el = 0; el < EH; ++el) {
-    const int e = W * EH + el, h = (e >> 1) & 1;
-    const int row = m0 + warp * 16 + g + 8 * h;
+    const int e = W * EH + el;
+    const int row = m0 + warp * 16 + g + ((e >> 1) & 1) * 8;
     const int col = n0 + 8 * (e >> 2) + 2 * qd + (e & 1);
     if (row < T && col < S) {
-      uint32_t* dst = Cb + (row_at[h] + (int64_t)col * split) * D;
+      uint32_t* dst = Cb + ((int64_t)row * S + col) * D;
 #pragma unroll
       for (int d = 0; d < D; ++d)
         dst[d] = (mine[el][d] + xch[(((1 - W) * D + d) * EH + el) * 128 + tid]) & mask;
@@ -861,22 +462,13 @@ template <int D0, int D1, int BN, int ST, int L>
 __global__ void __launch_bounds__(kThreads, 1)
     gr_matmul_tc_kernel(const __grid_constant__ CUtensorMap mapA,
                         const __grid_constant__ CUtensorMap mapB, uint32_t* __restrict__ C,
-                        int T, int S, int Rp, const FoldTable fold, uint32_t mask, int split) {
+                        int T, int S, int Rp, const FoldTable fold, uint32_t mask) {
   using G = Tc<D0, D1, BN, ST, L>;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = smem_raw + ((kAlign - (smem_addr(smem_raw) & (kAlign - 1))) & (kAlign - 1));
   const uint32_t full = smem_addr(smem + G::kRing), empty = full + 8 * ST;
   const int64_t z = blockIdx.z;
-  // the tc_left route (split > 1) runs the row tiles of one column block
-  // next to each other, so that B's planes come from HBM about once: its
-  // grid is flat, the row tile fastest, so the column tiles are not held
-  // to gridDim.y's 65535
-  int m0 = blockIdx.y * kBM, n0 = blockIdx.x * BN;
-  if (split > 1) {
-    const unsigned row_tiles = (T + kBM - 1) / kBM;
-    m0 = (int)(blockIdx.x % row_tiles) * kBM;
-    n0 = (int)(blockIdx.x / row_tiles) * BN;
-  }
+  const int m0 = blockIdx.y * kBM, n0 = blockIdx.x * BN;
   const int ktiles = Rp / KS;
   if (threadIdx.x == 0) {
     for (int s = 0; s < ST; ++s) {
@@ -909,11 +501,9 @@ __global__ void __launch_bounds__(kThreads, 1)
   } else {
     asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kConsumerRegs));
     if (wg == 0)
-      consume<D0, D1, BN, ST, L, 0>(smem, full, empty, ktiles, C, T, S, z, m0, n0, fold, mask,
-                                    split);
+      consume<D0, D1, BN, ST, L, 0>(smem, full, empty, ktiles, C, T, S, z, m0, n0, fold, mask);
     else
-      consume<D0, D1, BN, ST, L, 1>(smem, full, empty, ktiles, C, T, S, z, m0, n0, fold, mask,
-                                    split);
+      consume<D0, D1, BN, ST, L, 1>(smem, full, empty, ktiles, C, T, S, z, m0, n0, fold, mask);
   }
 }
 
@@ -921,57 +511,11 @@ __global__ void __launch_bounds__(kThreads, 1)
 // host side
 // ---------------------------------------------------------------------------
 
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled from the driver the runtime has loaded (no -lcuda)
-EncodeTiled encode_tiled() {
-  static const EncodeTiled fn = [] {
-    void* p = nullptr;
-#if CUDART_VERSION >= 12050
-    cudaDriverEntryPointQueryResult q;
-    if (cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault,
-                                         &q) != cudaSuccess ||
-        q != cudaDriverEntryPointSuccess)
-      p = nullptr;
-#else
-    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault) != cudaSuccess)
-      p = nullptr;
-#endif
-    return reinterpret_cast<EncodeTiled>(p);
-  }();
-  return fn;
-}
-
-// planes (batch * P, rows, Rp) u8 as a 3-D tensor map with KS x box_rows x P
-// boxes in the 64-byte swizzle; rows past the end read as zeros
-int encode_planes(CUtensorMap* map, const void* base, int planes, int rows, int Rp, int box_rows,
-                  int P) {
-  memset(map, 0, sizeof(*map));
-  if (Rp == 0) return 0;  // nothing to load
-  const EncodeTiled fn = encode_tiled();
-  if (fn == nullptr) return (int)cudaErrorNotSupported;
-  const cuuint64_t dims[3] = {(cuuint64_t)Rp, (cuuint64_t)rows, (cuuint64_t)planes};
-  const cuuint64_t strides[2] = {(cuuint64_t)Rp, (cuuint64_t)rows * Rp};
-  const cuuint32_t box[3] = {(cuuint32_t)KS, (cuuint32_t)box_rows, (cuuint32_t)P};
-  const cuuint32_t unit[3] = {1, 1, 1};
-  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 3, const_cast<void*>(base), dims,
-                        strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                        CU_TENSOR_MAP_SWIZZLE_64B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
-}
-
 template <int D0, int D1, int BN, int ST, int L>
 int launch(const uint8_t* A8, const uint8_t* B8, uint32_t* C, int batch, int T, int S, int Tp,
-           int Sp, int Rp, const FoldTable& fold, uint32_t mask, int split, cudaStream_t stream) {
+           int Sp, int Rp, const FoldTable& fold, uint32_t mask, cudaStream_t stream) {
   using G = Tc<D0, D1, BN, ST, L>;
-  if (G::kSmem > kSmemMax) return (int)cudaErrorInvalidValue;
-  const int64_t row_tiles = (T + kBM - 1) / kBM, col_tiles = (S + BN - 1) / BN;
-  if (split > 1 ? row_tiles * col_tiles > INT32_MAX : row_tiles > 65535)
-    return (int)cudaErrorInvalidValue;
+  if (G::kSmem > kSmemMax || (T + kBM - 1) / kBM > 65535) return (int)cudaErrorInvalidValue;
   // raise the kernel's shared-memory limit once per device (the attribute
   // persists), not on every launch: launches may be captured in a CUDA graph
   static int smem_set[kMaxDevices] = {};
@@ -986,24 +530,23 @@ int launch(const uint8_t* A8, const uint8_t* B8, uint32_t* C, int batch, int T, 
     smem_set[dev] = 1;
   }
   CUtensorMap mapA, mapB;
-  int err = encode_planes(&mapA, A8, batch * G::P, Tp, Rp, kBM, G::P);
-  if (err == 0) err = encode_planes(&mapB, B8, batch * G::P, Sp, Rp, BN, G::P);
+  int err = encode_planes(&mapA, A8, batch * G::P, Tp, Rp, kBM, G::P, KS, CU_TENSOR_MAP_SWIZZLE_64B);
+  if (err == 0)
+    err = encode_planes(&mapB, B8, batch * G::P, Sp, Rp, BN, G::P, KS, CU_TENSOR_MAP_SWIZZLE_64B);
   if (err != 0) return err;
-  const dim3 grid = split > 1 ? dim3((unsigned)(row_tiles * col_tiles), 1, batch)
-                              : dim3((unsigned)col_tiles, (unsigned)row_tiles, batch);
+  dim3 grid((S + BN - 1) / BN, (T + kBM - 1) / kBM, batch);
   gr_matmul_tc_kernel<D0, D1, BN, ST, L><<<grid, kThreads, G::kSmem, stream>>>(
-      mapA, mapB, C, T, S, Rp, fold, mask, split);
+      mapA, mapB, C, T, S, Rp, fold, mask);
   return (int)cudaGetLastError();
 }
 
 template <int D0, int D1, int BN, int ST>
 int launch_l(const uint8_t* A8, const uint8_t* B8, uint32_t* C, int batch, int T, int S, int Tp,
-             int Sp, int Rp, int L, const FoldTable& fold, uint32_t mask, int split,
-             cudaStream_t st) {
+             int Sp, int Rp, int L, const FoldTable& fold, uint32_t mask, cudaStream_t st) {
   switch (L) {
 #define TC_LAUNCH_L(l) \
   case l:              \
-    return launch<D0, D1, BN, ST, l>(A8, B8, C, batch, T, S, Tp, Sp, Rp, fold, mask, split, st);
+    return launch<D0, D1, BN, ST, l>(A8, B8, C, batch, T, S, Tp, Sp, Rp, fold, mask, st);
     TC_LAUNCH_L(1) TC_LAUNCH_L(2) TC_LAUNCH_L(3) TC_LAUNCH_L(4)
 #undef TC_LAUNCH_L
     default: return (int)cudaErrorInvalidValue;
@@ -1106,44 +649,17 @@ int gr_matmul_tc_lift(const void* B, void* Y, int batch, int R, int S, int d0, i
   }
 }
 
-// Stack pre-pass of the tc_left route over a lifted tower (d0, d1) of
-// TC_LIFT_TOWERS (a single-level GR(2^e, D) as (1, D)): B (batch, R, S,
-// d0 d1) uint32 -> the limb planes of B' (B[r, s, k] at row s, column
-// d1 r + k), (batch, d0, L, Sp, Rp) u8, K-major and zero-padded.  Rp must
-// be a multiple of KS and at least d1 R, Sp a multiple of 32 and at least S.
-int gr_matmul_tc_stack(const void* B, void* Y, int batch, int R, int S, int d0, int d1, int L,
-                       int Rp, int Sp, void* stream) {
-  if (d1 < 2 || d1 > kMaxD1 || L < 1 || L > kMaxL || Rp % KS || Sp % 32 || Rp < d1 * R ||
-      Sp < S || batch > 65535)
-    return (int)cudaErrorInvalidValue;
-  const uint32_t* x = static_cast<const uint32_t*>(B);
-  uint32_t* y = static_cast<uint32_t*>(Y);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (d0 * 32 + d1) {
-#define TC_STACK_LAUNCH(a, b) \
-  case a * 32 + b:            \
-    return launch_stack<a, b>(x, y, batch, R, S, L, Rp, Sp, st);
-    TC_LIFT_TOWERS(TC_STACK_LAUNCH)
-#undef TC_STACK_LAUNCH
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
-}
-
 // A8 (batch, D, L, Tp, Rp), B8 (batch, D, L, Sp, Rp) u8 limb planes ->
 // C (batch, T, S, D) uint32 with the (bn, stages) instantiation of the
 // tower (d0, d1); cudaErrorInvalidValue if it has none, if Rp is not a
 // multiple of KS, if its shared memory exceeds 227 KB at L, or if the grid
-// would. fold_host: (K, D) uint32 row-major.  split: 1, or D1 of the
-// tc_left route, whose product rows (t, m) = split t + m go to C[t, s, m]
-// of C (batch, T / split, S, split D), its row tiles run next to each other.
+// would. fold_host: (K, D) uint32 row-major.
 int gr_matmul_tc_u32(const void* A8, const void* B8, void* C, int batch, int T,
                      int S, int Tp, int Sp, int Rp, int L, int d0, int d1,
                      int bn, int stages, const uint32_t* fold_host,
-                     uint32_t mask, int split, void* stream) {
+                     uint32_t mask, void* stream) {
   const int D = d0 * d1, K = (2 * d0 - 1) * (2 * d1 - 1);
-  if (D > kMaxD || K > kMaxK || L < 1 || L > kMaxL || Rp % KS || Tp < T || Sp < S ||
-      split < 1 || T % split)
+  if (D > kMaxD || K > kMaxK || L < 1 || L > kMaxL || Rp % KS || Tp < T || Sp < S)
     return (int)cudaErrorInvalidValue;
   FoldTable fold;
   memset(&fold, 0, sizeof(fold));
@@ -1155,7 +671,7 @@ int gr_matmul_tc_u32(const void* A8, const void* B8, void* C, int batch, int T,
   switch (tc_key(d0, d1, bn, stages)) {
 #define TC_LAUNCH(x, y, n, s)                                                          \
   case tc_key(x, y, n, s):                                                             \
-    return launch_l<x, y, n, s>(a, b, c, batch, T, S, Tp, Sp, Rp, L, fold, mask, split, st);
+    return launch_l<x, y, n, s>(a, b, c, batch, T, S, Tp, Sp, Rp, L, fold, mask, st);
     TC_CONFIGS(TC_LAUNCH)
 #undef TC_LAUNCH
     default:

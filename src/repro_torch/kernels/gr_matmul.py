@@ -19,11 +19,15 @@ header notes its design and what bounds it:
   (3, 2), (3, 4), (3, 5), (4, 3) and the (3, 7) tower.  A's limb pre-pass
   reads A as it lies, and a lift pre-pass (counted as ``lift``) writes
   the limb planes of B's outer-level lift M(B) (``ref.lift_b_ref``).
-* ``tc_left`` (the same source and main kernel): a lifted tower's calls
-  whose left operand is small (``ref.gr_matmul_tc_left_ref``): the lift
-  pre-pass on A transposed writes the limb planes of M(A), a stack
-  pre-pass (counted as ``stack``) writes B's as it lies, K index (r, k),
-  and the main kernel's epilogue puts product row (t, m) at C[t, s, m].
+* ``tc_left`` (``csrc/gr_matmul_tc_left.cu``): a lifted ring's calls
+  whose left operand is small (``ref.gr_matmul_tc_left_ref``), over
+  Z_2^e: a lift pre-pass (counted as ``lift``) writes the limb planes of
+  A's multiplication matrices M(A) (D t x D r), a stack pre-pass (counted
+  as ``stack``) writes B's as it lies, K index (r, k), both padded in K to
+  32 bytes (``tc_left_padded``), and a persistent ``wgmma`` kernel of its
+  own walks row tiles of whole t, writing product row (t, m) to C[t, s, m]
+  as one contiguous run per t (``TC_LEFT_CONFIGS``: tile widths;
+  ``tc_left_layout``: its shared memory).
 * ``skinny`` (``csrc/gr_matmul_skinny.cu``): interleaved layout, a
   bandwidth kernel for T <= 64, R <= 32 over the towers with K * CPT <= 64
   (``skinny_cols``): single-level D <= 8 and the even D to 16, and (2, 3),
@@ -66,7 +70,7 @@ import numpy as np
 import torch
 
 from .build import load_library
-from .ref import n_limbs, outer_reduction, tc_view
+from .ref import TC_LEFT_DEPTH, n_limbs, outer_reduction, tc_left_padded, tc_view
 
 __all__ = [
     "MAX_D",
@@ -82,6 +86,10 @@ __all__ = [
     "TC_CONFIGS",
     "TC_BM",
     "TC_DEPTH",
+    "TC_LEFT_CONFIGS",
+    "TC_LEFT_DEGREES",
+    "TC_LEFT_DEPTH",
+    "TC_LEFT_MAX_T",
     "TC_LIFT_TOWERS",
     "TC_PAD",
     "TOWER_CONFIGS",
@@ -100,13 +108,21 @@ __all__ = [
     "skinny_smem_bytes",
     "tc_configs",
     "tc_instantiated",
+    "tc_left_configs",
+    "tc_left_default",
+    "tc_left_layout",
+    "tc_left_grid",
+    "tc_left_lift",
     "tc_left_limbs",
+    "tc_left_main",
+    "tc_left_padded",
     "tc_lift",
     "tc_limbs",
     "tc_padded",
     "tc_shape",
     "tc_smem_bytes",
     "tc_stack",
+    "tc_stack_block",
     "tc_tile",
     "tower_configs",
     "tower_shape",
@@ -166,6 +182,23 @@ TC_BM = 64
 TC_PAD = 32
 # dynamic shared memory one block may ask for on sm_90 (227 KB)
 SMEM_BLOCK_BYTES = 227 * 1024
+# tile widths (bn,) of the tc_left kernel: a consumer warpgroup's 64 x bn
+# tile over Z_2^e with all L of its accumulators (bn / 2 registers each);
+# each is built for L = 1..4 (mirrors TC_LEFT_CONFIGS in
+# csrc/gr_matmul_tc_left.cu).  A call's default is ``tc_left_default``'s
+TC_LEFT_CONFIGS = ((80,), (64,))
+# the degrees D of the rings tc_left takes (those of TC_LIFT_TOWERS), for
+# which its stack pre-pass is built (mirrors TC_LEFT_DEGREES in
+# csrc/gr_matmul_tc_left.cu)
+TC_LEFT_DEGREES = tuple(range(5, MAX_D + 1)) + (21,)
+# the tc_left kernel takes up to this many rows t of A (its row tiles hold
+# floor(64 / D1) whole values of t); ops.pick_route sends it t up to this
+TC_LEFT_MAX_T = 64
+# stages of the tc_left kernel's ring, and the bytes of its mbarriers: a
+# stage's two and A's (mirror kMaxStages and kBarBytes in
+# csrc/gr_matmul_tc_left.cu)
+_LEFT_MAX_STAGES = 8
+_LEFT_BAR_BYTES = 8 * (2 * _LEFT_MAX_STAGES + 1)
 # (threads, cm) instantiations of the skinny kernel beyond every tower's
 # default (128, 1): a block of `threads` threads covers threads * cm *
 # skinny_cols columns (mirrors SKINNY_EXTRA in csrc/gr_matmul_skinny.cu)
@@ -244,6 +277,78 @@ def tc_configs(d0: int, d1: int) -> Tuple[Tuple[int, int], ...]:
     default first (a lifted tower: its inner ring's); empty without any."""
     view = tc_view(d0, d1)
     return TC_CONFIGS.get((view[0], 1) if view in TC_LIFT_TOWERS else view, ())
+
+
+def tc_left_configs(d0: int, d1: int) -> Tuple[Tuple[int], ...]:
+    """The tc_left kernel's (bn,) tile widths for the tower (d0, d1), default
+    first: ``TC_LEFT_CONFIGS`` for a lifted ring of ``TC_LIFT_TOWERS``,
+    empty for any other."""
+    view = tc_view(d0, d1)
+    return TC_LEFT_CONFIGS if view[1] > 1 and view in TC_LIFT_TOWERS else ()
+
+
+def tc_left_layout(ring, config: Tuple[int], rp: int) -> Tuple[bool, bool, int, int, int]:
+    """(two row tiles a block, A resident, stages, output buffers a
+    consumer, dynamic shared memory) of a tc_left launch of ``config`` over
+    ``ring`` at depth ``rp`` (the padded D r; mirrors ``layout`` in
+    ``csrc/gr_matmul_tc_left.cu``).  After 1 KB of alignment slack, the
+    consumers' output buffers (BN 256 bytes each) and the mbarriers, the
+    first that fits of: both consumers on a row tile each, sharing every
+    stage of B (BN rows of every plane, 32 deep, rounded up to 1 KB), both
+    row tiles of M(A) (64 rows x rp bytes x L planes each) resident, with
+    two output buffers a consumer or one, at 4 stages; one row tile
+    resident, with two buffers at 4 stages or one at 2; one row tile
+    streaming (a stage holds A's 64 rows too), likewise.  As many stages as
+    fit, up to 8."""
+    bn = config[0]
+    L = n_limbs(ring)
+    a_box = L * 64 * TC_LEFT_DEPTH
+    b_box = -(-L * bn * TC_LEFT_DEPTH // 1024) * 1024
+    a_tile = rp // TC_LEFT_DEPTH * a_box
+    for pair, resident, buffers, min_stages in ((True, True, 2, 4), (True, True, 1, 4),
+                                                (False, True, 2, 4), (False, True, 1, 2),
+                                                (False, False, 2, 4), (False, False, 1, 2)):
+        fixed = 1024 + 2 * buffers * bn * 256 + _LEFT_BAR_BYTES
+        a_bytes = min((1 + pair) * a_tile if resident else 0, SMEM_BLOCK_BYTES)
+        stage = b_box if resident else a_box + b_box
+        stages = min(_LEFT_MAX_STAGES, (SMEM_BLOCK_BYTES - fixed - a_bytes) // stage)
+        layout = pair, resident, stages, buffers, fixed + a_bytes + stages * stage
+        if stages >= min_stages:
+            return layout
+    return layout
+
+
+def tc_left_default(ring, r: int) -> Tuple[int]:
+    """The (bn,) tile width a tc_left call of depth r over ``ring`` runs by
+    default: the widest of ``TC_LEFT_CONFIGS`` whose layout takes two row
+    tiles a block (:func:`tc_left_layout`: B read from L2 once for both),
+    else the widest that keeps A resident, else the widest."""
+    rp = tc_left_padded(1, ring.D * r, 1)[1]
+    layouts = [(config, tc_left_layout(ring, config, rp)) for config in TC_LEFT_CONFIGS]
+    for want in (0, 1):
+        for config, layout in layouts:
+            if layout[want]:
+                return config
+    return TC_LEFT_CONFIGS[0]
+
+
+def tc_stack_block(ring, r: int) -> Tuple[int, int]:
+    """(KB, SB) of a block of the stack pre-pass over ``ring`` at r rows of
+    B (mirrors ``stack_block`` in ``csrc/gr_matmul_tc_left.cu``): KB bytes
+    of the depth (r, k), all of ``tc_left_padded``'s Rp where a tile of 16
+    columns fits 48 KB (KB + 8 words a row s), else Rp split evenly into the
+    fewest parts that fit, each rounded up to 16 bytes; SB columns of s,
+    the most of 128, 64, 32, 16 that fit."""
+    rp = tc_left_padded(1, ring.D * r, 1)[1]
+    fits = lambda kb, sb: sb * (kb + 8) * 4 <= 48 * 1024  # noqa: E731
+    kb, n = rp, 1
+    while not fits(kb, 16):
+        n += 1
+        kb = -(-(-(-rp // n)) // 16) * 16
+    sb = 128
+    while sb > 16 and not fits(kb, sb):
+        sb //= 2
+    return kb, sb
 
 
 def tower_configs(d0: int, d1: int) -> Tuple[Tuple[int, int, int], ...]:
@@ -628,48 +733,90 @@ def gr_matmul_tc(A: torch.Tensor, B: torch.Tensor, ring, config=None) -> torch.T
     ctx, stream = _stream(A.device)
     with ctx:
         err = lib.gr_matmul_tc_u32(A8.data_ptr(), B8.data_ptr(), C.data_ptr(), nb, T, S1, Tp, Sp,
-                                   Rp, n_limbs(ring), d0, 1, *config, fold, _mask(ring), 1, stream)
+                                   Rp, n_limbs(ring), d0, 1, *config, fold, _mask(ring), stream)
     _check_launch(err, "tc")
     counters.count("tc")
     return C[0] if squeeze else C
 
 
-def _left_view(ring) -> Tuple[int, int]:
-    """(D0, D1) of a ring the tc_left route takes (a lifted tower of
+def _left_degree(ring) -> int:
+    """D of a ring the tc_left route takes (a lifted ring of
     ``TC_LIFT_TOWERS``), or raise."""
     d0, d1 = tc_view(*tower_shape(ring))
     if d1 == 1 or (d0, d1) not in TC_LIFT_TOWERS:
         raise ValueError(f"{ring}: the tc_left route has no instantiation for tower {(d0, d1)} "
                          f"(it takes the lifted towers {TC_LIFT_TOWERS})")
-    return d0, d1
+    if ring.p != 2 or ring.e > 32:
+        raise ValueError(f"{ring} lies outside the kernels' envelope (p=2, e<=32)")
+    return ring.D
+
+
+def _mult_table(ring, device):
+    """MT[i][k][m] = FOLD[CONVPOS(i, k), m] (D, D, D) as int32 on ``device``,
+    cached per ring and device: M(a)[k, m] = sum_i a_i MT[i][k][m]."""
+    key = ("mult", ring, str(device))
+    with _layouts_lock:
+        hit = _layouts.get(key)
+        if hit is None:
+            mt = ring.FOLD_U32[np.asarray(ring.CONVPOS)].astype(np.uint32)  # (i, k, m)
+            hit = _layouts[key] = torch.from_numpy(mt.view(np.int32).copy()).to(device)
+        return hit
+
+
+def tc_left_lift(A: torch.Tensor, ring) -> torch.Tensor:
+    """The tc_left route's lift pre-pass on the card: A (b?, t, r, D) int32
+    -> A8 (b, 1, L, Tp, Rp) uint8, the limb planes of A's multiplication
+    matrices over Z_2^e, M(A)[(t, m), (r, k)] = sum_i A[t, r, i]
+    FOLD[CONVPOS(i, k), m] (``ref.left_lift_ref``), K-major and zero-padded
+    to ``tc_left_padded(D t, D r, .)``.  One launch, counted as ``lift``;
+    the plain version is ``ref.tc_left_planes_ref``'s A side."""
+    _check_operand(A, "A")
+    D = _left_degree(ring)
+    if A.dim() == 3:
+        A = A.unsqueeze(0)
+    if A.dim() != 4 or A.shape[-1] != D:
+        raise ValueError(f"expected (b?, t, r, D) for {ring}, got {tuple(A.shape)}")
+    nb, T, R, _ = A.shape
+    if nb > 65535:
+        raise ValueError(f"batch {nb} exceeds the launch grid")
+    Tp, Rp, _ = tc_left_padded(D * T, D * R, 1)
+    L = n_limbs(ring)
+    A8 = torch.empty((nb, 1, L, Tp, Rp), dtype=torch.uint8, device=A.device)
+    if A8.numel():
+        mt = _mult_table(ring, A.device)
+        lib = load_library()
+        ctx, stream = _stream(A.device)
+        with ctx:
+            err = lib.gr_matmul_tc_left_lift(A.data_ptr(), mt.data_ptr(), A8.data_ptr(), nb, T, R,
+                                             D, L, Tp, Rp, stream)
+        _check_launch(err, "tc_left lift pre-pass")
+        counters.count("lift")
+    return A8
 
 
 def tc_stack(B: torch.Tensor, ring) -> torch.Tensor:
-    """The tc_left route's stack pre-pass on the card, for a lifted tower
-    (D0, D1): B (b?, r, s, D) int32 -> B8 (b, D0, L, Sp, Rp) uint8, byte l
-    of B[r, s, k, d] at plane (d, l), row s, column D1 r + k (B read as
-    (D1 r, s) over the inner ring), zero-padded to ``tc_padded(., D1 r,
-    s)``.  One launch, counted as ``stack``; the plain version is
-    ``ref.stacked_planes_ref``."""
+    """The tc_left route's stack pre-pass on the card: B (b?, r, s, D) int32
+    -> B8 (b, 1, L, Sp, Rp) uint8, byte l of B[r, s, k] at plane l, row s,
+    column D r + k (B read as (D r, s) over Z_2^e), zero-padded to
+    ``tc_left_padded(., D r, s)``.  One launch, counted as ``stack``; the
+    plain version is ``ref.stacked_planes_ref``."""
     _check_operand(B, "B")
-    if ring.p != 2 or ring.e > 32:
-        raise ValueError(f"{ring} lies outside the kernels' envelope (p=2, e<=32)")
-    d0, d1 = _left_view(ring)
+    D = _left_degree(ring)
     if B.dim() == 3:
         B = B.unsqueeze(0)
-    if B.dim() != 4 or B.shape[-1] != ring.D:
+    if B.dim() != 4 or B.shape[-1] != D:
         raise ValueError(f"expected (b?, r, s, D) for {ring}, got {tuple(B.shape)}")
     nb, R, S, _ = B.shape
     if nb > 65535:
         raise ValueError(f"batch {nb} exceeds the launch grid")
-    _, Rp, Sp = tc_padded(1, d1 * R, S)
+    _, Rp, Sp = tc_left_padded(1, D * R, S)
     L = n_limbs(ring)
-    B8 = torch.empty((nb, d0, L, Sp, Rp), dtype=torch.uint8, device=B.device)
+    B8 = torch.empty((nb, 1, L, Sp, Rp), dtype=torch.uint8, device=B.device)
     if B8.numel():
         lib = load_library()
         ctx, stream = _stream(B.device)
         with ctx:
-            err = lib.gr_matmul_tc_stack(B.data_ptr(), B8.data_ptr(), nb, R, S, d0, d1, L, Rp, Sp,
+            err = lib.gr_matmul_tc_stack(B.data_ptr(), B8.data_ptr(), nb, R, S, D, L, Rp, Sp,
                                          stream)
         _check_launch(err, "stack pre-pass")
         counters.count("stack")
@@ -678,56 +825,89 @@ def tc_stack(B: torch.Tensor, ring) -> torch.Tensor:
 
 def tc_left_limbs(A: torch.Tensor, B: torch.Tensor, ring):
     """The tc_left route's pre-passes on the card.  Returns (A8, B8): A8
-    (b, D0, L, Tp, Rp), the limb planes of M(A) (rows (t, m), depth (r, k)),
-    from the lift pre-pass (:func:`tc_lift`, counted as ``lift``) on A
-    transposed, (b, r, t, D); B8 (b, D0, L, Sp, Rp) from the stack pre-pass
-    (:func:`tc_stack`).  Padded to ``tc_padded(D1 t, D1 r, s)``.  The plain
-    version is ``ref.tc_left_planes_ref``."""
+    (b, 1, L, Tp, Rp), the limb planes of M(A) (rows (t, m), depth (r, k);
+    :func:`tc_left_lift`), and B8 (b, 1, L, Sp, Rp), B's (:func:`tc_stack`),
+    padded to ``tc_left_padded(D t, D r, s)``.  The plain version is
+    ``ref.tc_left_planes_ref``."""
     A, B, _, _ = _interleaved(A, B, ring)
-    _left_view(ring)
-    return tc_lift(A.transpose(1, 2).contiguous(), ring), tc_stack(B, ring)
+    return tc_left_lift(A, ring), tc_stack(B, ring)
 
 
 def gr_matmul_tc_left(A: torch.Tensor, B: torch.Tensor, ring, config=None) -> torch.Tensor:
     """The tensor-core route with the lift on the left operand, on the card:
     A (b?, t, r, D) x B (b?, r, s, D) -> C (b?, t, s, D), interleaved int32,
-    over a lifted tower (D0, D1) of ``TC_LIFT_TOWERS``, with the tc
-    kernel's (bn, stages) instantiation ``config`` of the inner ring (None:
-    its default).  Runs the pre-passes (:func:`tc_left_limbs`), then the
-    wgmma kernel over the inner ring GR(2^e, D0) on M(A) (D1 t, D1 r) and
-    B read as (D1 r, s); the epilogue writes product row (t, m) to
-    C[t, s, m].  The plain version is ``ref.gr_matmul_tc_left_ref``.
+    over a lifted ring of ``TC_LIFT_TOWERS``, for 1 <= t <=
+    ``TC_LEFT_MAX_T``, with the (bn,) tile width ``config``
+    (``TC_LEFT_CONFIGS``; None: :func:`tc_left_default`'s).  Runs the pre-passes
+    (:func:`tc_left_limbs`), then the tc_left kernel over Z_2^e on M(A)
+    (D t, D r) and B read as (D r, s): row tiles of floor(64 / D) whole t,
+    product row (t, m) written to C[t, s, m].  The plain version is
+    ``ref.gr_matmul_tc_left_ref``.
 
     Launches the CUDA kernels or raises; it never falls back.
     """
     A, B, squeeze, (nb, T, R, S) = _interleaved(A, B, ring)
-    d0, d1 = _left_view(ring)
-    configs = tc_configs(d0, d1)
-    config = configs[0] if config is None else tuple(config)
-    if config not in configs:
-        raise ValueError(f"{ring}: the tc kernel has no instantiation {config}; built: {configs}")
-    if tc_smem_bytes(ring, config) > SMEM_BLOCK_BYTES:
-        raise ValueError(f"{ring}: tc {config} needs {tc_smem_bytes(ring, config)} B of shared "
-                         f"memory, more than a block's {SMEM_BLOCK_BYTES}")
-    _, fold = _check_layout(ring.base_ring())
-    Tp, Rp, Sp = tc_padded(d1 * T, d1 * R, S)
-    # a flat grid of row tiles by column tiles
-    if (-(-(d1 * T) // TC_BM) * -(-S // config[0]) > 2**31 - 1
-            or max(d1 * T, d1 * R, S) >= 2**31 - 256):
-        raise ValueError(f"{(d1 * T, d1 * R, S)} exceeds the tc_left kernel's launch grid")
-    C = torch.empty((nb, T, S, ring.D), dtype=torch.int32, device=A.device)
-    if C.numel() == 0:
+    D = _left_degree(ring)
+    config = tc_left_default(ring, R) if config is None else tuple(config)
+    if config not in TC_LEFT_CONFIGS:
+        raise ValueError(f"{ring}: the tc_left kernel has no instantiation {config}; "
+                         f"built: {TC_LEFT_CONFIGS}")
+    if not 1 <= T <= TC_LEFT_MAX_T:
+        raise ValueError(f"the tc_left kernel takes 1 <= t <= {TC_LEFT_MAX_T}, got t={T}")
+    _, Rp, _ = tc_left_padded(D * T, D * R, S)
+    if tc_left_layout(ring, config, Rp)[2] < 2:
+        raise ValueError(f"{ring}: tc_left {config} fits fewer than two stages")
+    if -(-S // config[0]) > 2**31 - 1 or max(D * R, S) >= 2**31 - 256:
+        raise ValueError(f"{(D * T, D * R, S)} exceeds the tc_left kernel's launch grid")
+    if nb * T * S == 0:
+        C = torch.empty((nb, T, S, ring.D), dtype=torch.int32, device=A.device)
         return C[0] if squeeze else C
     A8, B8 = tc_left_limbs(A, B, ring)
+    C = tc_left_main(A8, B8, ring, T, S, config)
+    return C[0] if squeeze else C
+
+
+def tc_left_main(A8: torch.Tensor, B8: torch.Tensor, ring, t: int, s: int,
+                 config=None) -> torch.Tensor:
+    """The tc_left kernel alone on the card, on its pre-passes' planes (A8
+    (b, 1, L, Tp, Rp) of M(A) and B8 (b, 1, L, Sp, Rp) of B', from
+    :func:`tc_left_limbs`) of a (t, r) x (r, s) call over ``ring``, with the
+    (bn,) tile width ``config`` (None: :func:`tc_left_default`'s): C (b, t,
+    s, D) int32.  One launch, counted as ``tc_left``."""
+    D = _left_degree(ring)
+    nb, _, _, Tp, Rp = A8.shape
+    config = tc_left_default(ring, Rp // D) if config is None else tuple(config)
+    Sp = B8.shape[-2]
+    L = n_limbs(ring)
+    if (A8.shape[:3] != (nb, 1, L) or tuple(B8.shape) != (nb, 1, L, Sp, Rp)
+            or Tp < D * t or Sp < s or A8.dtype != torch.uint8 or B8.dtype != torch.uint8
+            or not (A8.is_cuda and A8.is_contiguous() and B8.is_contiguous())):
+        raise ValueError(f"tc_left planes {tuple(A8.shape)}, {tuple(B8.shape)} do not fit "
+                         f"t={t}, s={s} over {ring}")
+    C = torch.empty((nb, t, s, D), dtype=torch.int32, device=A8.device)
     lib = load_library()
-    ctx, stream = _stream(A.device)
+    ctx, stream = _stream(A8.device)
     with ctx:
-        err = lib.gr_matmul_tc_u32(A8.data_ptr(), B8.data_ptr(), C.data_ptr(), nb, d1 * T, S, Tp,
-                                   Sp, Rp, n_limbs(ring), d0, 1, *config, fold, _mask(ring), d1,
-                                   stream)
+        err = lib.gr_matmul_tc_left_u32(A8.data_ptr(), B8.data_ptr(), C.data_ptr(), nb, t, s, Tp,
+                                        Sp, Rp, L, D, *config, _mask(ring), stream)
     _check_launch(err, "tc_left")
     counters.count("tc_left")
-    return C[0] if squeeze else C
+    return C
+
+
+def tc_left_grid(ring, b: int, t: int, r: int, s: int, config, sms: int) -> Tuple[int, int, int]:
+    """(blocks, row tiles, column tiles) of a tc_left launch on a card of
+    ``sms`` SMs (mirrors ``launch`` in ``csrc/gr_matmul_tc_left.cu``): row
+    tiles of floor(64 / D) whole t, taken two a block where
+    :func:`tc_left_layout` pairs them, column tiles ``bn`` wide, and about
+    one block an SM, each batch entry's row tiles (or pairs) taking as many
+    blocks each."""
+    row_tiles = -(-t // (64 // ring.D))
+    pair = tc_left_layout(ring, config, tc_left_padded(1, ring.D * r, 1)[1])[0]
+    units = -(-row_tiles // 2) if pair else row_tiles
+    col_tiles = -(-s // config[0])
+    groups = min(max(1, sms // (units * b)), col_tiles)
+    return units * groups * b, row_tiles, col_tiles
 
 
 def gr_matmul_tower(A: torch.Tensor, B: torch.Tensor, ring, config=None) -> torch.Tensor:

@@ -26,9 +26,10 @@ The routes' envelope (what :func:`route_takes` says each kernel takes;
   and encodes the bandwidth routes do not take, whose left operand is a
   small host-built matrix (the 16 x 33 decode of the secure plans for 64
   workers over GR(2^e, 7), the 32 x 32 decode and the 64-row encodes of
-  the (3, 7) tower's round for 64 workers).  The tc kernel over the inner
-  ring, with the lift on A (``ref.gr_matmul_tc_left_ref``): B is read as
-  it lies, not lifted to D1 times its size;
+  the (3, 7) tower's round for 64 workers).  A persistent wgmma kernel of
+  its own over Z_2^e, with A lifted to its multiplication matrices
+  (``ref.gr_matmul_tc_left_ref``): B is read as it lies, not lifted to D1
+  times its size;
 * ``tc`` for t >= 64 and D1 s >= 64 (the worker products): GR(2^e, D)
   with D <= 4 as it is; every other ring of ``gr_matmul.TC_LIFT_TOWERS``
   lifted onto its inner ring (``ref.tc_view``): GR(2^e, D) with
@@ -49,8 +50,9 @@ The routes' envelope (what :func:`route_takes` says each kernel takes;
 ``tc``, ``skinny`` and ``tower`` come in a few instantiations each; :func:`pick_blocks`
 names the one a launch uses: the caller's, else the tuned entry of
 ``kernels.autotune``'s cache for this (card, ring, shape), else the
-route's default.  ``tc_left`` runs the default tc instantiation of the
-inner ring (the autotuner does not time it), ``simt`` its static tile.
+route's default.  ``tc_left`` runs the tile width
+``gr_matmul.tc_left_default`` picks from its layout (the autotuner does not
+time it), ``simt`` its static tile.
 
 ``tc``, ``tc_left``, ``skinny`` and ``tower`` take the interleaved (t, r, D) layout as
 it is; ``simt`` takes planar (D, t, r) copies.  The kernels mask ragged edges
@@ -69,6 +71,7 @@ from .gr_matmul import (
     SKINNY_MAX_R,
     SKINNY_MAX_T,
     SMEM_BLOCK_BYTES,
+    TC_LEFT_MAX_T,
     TOWER_MAX_TR,
     gr_matmul_planar,
     gr_matmul_skinny,
@@ -81,6 +84,8 @@ from .gr_matmul import (
     skinny_smem_bytes,
     tc_configs,
     tc_instantiated,
+    tc_left_configs,
+    tc_left_default,
     tower_configs,
     tower_shape,
     tower_smem_bytes,
@@ -92,11 +97,10 @@ from .ref import gr_matmul_ref, tc_view
 # host time of its limb pre-pass launches makes the call slower end to end
 # (chip_smoke.py's thresholds block times both)
 TC_MIN_TS = 64
-# tc_left takes a lifted ring's calls up to this many rows (A's side is
-# lifted, so its D1 t rows are the main kernel's): the decodes and encodes,
-# up to the 64-row encodes of 64 workers, where chip_smoke.py phase 4 times
-# it against the B-lifted tc in turns
-TC_LEFT_MAX_T = 64
+# tc_left takes a lifted ring's calls up to TC_LEFT_MAX_T = 64 rows (A's
+# side is lifted, so its D1 t rows are the main kernel's): the decodes and
+# encodes, up to the 64-row encodes of 64 workers, where chip_smoke.py
+# phase 4 times it against the B-lifted tc in turns
 
 __all__ = [
     "TC_LEFT_MAX_T",
@@ -124,7 +128,8 @@ def pick_blocks(ring, t: Optional[int] = None, r: Optional[int] = None,
       (threads, tc, cpt): the tuned entry of the autotune cache for this
       card, ring and shape, else the route's default (its first
       instantiation), None for a tower it has none for;
-    * ``tc_left``: the tc kernel's default (bn, stages) of the inner ring.
+    * ``tc_left``: the (bn,) tile width ``gr_matmul.tc_left_default`` picks
+      for the depth r.
 
     ``device``: a torch device, or a device kind (``cuda|<card>``).
     """
@@ -134,8 +139,7 @@ def pick_blocks(ring, t: Optional[int] = None, r: Optional[int] = None,
     if route == "simt":
         return kernel_tile(ring)
     if route == "tc_left":
-        configs = tc_configs(*tower_shape(ring))
-        return configs[0] if configs else None
+        return tc_left_default(ring, r) if tc_left_configs(*tower_shape(ring)) else None
     # imported here: ``python -m repro_torch.kernels.autotune`` runs it as __main__
     from .autotune import cached_blocks
 

@@ -27,13 +27,16 @@ __all__ = [
     "gr_matmul_tc_left_ref",
     "gr_matmul_tc_ref",
     "gr_matmul_tower_ref",
+    "left_lift_ref",
     "lift_b_ref",
     "limb_planes_ref",
     "mult_matrices_ref",
     "n_limbs",
     "outer_reduction",
     "stacked_planes_ref",
+    "tc_left_padded",
     "tc_left_planes_ref",
+    "tc_left_tiles_ref",
     "tc_lifted",
     "tc_planes_ref",
     "tc_view",
@@ -274,53 +277,102 @@ def gr_matmul_tc_ref(A: torch.Tensor, B: torch.Tensor, ring) -> torch.Tensor:
     return C1.reshape(*C1.shape[:-2], C1.shape[-2] // d1, ring.D)
 
 
-# -- the tc_left route: the lift on the small left operand ---------------------
+# -- the tc_left route: the small left operand lifted over Z_2^e ---------------
+
+# the tc_left kernel's stage depth (bytes of K, one 32-byte swizzle row) and
+# the rows of its tiles (one wgmma M), of which it uses floor(64 / D)
+# values of t (mirror kDepth and kRows in csrc/gr_matmul_tc_left.cu)
+TC_LEFT_DEPTH = 32
+TC_LEFT_ROWS = 64
 
 
-def _stacked_b(B: torch.Tensor, d0: int, d1: int) -> torch.Tensor:
-    """B (..., r, s, D1 D0) read as B' (..., D1 r, s, D0): B'[(r, k), s] =
-    B[r, s, k], each outer coefficient an element of the inner ring."""
-    *lead, r, s, _ = B.shape
-    return B.reshape(*lead, r, s, d1, d0).transpose(-3, -2).reshape(*lead, d1 * r, s, d0)
+def tc_left_padded(t: int, r: int, s: int) -> Tuple[int, int, int]:
+    """(Tp, Rp, Sp): the shape the ``tc_left`` route's limb planes are
+    padded to, for its main kernel's (T, R, S) = (D t, D r, s): T and S to
+    the pre-passes' 32, R (the depth (r, k)) to the 32-byte stage."""
+    up = lambda x, m: -(-x // m) * m  # noqa: E731
+    return up(t, 32), up(r, TC_LEFT_DEPTH), up(s, 32)
+
+
+def left_lift_ref(A: torch.Tensor, ring) -> torch.Tensor:
+    """M(A) of the ``tc_left`` route: A (..., t, r, D) -> (..., D t, D r)
+    int32 over Z_2^e, M(A)[(t, m), (r, k)] = M(A[t, r])[k, m] =
+    sum_i A[t, r, i] FOLD[CONVPOS(i, k), m] (:func:`mult_matrices_ref`),
+    so that C[t, s, m] = sum_(r, k) M(A)[(t, m), (r, k)] B[r, s, k]."""
+    *lead, t, r, D = A.shape
+    M = to_i32(mult_matrices_ref(A, ring))  # (..., t, r, k, m)
+    return M.movedim(-1, -3).reshape(*lead, t * D, r * D)
 
 
 def stacked_planes_ref(B: torch.Tensor, ring, Sp: int, Rp: int) -> torch.Tensor:
-    """Plain version of the ``tc_left`` route's stack pre-pass over a lifted
-    ring (D0, D1): B (..., r, s, D) -> (..., D0, L, Sp, Rp) uint8, the limb
-    planes of B' (rows s, depth (r, k)), zero-padded."""
-    d0, d1 = _view(ring)
-    return limb_planes_ref(_stacked_b(B, d0, d1), ring.base_ring(), Sp, Rp, transpose=True)
+    """Plain version of the ``tc_left`` route's stack pre-pass: B (..., r,
+    s, D) -> (..., 1, L, Sp, Rp) uint8, the limb planes of B' (rows s,
+    depth (r, k)), B'[(r, k), s] = B[r, s, k] over Z_2^e, zero-padded."""
+    *lead, r, s, D = B.shape
+    Bs = B.movedim(-1, -2).reshape(*lead, r * D, s, 1)
+    return limb_planes_ref(Bs, ring, Sp, Rp, transpose=True)
 
 
 def tc_left_planes_ref(A: torch.Tensor, B: torch.Tensor, ring, Tp: int, Rp: int, Sp: int):
-    """Plain version of the ``tc_left`` route's pre-passes over a lifted ring
-    (D0, D1) (:func:`tc_view`): A8 (..., D0, L, Tp, Rp), the limb planes of
-    M(A) with rows (t, m) and depth (r, k), which are the lift of A
-    transposed (:func:`lift_b_ref` on (..., r, t, D) gives M(A) read
-    K-major), and B8 (..., D0, L, Sp, Rp), the limb planes of B' (rows s,
-    depth (r, k); :func:`stacked_planes_ref`)."""
-    MA = lift_b_ref(A.transpose(-3, -2), ring)
-    return (limb_planes_ref(MA, ring.base_ring(), Tp, Rp, transpose=True),
+    """Plain version of the ``tc_left`` route's pre-passes: A8 (..., 1, L,
+    Tp, Rp), the limb planes of M(A) (:func:`left_lift_ref`, rows (t, m),
+    depth (r, k)), and B8 (..., 1, L, Sp, Rp), those of B'
+    (:func:`stacked_planes_ref`)."""
+    return (limb_planes_ref(left_lift_ref(A, ring)[..., None], ring, Tp, Rp),
             stacked_planes_ref(B, ring, Sp, Rp))
 
 
-def gr_matmul_tc_left_ref(A: torch.Tensor, B: torch.Tensor, ring) -> torch.Tensor:
-    """The ``tc_left`` route's algorithm on the CPU, over a lifted ring
-    (D0, D1) (:func:`tc_view`): (..., t, r, D) x (..., r, s, D) ->
-    (..., t, s, D) as
+def tc_left_tiles_ref(A8: torch.Tensor, B8: torch.Tensor, ring, t: int, s: int,
+                      bn: int) -> torch.Tensor:
+    """The ``tc_left`` kernel's tile walk, in plain PyTorch, on its limb
+    planes (A8 (..., 1, L, Tp, Rp) of M(A), B8 (..., 1, L, Sp, Rp) of B',
+    :func:`tc_left_planes_ref`) -> C (..., t, s, D) int32.  Row tiles hold
+    floor(64 / D) whole values of t: a tile reads 64 rows of M(A) from row
+    t0 D (zeros past Tp) and drops the rows past its whole t; column tiles
+    are ``bn`` wide, the last one ragged.  A tile's accumulator of shift
+    a + b (limb a of M(A) against limb b of B') wraps mod 2^32; then
+    sum_s acc(s) << 8s, masked, is written as one contiguous run of
+    C[t, n0 : n0 + bn] per t."""
+    D, L = ring.D, n_limbs(ring)
+    tt = TC_LEFT_ROWS // D
+    lead = A8.shape[:-4]
+    a8, b8 = A8[..., 0, :, :, :].to(torch.int64), B8[..., 0, :, :, :].to(torch.int64)
+    C = torch.zeros(lead + (t, s, D), dtype=torch.int32, device=A8.device)
+    for t0 in range(0, t, tt):
+        At = a8[..., t0 * D: t0 * D + TC_LEFT_ROWS, :]
+        At = F.pad(At, (0, 0, 0, TC_LEFT_ROWS - At.shape[-2]))  # TMA's zeros past Tp
+        nt = min(tt, t - t0)
+        for n0 in range(0, s, bn):
+            Bt = b8[..., n0: n0 + bn, :]
+            conv = 0
+            for a in range(L):
+                for b in range(L - a):
+                    acc = (At[..., a, :, :] @ Bt[..., b, :, :].transpose(-1, -2)) & _U32
+                    conv = (conv + (acc << (8 * (a + b)))) & _U32
+            out = to_i32(conv)  # (..., 64, bn): rows (t, m) of the tile
+            out = out & ring._mask if ring._mask is not None else out
+            runs = out[..., : tt * D, :].unflatten(-2, (tt, D)).transpose(-1, -2)  # (t, bn, m)
+            cols = min(bn, s - n0)
+            C[..., t0: t0 + nt, n0: n0 + cols, :] = runs[..., :nt, :cols, :]
+    return C
 
-        M(A)[(t, m), (r, k)] = sum_j RED[k + j, m] * A[t, r, j]   (D1 t x D1 r)
-        B'[(r, k), s] = B[r, s, k]                                 (D1 r x s)
-        C[t, s, m] = (M(A) B')[(t, m), s]   over the inner ring GR(2^e, D0)
 
-    (:func:`gr_matmul_limbs_ref`, the limb products the kernel runs): the
-    lift on A, whose rows are few, and B as it lies."""
-    d0, d1 = _view(ring)
-    MA = lift_b_ref(A.transpose(-3, -2), ring).transpose(-3, -2)  # (..., D1 t, D1 r, D0)
-    C1 = gr_matmul_limbs_ref(MA, _stacked_b(B, d0, d1), ring.base_ring())  # (..., D1 t, s, D0)
-    *lead, _, s, _ = C1.shape
-    t = A.shape[-3]
-    return C1.reshape(*lead, t, d1, s, d0).transpose(-3, -2).reshape(*lead, t, s, ring.D)
+def gr_matmul_tc_left_ref(A: torch.Tensor, B: torch.Tensor, ring, bn: int = 64) -> torch.Tensor:
+    """The ``tc_left`` route's algorithm on the CPU: (..., t, r, D) x
+    (..., r, s, D) -> (..., t, s, D) as
+
+        M(A)[(t, m), (r, k)] = sum_i A[t, r, i] FOLD[CONVPOS(i, k), m]   (D t x D r)
+        B'[(r, k), s] = B[r, s, k]                                        (D r x s)
+        C[t, s, m] = (M(A) B')[(t, m), s]                        over Z_2^e
+
+    composed as the route runs it: the pre-passes' limb planes at
+    :func:`tc_left_padded` (:func:`tc_left_planes_ref`), then the kernel's
+    tile walk (:func:`tc_left_tiles_ref`, tiles ``bn`` wide): the lift on
+    A, whose rows are few, and B as it lies."""
+    D = ring.D
+    t, r, s = A.shape[-3], A.shape[-2], B.shape[-2]
+    A8, B8 = tc_left_planes_ref(A, B, ring, *tc_left_padded(D * t, D * r, s))
+    return tc_left_tiles_ref(A8, B8, ring, t, s, bn)
 
 
 # -- the tower route: A lifted to its multiplication matrices -------------------

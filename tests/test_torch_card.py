@@ -56,8 +56,10 @@ ROUTE_SHAPES = {"simt": SHAPES, "tc": SHAPES + [(64, 64, 64), (96, 300, 160)],
                 "skinny": [x for x in SHAPES if x[0] <= 16 and x[1] <= 16]
                 + [(8, 2, 4099), (16, 16, 333), (2, 3, 12345)],
                 "tower": [(8, 8, 8), (7, 13, 5), (1, 1, 77), (8, 2, 4099), (2, 3, 12345)],
-                # a decode past r = 32, a 32 x 32 decode and a 64-row encode, ragged s
-                "tc_left": SHAPES + [(16, 33, 333), (32, 32, 200), (64, 4, 1001)]}
+                # its t <= 64; a decode past r = 32, a 32 x 32 decode and a
+                # 64-row encode, ragged s
+                "tc_left": [x for x in SHAPES if x[0] <= 64]
+                + [(16, 33, 333), (32, 32, 200), (64, 4, 1001)]}
 
 
 @pytest.fixture
@@ -350,11 +352,16 @@ def test_tc_left_and_its_prepasses_match_plain(cuda, deg):
     """tc_left over a lifted ring at every instantiation of its inner ring,
     batched and ragged: the lift of A and the stack of B against their
     plain version, the product against the ring's; one launch of each."""
-    from repro_torch.kernels.gr_matmul import gr_matmul_tc_left, tc_left_limbs, tc_padded
-    from repro_torch.kernels.ref import tc_left_planes_ref, tc_view
+    from repro_torch.kernels.gr_matmul import (
+        gr_matmul_tc_left,
+        tc_left_configs,
+        tc_left_limbs,
+        tc_left_padded,
+    )
+    from repro_torch.kernels.ref import tc_left_planes_ref
 
     ring = make_ring(2, 32, deg)
-    d1 = tc_view(*tower_shape(ring))[1]
+    D = ring.D
     rng = np.random.default_rng(21)
     for lead, (t, r, s) in [((), (16, 33, 333)), ((2,), (32, 32, 97)), ((), (64, 4, 1001)),
                             ((), (3, 70, 64))]:
@@ -362,10 +369,10 @@ def test_tc_left_and_its_prepasses_match_plain(cuda, deg):
         B = ring.random(rng, lead + (r, s), device=cuda)
         A8, B8 = tc_left_limbs(A, B, ring)
         A3, B3 = (A, B) if lead else (A[None], B[None])
-        want_a, want_b = tc_left_planes_ref(A3, B3, ring, *tc_padded(d1 * t, d1 * r, s))
+        want_a, want_b = tc_left_planes_ref(A3, B3, ring, *tc_left_padded(D * t, D * r, s))
         assert torch.equal(A8, want_a) and torch.equal(B8, want_b), (lead, t, r, s)
         want = gr_matmul_ref(A, B, ring)
-        for config in tc_configs(*tower_shape(ring)):
+        for config in tc_left_configs(*tower_shape(ring)):
             counters.reset()
             assert torch.equal(gr_matmul_tc_left(A, B, ring, config), want), (config, lead, t, r, s)
             assert counters.launches_by_route["tc_left"] == counters.launches == 1
@@ -387,19 +394,83 @@ def test_tc_left_takes_the_64_worker_calls(cuda, deg, t, r):
     assert counters.launches_by_route["tc_left"] == 1 and counters.launches_by_route["simt"] == 0
 
 
-@pytest.mark.parametrize("deg,bn", [((3, 7), 32), ((7,), 128)], ids=str)
+@pytest.mark.parametrize("deg,bn", [((3, 7), 80), ((7,), 80)], ids=str)
 def test_tc_left_runs_past_65535_column_tiles(cuda, deg, bn):
     """More column tiles than gridDim.y takes (the (3, 7) 64-row encode at
-    4096^3 has 131072): tc_left's flat grid runs every one of them."""
-    from repro_torch.kernels.gr_matmul import gr_matmul_tc_left
+    4096^3 has 131072): tc_left's persistent blocks walk every one of them."""
+    from repro_torch.kernels.gr_matmul import gr_matmul_tc_left, tc_left_default
 
     ring = make_ring(2, 32, deg)
-    assert tc_configs(*tower_shape(ring))[0][0] == bn
+    assert tc_left_default(ring, 1) == (bn,)
     s = 65535 * bn + bn + 1
     rng = np.random.default_rng(23)
     A = ring.random(rng, (2, 1), device=cuda)
     B = ring.random(rng, (1, s), device=cuda)
     assert torch.equal(gr_matmul_tc_left(A, B, ring), gr_matmul_ref(A, B, ring))
+
+
+# -- tc_left's own kernel -------------------------------------------------------
+
+# the tc_left kernel's shapes (chip_smoke.py's TC_LEFT_SHAPES with t <= 64)
+LEFT_SHAPES = [(16, 33, 333), (32, 32, 200), (64, 4, 1001), (64, 8, 4099), (3, 70, 64)]
+
+
+@pytest.mark.parametrize("tower", [(1, 5), (1, 6), (1, 7), (1, 8), (1, 9), (1, 10), (1, 11),
+                                   (1, 12), (1, 13), (1, 14), (1, 15), (1, 16), (2, 3), (2, 5),
+                                   (2, 7), (3, 2), (3, 4), (3, 5), (3, 7), (4, 3)], ids=str)
+def test_tc_left_kernel_on_every_lifted_ring(cuda, tower):
+    """The tc_left kernel at every tile width of every lifted ring, against
+    the plain version: its shapes, a batched call, both edges of the
+    32-byte stage (D r at or under 32 and the next r), both sides of the
+    edge where the row tile of M(A) stops fitting in shared memory, ragged
+    s."""
+    from repro_torch.kernels.gr_matmul import (
+        TC_LIFT_TOWERS,
+        gr_matmul_tc_left,
+        tc_left_configs,
+        tc_left_layout,
+        tc_left_padded,
+    )
+
+    assert tower in TC_LIFT_TOWERS
+    d0, d1 = tower
+    ring = make_ring(2, 32, (d1,) if d0 == 1 else tower)
+    D = ring.D
+    configs = tc_left_configs(*tower_shape(ring))
+    # the last r whose row tile stays resident at the default width
+    resident = max(r for r in range(1, 400)
+                   if tc_left_layout(ring, configs[0], tc_left_padded(1, D * r, 1)[1])[1])
+    shapes = [((), x) for x in LEFT_SHAPES] + [((3,), (5, 6, 77))] + [
+        ((), (9, r, 259)) for r in {max(1, 32 // D), 32 // D + 1, resident, resident + 1}]
+    rng = np.random.default_rng(31)
+    for lead, (t, r, s) in shapes:
+        A = ring.random(rng, lead + (t, r), device=cuda)
+        B = ring.random(rng, lead + (r, s), device=cuda)
+        want = gr_matmul_ref(A, B, ring)
+        for config in configs:
+            got = gr_matmul_tc_left(A, B, ring, config)
+            assert torch.equal(got, want), (config, lead, t, r, s)
+
+
+def test_tc_left_wrapper_raises_outside_its_envelope(cuda):
+    """Rows past 64, a ring it does not lift, a tile width it was not built
+    with: the wrapper raises and launches nothing."""
+    from repro_torch.kernels.gr_matmul import gr_matmul_tc_left
+
+    rng = np.random.default_rng(32)
+    ring = make_ring(2, 32, (3, 7))
+    counters.reset()
+    with pytest.raises(ValueError, match="1 <= t <= 64"):
+        gr_matmul_tc_left(ring.random(rng, (65, 4), device=cuda),
+                          ring.random(rng, (4, 100), device=cuda), ring)
+    with pytest.raises(ValueError, match="no instantiation"):
+        gr_matmul_tc_left(ring.random(rng, (8, 4), device=cuda),
+                          ring.random(rng, (4, 100), device=cuda), ring, (48,))
+    plain = make_ring(2, 32, (3,))
+    with pytest.raises(ValueError, match="no instantiation"):
+        gr_matmul_tc_left(plain.random(rng, (8, 4), device=cuda),
+                          plain.random(rng, (4, 100), device=cuda), plain)
+    assert counters.launches == 0 and not any(counters.launches_by_route.values())
 
 
 def test_tuned_entry_is_what_the_route_launches(cuda, monkeypatch):

@@ -4,15 +4,17 @@ Over a lifted ring (D0, D1) (``ref.tc_view``: a two-level tower, or a
 single-level GR(2^e, D) with D > 4 as (1, D)) the ``tc`` route lifts B to
 M(B), D1 times B's size.  For a decode or an encode, whose left operand is
 a small host-built matrix against millions of columns, ``tc_left`` lifts A
-instead and reads B as it lies:
+instead, to its multiplication matrices over Z_2^e, and reads B as it
+lies:
 
-    M(A)[(t, m), (r, k)] = sum_j RED[k + j, m] A[t, r, j]    (D1 t x D1 r)
-    B'[(r, k), s] = B[r, s, k]                                (D1 r x s)
-    C[t, s, m] = (M(A) B')[(t, m), s]   over the inner ring GR(2^e, D0).
+    M(A)[(t, m), (r, k)] = sum_i A[t, r, i] FOLD[CONVPOS(i, k), m]   (D t x D r)
+    B'[(r, k), s] = B[r, s, k]                                        (D r x s)
+    C[t, s, m] = (M(A) B')[(t, m), s]   over Z_2^e.
 
-M(A)'s limb planes are the lift pre-pass run on A transposed, and B''s
-come from a stack pre-pass.  ``ref.gr_matmul_tc_left_ref`` composes the
-route's arithmetic (the limb products of ``gr_matmul_limbs_ref``); it must
+A lift pre-pass writes M(A)'s limb planes and a stack pre-pass B''s, both
+at the route's 32-byte depth (``tc_left_padded``).
+``ref.gr_matmul_tc_left_ref`` composes the route's arithmetic (the
+planes, then the kernel's tile walk); it must
 equal ``gr_matmul_ref`` and repro's ``Ring.matmul`` (XLA on the CPU) bit
 for bit over GR(2^32, 7), GR(2^32, 6), (3, 4) and (3, 7) at the decode and
 encode shapes of 64 workers, cut in s.  The kernels themselves run only on
@@ -35,17 +37,16 @@ from repro_torch.kernels import (
     pick_route,
 )
 from repro_torch.kernels.gr_matmul import (
-    TC_CONFIGS,
     TC_LIFT_TOWERS,
+    tc_left_default,
     gr_matmul_tc_left,
-    tc_padded,
+    tc_left_padded,
     tower_shape,
 )
 from repro_torch.kernels.ref import (
     lift_b_ref,
     limb_planes_ref,
     n_limbs,
-    outer_reduction,
     stacked_planes_ref,
     tc_left_planes_ref,
     tc_view,
@@ -98,67 +99,70 @@ def test_tc_left_matches_plain_on_other_rings(deg, e):
 
 @pytest.mark.parametrize("deg", RINGS + [(16,), (2, 7)], ids=str)
 def test_lift_of_a_transposed_is_the_a_planes(deg):
-    """M(A) entry by entry from RED, then the claim the route rests on: the
-    lift pre-pass run on A transposed writes M(A)'s limb planes as the main
-    kernel reads A's, (D0, L, Tp, Rp) with rows (t, m) and depth (r, k)."""
+    """M(A) entry by entry from FOLD and CONVPOS, the claim the route rests
+    on: A's multiplication matrices, M(A)[(t, m), (r, k)] = sum_i A[t, r, i]
+    FOLD[CONVPOS(i, k), m], are the A planes the main kernel reads, (1, L,
+    Tp, Rp) with rows (t, m) and depth (r, k); over a single-level ring they
+    are the tc route's lift of A transposed (RED = FOLD)."""
     ring = make_ring(2, 32, deg)
-    d0, d1 = tc_view(*tower_shape(ring))
-    red = outer_reduction(ring).astype(np.uint64)
+    D = ring.D
+    fold = ring.FOLD_U32.astype(np.uint64)
+    conv = np.asarray(ring.CONVPOS)
     rng = np.random.default_rng(3)
     t, r = 3, 5
-    a = rng.integers(0, 2**32, size=(t, r, ring.D), dtype=np.uint64)
-    MA = np.zeros((d1 * t, d1 * r, d0), dtype=np.uint64)
-    for i, k, m, j in np.ndindex(t, r, d1, d1):  # row (i, m), depth (k, j)
-        MA[d1 * i + m, d1 * k + j] = sum(red[j + jj, m] * a[i, k, jj * d0: (jj + 1) * d0]
-                                         for jj in range(d1)) % 2**32
+    a = rng.integers(0, 2**32, size=(t, r, D), dtype=np.uint64)
+    MA = np.zeros((D * t, D * r), dtype=np.uint64)
+    for i, k, m in np.ndindex(t, r, D):  # row (i, m), depth (k, j)
+        for j in range(D):
+            MA[D * i + m, D * k + j] = sum(int(a[i, k, ii]) * int(fold[conv[ii, j], m])
+                                           for ii in range(D)) % 2**32
     A = from_numpy(a.astype(np.uint32), ring, "cpu")
-    lifted = to_numpy(lift_b_ref(A.transpose(0, 1), ring)).astype(np.uint64)
-    assert np.array_equal(lifted.transpose(1, 0, 2), MA)
-    Tp, Rp, _ = tc_padded(d1 * t, d1 * r, 1)
-    inner = ring.base_ring()
-    want = limb_planes_ref(from_numpy(MA.astype(np.uint32), inner, "cpu"), inner, Tp, Rp)
+    if tc_view(*tower_shape(ring))[0] == 1:
+        lifted = to_numpy(lift_b_ref(A.transpose(0, 1), ring)).astype(np.uint64)
+        assert np.array_equal(lifted.transpose(1, 0, 2)[..., 0], MA)
+    Tp, Rp, _ = tc_left_padded(D * t, D * r, 1)
+    want = limb_planes_ref(torch.from_numpy(MA.astype(np.uint32).view(np.int32))[..., None],
+                           ring, Tp, Rp)
     B = ring.random(rng, (r, 2), device="cpu")
     A8, _ = tc_left_planes_ref(A, B, ring, Tp, Rp, 32)
-    assert A8.shape == (d0, n_limbs(ring), Tp, Rp) and torch.equal(A8, want)
+    assert A8.shape == (1, n_limbs(ring), Tp, Rp) and torch.equal(A8, want)
 
 
 @pytest.mark.parametrize("deg", [(7,), (3, 7), (3, 4)], ids=str)
 def test_stack_follows_its_definition(deg):
-    """The stack pre-pass's planes: byte l of B[r, s, k, d] at plane (d, l),
-    row s, column D1 r + k; zeros past S and past D1 R."""
+    """The stack pre-pass's planes: byte l of B[r, s, k] at plane l, row s,
+    column D r + k; zeros past S and past D R."""
     ring = make_ring(2, 32, deg)
-    d0, d1 = tc_view(*tower_shape(ring))
+    D = ring.D
     rng = np.random.default_rng(4)
     r, s = 3, 5
-    b = rng.integers(0, 2**32, size=(2, r, s, ring.D), dtype=np.uint64)
-    _, Rp, Sp = tc_padded(1, d1 * r, s)
+    b = rng.integers(0, 2**32, size=(2, r, s, D), dtype=np.uint64)
+    _, Rp, Sp = tc_left_padded(1, D * r, s)
     planes = stacked_planes_ref(from_numpy(b.astype(np.uint32), ring, "cpu"), ring, Sp, Rp)
     L = n_limbs(ring)
-    assert planes.shape == (2, d0, L, Sp, Rp)
+    assert planes.shape == (2, 1, L, Sp, Rp)
     p = planes.numpy()
-    for z, rr, ss, k, d, l in np.ndindex(2, r, s, d1, d0, L):
-        assert p[z, d, l, ss, d1 * rr + k] == (int(b[z, rr, ss, k * d0 + d]) >> (8 * l)) & 0xFF
-    assert not p[:, :, :, s:].any() and not p[..., d1 * r:].any()
+    for z, rr, ss, k, l in np.ndindex(2, r, s, D, L):
+        assert p[z, 0, l, ss, D * rr + k] == (int(b[z, rr, ss, k]) >> (8 * l)) & 0xFF
+    assert not p[:, :, :, s:].any() and not p[..., D * r:].any()
 
 
-@pytest.mark.parametrize("deg,r", [((3, 7), 512), ((6,), 1800)], ids=str)
+@pytest.mark.parametrize("deg,r", [((3, 7), 700), ((6,), 1800)], ids=str)
 def test_tc_left_chain_wraps_past_2_31(deg, r):
     """All-0xFF operands: the accumulators of the lifted A's limb products
     chain past 2^31 at the r chip_smoke.py's wrap check uses; the route,
     wrapping mod 2^32, still equals the plain version."""
     ring = make_ring(2, 32, deg)
-    d0, d1 = tc_view(*tower_shape(ring))
-    A = torch.full((2, r, ring.D), -1, dtype=torch.int32)
-    B = torch.full((r, 3, ring.D), -1, dtype=torch.int32)
-    A8, B8 = (x.to(torch.int64) for x in
-              tc_left_planes_ref(A, B, ring, *tc_padded(d1 * 2, d1 * r, 3)))
-    inner, L = ring.base_ring(), n_limbs(ring)
+    D = ring.D
+    A = torch.full((2, r, D), -1, dtype=torch.int32)
+    B = torch.full((r, 3, D), -1, dtype=torch.int32)
+    A8, B8 = (x.to(torch.int64)[0] for x in
+              tc_left_planes_ref(A, B, ring, *tc_left_padded(D * 2, D * r, 3)))
+    L = n_limbs(ring)
     chains = {}
-    for i, j in np.ndindex(d0, d0):
-        for x in range(L):
-            for y in range(L - x):
-                key = (int(inner.CONVPOS[i, j]), x + y)
-                chains[key] = chains.get(key, 0) + A8[i, x] @ B8[j, y].T
+    for x in range(L):
+        for y in range(L - x):
+            chains[x + y] = chains.get(x + y, 0) + A8[x] @ B8[y].T
     assert max(int(c.max()) for c in chains.values()) >= 2**31
     assert torch.equal(gr_matmul_tc_left_ref(A, B, ring), gr_matmul_ref(A, B, ring))
 
@@ -193,7 +197,7 @@ def test_tc_left_takes_the_lifted_rings_with_the_inner_rings_tile():
         lifted = d1 > 1 and (d0, d1) in TC_LIFT_TOWERS
         assert ops.route_takes("tc_left", ring, 16, 33) == lifted, deg
         if lifted:
-            assert ops.pick_blocks(ring, 16, 33, 4096, route="tc_left") == TC_CONFIGS[(d0, 1)][0]
+            assert ops.pick_blocks(ring, 16, 33, 4096, route="tc_left") == tc_left_default(ring, 33)
 
 
 def test_tc_left_wrapper_runs_only_on_the_card():
