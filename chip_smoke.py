@@ -8,13 +8,14 @@ Phases (any mismatch fails the run with a non-zero exit):
 1. environment and build: torch/CUDA versions, the card's name and power
    limit, the kernels built from ``src/repro_torch/kernels/csrc`` with nvcc
    (``-Xptxas -v`` registers and spills per instantiation of every route,
-   the ``lift`` and ``stack`` pre-passes and the ``tc_left`` kernel printed
-   on their own; every ``tc`` and ``tc_left`` instantiation must enter with
-   168 registers, which its ``setmaxnreg`` split needs, and ptxas' warnings
-   on them are reported), and the Python mirrors of each route's tiles,
+   the ``lift``, ``left_lift`` and ``stack`` pre-passes and the
+   ``tc_left`` kernel printed on their own; every ``tc`` and ``tc_left``
+   instantiation must enter with 168 registers, which its ``setmaxnreg``
+   split needs, and ptxas' warnings on them are reported), and the Python mirrors of each route's tiles,
    instantiations and the ``tc`` kernel's shared memory per tile and L (a
    lifted tower's too), the ``tc_left`` kernel's layout (A resident,
-   stages, shared memory) per inner degree, L, tile and depth, and the
+   stages, shared memory) per inner degree, L, tile and depth and its
+   grid per call and SM count (``LEFT_GRID_CALLS``), and the
    ``tower`` kernel's per (t, r) held against the library;
 2. every route of ``gr_matmul`` (``simt``, ``tc``, ``skinny``, ``tower``,
    ``tc_left``) and the tc routes' pre-passes (limb planes, a lifted ring's
@@ -80,8 +81,9 @@ Phases (any mismatch fails the run with a non-zero exit):
    past 2e10 word products: ``GRAPH_WORDS``), beside its byte, int8
    and INT32 bounds, the plain version and, for ``tc``, its pre-passes
    (the lift alone over a lifted ring; for ``tc_left`` the lift of A, the
-   stack and its main kernel alone, with its grid and layout) and the int8
-   yardstick; ``tc_left`` (the decodes and 64-row encodes of the
+   stack and its main kernel alone, with the library's grid and its
+   layout, the pre-passes' plain versions at ``LEFT_LINE_CALL`` only) and
+   the int8 yardstick; ``tc_left`` (the decodes and 64-row encodes of the
    64-worker rounds) is held against the B-lifted ``tc`` as well and timed
    in turns with it and ``simt``.  It runs last, once phases 5-9 have
    recorded;
@@ -225,8 +227,8 @@ MASK = [True, True, False, True, True, False, True, True]
 ROUTES = ("simt", "tc", "skinny", "tower", "tc_left")
 # every count a wrapper keeps: the routes' matmul kernels and the tc routes'
 # pre-passes (limbs: A's, and a single-level B's; lift: a lifted ring's B on
-# tc, its A on tc_left; stack: B on tc_left)
-COUNTED = ROUTES + ("limbs", "lift", "stack")
+# tc; stack: B on tc_left; left_lift: A on tc_left)
+COUNTED = ROUTES + ("limbs", "lift", "stack", "left_lift")
 
 
 def _launches(**counts) -> dict:
@@ -290,11 +292,12 @@ EXPECTED_LAUNCHES = {
     # phi and psi in two levels on skinny, the worker product on tc through
     # the lift of B, the 64-row encodes and the 32 x 32 decode on tc_left
     # (the lift of A and the stack of B each); no simt launch
-    "batch_ep_rmfe_n8_n64": _launches(simt=0, tc=1, skinny=6, tc_left=3, limbs=1, lift=4,
-                                      stack=3),
+    "batch_ep_rmfe_n8_n64": _launches(simt=0, tc=1, skinny=6, tc_left=3, limbs=1, lift=1,
+                                      stack=3, left_lift=3),
     # keyed, 64 workers over GR(2^32, 7): encode a/b (k = 5 with the mask
     # row) on skinny, the worker product on tc, the 16 x 33 decode on tc_left
-    "ep_secure_n64": _launches(simt=0, tc=1, skinny=2, tc_left=1, limbs=1, lift=2, stack=1),
+    "ep_secure_n64": _launches(simt=0, tc=1, skinny=2, tc_left=1, limbs=1, lift=1, stack=1,
+                               left_lift=1),
 }
 # phases 8-9, the worker pool: this process (the master) encodes each of the
 # 8 shares on its own (phi(A), encode_a_at, phi(B), encode_b_at on skinny,
@@ -522,12 +525,14 @@ def phase_env_build(report: dict) -> None:
         tc_configs,
         tc_instantiated,
         tc_left_configs,
+        tc_left_grid,
         tc_left_layout,
         tc_smem_bytes,
         tower_configs,
         tower_shape,
         tower_smem_bytes,
     )
+    from repro_torch.kernels.ref import tc_left_padded
 
     log(f"python {sys.version.split()[0]} torch {torch.__version__} cuda {torch.version.cuda}")
     smi = subprocess.run(
@@ -599,6 +604,21 @@ def phase_env_build(report: dict) -> None:
                 if got != tc_left_layout(ring, config, rp):
                     fail(f"tc_left layout mirror {tc_left_layout(ring, config, rp)} != library "
                          f"{got} at e={e} {config} depth {rp}")
+    # and its grid (blocks, row tiles, column tiles) per ring, tile width,
+    # call and SM count: the four calls of the 64-worker rounds, a batch,
+    # a streaming depth and past 65535 column tiles
+    for deg in ((3, 7), (3, 4), (7,), (6,)):
+        ring = make_ring(2, 32, deg)
+        for config in tc_left_configs(*tower_shape(ring)):
+            for b, t, r, s in LEFT_GRID_CALLS:
+                if tc_left_layout(ring, config, tc_left_padded(1, ring.D * r, 1)[1])[2] < 2:
+                    continue  # no launch: the library has no grid for it
+                for sms in (132, 114, 7):
+                    want = tc_left_grid(ring, b, t, r, s, config, sms)
+                    got = _library_left_grid(lib, ring, b, t, r, s, config, sms)
+                    if got != want:
+                        fail(f"tc_left grid mirror {want} != library {got} for {deg} {config} "
+                             f"at {(b, t, r, s)} on {sms} SMs")
     for d0, d1 in towers:
         if library_configs("tc", d0, d1) != tc_configs(d0, d1):
             fail(f"tc mirror {tc_configs(d0, d1)} != library {library_configs('tc', d0, d1)} "
@@ -757,7 +777,8 @@ def _hold(route, ring, A, B, worst: dict, what: str, plain=None, every_config=Fa
         if first or planes_first:
             A8, B8, A3, B3 = A8[:1], B8[:1], A3[:1], B3[:1]
         want_a, want_b = tc_left_planes_ref(A3, B3, ring, *tc_left_padded(D * t, D * r, s))
-        for name, err in (("lift", max_abs_err(A8, want_a)), ("stack", max_abs_err(B8, want_b))):
+        for name, err in (("left_lift", max_abs_err(A8, want_a)),
+                          ("stack", max_abs_err(B8, want_b))):
             worst[name] = max(worst[name], err)
             if err:
                 fail(f"{name} pre-pass (tc_left) != plain on {ring} at {shape}{what}: "
@@ -776,18 +797,21 @@ def _hold(route, ring, A, B, worst: dict, what: str, plain=None, every_config=Fa
                 fail(f"{name} pre-pass != plain on {ring} at {shape}{what}: max abs err {err}")
 
 
-def _timing_row(ring, A, B, route: str, plain_ms: float, plain_batch=None, rivals=()) -> dict:
+def _timing_row(ring, A, B, route: str, plain_ms: float, plain_batch=None, rivals=(),
+                plain_prepasses=True) -> dict:
     """Time ``route`` on (A, B) in turns with ``simt`` and the ``rivals``
     (simt, rivals, route, route, rivals reversed, simt; replayed from CUDA
     graphs), eagerly and on the host, beside its bounds; for ``tc`` also
     its pre-passes (over a lifted ring the lift alone too) and the int8
-    yardstick, for ``tc_left`` its pre-passes (the lift of A, the stack of
-    B) and the yardstick; for ``tower`` its own plain version.
-    ``plain_batch``: the batch entries ``plain_ms`` covers (None: all); the
-    pre-passes' plain versions are timed on as many."""
+    yardstick, for ``tc_left`` its main kernel alone with the library's
+    grid, its pre-passes (the lift of A, the stack of B) and the yardstick;
+    for ``tower`` its own plain version.  ``plain_batch``: the batch entries
+    ``plain_ms`` covers (None: all); the pre-passes' plain versions are
+    timed on as many, for ``tc_left`` only with ``plain_prepasses``."""
     import torch
 
     from repro_torch.kernels import gr_matmul_tower_ref, run_route
+    from repro_torch.kernels.build import load_library
     from repro_torch.kernels.gr_matmul import (
         tc_left_default,
         tc_left_grid,
@@ -846,8 +870,11 @@ def _timing_row(ring, A, B, route: str, plain_ms: float, plain_batch=None, rival
         row["main_ms"] = graph_ms(lambda: tc_left_main(A8, B8, ring, t, s, config), iters)
         row["main_bound_share"] = row["bound_ms"] / row["main_ms"]
         sms = torch.cuda.get_device_properties(0).multi_processor_count
-        row["grid"] = dict(zip(("blocks", "row_tiles", "col_tiles"),
-                               tc_left_grid(ring, b, t, r, s, config, sms)), sms=sms)
+        grid = _library_left_grid(load_library(), ring, b, t, r, s, config, sms)
+        if grid != tc_left_grid(ring, b, t, r, s, config, sms):
+            fail(f"tc_left grid mirror {tc_left_grid(ring, b, t, r, s, config, sms)} != "
+                 f"library {grid} at {(b, t, r, s)}")
+        row["grid"] = dict(zip(("blocks", "row_tiles", "col_tiles"), grid), sms=sms)
         row["layout"] = dict(zip(("pair", "a_resident", "stages", "buffers", "smem"),
                                  tc_left_layout(ring, config, Rp)), depth=Rp)
         del A8, B8
@@ -855,8 +882,9 @@ def _timing_row(ring, A, B, route: str, plain_ms: float, plain_batch=None, rival
         # the lift of A alone: A read once, M(A)'s planes written once, and
         # D^3 multiply-adds an element of A at the INT32 rate
         A3 = (A if lead else A[None])[:plain_batch]
-        row["lift_a_plain_ms"] = cuda_ms(lambda: limb_planes_ref(left_lift_ref(A3, ring)[..., None],
-                                                                 ring, Tp, Rp))
+        if plain_prepasses:
+            row["lift_a_plain_ms"] = cuda_ms(
+                lambda: limb_planes_ref(left_lift_ref(A3, ring)[..., None], ring, Tp, Rp))
         lift_bytes_ms = 1e3 * (4 * ring.D * b * t * r + b * L * Tp * Rp) / HBM_BYTES_PER_S
         lift_ops_ms = 1e3 * b * t * r * ring.D ** 3 / INT32_MAD_PER_S
         row["lift_a_bound_ms"] = max(lift_bytes_ms, lift_ops_ms)
@@ -867,7 +895,8 @@ def _timing_row(ring, A, B, route: str, plain_ms: float, plain_batch=None, rival
         stack_bytes = 4 * ring.D * b * r * s + b * L * s * ring.D * r
         row["stack_bound_ms"] = 1e3 * stack_bytes / HBM_BYTES_PER_S
         B3 = (B if lead else B[None])[:plain_batch]
-        row["stack_plain_ms"] = cuda_ms(lambda: stacked_planes_ref(B3, ring, Sp, Rp))
+        if plain_prepasses:
+            row["stack_plain_ms"] = cuda_ms(lambda: stacked_planes_ref(B3, ring, Sp, Rp))
         row["int8_yardstick_ms"], row["int8_yardstick"] = _int8_yardstick_ms(ring, b, t, r, s)
     if route == "tc":
         d0, _, R1, S1 = tc_shape(ring, t, r, s)
@@ -901,6 +930,30 @@ def _timing_row(ring, A, B, route: str, plain_ms: float, plain_batch=None, rival
 # (3, 4) tower (2340900) at 1000 and 1900
 WRAP_CASES = [((3,), 2816), ((3,), 8192), ((4,), 2112), ((4,), 4160), ((3, 7), 512),
               ((3, 7), 1024), ((6,), 1800), ((6,), 3400), ((3, 4), 1000), ((3, 4), 1900)]
+# the tc_left call the kernels line reads (ring degrees, (t, r)): the (3, 7)
+# tower's 32 x 32 decode for 64 workers; phase 4 times the plain versions of
+# tc_left's pre-passes there only
+LEFT_LINE_CALL = ((3, 7), (32, 32))
+# calls (b, t, r, s) at which phase 1 holds tc_left's grid mirror against
+# the library: the (3, 7) encodes and decode, the R = 33 decode, a batch, a
+# depth whose A streams, 7 million columns
+LEFT_GRID_CALLS = ((1, 64, 4, 1 << 20), (1, 64, 8, 1 << 19), (1, 32, 32, 1 << 17),
+                   (1, 16, 33, 1 << 18), (5, 3, 2, 1000), (1, 64, 700, 80), (2, 1, 1, 7 << 20))
+
+
+def _library_left_grid(lib, ring, b: int, t: int, r: int, s: int, config, sms: int) -> tuple:
+    """(blocks, row tiles, column tiles) of a tc_left launch as the library
+    computes it (``gr_matmul_tc_left_grid``), on ``sms`` SMs."""
+    import ctypes
+
+    from repro_torch.kernels.ref import n_limbs, tc_left_padded
+
+    out = (ctypes.c_int64 * 2)()
+    rp = tc_left_padded(1, ring.D * r, 1)[1]
+    blocks = lib.gr_matmul_tc_left_grid(n_limbs(ring), *config, b, t, s, ring.D, rp, sms, out)
+    return blocks, out[0], out[1]
+
+
 # the same chains on tc_left, which lifts all-0xFF A to its multiplication
 # matrices over Z_2^32 instead (16 rows; D r deep): over the (3, 7) tower
 # they pass 2^31 at r = 700 and 2^32 at 1300, over GR(2^32, 6) at 1800 and
@@ -1381,6 +1434,8 @@ def phase_path_calls(report: dict, calls: list) -> None:
                 _hold(rt, ring, A, B, worst, " (a phase-3 call)", plain=plain)
         # tc_left's rival: the B-lifted tc it replaced, held before it is timed
         rivals = ("tc",) if timed and route == "tc_left" else ()
+        # the plain versions of tc_left's pre-passes: at the kernels line's call only
+        line_call = (ring.degrees, tuple(a_shape[:-1])) == LEFT_LINE_CALL
         for rt in rivals:
             _hold(rt, ring, A, B, worst, " (a phase-3 call, the route tc_left replaced)",
                   plain=plain, planes=False)
@@ -1389,7 +1444,7 @@ def phase_path_calls(report: dict, calls: list) -> None:
             row = {"paths": sorted(set(paths)), "ring": str(ring.degrees),
                    "a": list(a_shape[:-1]), "b": list(b_shape[:-1]),
                    **_timing_row(ring, A, B, route, plain_ms, plain_batch=1 if first else None,
-                                 rivals=rivals)}
+                                 rivals=rivals, plain_prepasses=route != "tc_left" or line_call)}
             timings.append(row)
             log(f"timed path shape: {json.dumps(row)}")
         del A, B
@@ -2696,7 +2751,8 @@ def _kernel_rows(report: dict, totals: dict) -> list:
     # 32 x 32 decode for 64 workers (phase 4), the other shapes beside it
     left = {f"{'+'.join(x['paths'])} {x['a']} @ {x['b']} degrees {x['ring']}": x
             for x in report["path_kernel_timings"] if x["route"] == "tc_left"}
-    dec = next(x for x in left.values() if x["ring"] == "(3, 7)" and x["a"] == [32, 32])
+    dec = next(x for x in left.values()
+               if x["ring"] == str(LEFT_LINE_CALL[0]) and tuple(x["a"]) == LEFT_LINE_CALL[1])
     left_rows = [
         {**base, "name": "gr_matmul_tc_left", "source": src + "gr_matmul_tc_left.cu",
          "launches": totals["tc_left"], "max_abs_err": report["kernel_max_abs_err"]["tc_left"],
@@ -2711,10 +2767,8 @@ def _kernel_rows(report: dict, totals: dict) -> list:
          "ms": dec["stack_ms"], "plain_ms": dec["stack_plain_ms"], "bound_ms": dec["stack_bound_ms"],
          "bound_by": "bytes", "shape": shape9(dec),
          "per_shape_ms": {k: v["stack_ms"] for k, v in left.items()}},
-        # tc_left's lift of A, counted with tc's lift as "lift": one a tc_left launch
         {**base, "name": "gr_matmul_tc_left_lift", "source": src + "gr_matmul_tc_left.cu",
-         "launches": totals["tc_left"], "counted_as": "lift",
-         "max_abs_err": report["kernel_max_abs_err"]["lift"],
+         "launches": totals["left_lift"], "max_abs_err": report["kernel_max_abs_err"]["left_lift"],
          "ms": dec["lift_a_ms"], "plain_ms": dec["lift_a_plain_ms"],
          "bound_ms": dec["lift_a_bound_ms"], "bound_by": dec["lift_a_bound_by"], "shape": shape9(dec),
          "per_shape_ms": {k: v["lift_a_ms"] for k, v in left.items()}},

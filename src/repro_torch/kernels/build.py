@@ -71,6 +71,8 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.gr_matmul_tc_left_lift.argtypes = [vp, vp, vp, ci, ci, ci, ci, ci, ci, ci, vp]
     lib.gr_matmul_tc_left_configs.argtypes = [ip, ci]
     lib.gr_matmul_tc_left_layout.argtypes = [ci, ci, ci, ip]
+    lib.gr_matmul_tc_left_grid.argtypes = [ci, ci, ci, ci, ci, ci, ci, ci,
+                                           ctypes.POINTER(ctypes.c_int64)]
     lib.gr_matmul_tc_left_depth.argtypes = []
     lib.gr_matmul_tc_lift.argtypes = [vp, vp, ci, ci, ci, ci, ci, ci, ci, ci, fold, vp]
     lib.gr_matmul_tc_stack.argtypes = [vp, vp, ci, ci, ci, ci, ci, ci, ci, vp]
@@ -91,7 +93,7 @@ def _declare(lib: ctypes.CDLL) -> None:
                "gr_matmul_tc_lift", "gr_matmul_tc_stack", "gr_matmul_tc_u32", "gr_matmul_tc_configs",
                "gr_matmul_tc_smem", "gr_matmul_tc_depth", "gr_matmul_tc_left_u32",
                "gr_matmul_tc_left_lift", "gr_matmul_tc_left_configs", "gr_matmul_tc_left_layout",
-               "gr_matmul_tc_left_depth",
+               "gr_matmul_tc_left_grid", "gr_matmul_tc_left_depth",
                "gr_matmul_skinny_u32", "gr_matmul_skinny_cols", "gr_matmul_skinny_configs",
                "gr_matmul_tower_u32", "gr_matmul_tower_configs"):
         getattr(lib, fn).restype = ci

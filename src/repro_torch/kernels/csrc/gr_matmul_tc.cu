@@ -125,6 +125,85 @@
 
 namespace {
 
+constexpr int kMaxD = 4;         // inner degree of the wgmma kernels
+constexpr int kMaxK = 7;
+
+struct FoldTable {
+  uint32_t f[kMaxK * kMaxD];
+};
+
+// The accumulators of a single-level tower of degree D with L limbs: pair
+// q = c * L + s for conv plane c < K = 2D - 1 and shift s < L, fed by
+// count(c) * (s + 1) MMAs a 32-deep step.  Greedily, heaviest first, each
+// pair goes to the consumer with fewer MMAs that still has room; a
+// consumer holds at most NP = ceil(K * L / 2) pairs.  Evaluated once, at
+// compile time (kT).
+template <int D, int L>
+struct Plan {
+  static constexpr int K = 2 * D - 1;
+  static constexpr int NQ = K * L;
+  static constexpr int NP = (NQ + 1) / 2;
+  static constexpr int P = D * L;  // A planes, p = i * L + a
+  struct Table {
+    int owner[NQ];      // consumer of pair q
+    int slot[NQ];       // its accumulator index there
+    int pairs[2];       // pairs a consumer owns
+    bool needs[2][P];   // does consumer w multiply by A plane p?
+    int rank[2][P];     // A planes consumer w needs before plane p
+    int planes[2];      // A planes consumer w needs
+  };
+  __host__ __device__ static constexpr int count(int c) {
+    return (c < D ? c : 2 * D - 2 - c) + 1;
+  }
+  __host__ __device__ static constexpr int mmas(int q) { return count(q / L) * (q % L + 1); }
+  __host__ __device__ static constexpr Table build() {
+    Table t{};
+    bool done[NQ] = {};
+    int load[2] = {0, 0};
+    for (int n = 0; n < NQ; ++n) {
+      int best = -1;
+      for (int q = 0; q < NQ; ++q)
+        if (!done[q] && (best < 0 || mmas(q) > mmas(best))) best = q;
+      const int w = t.pairs[0] < NP && (t.pairs[1] >= NP || load[0] <= load[1]) ? 0 : 1;
+      done[best] = true;
+      t.owner[best] = w;
+      t.slot[best] = t.pairs[w]++;
+      load[w] += mmas(best);
+    }
+    for (int w = 0; w < 2; ++w) {
+      for (int p = 0; p < P; ++p) {
+        t.rank[w][p] = t.planes[w];
+        for (int j = 0; j < D; ++j)
+          for (int b = 0; p % L + b < L; ++b)
+            if (t.owner[(p / L + j) * L + p % L + b] == w) t.needs[w][p] = true;
+        t.planes[w] += t.needs[w][p];
+      }
+    }
+    return t;
+  }
+  static constexpr Table kT = build();
+};
+
+// Plan<D, L>'s entries as scalar constants: device code may use a scalar
+// static constexpr member, not the table itself
+template <int D, int L, int Q>
+struct PairAt {  // accumulator pair q
+  static constexpr int owner = Plan<D, L>::kT.owner[Q];
+  static constexpr int slot = Plan<D, L>::kT.slot[Q];
+};
+
+template <int D, int L, int W, int Pl>
+struct PlaneAt {  // A plane p for consumer W
+  static constexpr bool needs = Plan<D, L>::kT.needs[W][Pl];
+  static constexpr int rank = Plan<D, L>::kT.rank[W][Pl];
+};
+
+template <int D, int L, int W>
+struct ConsumerAt {
+  static constexpr int pairs = Plan<D, L>::kT.pairs[W];
+  static constexpr int planes = Plan<D, L>::kT.planes[W];
+};
+
 constexpr int KS = 64;           // bytes of R per pipeline stage: one 64-byte swizzle row
 constexpr int kBM = 64;          // rows of the block tile: one wgmma M
 constexpr int kConsumers = 2;    // consumer warpgroups

@@ -480,13 +480,37 @@ __global__ void __launch_bounds__(kThreads, 1)
   }
 }
 
+// The grid of a launch on `sms` SMs: row tiles of floor(64 / D) whole t,
+// taken two a block (a unit) with `pair`, column tiles bn wide, and about
+// one block an SM: `groups` blocks on each unit of each batch entry, each
+// walking every groups-th column tile.
+struct Grid {
+  int row_tiles;
+  int units;
+  int64_t col_tiles;
+  int groups;
+};
+
+Grid grid_of(int pair, int bn, int batch, int T, int S, int D, int sms) {
+  Grid g{};
+  const int tt = kRows / D;
+  g.row_tiles = (T + tt - 1) / tt;
+  g.units = pair ? (g.row_tiles + 1) / 2 : g.row_tiles;
+  g.col_tiles = ((int64_t)S + bn - 1) / bn;
+  int64_t groups = sms / ((int64_t)g.units * batch);
+  if (groups < 1) groups = 1;
+  if (groups > g.col_tiles) groups = g.col_tiles;
+  g.groups = (int)groups;
+  return g;
+}
+
 template <int BN, int L, int PAIR>
 int launch(const uint8_t* A8, const uint8_t* B8, uint32_t* C, int batch, int T, int S, int Tp,
            int Sp, int Rp, int D, uint32_t mask, const Layout& lay, cudaStream_t stream) {
-  const int tt = kRows / D, row_tiles = (T + tt - 1) / tt;
-  const int units = PAIR ? (row_tiles + 1) / 2 : row_tiles;
-  const int64_t col_tiles = ((int64_t)S + BN - 1) / BN;
-  if (col_tiles > INT32_MAX) return (int)cudaErrorInvalidValue;
+  const int sms = sm_count();
+  if (sms <= 0) return (int)cudaErrorInvalidDevice;
+  const Grid g = grid_of(PAIR, BN, batch, T, S, D, sms);
+  if (g.col_tiles > INT32_MAX) return (int)cudaErrorInvalidValue;
   // every launch asks for at most kSmemMax: raise the kernel's limit once
   // per device (the attribute persists), not on every launch, which may be
   // captured in a CUDA graph
@@ -501,13 +525,6 @@ int launch(const uint8_t* A8, const uint8_t* B8, uint32_t* C, int batch, int T, 
     if (e != cudaSuccess) return (int)e;
     smem_set[dev] = 1;
   }
-  // about one block an SM: `groups` blocks on each row tile (or pair) of
-  // each batch entry, each walking every groups-th column tile
-  const int sms = sm_count();
-  if (sms <= 0) return (int)cudaErrorInvalidDevice;
-  int64_t groups = sms / ((int64_t)units * batch);
-  if (groups < 1) groups = 1;
-  if (groups > col_tiles) groups = col_tiles;
   CUtensorMap mapA, mapB;
   int err = encode_planes(&mapA, A8, batch * L, Tp, Rp, kRows, L, kDepth,
                           CU_TENSOR_MAP_SWIZZLE_32B);
@@ -517,9 +534,10 @@ int launch(const uint8_t* A8, const uint8_t* B8, uint32_t* C, int batch, int T, 
   // every run starts 16-byte aligned, and is a multiple of 16 bytes, where
   // S D is a multiple of 4 words
   const int bulk = (int64_t)S * D % 4 == 0 && reinterpret_cast<uintptr_t>(C) % 16 == 0;
-  dim3 grid((unsigned)(units * groups), 1, batch);
+  dim3 grid((unsigned)(g.units * g.groups), 1, batch);
   gr_matmul_tc_left_kernel<BN, L, PAIR><<<grid, kThreads, lay.smem, stream>>>(
-      mapA, mapB, C, T, S, D, Rp / kDepth, units, tt, (int)col_tiles, lay, mask, bulk);
+      mapA, mapB, C, T, S, D, Rp / kDepth, g.units, kRows / D, (int)g.col_tiles, lay, mask,
+      bulk);
   return (int)cudaGetLastError();
 }
 
@@ -639,6 +657,20 @@ int gr_matmul_tc_left_layout(int L, int bn, int Rp, int* out) {
   out[2] = g.stages;
   out[3] = g.buffers;
   return g.smem;
+}
+
+// The grid of a launch at L limbs and tile width bn over a call of batch
+// entries of (T x R) @ (R x S) of degree D, with depth Rp, on `sms` SMs (a
+// launch takes the card's): returns its blocks and writes (row tiles,
+// column tiles) to out; -1 if two stages do not fit.
+int gr_matmul_tc_left_grid(int L, int bn, int batch, int T, int S, int D, int Rp, int sms,
+                           int64_t* out) {
+  const Layout lay = layout(L, bn, Rp);
+  if (lay.stages < 2 || D < 1 || batch < 1 || sms < 1) return -1;
+  const Grid g = grid_of(lay.pair, bn, batch, T, S, D, sms);
+  out[0] = g.row_tiles;
+  out[1] = g.col_tiles;
+  return g.units * g.groups * batch;
 }
 
 // The stage depth, the multiple tc_left's limb planes' K is padded to.

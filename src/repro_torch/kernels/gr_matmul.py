@@ -135,9 +135,9 @@ MAX_D = 16
 SIMT_WIDE_TOWERS = ((3, 7),)
 ROUTES = ("simt", "tc", "skinny", "tower", "tc_left")
 # the tc routes' pre-passes: A's (and a single-level B's) limb planes, the
-# limb planes of a lifted tower's M(B) (tc) or M(A) (tc_left), and B's limb
-# planes stacked along (r, k) (tc_left)
-PREPASSES = ("limbs", "lift", "stack")
+# limb planes of a lifted tower's M(B) (tc), B's limb planes stacked along
+# (r, k) (tc_left), and the limb planes of M(A) (tc_left)
+PREPASSES = ("limbs", "lift", "stack", "left_lift")
 # the skinny kernel keeps A (T x R x D words) in shared memory: the encodes
 # (N x k, k <= 8) and decodes (R x R) of up to N = 64 workers
 SKINNY_MAX_T, SKINNY_MAX_R = 64, 32
@@ -220,8 +220,9 @@ class KernelCounters:
     ``launches_by_route``: launches of each route's matmul kernel (``simt``,
     ``tc``, ``skinny``, ``tower``, ``tc_left``) and of the tc routes'
     pre-passes (``limbs``, two per tc matmul, one per operand, or one for A
-    over a lifted tower; ``lift``, one for B over a lifted tower, or one for
-    A on ``tc_left``; ``stack``, one for B on ``tc_left``).
+    over a lifted tower; ``lift``, one for B over a lifted tower;
+    ``stack``, one for B on ``tc_left``; ``left_lift``, one for A on
+    ``tc_left``).
     ``launches``: matmul kernel launches of all routes, one per ring matmul
     on the card (the pre-pass not included).
 
@@ -768,7 +769,7 @@ def tc_left_lift(A: torch.Tensor, ring) -> torch.Tensor:
     -> A8 (b, 1, L, Tp, Rp) uint8, the limb planes of A's multiplication
     matrices over Z_2^e, M(A)[(t, m), (r, k)] = sum_i A[t, r, i]
     FOLD[CONVPOS(i, k), m] (``ref.left_lift_ref``), K-major and zero-padded
-    to ``tc_left_padded(D t, D r, .)``.  One launch, counted as ``lift``;
+    to ``tc_left_padded(D t, D r, .)``.  One launch, counted as ``left_lift``;
     the plain version is ``ref.tc_left_planes_ref``'s A side."""
     _check_operand(A, "A")
     D = _left_degree(ring)
@@ -790,7 +791,7 @@ def tc_left_lift(A: torch.Tensor, ring) -> torch.Tensor:
             err = lib.gr_matmul_tc_left_lift(A.data_ptr(), mt.data_ptr(), A8.data_ptr(), nb, T, R,
                                              D, L, Tp, Rp, stream)
         _check_launch(err, "tc_left lift pre-pass")
-        counters.count("lift")
+        counters.count("left_lift")
     return A8
 
 
@@ -897,11 +898,11 @@ def tc_left_main(A8: torch.Tensor, B8: torch.Tensor, ring, t: int, s: int,
 
 def tc_left_grid(ring, b: int, t: int, r: int, s: int, config, sms: int) -> Tuple[int, int, int]:
     """(blocks, row tiles, column tiles) of a tc_left launch on a card of
-    ``sms`` SMs (mirrors ``launch`` in ``csrc/gr_matmul_tc_left.cu``): row
-    tiles of floor(64 / D) whole t, taken two a block where
-    :func:`tc_left_layout` pairs them, column tiles ``bn`` wide, and about
-    one block an SM, each batch entry's row tiles (or pairs) taking as many
-    blocks each."""
+    ``sms`` SMs (mirrors ``grid_of`` in ``csrc/gr_matmul_tc_left.cu``, which
+    the C ``gr_matmul_tc_left_grid`` exports): row tiles of floor(64 / D)
+    whole t, taken two a block where :func:`tc_left_layout` pairs them,
+    column tiles ``bn`` wide, and about one block an SM, each batch entry's
+    row tiles (or pairs) taking as many blocks each."""
     row_tiles = -(-t // (64 // ring.D))
     pair = tc_left_layout(ring, config, tc_left_padded(1, ring.D * r, 1)[1])[0]
     units = -(-row_tiles // 2) if pair else row_tiles

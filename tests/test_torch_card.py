@@ -86,7 +86,7 @@ def test_kernel_matches_plain(cuda, spec):
             if route == "tc":  # one limb pre-pass an operand, or A's and B's lift
                 expect["limbs"], expect["lift"] = (1, 1) if tc_lifted(ring) else (2, 0)
             if route == "tc_left":  # the lift of A, the stack of B
-                expect["lift"], expect["stack"] = 1, 1
+                expect["left_lift"], expect["stack"] = 1, 1
             assert counters.launches_by_route == expect
             assert torch.equal(out, gr_matmul_ref(A, B, ring)), (lead, t, r, s)
 
@@ -191,7 +191,8 @@ def test_elastic_traced_path_on_the_card(cuda):
     # per dispatched worker (all 8 join at 0): phi(A), encode_a_at, phi(B),
     # encode_b_at on skinny and one tc product; then decode and psi
     assert counters.launches_by_route == {"simt": 0, "tc": 8, "skinny": 34, "tower": 0,
-                                          "tc_left": 0, "limbs": 16, "lift": 0, "stack": 0}
+                                          "tc_left": 0, "limbs": 16, "lift": 0, "stack": 0,
+                                          "left_lift": 0}
     assert eb.last_stats.live_idx == (0, 4, 6, 7)
     direct = torch.stack([Z.matmul(A[i], B[i]) for i in range(2)])
     assert torch.equal(C, direct)
@@ -247,10 +248,10 @@ def test_pool_of_cuda_workers_runs_every_product_on_a_kernel(cuda):
         after = _summed(pool.master.worker_launches())
     workers = {k: after[k] - before[k] for k in after}
     assert workers == {"simt": 0, "tc": 8, "skinny": 0, "tower": 0, "tc_left": 0, "limbs": 16,
-                       "lift": 0, "stack": 0}
+                       "lift": 0, "stack": 0, "left_lift": 0}
     # per share phi(A), encode_a_at, phi(B), encode_b_at; then decode and psi
     assert master == {"simt": 0, "tc": 0, "skinny": 34, "tower": 0, "tc_left": 0, "limbs": 0,
-                      "lift": 0, "stack": 0}
+                      "lift": 0, "stack": 0, "left_lift": 0}
     assert torch.equal(C, coded_matmul(A, B, scheme, backend="local"))
     assert torch.equal(C, torch.stack([gr_matmul_ref(A[i], B[i], Z) for i in range(2)]))
 
@@ -376,7 +377,8 @@ def test_tc_left_and_its_prepasses_match_plain(cuda, deg):
             counters.reset()
             assert torch.equal(gr_matmul_tc_left(A, B, ring, config), want), (config, lead, t, r, s)
             assert counters.launches_by_route["tc_left"] == counters.launches == 1
-            assert counters.launches_by_route["lift"] == counters.launches_by_route["stack"] == 1
+            assert counters.launches_by_route["left_lift"] == counters.launches_by_route["stack"] == 1
+            assert counters.launches_by_route["lift"] == 0
 
 
 @pytest.mark.parametrize("deg,t,r", [((7,), 16, 33), ((3, 7), 32, 32), ((3, 7), 64, 4),

@@ -146,7 +146,7 @@ def test_hello_and_worker_launch_counts(pool):
     # CPU workers run the plain version: no kernel launches, every route listed
     for by_route in counts.values():
         assert by_route == {"simt": 0, "tc": 0, "skinny": 0, "tower": 0, "tc_left": 0,
-                           "limbs": 0, "lift": 0, "stack": 0}
+                           "limbs": 0, "lift": 0, "stack": 0, "left_lift": 0}
 
 
 def test_worker_error_is_retried_and_scheduler_serves(pool):

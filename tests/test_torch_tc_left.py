@@ -191,13 +191,21 @@ def test_pick_route_sends_the_small_left_operands_to_tc_left(deg, t, r, s, route
 
 
 def test_tc_left_takes_the_lifted_rings_with_the_inner_rings_tile():
+    # the tile width the layout gives at r = 33: 80 wide where two row tiles
+    # fit a block; over the (3, 7) tower (704 deep) neither width pairs them,
+    # and only the 64-wide tile keeps its one row tile resident
+    widths = {(3, 7): (64,), (7,): (80,), (16,): (80,)}
     for deg in [(3,), (4,), (), (3, 7), (7,), (16,), (5, 2)]:
         ring = make_ring(2, 32, deg)
         d0, d1 = tc_view(*tower_shape(ring))
         lifted = d1 > 1 and (d0, d1) in TC_LIFT_TOWERS
         assert ops.route_takes("tc_left", ring, 16, 33) == lifted, deg
+        assert lifted == (deg in widths), deg
         if lifted:
-            assert ops.pick_blocks(ring, 16, 33, 4096, route="tc_left") == tc_left_default(ring, 33)
+            assert ops.pick_blocks(ring, 16, 33, 4096, route="tc_left") == widths[deg], deg
+    # the (3, 7) 64-worker round: its 32 x 32 decode 64 wide, its encodes 80
+    ring = make_ring(2, 32, (3, 7))
+    assert [tc_left_default(ring, r) for r in (32, 4, 8)] == [(64,), (80,), (80,)]
 
 
 def test_tc_left_wrapper_runs_only_on_the_card():
