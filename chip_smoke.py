@@ -168,9 +168,30 @@ Phases (any mismatch fails the run with a non-zero exit):
    float32 with the vocab cut to 32768 through ``prefill_fn`` at 4160
    tokens (past the local window of 4096), on the card and on the host
    CPU, within 1e-3 relative (TF32 off); (d) launch counts zeroed before
-   and read after (a)-(c): no ``gr_matmul`` route launched.
+   and read after (a)-(c): no ``gr_matmul`` route launched;
+15. the LM substrate's training path (plain PyTorch ops and autograd; no
+   ring kernel may launch), through ``repro_torch.launch.train.train``:
+   (a) gemma2-2b at full width and depth (bf16, remat ``full``, AdamW with
+   float32 state) at train_4k's 4096 tokens, its global batch cut from 256
+   to ``TRAIN_BATCH``, on ``markov`` data from ``--seed`` for
+   ``TRAIN_STEPS`` steps: every loss, lr and gradient norm finite; step
+   time (median and p90 after the first), tokens/s, the model FLOPs a step
+   (6 N tokens plus the attention's, without the recompute) and their share
+   of the dense bf16 peak, the peak memory, the optimizer update's time
+   alone (CUDA events), and one profiled step (``build_cell``'s train step:
+   kernels, device-busy time, idle share, top kernels); (b) the 2-layer cut
+   of 14 (c) in float32 (TF32 off), on the card and on the host CPU: the
+   loss of one batch and every parameter after one AdamW step within
+   ``LM_F32_TOL`` relative L2, every gradient leaf and first moment within
+   ``TRAIN_GRAD_TOL``, every second moment within twice that; (c) the
+   same cut in bf16 on the card: 8 steps checkpointed every 4, the restored
+   step-8 parameters and optimizer state equal to the saved bits, a resume
+   to step 12 against a straight 12-step run (losses within
+   ``RESUME_RTOL``), and a ``compress_grads`` run with finite losses; (d)
+   launch counts zeroed before and read after (a)-(c): no ``gr_matmul``
+   route launched.
 
-Phases run in the order 1-3, 5-9, 13, 12, 10, 11, 14, 4.  Launch counts per
+Phases run in the order 1-3, 5-9, 13, 12, 10, 11, 14, 15, 4.  Launch counts per
 route are zeroed before each path of phases 3, 5-9, 12 and 13, read
 after it (after the elastic backend's straggler tasks have finished) and
 held against ``EXPECTED_LAUNCHES``; in phases 8-9 the master's counts are
@@ -198,10 +219,13 @@ ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
 
 # H100 SXM peaks (NVIDIA data sheet, at the 700 W limit): HBM3 bandwidth,
-# dense int8 tensor-core operations, and uint32 multiply-adds on the CUDA
+# dense int8 tensor-core operations, dense bf16 tensor-core FLOPs, and
+# uint32 multiply-adds on the CUDA
 # cores (INT32 is half of the 128 FP32 lanes per SM: 132 SMs * 64 * 1.98 GHz)
 HBM_BYTES_PER_S = 3.35e12
 INT8_OPS_PER_S = 1.979e15
+# dense bf16 tensor-core FLOP/s (phase 15's model FLOPs share)
+BF16_FLOPS_PER_S = 989e12
 INT32_MAD_PER_S = 132 * 64 * 1.98e9
 
 SEED = 0
@@ -2513,13 +2537,43 @@ def _lm_rel(a, b) -> float:
     return float((a - b).norm() / b.norm())
 
 
+def _device_profile(step, steps: int, what: str, **row) -> dict:
+    """Kernels and device-busy time of ``steps`` calls of ``step()`` from
+    ``torch.profiler``, beside the host wall of the same calls: the
+    device's idle share.  ``row`` names the run."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            step()
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t0) / steps
+    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    if not kernels:
+        return {**row, "wall_ms_per_step": wall_ms, "device": "not measured"}
+    busy_ms = sum(e.time_range.elapsed_us() for e in kernels) / 1e3 / steps
+    by_name: dict = {}
+    for e in kernels:
+        by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3 / steps
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+    row = {**row, "kernels_per_step": len(kernels) / steps,
+           "device_busy_ms_per_step": busy_ms, "wall_ms_per_step": wall_ms,
+           "idle_share": 1 - busy_ms / wall_ms, "top_kernels_ms": dict(top)}
+    log(f"{what}: {row['kernels_per_step']:.0f} kernels a step, device busy "
+        f"{busy_ms:.3f} of {wall_ms:.3f} ms (idle {100 * row['idle_share']:.1f}%); top "
+        + ", ".join(f"{k[:40]} {v:.3f}" for k, v in top[:4]))
+    return row
+
+
 def _lm_profile(api, params, batch: int, steps: int = 3) -> dict:
     """Kernels and device-busy time of ``steps`` decode steps at ``batch``
     (a fresh cache, after two warm steps) from ``torch.profiler``, beside
     the host wall of the same steps: the device's idle share."""
     import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.configs import ShapeConfig
     from repro_torch.runtime.sharding import _map_leaves
@@ -2527,31 +2581,15 @@ def _lm_profile(api, params, batch: int, steps: int = 3) -> dict:
     decl = api.cache_decl(ShapeConfig("profile", steps + 10, batch, "decode"))
     cache = _map_leaves(lambda _, ps: torch.zeros(ps.shape, dtype=ps.dtype, device="cuda"), decl)
     tok = torch.zeros((batch, 1), dtype=torch.int32, device="cuda")
+    state = {"cache": cache}
+
+    def step():
+        _, state["cache"] = api.decode_fn(params, state["cache"], {"tokens": tok})
+
     with torch.inference_mode():
         for _ in range(2):
-            _, cache = api.decode_fn(params, cache, {"tokens": tok})
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            for _ in range(steps):
-                _, cache = api.decode_fn(params, cache, {"tokens": tok})
-            torch.cuda.synchronize()
-            wall_ms = 1e3 * (time.perf_counter() - t0) / steps
-    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-    if not kernels:
-        return {"batch": batch, "wall_ms_per_step": wall_ms, "device": "not measured"}
-    busy_ms = sum(e.time_range.elapsed_us() for e in kernels) / 1e3 / steps
-    by_name: dict = {}
-    for e in kernels:
-        by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3 / steps
-    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
-    row = {"batch": batch, "kernels_per_step": len(kernels) / steps,
-           "device_busy_ms_per_step": busy_ms, "wall_ms_per_step": wall_ms,
-           "idle_share": 1 - busy_ms / wall_ms, "top_kernels_ms": dict(top)}
-    log(f"lm profile, batch {batch}: {row['kernels_per_step']:.0f} kernels a step, device busy "
-        f"{busy_ms:.3f} of {wall_ms:.3f} ms (idle {100 * row['idle_share']:.1f}%); top "
-        + ", ".join(f"{k[:40]} {v:.3f}" for k, v in top[:4]))
-    return row
+            step()
+        return _device_profile(step, steps, f"lm profile, batch {batch}", batch=batch)
 
 
 def phase_lm(report: dict) -> None:
@@ -2720,6 +2758,263 @@ def phase_lm(report: dict) -> None:
     report["lm"] = out
 
 
+# ---------------------------------------------------------------------------
+# phase 15: the LM substrate's training path (plain PyTorch ops, no ring kernel)
+# ---------------------------------------------------------------------------
+
+# (a): train_4k's sequence at full width and depth; the global batch of 256
+# cut to the largest that fits on one card beside the AdamW state (31.4 GB
+# with the gradients): at batch 2 the step peaks at 77.2 GB (the logits'
+# float32 copies, 2 x 4096 x 256000, and the recomputed attention), batch 3
+# would add ~25 GB (NVIDIA H100 80GB HBM3, 700 W)
+TRAIN_SEQ = 4096
+TRAIN_BATCH = 2
+TRAIN_STEPS = 6
+# (b), (c): LM_CUT's 2-layer gemma2-2b at published widths, its tokens a
+# batch of 2 x 1024 (the CPU runs (b)'s forward and backward too)
+TRAIN_CUT_SHAPE = (1024, 2)
+# (b): relative L2 of the card's float32 gradients and first moments
+# against the CPU's (the loss and the parameters after the step are held to
+# LM_F32_TOL).  At the cut the stacked weights have std 1 (the reference's
+# std rule at U = 1): the global layer's attention saturates and its wq and
+# wk gradients are ill-conditioned, so summation order alone moves them by
+# 5.5e-4 between two CPU thread counts (2 x 256 tokens); the card's GEMMs
+# sum in another order again.  Second moments are squared gradients: twice
+# the tolerance
+TRAIN_GRAD_TOL = 1e-2
+# (c): the reference's own tolerance for a resumed run's losses
+# (tests/test_train_loop.py): the embedding's backward accumulates through
+# atomics, so runs on the card are not bit-reproducible
+RESUME_RTOL = 2e-2
+
+
+def _train_flops(cfg, nparams: int, batch: int, seq: int) -> float:
+    """Model FLOPs of one train step, without the recompute: 6 N a token for
+    the matmuls (the tied head included) plus the attention's 12 L H hd S a
+    token (QK^T and PV over every key, forward and backward)."""
+    tokens = batch * seq
+    return 6.0 * nparams * tokens + 12.0 * cfg.num_layers * cfg.num_heads * cfg.hd * seq * tokens
+
+
+def _same_bits(a, b) -> bool:
+    """Two trees of tensors hold the same keys, dtypes, shapes and bits."""
+    import torch
+
+    if isinstance(a, dict):
+        return isinstance(b, dict) and sorted(a) == sorted(b) and all(
+            _same_bits(a[k], b[k]) for k in a)
+    if not (torch.is_tensor(b) and a.dtype == b.dtype and a.shape == b.shape):
+        return False
+    view = (lambda t: t.view(torch.int16)) if a.dtype == torch.bfloat16 else (lambda t: t)
+    return bool(torch.equal(view(a.detach()), view(b.detach())))
+
+
+def _leaf_errs(card: dict, host: dict, prefix: str = "") -> dict:
+    """Relative L2 error of every leaf of ``card`` against ``host``."""
+    if isinstance(card, dict):
+        out: dict = {}
+        for k in sorted(card):
+            out.update(_leaf_errs(card[k], host[k], f"{prefix}/{k}"))
+        return out
+    return {prefix: _lm_rel(card.float(), host.float())}
+
+
+def phase_train(report: dict) -> None:
+    import dataclasses
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from repro_torch.checkpoint import Checkpointer
+    from repro_torch.configs import ARCHS, ShapeConfig
+    from repro_torch.data import DataConfig, TokenPipeline
+    from repro_torch.kernels import counters
+    from repro_torch.launch.steps import build_cell, opt_config_for, value_and_grad
+    from repro_torch.launch.train import train
+    from repro_torch.models import build_model
+    from repro_torch.optim import opt_init, opt_update
+    from repro_torch.optim.optimizers import _leaves
+    from repro_torch.runtime.sharding import _map_leaves, materialize, param_count
+
+    t_phase = time.perf_counter()
+    counters.reset()
+    cfg = ARCHS[LM_ARCH]
+    out: dict = {"arch": LM_ARCH, "dtype": cfg.dtype, "remat": cfg.remat,
+                 "optimizer_config": f"{cfg.optimizer} ({cfg.opt_state_dtype} state)",
+                 "seq": TRAIN_SEQ, "batch": TRAIN_BATCH, "steps": TRAIN_STEPS,
+                 "reduced": {"global_batch": f"256 -> {TRAIN_BATCH}"}}
+
+    # (a) full width and depth, through the user's entry point
+    shape = ShapeConfig("train_4k_cut", TRAIN_SEQ, TRAIN_BATCH, "train")
+    api = build_model(cfg)
+    nparams = param_count(api.param_specs)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    run = train(LM_ARCH, smoke=False, steps=TRAIN_STEPS, shape=shape, seed=SEED,
+                data_source="markov", log_every=1, device="cuda")
+    wall = time.perf_counter() - t0
+    hist = run["history"]
+    for h in hist:
+        if not all(np.isfinite([h["loss"], h["lr"], h["gnorm"]])):
+            fail(f"train step: non-finite loss, lr or gnorm {h}")
+    ms = np.asarray([h["ms"] for h in hist[1:]])
+    flops = _train_flops(cfg, nparams, TRAIN_BATCH, TRAIN_SEQ)
+    step_s = float(np.median(ms)) / 1e3
+    out.update(params=nparams, wall_s=wall, history=hist, first_step_ms=hist[0]["ms"],
+               step_ms_median=float(np.median(ms)), step_ms_p90=float(np.percentile(ms, 90)),
+               tokens_per_s=TRAIN_BATCH * TRAIN_SEQ / step_s, model_flops_per_step=flops,
+               flops_share_of_bf16_peak=flops / step_s / BF16_FLOPS_PER_S,
+               bound_ms=1e3 * flops / BF16_FLOPS_PER_S,
+               peak_bytes=torch.cuda.max_memory_allocated())
+    lrs = [f"{h['lr']:.3e}" for h in hist]
+    log(f"train {LM_ARCH} ({nparams} parameters, {cfg.dtype}, remat {cfg.remat}) at "
+        f"{TRAIN_BATCH} x {TRAIN_SEQ}: losses {[round(h['loss'], 4) for h in hist]}, lr {lrs}, "
+        f"gnorm {[round(h['gnorm'], 3) for h in hist]}")
+    log(f"train step median {out['step_ms_median']:.1f} ms p90 {out['step_ms_p90']:.1f} ms "
+        f"(first {out['first_step_ms']:.0f}), {out['tokens_per_s']:.0f} tokens/s, "
+        f"{flops / 1e12:.2f} TFLOP a step = {100 * out['flops_share_of_bf16_peak']:.1f}% of the "
+        f"bf16 peak (bound {out['bound_ms']:.1f} ms); peak {out['peak_bytes']} bytes; "
+        f"wall {wall:.1f} s")
+
+    # the optimizer's update alone, on the trained state, with one batch's gradients
+    state = run["state"]
+    pipe = TokenPipeline(DataConfig(seed=SEED + 1, source="markov"), cfg, shape)
+    batch = {k: torch.from_numpy(v).cuda() for k, v in pipe.batch_at(0).items()}
+    _, grads = value_and_grad(api.loss_fn, state["params"], batch)
+    ocfg = opt_config_for(cfg, total_steps=max(TRAIN_STEPS, 10))
+    times = []
+    for _ in range(3):
+        e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        e0.record()
+        opt_update(ocfg, grads, state["opt"], state["params"])
+        e1.record()
+        torch.cuda.synchronize()
+        times.append(e0.elapsed_time(e1))
+    # every parameter and AdamW moment read once and written once, the
+    # gradients (the parameters' dtype) read once: the update's byte bound
+    opt_bytes = (3 * sum(t.numel() * t.element_size() for t in _leaves(state["params"]))
+                 + 2 * sum(t.numel() * t.element_size() for t in _leaves(state["opt"]["mu"])))
+    out["optimizer"] = {"ms": times, "ms_median": float(np.median(times)),
+                        "bytes": opt_bytes, "bound_ms": 1e3 * opt_bytes / HBM_BYTES_PER_S,
+                        "share_of_step": float(np.median(times)) / out["step_ms_median"]}
+    log(f"train optimizer update alone: {[round(t, 2) for t in times]} ms (bound "
+        f"{out['optimizer']['bound_ms']:.2f} ms by bytes), "
+        f"{100 * out['optimizer']['share_of_step']:.1f}% of the step")
+    del grads
+
+    # one profiled step: build_cell's train step on the same state
+    cell = build_cell(cfg, shape)
+    out["profile"] = _device_profile(
+        lambda: cell.step_fn(state["params"], state["opt"], batch), 1,
+        f"train profile, {TRAIN_BATCH} x {TRAIN_SEQ}", batch=TRAIN_BATCH, seq=TRAIN_SEQ)
+    out["peak_bytes_with_profile"] = torch.cuda.max_memory_allocated()
+    del run, state, batch, cell
+    torch.cuda.empty_cache()
+
+    # (b) the card against the host CPU, float32, TF32 off
+    seq, b = TRAIN_CUT_SHAPE
+    cut = dataclasses.replace(cfg, dtype="float32", **LM_CUT)
+    capi = build_model(cut)
+    cpipe = TokenPipeline(DataConfig(seed=SEED + 1, source="markov"), cut,
+                          ShapeConfig("cut", seq, b, "train"))
+    hbatch = {k: torch.from_numpy(v) for k, v in cpipe.batch_at(0).items()}
+    cbatch = {k: v.cuda() for k, v in hbatch.items()}
+    host = materialize(capi.param_specs, SEED, device="cpu")
+    card = _map_leaves(lambda _, t: t.cuda(), host)
+    ocut = opt_config_for(cut)
+    prev_tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        t0 = time.perf_counter()
+        (lc, _), gc = value_and_grad(capi.loss_fn, card, cbatch)
+        torch.cuda.synchronize()
+        card_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        (lh, _), gh = value_and_grad(capi.loss_fn, host, hbatch)
+        cpu_s = time.perf_counter() - t0
+        sc, sh = opt_init(ocut, card), opt_init(ocut, host)
+        opt_update(ocut, gc, sc, card)
+        opt_update(ocut, gh, sh, host)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev_tf32
+    grad_errs, param_errs = _leaf_errs(gc, gh), _leaf_errs(card, host)
+    state_errs = _leaf_errs(sc["mu"], sh["mu"])
+    loss_err = abs(float(lc) - float(lh)) / abs(float(lh))
+    # each error over its tolerance: the check fails above 1
+    ratios = ([loss_err / LM_F32_TOL] + [e / LM_F32_TOL for e in param_errs.values()]
+              + [e / TRAIN_GRAD_TOL for e in grad_errs.values()]
+              + [e / (TRAIN_GRAD_TOL if k.endswith("/m") else 2 * TRAIN_GRAD_TOL)
+                 for k, e in state_errs.items()])
+    out["card_vs_cpu"] = {
+        "shape": [b, seq], "dtype": "float32", "tf32": False, "tol": LM_F32_TOL,
+        "grad_tol": TRAIN_GRAD_TOL, "loss_card": float(lc), "loss_cpu": float(lh),
+        "loss_rel": loss_err, "grad_rel_l2": grad_errs, "param_rel_l2_after_step": param_errs,
+        "moment_rel_l2_after_step": state_errs, "worst_over_tol": max(ratios),
+        "card_s": card_s, "cpu_s": cpu_s,
+        "reduced": {k: f"{getattr(cfg, k)} -> {v}" for k, v in LM_CUT.items()}}
+    log(f"train card vs cpu, float32 at {b} x {seq} (reduced: "
+        f"{out['card_vs_cpu']['reduced']}): loss {float(lc):.6f} / {float(lh):.6f} (rel "
+        f"{loss_err:.2e}), parameters after AdamW {max(param_errs.values()):.2e} (tol "
+        f"{LM_F32_TOL}); worst gradient leaf {max(grad_errs.values()):.2e} "
+        f"({max(grad_errs, key=grad_errs.get)}), moment {max(state_errs.values()):.2e} "
+        f"({max(state_errs, key=state_errs.get)}) (tol {TRAIN_GRAD_TOL}, second moments "
+        f"{2 * TRAIN_GRAD_TOL}); card {card_s:.2f} s, cpu {cpu_s:.2f} s")
+    if not np.isfinite(ratios).all() or max(ratios) > 1:
+        fail(f"train card vs cpu: an error {max(ratios):.2f} times its tolerance")
+    del host, card, gc, gh, sc, sh, hbatch, cbatch
+    torch.cuda.empty_cache()
+
+    # (c) checkpoint and resume on the card, the same cut in bf16
+    name = f"{LM_ARCH}-cut"
+    ARCHS[name] = dataclasses.replace(cfg, name=name, **LM_CUT)
+    cshape = ShapeConfig("cut", seq, b, "train")
+    kw = dict(smoke=False, shape=cshape, seed=SEED, data_source="markov", log_every=0,
+              device="cuda")
+    (ROOT / "build").mkdir(exist_ok=True)
+    try:
+        with tempfile.TemporaryDirectory(dir=ROOT / "build") as d:
+            t0 = time.perf_counter()
+            first = train(name, steps=8, ckpt_dir=d, ckpt_every=4, **kw)
+            restored = Checkpointer(d).restore(8, device="cuda")
+            same = (_same_bits(restored["params"], first["state"]["params"])
+                    and _same_bits(restored["opt"], first["state"]["opt"])
+                    and int(restored["meta"]["step"]) == 8)
+            del restored, first
+            resumed = train(name, steps=12, ckpt_dir=d, ckpt_every=4, resume=True, **kw)
+            straight = train(name, steps=12, **kw)
+            compressed = train(name, steps=4, compress_grads=True, **kw)
+            resume_s = time.perf_counter() - t0
+    finally:
+        del ARCHS[name]
+    got, want = np.asarray(resumed["losses"]), np.asarray(straight["losses"][8:])
+    worst_rel = float(np.max(np.abs(got - want) / np.abs(want)))
+    out["resume"] = {"shape": [b, seq], "dtype": cfg.dtype, "restored_bits_equal": same,
+                     "resumed_losses": got.tolist(), "straight_losses": want.tolist(),
+                     "max_rel_diff": worst_rel, "rtol": RESUME_RTOL,
+                     "compressed_losses": compressed["losses"], "seconds": resume_s}
+    log(f"train resume ({b} x {seq}, bf16): restored step 8 equals the saved bits: {same}; "
+        f"steps 9-12 resumed {got.round(4).tolist()} vs straight "
+        f"{want.round(4).tolist()}, largest relative difference {worst_rel:.2e} (rtol "
+        f"{RESUME_RTOL}); compressed-gradient losses "
+        f"{[round(x, 4) for x in compressed['losses']]}; {resume_s:.1f} s")
+    if not same or len(got) != 4 or worst_rel > RESUME_RTOL \
+            or not np.isfinite(compressed["losses"]).all():
+        fail(f"train resume: bits equal {same}, resumed {got}, straight {want}, compressed "
+             f"{compressed['losses']}")
+    del resumed, straight, compressed
+    torch.cuda.empty_cache()
+
+    # (d) no ring kernel ran
+    out["launches"] = dict(counters.launches_by_route)
+    if any(out["launches"].values()):
+        fail(f"train path launched ring kernels: {out['launches']}")
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"train phase: ring launches {out['launches']}, {out['seconds']:.1f} s")
+    report["train"] = out
+
+
 def _kernel_rows(report: dict, totals: dict) -> list:
     """The ``{"kernels": [...]}`` rows: one per route and one per pre-pass,
     each at its representative main-path shape (the (3, 7) tower's lift and
@@ -2855,6 +3150,7 @@ def main() -> int:
     timed(phase_autotune)
     timed(phase_calibrate)
     timed(phase_lm)
+    timed(phase_train)
     timed(phase_path_calls, calls)
     report["seconds"] = time.perf_counter() - t0
     log(f"phase seconds: {json.dumps(report['phase_seconds'])}")

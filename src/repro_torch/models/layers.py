@@ -1,7 +1,9 @@
 """Shared neural layers for the dense decoder: norms, RoPE, chunked
 flash-style attention (prefill / decode) and dense MLPs — counterpart of the
 dense part of ``repro.models.layers`` (MoE and the Mamba2 SSD wait: ROADMAP
-Queue 1 item 7).
+Queue 1 items 7.2 and 7.3).  Every layer is differentiable: the training
+path takes gradients through the chunked attention's online softmax as it
+is written (a fully masked chunk contributes exact zeros, never NaN).
 
 All layers are plain functions over ParamSpec-declared trees of tensors, in
 plain PyTorch ops.  The reference's dtypes follow JAX promotion; where
@@ -206,6 +208,9 @@ def multihead_attention(
         out = torch.einsum("bkgqs,bskh->bkgqh", (pexp / l.clamp_min(1e-30)).to(v.dtype), v)
         return out.movedim(3, 1).reshape(B, Sq, H, hd)
 
+    # keys shorter than a chunk take one chunk of their own length: the
+    # reference pads them to kv_chunk, and padded keys add exact zeros
+    kv_chunk = min(kv_chunk, Sk)
     nchunks = -(-Sk // kv_chunk)
     pad = nchunks * kv_chunk - Sk
     if pad:

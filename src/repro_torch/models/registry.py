@@ -10,8 +10,9 @@ architecture exposes
 
 Of the families, the dense decoder is ported; ``build_model`` raises
 ``NotImplementedError`` naming the ROADMAP item each other family waits for.
-``loss_fn`` is forward only (under ``torch.no_grad``) until the training
-slice.
+``loss_fn`` is differentiable (the training path, ``launch.steps``, takes
+its gradients with ``torch.autograd``); ``prefill_fn`` and ``decode_fn``
+are called under ``torch.inference_mode()`` by the serving path.
 """
 from __future__ import annotations
 
@@ -68,7 +69,6 @@ def _lm_batch_specs(cfg: ModelConfig, shape: ShapeConfig) -> Dict:
 def _build_decoder_family(cfg: ModelConfig) -> ModelAPI:
     specs = tf_mod.decoder_specs(cfg)
 
-    @torch.no_grad()
     def loss_fn(params, batch):
         logits, _, aux = tf_mod.decoder_forward(params, batch["tokens"], cfg)
         loss, ntok = cross_entropy(logits, batch["labels"])

@@ -5,13 +5,15 @@ Layers are grouped into the config's repeating ``layer_pattern`` unit and
 their params stacked along a leading units dim (U = ``num_units(cfg)``), as
 in the reference, so that a parameter tree converts leaf for leaf: e.g.
 ``blocks/l0/attn/wq`` is (U, d, H * hd).  Where the reference scans the
-units with ``lax.scan``, a Python loop walks them.  ``first_k_dense``,
-patches, the encoder-decoder and ``build_xattn_cache`` wait (ROADMAP Queue 1
-item 7).
+units with ``lax.scan``, a Python loop walks them, each unit under the
+config's rematerialization (``_maybe_remat``) when gradients are taken.
+``first_k_dense`` (ROADMAP Queue 1 item 7.2), patches, the encoder-decoder
+and ``build_xattn_cache`` (item 7.4) wait.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Optional, Tuple
+import functools
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import torch
 from torch import nn
@@ -64,10 +66,15 @@ def stack_specs(tree, n: int):
     return ParamSpec((n,) + ps.shape, (None,) + ps.logical, ps.dtype, ps.init, ps.scale)
 
 
-def _tree_index(tree, i):
+def _tree_units(tree, n: int) -> List[Dict]:
+    """The stacked tree as ``n`` per-unit trees of views, one ``unbind`` a
+    leaf: gradients reach the stacked leaf through the views, and unbind's
+    backward stacks the units' gradients in one copy (a view per unit would
+    add a zero-filled full-size gradient per unit)."""
     if isinstance(tree, dict):
-        return {k: _tree_index(v, i) for k, v in tree.items()}
-    return tree[i]
+        subs = {k: _tree_units(v, n) for k, v in tree.items()}
+        return [{k: subs[k][u] for k in subs} for u in range(n)]
+    return list(tree.unbind(0))
 
 
 def num_units(cfg: ModelConfig) -> int:
@@ -137,6 +144,42 @@ def _one_layer(
     return x + h2, new_cache
 
 
+def _unit(x: torch.Tensor, up: Dict, positions: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """One repeating unit (``cfg.layer_pattern``) without a cache."""
+    for i, lt in enumerate(cfg.layer_pattern):
+        x, _ = _one_layer(up[f"l{i}"], x, positions, cfg, lt, None)
+    return x
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    """The ``"dots"`` policy: keep the outputs of matmuls without batch dims
+    (``x @ w`` reaches the dispatcher as ``aten.mm``; the attention's
+    einsums, with batch dims, are ``bmm``), recompute everything else —
+    ``jax.checkpoint_policies.checkpoint_dots_with_no_batch_dims``."""
+    from torch.utils.checkpoint import CheckpointPolicy
+
+    if op is torch.ops.aten.mm.default:
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _maybe_remat(fn: Callable, cfg: ModelConfig) -> Callable:
+    """``fn`` under ``cfg.remat``: ``"none"`` saves every activation the
+    backward needs, ``"full"`` saves only the unit's inputs and recomputes
+    the unit in the backward, ``"dots"`` keeps the matmul outputs
+    (:func:`_save_dots`) and recomputes the rest."""
+    if cfg.remat == "none":
+        return fn
+    from torch.utils.checkpoint import checkpoint, create_selective_checkpoint_contexts
+
+    kw: Dict[str, Any] = {"use_reentrant": False}
+    if cfg.remat == "dots":
+        kw["context_fn"] = functools.partial(create_selective_checkpoint_contexts, _save_dots)
+    elif cfg.remat != "full":
+        raise ValueError(f"{cfg.name}: unknown remat {cfg.remat!r}")
+    return lambda *args: checkpoint(fn, *args, **kw)
+
+
 def decoder_forward(
     params: Dict,
     tokens: torch.Tensor,  # (B, S) int32
@@ -161,20 +204,23 @@ def decoder_forward(
     positions = torch.arange(start, start + S, dtype=torch.int32, device=x.device)
     positions = positions[None].expand(B, S)
 
-    blocks = params["blocks"]
+    units = _tree_units(params["blocks"], num_units(cfg))
     new_cache = None
-    if cache is not None:
+    if cache is None:
+        # remat only where a backward will run: under no_grad or
+        # inference_mode there is nothing to save
+        unit = _maybe_remat(_unit, cfg) if torch.is_grad_enabled() else _unit
+        for up in units:
+            x = unit(x, up, positions, cfg)
+    else:
         clen = int(cache["len"])
         new_cache = {f"l{i}": {"k": cache[f"l{i}"]["k"], "v": cache[f"l{i}"]["v"]}
                      for i in range(len(cfg.layer_pattern))}
         new_cache["len"] = clen + S
-    for u in range(num_units(cfg)):
-        up = _tree_index(blocks, u)
-        for i, lt in enumerate(cfg.layer_pattern):
-            lc = None
-            if cache is not None:
+        for u, up in enumerate(units):
+            for i, lt in enumerate(cfg.layer_pattern):
                 lc = {"k": cache[f"l{i}"]["k"][u], "v": cache[f"l{i}"]["v"][u], "len": clen}
-            x, _ = _one_layer(up[f"l{i}"], x, positions, cfg, lt, lc)
+                x, _ = _one_layer(up[f"l{i}"], x, positions, cfg, lt, lc)
 
     x = apply_norm(params["ln_f"], x, cfg)
     x = shard(x, "batch", "residual_seq", None)
@@ -185,16 +231,17 @@ def decoder_forward(
 
 
 class _Tree(nn.Module):
-    """One dict of the parameter tree: leaves as parameters (no gradient),
-    dicts as child modules, under the reference's keys."""
+    """One dict of the parameter tree: leaves as parameters (with gradients
+    only when ``requires_grad``), dicts as child modules, under the
+    reference's keys."""
 
-    def __init__(self, tree: Dict):
+    def __init__(self, tree: Dict, requires_grad: bool = False):
         super().__init__()
         for k, v in tree.items():
             if isinstance(v, dict):
-                self.add_module(k, _Tree(v))
+                self.add_module(k, _Tree(v, requires_grad))
             else:
-                self.register_parameter(k, nn.Parameter(v, requires_grad=False))
+                self.register_parameter(k, nn.Parameter(v, requires_grad=requires_grad))
 
     def tree(self) -> Dict:
         out: Dict[str, Any] = {k: p for k, p in self._parameters.items()}
@@ -207,10 +254,12 @@ class DecoderLM(_Tree):
     ``materialize(decoder_specs(cfg), ...)`` or ``params_from_numpy``) held
     under the reference's paths, so that ``state_dict()`` keys are those
     paths joined by dots (``blocks.l0.attn.wq``).  ``forward`` is
-    :func:`decoder_forward` on ``tree()``."""
+    :func:`decoder_forward` on ``tree()``.  ``requires_grad=True`` makes the
+    leaves trainable (``torch.optim`` over ``parameters()``, or the port's
+    ``optim`` over ``tree()``); serving keeps the default, no gradients."""
 
-    def __init__(self, cfg: ModelConfig, params: Dict):
-        super().__init__(params)
+    def __init__(self, cfg: ModelConfig, params: Dict, requires_grad: bool = False):
+        super().__init__(params, requires_grad)
         self.cfg = cfg
 
     def forward(self, tokens: torch.Tensor, cache: Optional[Dict] = None):

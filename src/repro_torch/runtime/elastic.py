@@ -1,9 +1,48 @@
-"""Elastic re-chunking of a batch across a changing pool — counterpart of
-``repro.runtime.elastic`` (``replan_batch``; restoring a checkpoint onto a
-new mesh, ``elastic_restore``, comes with the LM substrate)."""
+"""Elastic scaling — counterpart of ``repro.runtime.elastic``: restore any
+checkpoint onto this process's device (``elastic_restore``) and re-chunk a
+batch across a changing pool (``replan_batch``).
+
+The checkpoint format is placement-agnostic (host-gathered full arrays plus
+the data step for deterministic replay), so a checkpoint written by either
+package, on any mesh, restores here.  Placing the restored leaves on a mesh
+(the reference's ``sharding_tree``) waits for the mesh slice (ROADMAP Queue
+1 item 7.6).
+"""
 from __future__ import annotations
 
-__all__ = ["replan_batch"]
+from typing import Dict, Optional
+
+from ..checkpoint import Checkpointer
+from .sharding import _leaf_paths
+
+__all__ = ["elastic_restore", "replan_batch"]
+
+
+def elastic_restore(
+    ckpt: Checkpointer,
+    param_specs: Dict,
+    device=None,
+    step: Optional[int] = None,
+) -> Dict:
+    """Load the checkpoint at ``step`` (default: the latest) onto ``device``
+    (default: the card), whatever wrote it, and check that its ``params``
+    hold every leaf of ``param_specs`` at the declared shape and dtype
+    (``ValueError`` otherwise).  Returns the whole restored tree."""
+    tree = ckpt.restore(step=step, device=device)
+    params = tree.get("params")
+    if params is None:
+        raise ValueError(f"checkpoint in {ckpt.dir} holds no params")
+    for path, ps in _leaf_paths(param_specs):
+        leaf = params
+        for k in path:
+            if not isinstance(leaf, dict) or k not in leaf:
+                raise ValueError(f"checkpoint params lack {'/'.join(path)}")
+            leaf = leaf[k]
+        if tuple(leaf.shape) != tuple(ps.shape) or leaf.dtype != ps.dtype:
+            raise ValueError(
+                f"checkpoint params {'/'.join(path)}: {tuple(leaf.shape)} {leaf.dtype}, "
+                f"the specs declare {tuple(ps.shape)} {ps.dtype}")
+    return tree
 
 
 def replan_batch(global_batch: int, live_data_shards: int) -> int:

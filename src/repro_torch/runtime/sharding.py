@@ -6,7 +6,7 @@ nested dicts whose leaves are specs, walked in the reference's order, so
 that ``materialize`` turns the same declaration into tensors and
 ``param_count``/``param_bytes`` size it without allocating.  The logical
 axis names are kept for the mesh slice; ``spec_for``, ``shape_structs``,
-``sharding_tree`` and ``axis_rules`` wait for it (ROADMAP Queue 1 item 7).
+``sharding_tree`` and ``axis_rules`` wait for it (ROADMAP Queue 1 item 7.6).
 """
 from __future__ import annotations
 

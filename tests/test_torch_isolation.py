@@ -39,7 +39,11 @@ def test_every_module_imports_without_jax_or_repro():
               "repro_torch.configs", "repro_torch.configs.base", "repro_torch.configs.gemma2_2b",
               "repro_torch.runtime.sharding", "repro_torch.models", "repro_torch.models.layers",
               "repro_torch.models.transformer", "repro_torch.models.registry",
-              "repro_torch.models.convert"):
+              "repro_torch.models.convert", "repro_torch.optim", "repro_torch.optim.optimizers",
+              "repro_torch.optim.compression", "repro_torch.data", "repro_torch.data.pipeline",
+              "repro_torch.checkpoint", "repro_torch.checkpoint.checkpoint",
+              "repro_torch.launch.steps", "repro_torch.launch.train",
+              "repro_torch.examples.train_lm"):
         assert m in mods, m
     code = (
         "import sys, importlib\n"
@@ -186,6 +190,36 @@ def test_autotune_calibration_spmd_and_examples_default_to_cuda(monkeypatch):
         autotune.autotune(make_ring(2, 32, (3,)), 1024, 2048, 1024)
     assert device_kind() == "cpu" and device_kind("cpu") == "cpu"
     assert calibrate.fit_rows([], device=None).device == "cpu"
+
+
+def test_training_path_defaults_to_cuda_and_raises_without_it(monkeypatch, tmp_path):
+    """The training path's entry points (``train`` and its CLI,
+    ``make_train_state``, ``Checkpointer.restore``, ``elastic_restore``, the
+    ``train_lm`` example) run on the card by default and raise without one;
+    with ``device="cpu"`` they run."""
+    _without_cuda(monkeypatch)
+    from repro_torch.checkpoint import Checkpointer
+    from repro_torch.configs import ARCHS
+    from repro_torch.examples import train_lm
+    from repro_torch.launch import train
+    from repro_torch.launch.steps import opt_config_for
+    from repro_torch.models import build_model
+    from repro_torch.runtime import elastic_restore
+
+    cfg = ARCHS["gemma2-2b"].smoke()
+    api = build_model(cfg)
+    ck = Checkpointer(str(tmp_path))
+    for build in (lambda: train.train("gemma2-2b", steps=1),
+                  lambda: train.main(["--arch", "gemma2-2b", "--smoke", "--steps", "1"]),
+                  lambda: train.make_train_state(api, opt_config_for(cfg)),
+                  lambda: ck.restore(), lambda: elastic_restore(ck, api.param_specs),
+                  lambda: train_lm.main(["--steps", "1", "--ckpt-dir", str(tmp_path / "lm")])):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            build()
+    state = train.make_train_state(api, opt_config_for(cfg), device="cpu")
+    ck.save(1, {"params": state["params"]})
+    assert elastic_restore(ck, api.param_specs, "cpu")["params"]["embed"].device.type == "cpu"
+    assert state["opt"]["step"].device.type == "cpu"
 
 
 def test_chip_smoke_refuses_without_a_card(tmp_path):
