@@ -15,8 +15,9 @@ Phases (any mismatch fails the run with a non-zero exit):
    instantiations and the ``tc`` kernel's shared memory per tile and L (a
    lifted tower's too), the ``tc_left`` kernel's layout (A resident,
    stages, shared memory) per inner degree, L, tile and depth and its
-   grid per call and SM count (``LEFT_GRID_CALLS``), and the
-   ``tower`` kernel's per (t, r) held against the library;
+   grid per call and SM count (``LEFT_GRID_CALLS``), the ``tower``
+   kernel's per (t, r), and ``simt``'s tile per ring and t and its grid
+   per call and SM count (``SIMT_GRID_CALLS``) held against the library;
 2. every route of ``gr_matmul`` (``simt``, ``tc``, ``skinny``, ``tower``,
    ``tc_left``) and the tc routes' pre-passes (limb planes, a lifted ring's
    lift, tc_left's lift of A and stack of B) against their plain PyTorch
@@ -34,8 +35,13 @@ Phases (any mismatch fails the run with a non-zero exit):
    accumulators' overflow rule (all-0xFF operands, chains past 2^31 and
    2^32, the lifted (3, 7), (3, 4) and D = 6 chains among them, every
    instantiation; printed as ``tc_accumulate: wraps``, and the run fails
-   if they saturate); ``tc_left`` past 65535 column tiles
-   (``LEFT_GRID_SHAPES``: its persistent blocks walk them);
+   if they saturate); ``simt`` at every instantiation (``SIMT_TOWERS`` at
+   ``SIMT_TS``, e = 32 and 31: every tower of its tile kernel and every
+   (D, rc, nn, wm, wn) of its thin kernel, R split up to 8 ways) and its
+   thin kernel's accumulators on all-0xFF operands whose split chains pass
+   2^31 and 2^32 (``SIMT_WRAP_CASES``, printed as ``simt_accumulate:
+   wraps``); ``tc_left`` past 65535 column tiles (``LEFT_GRID_SHAPES``:
+   its persistent blocks walk them);
    ``ElasticStream``'s step over the (3, 7) tower (three ``tower`` calls
    and the lifted ``tc`` worker product) at every instantiation and on
    ``simt``; and at every shape the main path hands the
@@ -85,8 +91,10 @@ Phases (any mismatch fails the run with a non-zero exit):
    layout, the pre-passes' plain versions at ``LEFT_LINE_CALL`` only) and
    the int8 yardstick; ``tc_left`` (the decodes and 64-row encodes of the
    64-worker rounds) is held against the B-lifted ``tc`` as well and timed
-   in turns with it and ``simt``.  It runs last, once phases 5-9 have
-   recorded;
+   in turns with it and ``simt``; ``simt`` (ep's 96^3 workers and phase
+   7's decode-size worker products) with its grid, mirrored, and the int8
+   yardstick where ``torch._int_mm`` takes the shape.  It runs last, once
+   phases 5-9 have recorded;
 5. the elastic any-R master (``coded_matmul(..., backend=ElasticBackend)``)
    on ``batch_ep_rmfe`` at 2048^3: (a) the all-live fast path, equal to
    ``local`` with ``local``'s launches; (b) the traced event loop under a
@@ -111,7 +119,11 @@ Phases (any mismatch fails the run with a non-zero exit):
    over GR(2^32, 4)): the exact int32 product under 12 dead workers (a
    non-prefix live set) equals ``torch._int_mm`` of the int8 operands (an
    oracle only), and the dequantized output is bit-identical to the run
-   without deaths;
+   without deaths; then at decode batch sizes (``QUANT_DECODE_TOKENS``: 2,
+   8 and 32 tokens) through both projections of that FFN, each call the
+   same bits as without deaths and its exact product equal to the int8
+   product (``torch._int_mm`` past 16 rows, else the int64 product on the
+   CPU), its worker product one ``simt`` launch;
 8. the worker pool: a ``LocalPool`` of 8 CUDA worker processes (each
    worker's hello must name the card) serves ``batch_ep_rmfe`` 2048^3
    through ``coded_matmul(..., backend=PoolBackend(pool))``: (a) all live,
@@ -255,6 +267,15 @@ ROUTES = ("simt", "tc", "skinny", "tower", "tc_left")
 COUNTED = ROUTES + ("limbs", "lift", "stack", "left_lift")
 
 
+# CodedQuantMatmul (phase 7) at decode batch sizes, through both projections
+# of gemma2-2b's FFN (d_model -> d_ff, d_ff -> d_model): the worker product
+# (tokens / 2) x (d / 2) @ (d / 2) x (f / 2) is below TC_MIN_TS rows, so
+# simt takes it (one launch a call); the kernels line's simt row reads the
+# 8-token up-projection
+QUANT_DECODE_TOKENS = (2, 8, 32)
+QUANT_DECODE_LINE = "quantized_t8_up"
+
+
 def _launches(**counts) -> dict:
     """Launches per counted kernel, 0 for those not named."""
     return {**dict.fromkeys(COUNTED, 0), **counts}
@@ -300,8 +321,11 @@ EXPECTED_LAUNCHES = {
     "stream_16": _launches(simt=0, tc=2, skinny=6, limbs=4),
     "stream_9": _launches(tc=1, skinny=6, tower=3, limbs=1, lift=1),
     "stream_24": _launches(simt=0, tc=3, skinny=9, limbs=6),
-    # CodedQuantMatmul: one ep_rmfe1 round (N = 16, GR(2^32, 4))
+    # CodedQuantMatmul: one ep_rmfe1 round (N = 16, GR(2^32, 4)); at decode
+    # batch sizes its worker product on simt
     "quantized": _launches(simt=0, tc=1, skinny=6, limbs=2),
+    **{f"quantized_t{n}_{p}": _launches(simt=1, skinny=6)
+       for n in QUANT_DECODE_TOKENS for p in ("up", "down")},
     # the planner's wider rings (WIDE_PATHS): every worker product on tc
     # through the lift (A's limb pre-pass and B's lift), every encode,
     # decode and pack on skinny, no simt launch.  n = 4 over GR(2^32, (3, 4)):
@@ -388,7 +412,8 @@ QUANT_LIVE = (1, 5, 10, 14)
 # paths of phases 5-7, whose kernel shapes phase 4 times
 SLICE5_PATHS = ("pool_all_live", "pool_kill", "pool_secure", "serve")
 SLICE4_PATHS = ("elastic_all_live", "elastic_traced", "elastic_race", "elastic_secure",
-                "stream_16", "stream_9", "stream_24", "quantized")
+                "stream_16", "stream_9", "stream_24", "quantized",
+                *(f"quantized_t{n}_{p}" for n in QUANT_DECODE_TOKENS for p in ("up", "down")))
 RING_SPECS = [(2, 32, ()), (2, 32, (3,)), (2, 32, (4,)), (2, 16, (5,)), (2, 8, (2, 3)),
               (2, 32, (16,)), (2, 32, (3, 5)), (2, 32, (3, 7)), (2, 31, (3, 7))]
 # the rings the tc route lifts since the planner's wider rings moved off
@@ -542,6 +567,7 @@ def phase_env_build(report: dict) -> None:
         TC_LEFT_DEPTH,
         TC_LIFT_TOWERS,
         kernel_tile,
+        simt_grid,
         skinny_cols,
         skinny_configs,
         skinny_block,
@@ -575,8 +601,8 @@ def phase_env_build(report: dict) -> None:
     usage = ptxas_usage()
     log("ptxas " + json.dumps(usage, separators=(",", ":")))
     report["ptxas"] = usage
-    for route in ("simt", "tc", "tc_left", "skinny", "tower", "limbs_rows", "limbs_cols", "lift",
-                  "stack", "left_lift"):
+    for route in ("simt", "simt_thin", "tc", "tc_left", "skinny", "tower", "limbs_rows",
+                  "limbs_cols", "lift", "stack", "left_lift"):
         if not any(k.startswith(route + "(") for k in usage):
             fail(f"no ptxas report for the {route} kernels")
     # the tc kernel's warpgroups trade registers with setmaxnreg (producer
@@ -591,21 +617,33 @@ def phase_env_build(report: dict) -> None:
         for line in (ROOT / "build" / "kernels" / f"{source}.ptxas.txt").read_text().splitlines()
         if "warning" in line.lower()})
     log(f"ptxas tc and tc_left warnings: {report['ptxas_tc_warnings']}")
-    for route in ("stack", "left_lift", "lift", "tc_left"):  # tc_left's kernels, tc's lift
+    # tc_left's kernels, tc's lift, simt's thin kernel
+    for route in ("stack", "left_lift", "lift", "tc_left", "simt_thin"):
         log(f"ptxas {route}: " + json.dumps({k: v for k, v in usage.items()
                                             if k.startswith(route + "(")}))
     spills = {k: v for k, v in usage.items() if v.get("spill_st") or v.get("spill_ld")}
     report["ptxas_spills"] = spills
     if spills:
         fail(f"ptxas reports spills: {spills}")
-    # the library's own tile and instantiation choices must match the mirrors
-    for spec in RING_SPECS:
+    # the library's own tile and instantiation choices must match the mirrors:
+    # simt's tile per t (its thin kernel's up to 64 rows over GR(2^e, D <= 4),
+    # else its tile kernel's) and its grid per call and SM count
+    for spec in RING_SPECS + [(2, 32, (2,)), (2, 32, (4,))]:
         ring = make_ring(*spec)
-        bm, bn, bk = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
-        if lib.gr_matmul_tile(*tower_shape(ring), bm, bn, bk) != 0:
-            fail(f"no simt instantiation for {ring}")
-        if (bm.value, bn.value, bk.value) != kernel_tile(ring):
-            fail(f"simt tile mirror {kernel_tile(ring)} != library {(bm.value, bn.value, bk.value)}")
+        for t in SIMT_TS + (64, 1024):
+            bm, bn, bk = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
+            if lib.gr_matmul_tile(*tower_shape(ring), t, bm, bn, bk) != 0:
+                fail(f"no simt instantiation for {ring}")
+            if (bm.value, bn.value, bk.value) != kernel_tile(ring, t):
+                fail(f"simt tile mirror {kernel_tile(ring, t)} != library "
+                     f"{(bm.value, bn.value, bk.value)} for {ring} at t={t}")
+        for b, t, r, s in SIMT_GRID_CALLS:
+            for sms in (132, 114, 7):
+                want, got = simt_grid(ring, b, t, r, s, sms), _library_simt_grid(lib, ring, b, t, r,
+                                                                                  s, sms)
+                if got != want:
+                    fail(f"simt grid mirror {want} != library {got} for {ring} at "
+                         f"{(b, t, r, s)} on {sms} SMs")
     towers = [(d, 1) for d in range(1, 17)] + [(2, 3), (2, 5), (2, 7), (3, 2), (3, 4), (3, 5),
                                                 (4, 3), (5, 2), (5, 3), (7, 2), (3, 7)]
     if lib.gr_matmul_tc_depth() != TC_DEPTH:
@@ -837,6 +875,7 @@ def _timing_row(ring, A, B, route: str, plain_ms: float, plain_batch=None, rival
     from repro_torch.kernels import gr_matmul_tower_ref, run_route
     from repro_torch.kernels.build import load_library
     from repro_torch.kernels.gr_matmul import (
+        simt_grid,
         tc_left_default,
         tc_left_grid,
         tc_left_layout,
@@ -942,6 +981,14 @@ def _timing_row(ring, A, B, route: str, plain_ms: float, plain_batch=None, rival
         row["int8_yardstick_ms"], row["int8_yardstick"] = _int8_yardstick_ms(ring, b, t, r, s)
     if route == "tower":  # the kernel's own plain version (A lifted, no fold)
         row["tower_plain_ms"] = cuda_ms(lambda: gr_matmul_tower_ref(A, B, ring))
+    if route == "simt":  # which kernel, its grid, and the int8 yardstick where it applies
+        sms = torch.cuda.get_device_properties(0).multi_processor_count
+        grid = simt_grid(ring, b, t, r, s, sms)
+        row["grid"] = dict(zip(("thin", "blocks", "t_chunks", "s_tiles", "splits", "rc", "nn",
+                                "wm", "wn", "smem"), grid), sms=sms)
+        if grid != _library_simt_grid(load_library(), ring, b, t, r, s, sms):
+            fail(f"simt grid mirror {grid} != library at {(b, t, r, s)} over {ring}")
+        row["int8_yardstick_ms"], row["int8_yardstick"] = _int8_yardstick_ms(ring, b, t, r, s)
     return row
 
 
@@ -963,6 +1010,71 @@ LEFT_LINE_CALL = ((3, 7), (32, 32))
 # depth whose A streams, 7 million columns
 LEFT_GRID_CALLS = ((1, 64, 4, 1 << 20), (1, 64, 8, 1 << 19), (1, 32, 32, 1 << 17),
                    (1, 16, 33, 1 << 18), (5, 3, 2, 1000), (1, 64, 700, 80), (2, 1, 1, 7 << 20))
+
+
+# simt at every instantiation (phase 2): every tower of GR_TOWERS
+# (csrc/gr_matmul.cu) at these t, e = 32 and 31, a ragged r past two
+# 32-row stages (R split where the grid is small) and a ragged s; over
+# GR(2^e, D <= 4) the t reach every (D, rc, nn, wm) of the thin kernel (t =
+# 8, 24: two m16 tiles at D = 3, 4 and at D = 1) and, past 64, its tile
+# kernel
+SIMT_TOWERS = [(d, 1) for d in range(1, 17)] + [(2, 3), (2, 5), (2, 7), (3, 2), (3, 4), (3, 5),
+                                                (4, 3), (5, 2), (5, 3), (7, 2), (3, 7)]
+SIMT_TS = (1, 4, 8, 16, 24, 48, 63, 65)
+SIMT_R, SIMT_S = 70, 77
+# the thin kernel's R splits past 2^31 and 2^32 in a split's chain of
+# all-0xFF byte products (4 limb pairs of 255^2 at shift 3, D a row of r):
+# (ring degrees, t, r, s); r split 8 ways over one s tile
+SIMT_WRAP_CASES = [((4,), 16, 20480, 64), ((4,), 16, 40960, 64), ((), 16, 160000, 32),
+                   ((3,), 48, 40000, 32)]
+# calls (b, t, r, s) at which phase 1 holds simt's grid mirror against the
+# library: CodedQuantMatmul's decode-size worker products, ep's 48-row
+# blocks, coded_inference's, a pack, a deep ragged call, one element, and
+# a tile-kernel call
+SIMT_GRID_CALLS = ((16, 1, 1152, 4608), (16, 4, 4608, 1152), (16, 16, 4608, 1152),
+                   (8, 48, 96, 32), (8, 16, 128, 256), (1, 2, 2, 1 << 22), (3, 63, 300, 77),
+                   (1, 1, 1, 1), (8, 1024, 2048, 1024))
+
+
+def _library_simt_grid(lib, ring, b: int, t: int, r: int, s: int, sms: int) -> tuple:
+    """simt's grid as the library reports it (``gr_matmul_simt_grid``)."""
+    import ctypes
+
+    from repro_torch.kernels.gr_matmul import tower_shape
+
+    out = (ctypes.c_longlong * 10)()
+    if lib.gr_matmul_simt_grid(*tower_shape(ring), b, t, r, s, sms, out) != 0:
+        fail(f"no simt grid for {ring}")
+    return tuple(out)
+
+
+def _simt_wrap_check(worst: dict) -> str:
+    """Whether the simt thin kernel's s32 mma.sync accumulators wrap mod
+    2^32 within an R split (the kernel relies on it: no flush), held bit for
+    bit against the plain version on all-0xFF operands (``SIMT_WRAP_CASES``);
+    fails unless they wrap."""
+    import torch
+
+    from repro_torch.core import make_ring
+    from repro_torch.kernels import gr_matmul_ref
+    from repro_torch.kernels.gr_matmul import gr_matmul_simt, simt_grid
+
+    errs = {}
+    for deg, t, r, s in SIMT_WRAP_CASES:
+        ring = make_ring(2, 32, deg)
+        A = torch.full((t, r, ring.D), -1, dtype=torch.int32, device="cuda")
+        B = torch.full((r, s, ring.D), -1, dtype=torch.int32, device="cuda")
+        sms = torch.cuda.get_device_properties(0).multi_processor_count
+        splits = simt_grid(ring, 1, t, r, s, sms)[4]
+        err = max_abs_err(gr_matmul_simt(A, B, ring), gr_matmul_ref(A, B, ring))
+        errs[f"simt {deg} {(t, r, s)} splits={splits}"] = err
+        worst["simt"] = max(worst["simt"], err)
+        del A, B
+    verdict = "wraps" if not any(errs.values()) else "saturates"
+    log(f"simt_accumulate: {verdict} {json.dumps(errs)}")
+    if verdict != "wraps":
+        fail(f"the simt thin kernel's accumulators do not wrap mod 2^32: {errs}")
+    return verdict
 
 
 def _library_left_grid(lib, ring, b: int, t: int, r: int, s: int, config, sms: int) -> tuple:
@@ -1027,6 +1139,7 @@ def phase_kernels(report: dict) -> dict:
 
     from repro_torch.core import make_ring
     from repro_torch.kernels import gr_matmul_ref, pick_route
+    from repro_torch.kernels.gr_matmul import SIMT_THIN_CONFIGS, simt_grid
     from repro_torch.kernels.ops import TC_LEFT_MAX_T, route_takes
 
     rng = np.random.default_rng(SEED)
@@ -1053,6 +1166,26 @@ def phase_kernels(report: dict) -> dict:
             nb, t, r, s = BATCHED[route]
             check(route, ring, (nb,), t, r, s, " (batched)")
             checked[route].append(f"{ring.degrees}:K={ring.K}:{len(shapes) + 1} shapes")
+    # simt at every instantiation: every tower of its tile kernel and every
+    # (D, rc, nn) of its thin kernel, e = 32 and 31, ragged r and s; the thin
+    # kernel once more at eight stages (R split up to 8 ways), batched
+    thin_reached, towers_reached = set(), set()
+    for d0, d1 in SIMT_TOWERS:
+        for e in (32, 31):
+            ring = make_ring(2, e, tuple(d for d in (d0, d1) if d > 1))
+            for t in SIMT_TS:
+                check("simt", ring, (), t, SIMT_R, SIMT_S, " (every instantiation)")
+                grid = simt_grid(ring, 1, t, SIMT_R, SIMT_S, 132)
+                if grid[0]:
+                    thin_reached.add((ring.D, *grid[5:9]))
+                    check("simt", ring, (2,), t, 300, 9, " (thin, R split)")
+                else:
+                    towers_reached.add((d0, d1))
+    if thin_reached != set(SIMT_THIN_CONFIGS) or towers_reached != set(SIMT_TOWERS):
+        fail(f"simt instantiations not all reached: thin {sorted(thin_reached)}, tile "
+             f"{sorted(towers_reached)}")
+    checked["simt"].append(f"every instantiation: {len(SIMT_TOWERS)} towers, thin "
+                           f"{sorted(thin_reached)}, t in {SIMT_TS}, e = 32 and 31")
     # every ring the tc route lifts, at every instantiation of its inner
     # ring, and the widened skinny route at its new t and r
     for spec in LIFT_SPECS:
@@ -1086,6 +1219,7 @@ def phase_kernels(report: dict) -> dict:
     for route in ROUTES:
         log(f"{route} == plain: {checked[route]}")
     report["tc_accumulate"] = _tc_wrap_check(worst)
+    report["simt_accumulate"] = _simt_wrap_check(worst)
     # ElasticStream's step over the (3, 7) tower: each of its ring matmuls
     # on the route pick_route gives it, at every instantiation, and simt
     tower = make_ring(2, 32, (3, 7))
@@ -1779,7 +1913,53 @@ def phase_quantized(report: dict, calls: list) -> dict:
     report["quantized"] = row
     del x, w, y, y_cpu, qx, qw, qw_cols, acc, oracle, A, B, st
     torch.cuda.empty_cache()
-    return by_route
+    decode = report["quantized_decode"] = _quantized_decode(cq, mask, gen, calls)
+    return {rt: n + sum(row["launches_by_route"][rt] for row in decode)
+            for rt, n in by_route.items()}
+
+
+def _quantized_decode(cq, mask, gen, calls) -> list:
+    """``CodedQuantMatmul`` at decode batch sizes (``QUANT_DECODE_TOKENS``)
+    through both projections of gemma2-2b's FFN, 12 of 16 workers dead: each
+    call bit-identical to the run without deaths, its exact product equal to
+    the int8 product (``torch._int_mm`` where it takes the shape, m > 16;
+    else the int64 product on the CPU), the dequantized output that product
+    times the scales; simt takes the worker product (``EXPECTED_LAUNCHES``)."""
+    import torch
+
+    from repro_torch.cdmm import quantize_int8
+
+    _, d_model, d_ff = QUANT_SHAPE
+    rows = []
+    for tokens in QUANT_DECODE_TOKENS:
+        for proj, (d_in, d_out) in (("up", (d_model, d_ff)), ("down", (d_ff, d_model))):
+            name = f"quantized_t{tokens}_{proj}"
+            x = torch.randn((tokens, d_in), generator=gen, device="cuda")
+            w = torch.randn((d_in, d_out), generator=gen, device="cuda")
+            y, by_route, wall = _counted(name, lambda: cq(x, w, mask), calls)
+            if not torch.equal(y.view(torch.int32), cq(x, w).view(torch.int32)):
+                fail(f"{name}: output under dead workers != output without deaths")
+            qx, sx = quantize_int8(x, axis=-1)
+            qw, sw = quantize_int8(w, axis=0)
+            acc = cq.exact_int_matmul(qx, qw, mask)
+            if tokens > 16:  # an oracle only: never on the port's path
+                oracle, how = torch._int_mm(qx, qw.t().contiguous().t()).cpu(), "torch._int_mm"
+            else:
+                oracle = (qx.cpu().to(torch.int64) @ qw.cpu().to(torch.int64)).to(torch.int32)
+                how = "int64 on the CPU"
+            if not torch.equal(acc.cpu(), oracle):
+                fail(f"{name}: exact_int_matmul != the int8 product ({how})")
+            y_cpu = oracle.to(torch.float32) * sx.cpu() * sw.cpu()
+            if not torch.equal(y.cpu().view(torch.int32), y_cpu.view(torch.int32)):
+                fail(f"{name}: dequantized output != acc * sx * sw on the CPU")
+            row = {"path": name, "tokens": tokens, "d_in": d_in, "d_out": d_out,
+                   "launches_by_route": by_route, "first_call_wall_ms": wall, "oracle": how,
+                   "call_ms": cuda_ms(lambda: cq(x, w, mask), iters=5, warmup=1)}
+            log(f"path {json.dumps(row)}")
+            rows.append(row)
+            del x, w, y, y_cpu, qx, qw, acc, oracle
+    torch.cuda.empty_cache()
+    return rows
 
 
 # ---------------------------------------------------------------------------
@@ -3083,11 +3263,19 @@ def _kernel_rows(report: dict, totals: dict) -> list:
          "bound_by": tower["bound_by"], "int32_bound_ms": tower["int32_bound_ms"],
          "simt_ms": tower["simt_ms"], "shape": shape9(tower), "per_shape_ms": d4("tower")},
     ]
+    # simt at CodedQuantMatmul's 8-token worker product (phase 4), its other
+    # timed shapes beside it, and the tile kernel at the main path's workers
+    simt = next(x for x in report["path_kernel_timings"]
+                if x["route"] == "simt" and QUANT_DECODE_LINE in x["paths"])
     return new + [
         {**base, "name": "gr_matmul_simt", "source": src + "gr_matmul.cu",
          "launches": totals["simt"], "max_abs_err": report["kernel_max_abs_err"]["simt"],
-         "ms": w["simt_ms"], "plain_ms": w["plain_ms"], "bound_ms": w["bound_ms"],
-         "bound_by": w["bound_by"], "int32_bound_ms": w["int32_bound_ms"], "shape": shape(w)},
+         "ms": simt["ms"], "plain_ms": simt["plain_ms"], "bound_ms": simt["bound_ms"],
+         "bound_by": simt["bound_by"], "int32_bound_ms": simt["int32_bound_ms"],
+         "int8_yardstick_ms": simt["int8_yardstick_ms"], "grid": simt["grid"],
+         "shape": f"{simt['a']} @ {simt['b']} over GR(2^32) degrees {simt['ring']}",
+         "per_shape_ms": d4("simt"), "tile_kernel_ms": w["simt_ms"],
+         "tile_kernel_shape": shape(w)},
         {**base, "name": "gr_matmul_tc", "source": src + "gr_matmul_tc.cu",
          "launches": totals["tc"], "max_abs_err": report["kernel_max_abs_err"]["tc"],
          "ms": w["ms"], "plain_ms": w["plain_ms"], "bound_ms": w["bound_ms"],

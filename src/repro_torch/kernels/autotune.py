@@ -64,6 +64,8 @@ from .gr_matmul import (
     SIMT_WIDE_TOWERS,
     SMEM_BLOCK_BYTES,
     kernel_tile,
+    simt_grid,
+    simt_thin,
     skinny_block,
     skinny_cols,
     skinny_configs,
@@ -342,13 +344,14 @@ def cached_blocks(ring, t: int, r: int, s: int, device=None, *,
 
 
 # ptxas entry names -> route; the template arguments follow as Li<n>E
-# (tc: d0, d1, bn, stages, L; skinny: d0, d1, threads, cm, row groups; tower:
-# d0, d1, threads, tc, cpt)
-_ENTRY = re.compile(r"Compiling entry function '.*?(gr_matmul_kernel|gr_matmul_tc_kernel|"
-                    r"gr_matmul_tc_left_kernel|gr_matmul_skinny_kernel|gr_matmul_tower_kernel|"
-                    r"limbs_rows_kernel|limbs_cols_kernel|lift_cols_kernel|stack_cols_kernel|"
-                    r"left_lift_kernel)(?:I((?:Li\d+E)+)|E)")
-_ROUTE_OF = {"gr_matmul_kernel": "simt", "gr_matmul_tc_kernel": "tc",
+# (simt: d0, d1; simt_thin: D, rc, nn, wm, wn; tc: d0, d1, bn, stages, L;
+# skinny: d0, d1, threads, cm, row groups; tower: d0, d1, threads, tc, cpt)
+_ENTRY = re.compile(r"Compiling entry function '.*?(gr_matmul_kernel|simt_thin_kernel|"
+                    r"gr_matmul_tc_kernel|gr_matmul_tc_left_kernel|gr_matmul_skinny_kernel|"
+                    r"gr_matmul_tower_kernel|limbs_rows_kernel|limbs_cols_kernel|lift_cols_kernel|"
+                    r"stack_cols_kernel|left_lift_kernel)(?:I((?:Li\d+E)+)|E)")
+_ROUTE_OF = {"gr_matmul_kernel": "simt", "simt_thin_kernel": "simt_thin",
+             "gr_matmul_tc_kernel": "tc",
              "gr_matmul_tc_left_kernel": "tc_left",
              "gr_matmul_skinny_kernel": "skinny", "gr_matmul_tower_kernel": "tower",
              "limbs_rows_kernel": "limbs_rows", "limbs_cols_kernel": "limbs_cols",
@@ -384,7 +387,9 @@ def ptxas_usage(build_dir: Path = BUILD_DIR) -> Dict[str, dict]:
 
 def _usage_of(usage: dict, route: str, ring, config, t: int = 1, r: int = 1) -> dict:
     tower = tower_shape(ring)
-    if route == "simt":  # one per tower
+    if route == "simt" and simt_thin(ring, t):  # the thin kernel's (D, rc, nn, wm, wn)
+        route, args = "simt_thin", (ring.D, *simt_grid(ring, 1, t, r, 1, 1)[5:9])
+    elif route == "simt":  # the tile kernel: one per tower
         args = tuple(tower)
     elif route == "tc":  # the main kernel of the ring, or of a lifted tower's inner ring
         args = (tc_view(*tower)[0], 1, *config, n_limbs(ring))

@@ -62,8 +62,11 @@ def _declare(lib: ctypes.CDLL) -> None:
     vp, ci, u32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32
     fold = ctypes.POINTER(ctypes.c_uint32)
     ip = ctypes.POINTER(ctypes.c_int)
-    lib.gr_matmul_planar_u32.argtypes = [vp, vp, vp, ci, ci, ci, ci, ci, ci, fold, u32, vp]
-    lib.gr_matmul_tile.argtypes = [ci, ci, ip, ip, ip]
+    lib.gr_matmul_simt_u32.argtypes = [vp, vp, vp, vp, ci, ci, ci, ci, ci, ci, fold, u32, ci, ci,
+                                       ci, vp]
+    lib.gr_matmul_tile.argtypes = [ci, ci, ci, ip, ip, ip]
+    lib.gr_matmul_simt_grid.argtypes = [ci, ci, ci, ci, ci, ci, ci,
+                                        ctypes.POINTER(ctypes.c_longlong)]
     lib.gr_matmul_tc_limbs.argtypes = [vp, vp, ci, ci, ci, ci, ci, ci, ci, ci, vp]
     lib.gr_matmul_tc_u32.argtypes = [vp, vp, vp, ci, ci, ci, ci, ci, ci, ci, ci, ci, ci, ci,
                                      fold, u32, vp]
@@ -89,9 +92,10 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.gr_matmul_tower_configs.argtypes = [ci, ci, ip, ci]
     lib.gr_matmul_tower_smem.argtypes = [ci, ci, ci, ci]
     lib.gr_matmul_tower_smem.restype = ctypes.c_int64
-    for fn in ("gr_matmul_planar_u32", "gr_matmul_tile", "gr_matmul_tc_limbs",
-               "gr_matmul_tc_lift", "gr_matmul_tc_stack", "gr_matmul_tc_u32", "gr_matmul_tc_configs",
-               "gr_matmul_tc_smem", "gr_matmul_tc_depth", "gr_matmul_tc_left_u32",
+    for fn in ("gr_matmul_simt_u32", "gr_matmul_tile", "gr_matmul_simt_grid",
+               "gr_matmul_tc_limbs", "gr_matmul_tc_lift", "gr_matmul_tc_stack", "gr_matmul_tc_u32",
+               "gr_matmul_tc_configs", "gr_matmul_tc_smem", "gr_matmul_tc_depth",
+               "gr_matmul_tc_left_u32",
                "gr_matmul_tc_left_lift", "gr_matmul_tc_left_configs", "gr_matmul_tc_left_layout",
                "gr_matmul_tc_left_grid", "gr_matmul_tc_left_depth",
                "gr_matmul_skinny_u32", "gr_matmul_skinny_cols", "gr_matmul_skinny_configs",

@@ -6,9 +6,15 @@ All five replace the Pallas TPU kernel
 ``gr_matmul_planar``); each is hand-written CUDA C++ under ``csrc/`` whose
 header notes its design and what bounds it:
 
-* ``simt`` (``csrc/gr_matmul.cu``): planar layout, uint32 multiply-adds on
-  the CUDA cores; every tower with D <= 16 and the towers of
-  ``SIMT_WIDE_TOWERS``, every shape.
+* ``simt`` (``csrc/gr_matmul.cu``): interleaved layout, every tower with
+  D <= 16 and the towers of ``SIMT_WIDE_TOWERS``, every shape, in two
+  kernels (``simt_thin``): up to ``SIMT_THIN_MAX_T`` = 64 rows over
+  GR(2^e, D <= 4), a thin kernel on the int8 tensor cores (``mma.sync``
+  m16n8k32 u8 x u8 -> s32 on A's multiplication matrices M(A) over Z_2^e,
+  lifted in the kernel a stage at a time, B read once as it lies through
+  a ring of ``cp.async`` stages, R split where the grid is small:
+  ``simt_grid``, ``ref.gr_matmul_simt_ref``); every other call on a tile
+  kernel of uint32 multiply-adds on the CUDA cores.
 * ``tc`` (``csrc/gr_matmul_tc.cu``): interleaved layout, a limb pre-pass
   (counted as ``limbs``) into u8 planes, then a warp-specialised kernel:
   TMA loads into a ring of stages, ``wgmma`` u8 x u8 -> s32 on the int8
@@ -78,6 +84,9 @@ __all__ = [
     "ROUTES",
     "SKINNY_MAX_T",
     "SKINNY_MAX_R",
+    "SIMT_THIN_CONFIGS",
+    "SIMT_THIN_MAX_D",
+    "SIMT_THIN_MAX_T",
     "SIMT_WIDE_TOWERS",
     "SKINNY_CONFIGS",
     "SKINNY_GROUPS",
@@ -96,12 +105,15 @@ __all__ = [
     "TOWER_MAX_TR",
     "counters",
     "gr_matmul_planar",
+    "gr_matmul_simt",
     "gr_matmul_skinny",
     "gr_matmul_tc",
     "gr_matmul_tc_left",
     "gr_matmul_tower",
     "kernel_tile",
+    "simt_grid",
     "simt_instantiated",
+    "simt_thin",
     "skinny_cols",
     "skinny_configs",
     "skinny_block",
@@ -134,6 +146,18 @@ MAX_D = 16
 # (mirrors the tail of GR_TOWERS in csrc/gr_matmul.cu)
 SIMT_WIDE_TOWERS = ((3, 7),)
 ROUTES = ("simt", "tc", "skinny", "tower", "tc_left")
+# simt's thin kernel takes single-level rings with D <= SIMT_THIN_MAX_D up
+# to SIMT_THIN_MAX_T rows (mirror kMaxD and kMaxT in csrc/gr_matmul.cu);
+# its (D, rc, nn, wm, wn) instantiations: wm x wn warps of rc m16 tiles x
+# nn n8 tiles (mirrors THIN_CONFIGS there)
+SIMT_THIN_MAX_D, SIMT_THIN_MAX_T = 4, 64
+SIMT_THIN_CONFIGS = tuple((d, *c) for d in range(1, SIMT_THIN_MAX_D + 1)
+                          for c in ((1, {1: 4, 2: 2}.get(d, 1), 1, 4),
+                                    (2, {1: 2, 2: 2}.get(d, 1), 1, 4), (2, 1, 2, 4)))
+# the thin kernel's stage depth (rows of r), ring of stages, rows of M(A) a
+# block, words past each B row, R splits at most, blocks an SM (mirror
+# kBK, kStages, kRows, kPad, kMaxSplits, kBlocksPerSm)
+_THIN_BK, _THIN_STAGES, _THIN_ROWS, _THIN_PAD, _THIN_SPLITS, _THIN_PER_SM = 32, 3, 64, 8, 8, 2
 # the tc routes' pre-passes: A's (and a single-level B's) limb planes, the
 # limb planes of a lifted tower's M(B) (tc), B's limb planes stacked along
 # (r, k) (tc_left), and the limb planes of M(A) (tc_left)
@@ -263,6 +287,70 @@ def simt_instantiated(d0: int, d1: int) -> bool:
     """Whether the simt kernel has an instantiation for the tower (d0, d1);
     mirrors ``GR_TOWERS`` in ``csrc/gr_matmul.cu``."""
     return d0 * d1 <= MAX_D or (d0, d1) in SIMT_WIDE_TOWERS
+
+
+def simt_thin(ring, t: int) -> bool:
+    """Whether simt runs a call of t rows over ``ring`` on its thin kernel
+    (the int8 tensor cores): a single-level ring with D <= 4 and t <= 64;
+    the tile kernel (CUDA cores) takes every other call.  Mirrors
+    ``thin_applies`` in ``csrc/gr_matmul.cu``."""
+    d0, d1 = tower_shape(ring)
+    return d1 == 1 and d0 <= SIMT_THIN_MAX_D and t <= SIMT_THIN_MAX_T
+
+
+def _thin_splits(units: int, sms: int, n_st: int) -> int:
+    # one split where the units fill four waves of two blocks an SM; else
+    # the fewest up to 8 (and the stages) whose last wave is 90% full,
+    # else the fullest (mirrors choose_splits)
+    slots = _THIN_PER_SM * sms
+    most = min(n_st, _THIN_SPLITS)
+    if units >= 4 * slots or most <= 1:
+        return 1
+    best, best_num, best_den = 1, units, -(-units // slots) * slots
+    for s in range(1, most + 1):
+        num = units * s
+        den = -(-num // slots) * slots
+        if 10 * num >= 9 * den:
+            return s
+        if num * best_den > best_num * den:
+            best, best_num, best_den = s, num, den
+    return best
+
+
+def simt_grid(ring, b: int, t: int, r: int, s: int, sms: int) -> Tuple[int, ...]:
+    """The simt launch of a (b?, t, r) x (r, s) call over ``ring`` on a card
+    of ``sms`` SMs, as ``gr_matmul_simt_grid`` in ``csrc/gr_matmul.cu``
+    reports it: (thin, blocks, t chunks, s tiles, R splits, rc, nn, wm, wn,
+    dynamic shared memory).
+
+    The thin kernel (:func:`simt_thin`): blocks of floor(64 / D) whole t
+    (one to four m16 tiles of M(A)), wm x wn warps of rc m16 x nn n8 tiles
+    (one row of four warps over one or two m16 tiles, else two rows of four
+    on two m16 tiles and one n8 tile each), B stage rows of at most 128
+    words, a ring of 3 stages of 32 rows of r; R split up to 8 ways where
+    the chunks x s tiles x batch fill fewer than four waves of two blocks
+    an SM.
+    The tile kernel: (0, blocks, t tiles, s tiles, 1, 0, 0, 0, 0, 0)."""
+    if not simt_thin(ring, t):
+        bm, bn, _ = kernel_tile(ring)
+        rows, cols = -(-t // bm), -(-s // bn)
+        return (0, rows * cols * b, rows, cols, 1, 0, 0, 0, 0, 0)
+    D = ring.D
+    t_blk = min(t, _THIN_ROWS // D)
+    mt = -(-D * t_blk // 16)
+    bn_max = 128 if D == 1 else 64 if D == 2 else 32
+    if mt <= 2:
+        rc, wm, wn = mt, 1, 4
+        nn = min(bn_max // 32, 4 // rc)
+    else:
+        rc, wm, wn, nn = 2, 2, 4, 1
+    bn = 8 * wn * nn
+    chunks, cols, n_st = -(-t // t_blk), -(-s // bn), -(-r // _THIN_BK)
+    rsb = bn * D + _THIN_PAD
+    smem = 4 * _THIN_STAGES * (_THIN_BK * rsb + t_blk * _THIN_BK * D) + rc * wm * D * 2048
+    units = chunks * cols * b
+    splits = min(_thin_splits(units, sms, n_st), max(1, min(n_st, _THIN_SPLITS)))
+    return (1, units * splits, chunks, cols, splits, rc, nn, wm, wn, smem)
 
 
 def tc_instantiated(d0: int, d1: int) -> bool:
@@ -456,14 +544,19 @@ def tc_padded(t: int, r: int, s: int) -> Tuple[int, int, int]:
     return -(-t // TC_PAD) * TC_PAD, -(-r // TC_DEPTH) * TC_DEPTH, -(-s // TC_PAD) * TC_PAD
 
 
-def kernel_tile(ring) -> Tuple[int, int, int]:
-    """(BM, BN, BK) of the kernel instantiation for ``ring``; mirrors the
-    ``Cfg`` template in ``csrc/gr_matmul.cu`` (checked against the built
-    library by ``chip_smoke.py``)."""
+def kernel_tile(ring, t: Optional[int] = None) -> Tuple[int, int, int]:
+    """The simt tile of a call of ``t`` rows over ``ring`` (None: past 64
+    rows): the thin kernel's (t a block, BN, 32 rows of r a stage) where
+    :func:`simt_thin`, else the tile kernel's (BM, BN, BK), which mirrors
+    the ``Cfg`` template in ``csrc/gr_matmul.cu`` (both checked against the
+    built library by ``chip_smoke.py``)."""
+    if t is not None and simt_thin(ring, t):
+        grid = simt_grid(ring, 1, t, 1, 1, 1)
+        return min(t, _THIN_ROWS // ring.D), 8 * grid[8] * grid[6], _THIN_BK
     D, K = ring.D, ring.K
     tm = next((t for t in (4, 2) if K * t * t + 2 * D * t <= 128), 1)
     bm = 16 * tm
-    bk = 16 if 2 * D * bm * 16 * 4 <= 48 * 1024 else 8
+    bk = 16 if D * 16 * 2 * (bm + 1) * 4 <= 48 * 1024 else 8
     return bm, bm, bk
 
 
@@ -514,45 +607,90 @@ def _check_operand(x: torch.Tensor, name: str) -> None:
 
 
 def gr_matmul_planar(A: torch.Tensor, B: torch.Tensor, ring) -> torch.Tensor:
-    """The general route (``simt``) on the card: planar A (b, D, T, R),
-    B (b, D, R, S) -> C (b, D, T, S); the batch axis b is optional (then
-    3-D in, 3-D out).
+    """The reference's planar interface on the card: A (b?, D, T, R),
+    B (b?, D, R, S) -> C (b?, D, T, S), through :func:`gr_matmul_simt` on
+    interleaved copies (the route itself takes the operands as they lie).
 
     Launches the CUDA kernel or raises; it never falls back.
     """
-    if ring.p != 2 or ring.e > 32:
-        raise ValueError("kernel supports the machine-word case p=2, e<=32")
-    if not simt_instantiated(*tower_shape(ring)):
-        raise ValueError(f"{ring}: the simt kernel has no instantiation for its tower")
-    squeeze = A.dim() == 3
-    if squeeze:
-        A, B = A.unsqueeze(0), B.unsqueeze(0)
-    if A.dim() != 4 or B.dim() != 4:
-        raise ValueError(f"expected (b, D, T, R) x (b, D, R, S), got {A.shape} x {B.shape}")
-    nb, D, T, R = A.shape
-    nb2, D2, R2, S = B.shape
-    if (nb, D, R) != (nb2, D2, R2) or D != ring.D:
-        raise ValueError(f"shape mismatch {tuple(A.shape)} x {tuple(B.shape)} for {ring}")
+    if A.dim() not in (3, 4) or B.dim() != A.dim():
+        raise ValueError(f"expected (b?, D, T, R) x (b?, D, R, S), got {A.shape} x {B.shape}")
     _check_operand(A, "A")
     _check_operand(B, "B")
-    if A.device != B.device:
-        raise ValueError(f"A on {A.device}, B on {B.device}")
-    _, fold = _check_layout(ring)
-    if -(-T // kernel_tile(ring)[0]) > 65535 or nb > 65535 or max(T, R, S) >= 2**31 - 256:
-        raise ValueError(f"shape {tuple(A.shape)} x {tuple(B.shape)} exceeds the launch grid")
-    C = torch.empty((nb, D, T, S), dtype=torch.int32, device=A.device)
-    if C.numel() == 0:
-        return C[0] if squeeze else C
-    lib = load_library()
+    C = gr_matmul_simt(A.movedim(-3, -1).contiguous(), B.movedim(-3, -1).contiguous(), ring)
+    return C.movedim(-1, -3).contiguous()
+
+
+_sms: dict = {}
+
+
+def _sm_count(device: torch.device) -> int:
+    index = device.index if device.index is not None else torch.cuda.current_device()
+    if index not in _sms:
+        _sms[index] = torch.cuda.get_device_properties(index).multi_processor_count
+    return _sms[index]
+
+
+def _thin_modulus(ring) -> None:
+    """The thin kernel lifts A by x^(k+1) a = x (x^k a) with FOLD's row D
+    as x^D: make sure ``ring``'s FOLD is that of a single-level extension
+    (rows 0..D-1 the identity, row c + 1 = x times row c), cached per ring."""
+    key = ("thin", ring)
+    with _layouts_lock:
+        if key in _layouts:
+            return
+        D = ring.D
+        fold = ring.FOLD_U32.astype(np.uint64)
+        ok = np.array_equal(fold[:D], np.eye(D, dtype=np.uint64))
+        for c in range(D, ring.K - 1):
+            shifted = np.concatenate((np.zeros(1, np.uint64), fold[c, :-1])) + fold[c, -1] * fold[D]
+            ok = ok and np.array_equal(shifted & np.uint64(0xFFFFFFFF), fold[c + 1])
+        if not ok:
+            raise ValueError(f"{ring}: FOLD is not a single-level extension's; the thin kernel "
+                             "cannot lift A by its modulus")
+        _layouts[key] = True
+
+
+def gr_matmul_simt(A: torch.Tensor, B: torch.Tensor, ring) -> torch.Tensor:
+    """The general route (``simt``) on the card: A (b?, t, r, D) x B (b?, r,
+    s, D) -> C (b?, t, s, D), interleaved int32, read as they lie, for
+    every tower with D <= 16 and the towers of ``SIMT_WIDE_TOWERS``, at any
+    shape.  Its thin kernel takes the calls of :func:`simt_thin` (the int8
+    tensor cores, R split as :func:`simt_grid` says: then C starts at zero
+    and, for e < 32, a counter a tile lets the last split mask it), its tile
+    kernel the rest.  The plain version is ``ref.gr_matmul_simt_ref``.
+
+    Launches the CUDA kernel or raises; it never falls back.
+    """
+    A, B, squeeze, (nb, T, R, S) = _interleaved(A, B, ring)
     d0, d1 = tower_shape(ring)
-    ctx, stream = _stream(A.device)
-    with ctx:
-        err = lib.gr_matmul_planar_u32(
-            A.data_ptr(), B.data_ptr(), C.data_ptr(), nb, T, R, S, d0, d1,
-            fold, _mask(ring), stream,
-        )
-    _check_launch(err, "simt")
-    counters.count("simt")
+    if not simt_instantiated(d0, d1):
+        raise ValueError(f"{ring}: the simt kernel has no instantiation for its tower")
+    _, fold = _check_layout(ring)
+    thin = simt_thin(ring, T)
+    if thin:
+        _thin_modulus(ring)
+    elif -(-T // kernel_tile(ring)[0]) > 65535:
+        raise ValueError(f"shape {tuple(A.shape)} x {tuple(B.shape)} exceeds the launch grid")
+    grid = simt_grid(ring, nb, T, R, S, _sm_count(A.device)) if thin else None
+    if thin and grid[1] > 2**31 - 1:
+        raise ValueError(f"shape {tuple(A.shape)} x {tuple(B.shape)} exceeds the launch grid")
+    split = thin and grid[4] > 1
+    alloc = torch.zeros if split else torch.empty
+    C = alloc((nb, T, S, ring.D), dtype=torch.int32, device=A.device)
+    if C.numel():
+        done = None
+        if split and ring.e < 32:  # a counter per (batch, s tile, t chunk)
+            done = torch.zeros(nb * grid[3] * grid[2], dtype=torch.int32, device=A.device)
+        lib = load_library()
+        ctx, stream = _stream(A.device)
+        with ctx:
+            err = lib.gr_matmul_simt_u32(
+                A.data_ptr(), B.data_ptr(), C.data_ptr(), None if done is None else done.data_ptr(),
+                nb, T, R, S, d0, d1, fold, _mask(ring), n_limbs(ring), _sm_count(A.device),
+                grid[4] if thin else 1, stream)
+        _check_launch(err, "simt")
+        counters.count("simt")
     return C[0] if squeeze else C
 
 

@@ -37,10 +37,17 @@ The routes' envelope (what :func:`route_takes` says each kernel takes;
   (2, 3), (2, 5), (2, 7), (3, 2), (3, 4), (3, 5), (4, 3), (3, 7) over
   GR(2^e, D0) (D1 = 1 for a ring taken as it is);
 * ``simt`` for everything else: products below ``TC_MIN_TS`` that the
-  bandwidth routes do not take (a 48 x 96 worker block, say), the towers
+  bandwidth routes do not take (the worker products of ``CodedQuantMatmul``
+  below 128 tokens, ep's 48 x 96 worker blocks at 96^3), the towers
   (5, 2), (5, 3) and (7, 2), whose inner degree has no tc instantiation,
   and a lifted ring's calls with D1 t < 64 or s < 64 that ``skinny`` and
-  ``tower`` do not take;
+  ``tower`` do not take.  Two kernels (``gr_matmul.simt_thin``): t <= 64
+  over GR(2^e, D <= 4) on the int8 tensor cores (``mma.sync`` on A's
+  multiplication matrices over Z_2^e, lifted in the kernel a stage at a
+  time, B streamed once as it lies; R split where the grid is small:
+  ``gr_matmul.simt_grid``); every other call on a tile kernel of uint32
+  multiply-adds on the CUDA cores (``csrc/gr_matmul.cu`` notes why each
+  ring takes which);
 * CUDA tensors of a ring outside the envelope raise ValueError: on the
   card a ring matmul runs on a kernel or not at all (the reference hands
   such rings to XLA, ``repro/kernels/ops.py:66``).  The envelope is the
@@ -54,10 +61,9 @@ route's default.  ``tc_left`` runs the tile width
 ``gr_matmul.tc_left_default`` picks from its layout (the autotuner does not
 time it), ``simt`` its static tile.
 
-``tc``, ``tc_left``, ``skinny`` and ``tower`` take the interleaved (t, r, D) layout as
-it is; ``simt`` takes planar (D, t, r) copies.  The kernels mask ragged edges
-themselves (``tc`` pads inside its limb pre-pass), so nothing is padded
-here.
+Every route takes the interleaved (t, r, D) layout as it is.  The kernels
+mask ragged edges themselves (``tc`` pads inside its limb pre-pass), so
+nothing is padded or copied here.
 """
 from __future__ import annotations
 
@@ -73,7 +79,7 @@ from .gr_matmul import (
     SMEM_BLOCK_BYTES,
     TC_LEFT_MAX_T,
     TOWER_MAX_TR,
-    gr_matmul_planar,
+    gr_matmul_simt,
     gr_matmul_skinny,
     gr_matmul_tc,
     gr_matmul_tc_left,
@@ -122,8 +128,9 @@ def pick_blocks(ring, t: Optional[int] = None, r: Optional[int] = None,
     """The configuration a launch of ``route`` (None: ``pick_route``'s) at
     (t, r, s) over ``ring`` on ``device`` (None: the current card) uses:
 
-    * ``simt``, or no shape given: the static (BM, BN, BK) tile of the
-      ring's instantiation;
+    * ``simt``: its static tile at t (``gr_matmul.kernel_tile``: the thin
+      kernel's (t a block, BN, 32) or the tile kernel's (BM, BN, BK)); no
+      shape given: the tile kernel's;
     * ``tc`` (bn, stages), ``skinny`` (threads, cm) and ``tower``
       (threads, tc, cpt): the tuned entry of the autotune cache for this
       card, ring and shape, else the route's default (its first
@@ -137,7 +144,7 @@ def pick_blocks(ring, t: Optional[int] = None, r: Optional[int] = None,
         return kernel_tile(ring)
     route = route or pick_route(ring, t, r, s)
     if route == "simt":
-        return kernel_tile(ring)
+        return kernel_tile(ring, t)
     if route == "tc_left":
         return tc_left_default(ring, r) if tc_left_configs(*tower_shape(ring)) else None
     # imported here: ``python -m repro_torch.kernels.autotune`` runs it as __main__
@@ -220,9 +227,7 @@ def run_route(route: str, A: torch.Tensor, B: torch.Tensor, ring, config=None) -
     if route == "tower":
         return gr_matmul_tower(A, B, ring, config)
     if route == "simt":
-        Ap = A.movedim(-1, -3).contiguous()
-        Bp = B.movedim(-1, -3).contiguous()
-        return gr_matmul_planar(Ap, Bp, ring).movedim(-3, -1)
+        return gr_matmul_simt(A, B, ring)
     raise ValueError(f"unknown route {route!r}")
 
 

@@ -24,6 +24,7 @@ __all__ = [
     "gr_matmul_ref",
     "gr_matmul_planar_ref",
     "gr_matmul_limbs_ref",
+    "gr_matmul_simt_ref",
     "gr_matmul_tc_left_ref",
     "gr_matmul_tc_ref",
     "gr_matmul_tower_ref",
@@ -40,6 +41,7 @@ __all__ = [
     "tc_lifted",
     "tc_planes_ref",
     "tc_view",
+    "thin_lift_ref",
     "to_i32",
     "u32_to_signed",
 ]
@@ -183,6 +185,85 @@ def gr_matmul_limbs_ref(A: torch.Tensor, B: torch.Tensor, ring) -> torch.Tensor:
     for (c, sh), a in acc.items():
         conv[c] = (conv[c] + (a << (8 * sh))) & _U32
     return _fold(conv, ring).movedim(-3, -1)
+
+
+# -- the simt route's thin kernel: M(A) lifted a stage at a time, mma.sync -----
+
+# rows of r a stage of the thin kernel (mirrors kBK in csrc/gr_matmul.cu)
+SIMT_THIN_DEPTH = 32
+
+
+def thin_lift_ref(A: torch.Tensor, ring) -> torch.Tensor:
+    """M(A) as the ``simt`` thin kernel lifts it: A (..., t, r, D) over a
+    single-level GR(2^e, D) -> (..., t, r, k, m) int64 in [0, 2^32),
+    M(a)[k, m] = (x^k a)_m by the recurrence x^(k+1) a = x (x^k a): shift
+    the coefficients up one place and add the top one times x^D, FOLD's row
+    D (D - 1 multiply-adds a coefficient, mod 2^32)."""
+    D = ring.D
+    v = A.to(torch.int64) & _U32
+    cols = [v]
+    if D > 1:
+        xd = torch.tensor([u32_to_signed(int(c)) for c in ring.FOLD_U32[D]], dtype=torch.int64,
+                          device=A.device)
+    for _ in range(1, D):
+        # signed 32-bit lifts of both factors: |product| < 2^62
+        top = to_i32(v[..., D - 1:]).to(torch.int64)
+        v = (F.pad(v[..., :-1], (1, 0)) + ((top * xd) & _U32)) & _U32
+        cols.append(v)
+    return torch.stack(cols, dim=-2)
+
+
+def gr_matmul_simt_ref(A: torch.Tensor, B: torch.Tensor, ring, splits=None,
+                       sms: int = 132) -> torch.Tensor:
+    """The ``simt`` route's arithmetic on the CPU: (..., t, r, D) x (..., r,
+    s, D) -> (..., t, s, D), as the kernel ``gr_matmul.simt_thin`` picks
+    runs it.
+
+    The thin kernel (t <= 64 over GR(2^e, D <= 4)): every word of M(A)
+    (:func:`thin_lift_ref`, rows (t, m), depth (k, r)) and of B (depth
+    (k, r), B[r, s, k]) split into L = ceil(e / 8) bytes; R in stages of 32
+    rows, split into ``splits`` balanced runs of whole stages (None: the
+    count ``gr_matmul.simt_grid`` picks on a card of ``sms`` SMs); in each
+    run one accumulator a limb shift x + y < L takes every byte product of
+    that shift, wrapping mod 2^32 as the kernel's s32 accumulators do; the
+    run's part is sum_shift acc << 8 shift (mod 2^32), the runs' parts are
+    summed wrapping mod 2^32 (the kernel's atomics) and the e-bit mask is
+    applied once, at the end.
+
+    The tile kernel (every other call): the conv accumulators wrap mod 2^32,
+    FOLD folds them and the mask is applied, as :func:`gr_matmul_ref`
+    computes (its arithmetic is that function's)."""
+    from .gr_matmul import simt_grid, simt_thin  # gr_matmul imports this module
+
+    t, r, s = A.shape[-3], A.shape[-2], B.shape[-2]
+    if not simt_thin(ring, t):
+        return gr_matmul_ref(A, B, ring)
+    assert ring.p == 2 and ring.e <= 32, ring
+    b = 1
+    for x in A.shape[:-3]:
+        b *= x
+    if splits is None:
+        splits = simt_grid(ring, b, t, r, s, sms)[4]
+    L = n_limbs(ring)
+    M = thin_lift_ref(A, ring)  # (..., t, r, k, m)
+    Bw = B.to(torch.int64) & _U32  # (..., r, s, k)
+    n_st = -(-r // SIMT_THIN_DEPTH)
+    total = torch.zeros(A.shape[:-3] + (t, s, ring.D), dtype=torch.int64, device=A.device)
+    for sp in range(splits):
+        lo = sp * n_st // splits * SIMT_THIN_DEPTH
+        hi = min(r, (sp + 1) * n_st // splits * SIMT_THIN_DEPTH)
+        Ma, Bb = M[..., lo:hi, :, :], Bw[..., lo:hi, :, :]
+        part = torch.zeros_like(total)
+        for sh in range(L):
+            acc = torch.zeros_like(total)
+            for x in range(sh + 1):
+                a8 = (Ma >> (8 * x)) & 0xFF
+                b8 = (Bb >> (8 * (sh - x))) & 0xFF
+                acc = acc + torch.einsum("...trkm,...rsk->...tsm", a8, b8)
+            part = (part + ((acc & _U32) << (8 * sh))) & _U32
+        total = (total + part) & _U32
+    out = to_i32(total)
+    return out & ring._mask if ring._mask is not None else out
 
 
 # -- the tensor-core route over a lifted ring: the outer-level lift ------------

@@ -164,7 +164,8 @@ def test_ops_pick_the_cached_config(monkeypatch):
     _inject(at.tune_key(GR3, 8, 2, 2097152, DEV), _entry("skinny", (256, 1)))
     assert ops.pick_blocks(GR3, 1024, 2048, 1024, device=DEV) == (24, 3)
     assert ops.pick_blocks(GR3, 8, 2, 2097152, device=DEV) == (256, 1)
-    assert ops.pick_blocks(GR3, 48, 48, 48, device=DEV) == ops.pick_blocks(GR3)  # simt: static
+    # simt: its static tile at t, the cache unread (48 rows: the thin kernel's)
+    assert ops.pick_blocks(GR3, 48, 48, 48, device=DEV) == at.kernel_tile(GR3, 48) == (21, 32, 32)
     assert ops.pick_blocks(GR3, 1024, 2048, 1024, device="cpu") == tc_configs(3, 1)[0]
     # run_route hands the wrapper the cached configuration of its tensors'
     # device kind (here the CPU's, injected), or the one the caller pins

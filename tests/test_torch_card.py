@@ -1,5 +1,6 @@
 """repro_torch on the card: the five CUDA routes of the ring matmul
-(``simt``, ``tc``, ``skinny``, ``tower``, ``tc_left``) against their plain version, and the main path
+(``simt``, its thin kernel at every instantiation, ``tc``, ``skinny``,
+``tower``, ``tc_left``) against their plain version, and the main path
 through them: ``coded_matmul`` for every family, the elastic backend's
 traced path, the coded int8 matmul, a pool of CUDA worker processes (every
 worker product a ``tc`` launch, read from the workers' heartbeats) and one
@@ -29,10 +30,13 @@ from repro_torch.kernels.gr_matmul import (
     ROUTES,
     SKINNY_CONFIGS,
     TC_CONFIGS,
+    SIMT_THIN_CONFIGS,
     gr_matmul_planar,
+    gr_matmul_simt,
     gr_matmul_skinny,
     gr_matmul_tc,
     gr_matmul_tower,
+    simt_grid,
     skinny_cols,
     skinny_configs,
     tc_configs,
@@ -40,7 +44,7 @@ from repro_torch.kernels.gr_matmul import (
     tower_configs,
     tower_shape,
 )
-from repro_torch.kernels.ref import tc_lifted
+from repro_torch.kernels.ref import gr_matmul_planar_ref, tc_lifted
 
 pytestmark = pytest.mark.cuda
 
@@ -133,6 +137,61 @@ def test_kernel_wrapper_rejects_what_it_does_not_take(cuda):
         gr_matmul_planar(A.transpose(1, 2), A.contiguous(), ring)
     with pytest.raises(ValueError, match="int32"):
         gr_matmul_planar(A.contiguous().to(torch.int64), A.contiguous(), ring)
+
+
+# simt's thin kernel (t <= 64 over GR(2^e, D <= 4)): every t its
+# instantiations take, at e = 32, 31 and 16, a ragged r past two stages and
+# a deep one (R split up to 8 ways, the mask after the split sum), ragged s
+THIN_SPECS = [(2, 32, ()), (2, 32, (2,)), (2, 32, (3,)), (2, 32, (4,)), (2, 31, (3,)),
+              (2, 31, (4,)), (2, 16, (4,))]
+
+
+@pytest.mark.parametrize("spec", THIN_SPECS, ids=str)
+def test_simt_thin_kernel_matches_plain(cuda, spec):
+    ring = make_ring(*spec)
+    rng = np.random.default_rng(13)
+    reached = set()
+    for t in (1, 4, 8, 16, 24, 48, 63):
+        for lead, r, s in (((), 70, 77), ((2,), 300, 9), ((3,), 33, 1000)):
+            A = ring.random(rng, lead + (t, r), device=cuda)
+            B = ring.random(rng, lead + (r, s), device=cuda)
+            counters.reset()
+            out = gr_matmul_simt(A, B, ring)
+            assert counters.launches_by_route["simt"] == 1 and counters.launches == 1
+            assert torch.equal(out, gr_matmul_ref(A, B, ring)), (lead, t, r, s)
+            grid = simt_grid(ring, lead[0] if lead else 1, t, r, s, 132)
+            reached.add((ring.D, *grid[5:9]))
+    assert reached == {c for c in SIMT_THIN_CONFIGS if c[0] == ring.D}
+
+
+def test_simt_planar_interface_and_wrapping_accumulators(cuda):
+    # the reference's planar interface on top of the interleaved kernel, and
+    # all-0xFF operands whose split chains pass 2^32 (the s32 accumulators wrap)
+    ring = make_ring(2, 32, (4,))
+    A = ring.random(np.random.default_rng(3), (2, 16, 100), device=cuda).movedim(-1, -3)
+    B = ring.random(np.random.default_rng(4), (2, 100, 40), device=cuda).movedim(-1, -3)
+    A, B = A.contiguous(), B.contiguous()
+    assert torch.equal(gr_matmul_planar(A, B, ring), gr_matmul_planar_ref(A, B, ring))
+    A = torch.full((16, 40960, 4), -1, dtype=torch.int32, device=cuda)
+    B = torch.full((40960, 64, 4), -1, dtype=torch.int32, device=cuda)
+    assert simt_grid(ring, 1, 16, 40960, 64, 132)[4] == 8
+    assert torch.equal(gr_matmul_simt(A, B, ring), gr_matmul_ref(A, B, ring))
+
+
+def test_coded_quant_matmul_at_decode_sizes_runs_on_simt(cuda):
+    # 8 tokens over N = 16 (GR(2^32, 4)), 12 dead: the worker product (4
+    # rows) on simt, the same bits as the CPU run and as no deaths
+    rng = np.random.default_rng(12)
+    x = torch.from_numpy(rng.standard_normal((8, 256)).astype(np.float32))
+    w = torch.from_numpy(rng.standard_normal((256, 192)).astype(np.float32))
+    cq, cq_cpu = CodedQuantMatmul(16, None, device=cuda), CodedQuantMatmul(16, None, device="cpu")
+    live = torch.zeros(16, dtype=torch.bool)
+    live[[1, 5, 10, 14]] = True
+    counters.reset()
+    y = cq(x.to(cuda), w.to(cuda), live.to(cuda))
+    assert counters.launches_by_route["simt"] == 1 and counters.launches_by_route["tc"] == 0
+    assert torch.equal(y.cpu().view(torch.int32), cq_cpu(x, w, live).view(torch.int32))
+    assert torch.equal(y.view(torch.int32), cq(x.to(cuda), w.to(cuda)).view(torch.int32))
 
 
 def test_ring_outside_envelope_raises_on_the_card(cuda):

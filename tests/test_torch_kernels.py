@@ -25,6 +25,12 @@ from repro_torch.kernels import (
 )
 from repro_torch.kernels.gr_matmul import gr_matmul_planar, kernel_tile, tower_shape
 
+
+def d_thin(ring):
+    """Whether simt's thin kernel takes thin calls over ``ring``: a
+    single-level GR(2^e, D) with D <= 4."""
+    return len(ring.degrees) <= 1 and ring.D <= 4
+
 RING_SPECS = [
     (2, 32, ()),
     (2, 32, (3,)),
@@ -108,10 +114,21 @@ def test_envelope_and_tiles():
     for spec in RING_SPECS:
         ring, jr = make_ring(*spec), jmake(*spec)
         assert kernel_supported(ring) == j_kernel_supported(jr)
+        # simt's tile kernel (every call past 64 rows, every call over a ring
+        # its thin kernel does not take): square tiles, both of them, with
+        # rows padded by one word, in 48 KB of static shared memory
         bt, bs, br = pick_blocks(ring)
         assert (bt, bs, br) == kernel_tile(ring) and bt == bs and br in (8, 16)
-        # both tiles fit in 48 KB of static shared memory
-        assert 2 * ring.D * bt * br * 4 <= 48 * 1024
+        assert 2 * ring.D * (bt + 1) * br * 4 <= 48 * 1024
+        # up to 64 rows over GR(2^e, D <= 4), its thin kernel: floor(64 / D)
+        # whole t a block, 32 n columns a warp column's nn, 32 rows of r a
+        # stage; the tile kernel's otherwise
+        for t in (1, 4, 16, 48, 63, 64, 65):
+            tile = pick_blocks(ring, t, 70, 9, route="simt")
+            if d_thin(ring) and t <= 64:
+                assert tile[0] == min(t, 64 // ring.D) and tile[1] % 32 == 0 and tile[2] == 32
+            else:
+                assert tile == kernel_tile(ring)
         d0, d1 = tower_shape(ring)
         assert d0 * d1 == ring.D
     assert not kernel_supported(make_ring(2, 32, (21,)))  # one level, D = 21

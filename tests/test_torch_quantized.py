@@ -135,3 +135,75 @@ def test_paths_of_later_slices_raise():
         cm.exact_int_matmul(q, q.T.contiguous())
     # use_kernel is ignored on the CPU (it only pins a route on the card)
     assert P.CodedQuantMatmul(N, None, use_kernel=False, device="cpu").R == 4
+
+
+# decode batch sizes: 2, 8 and 32 tokens through both projections of a
+# narrow FFN (64 -> 96 and back) over N = 16 workers (GR(2^32, 4), the ring
+# of gemma2-2b's coded FFN), 12 of them dead (a non-prefix live set)
+DECODE_TOKENS = (2, 8, 32)
+DECODE_LIVE = (1, 5, 10, 14)
+
+
+@pytest.fixture(scope="module")
+def coded16():
+    jc = J.CodedQuantMatmul(N=16, axis_name=None)
+    jexact = jax.jit(lambda qx, qw, m: jc.exact_int_matmul(qx, qw, m))
+    mask = np.zeros(16, dtype=bool)
+    mask[list(DECODE_LIVE)] = True
+    return jexact, P.CodedQuantMatmul(16, None, device="cpu"), mask
+
+
+@pytest.mark.parametrize("tokens", DECODE_TOKENS)
+def test_decode_batch_sizes_match_reference(coded16, tokens):
+    """The integer product against the reference's (jitted: integer results
+    do not depend on jit) and the float output against it dequantized in
+    the reference's eager order, acc * sx * sw, bit for bit, under 12 dead
+    workers and without deaths."""
+    jexact, pc, mask = coded16
+    rng = np.random.default_rng(tokens)
+    for d_in, d_out in ((64, 96), (96, 64)):
+        x = rng.standard_normal((tokens, d_in)).astype(np.float32)
+        w = rng.standard_normal((d_in, d_out)).astype(np.float32)
+        jqx, jsx = J.quantize_int8(jnp.asarray(x), axis=-1)
+        jqw, jsw = J.quantize_int8(jnp.asarray(w), axis=0)
+        want = np.asarray(jexact(jqx, jqw, jnp.asarray(mask)))
+        qx, qw = (torch.from_numpy(np.array(a)) for a in (jqx, jqw))
+        acc = pc.exact_int_matmul(qx, qw, torch.from_numpy(mask))
+        np.testing.assert_array_equal(acc.numpy(), want)
+        y = pc(torch.from_numpy(x), torch.from_numpy(w), torch.from_numpy(mask))
+        jy = (want.astype(np.float32) * np.asarray(jsx)) * np.asarray(jsw)
+        np.testing.assert_array_equal(y.numpy().view(np.uint32), jy.view(np.uint32))
+        y_all = pc(torch.from_numpy(x), torch.from_numpy(w))
+        assert torch.equal(y.view(torch.int32), y_all.view(torch.int32))
+
+
+def test_decode_worker_products_go_to_simt_below_128_tokens(monkeypatch):
+    """At gemma2-2b's FFN widths (src/repro/configs/gemma2_2b.py: d_model
+    2304, d_ff 9216) the worker product (tokens / 2) x (d / 2) @ (d / 2) x
+    (f / 2) over GR(2^32, 4) is simt's below 128 tokens and tc's at 128:
+    every ring matmul of the call is routed as on the card (the kernels
+    stood in for by zeros), and the worker product's route recorded."""
+    from repro_torch.kernels import ops
+
+    seen = []
+    monkeypatch.setattr(ops, "kernel_auto_enabled", lambda ring, x: True)
+
+    def run_route(route, A, B, ring, config=None):
+        seen.append((route, tuple(A.shape), tuple(B.shape)))
+        return torch.zeros(A.shape[:-2] + (B.shape[-2], ring.D), dtype=torch.int32)
+
+    monkeypatch.setattr(ops, "run_route", run_route)
+    pc = P.CodedQuantMatmul(16, None, device="cpu")
+    gen = torch.Generator().manual_seed(0)
+    mask = torch.zeros(16, dtype=torch.bool)
+    mask[list(DECODE_LIVE)] = True
+    for tokens in (2, 8, 32, 126, 128):
+        for d_in, d_out in ((2304, 9216), (9216, 2304)):
+            seen.clear()
+            x = torch.randn((tokens, d_in), generator=gen)
+            pc(x, torch.randn((d_in, d_out), generator=gen), mask)
+            workers = [c for c in seen if c[1][0] == 16 and c[1][-2] == d_in // 2]
+            assert len(workers) == 1 and workers[0][1:] == ((16, tokens // 2, d_in // 2, 4),
+                                                            (16, d_in // 2, d_out // 2, 4))
+            assert workers[0][0] == ("simt" if tokens < 128 else "tc"), (tokens, d_in)
+            assert sorted(c[0] for c in seen if c not in workers) == ["skinny"] * 6
