@@ -201,9 +201,27 @@ Phases (any mismatch fails the run with a non-zero exit):
    to step 12 against a straight 12-step run (losses within
    ``RESUME_RTOL``), and a ``compress_grads`` run with finite losses; (d)
    launch counts zeroed before and read after (a)-(c): no ``gr_matmul``
-   route launched.
+   route launched;
+16. the MoE family's serving path (plain PyTorch ops; no ring kernel may
+   launch), after phase 15's tensors are freed: qwen3-moe-30b-a3b at full
+   width and depth (48 layers, d 2048, 128 experts, top-8, vocab 151936,
+   bf16, 30.2 B parameters) from ``materialize`` on the card (its stacked
+   experts drawn a layer at a time), seeded from ``--seed``; (a)
+   ``greedy_generate(smoke=False)`` at phase 14's ``LM_RUNS`` (every token
+   in range, every logit finite; step time median and p90, tokens/s, the
+   init time, peak memory, against two bounds: every weight read once, as
+   the dense dispatch reads them, and only the weights the step's routes
+   need; routes dropped a step; one profiled stretch of steps); (b) the
+   2-layer cut of 14 (c) with its 128 experts in float32 (TF32 off), on
+   the card and on the host CPU from the same weights: a prefill of
+   ``MOE_PREFILL`` tokens through the cache and ``MOE_DECODE`` cached steps
+   at batch 2 and 8 (C = 1 a step), logits and aux within ``LM_F32_TOL``,
+   expert ids and drop masks equal in every MoE call but where a CPU
+   top-K boundary is a near-tie (``MOE_NEAR_TIE``, counted), and at least
+   one route dropped; (c) launch counts zeroed before and read after
+   (a)-(b): no ``gr_matmul`` route launched.
 
-Phases run in the order 1-3, 5-9, 13, 12, 10, 11, 14, 15, 4.  Launch counts per
+Phases run in the order 1-3, 5-9, 13, 12, 10, 11, 14, 15, 16, 4.  Launch counts per
 route are zeroed before each path of phases 3, 5-9, 12 and 13, read
 after it (after the elastic backend's straggler tasks have finished) and
 held against ``EXPECTED_LAUNCHES``; in phases 8-9 the master's counts are
@@ -2749,7 +2767,42 @@ def _device_profile(step, steps: int, what: str, **row) -> dict:
     return row
 
 
-def _lm_profile(api, params, batch: int, steps: int = 3) -> dict:
+def _lm_generate(what: str, arch: str, cfg, params, batch: int, prompt_len: int,
+                 gen_len: int, nbytes: int):
+    """``greedy_generate(smoke=False)`` of ``arch`` on the card with
+    ``params``, checked (every token in range, the last logits finite);
+    returns its output and a timing row: per-step time from CUDA events
+    after the first step, tokens/s, and the least a step can take with
+    every weight (``nbytes``) and the whole cache read once from HBM."""
+    import numpy as np
+    import torch
+
+    from repro_torch.launch.serve import greedy_generate
+
+    t0 = time.perf_counter()
+    gen = greedy_generate(arch, smoke=False, batch=batch, prompt_len=prompt_len,
+                          gen_len=gen_len, seed=SEED, device="cuda", params=params)
+    wall = time.perf_counter() - t0
+    toks, logits = gen["generated"], gen["logits"]
+    if toks.shape != (batch, gen_len) or not ((toks >= 0) & (toks < cfg.vocab_size)).all():
+        fail(f"{what} generation ({batch}, {prompt_len}, {gen_len}): tokens out of range")
+    if not bool(torch.isfinite(logits).all()):
+        fail(f"{what} generation ({batch}, {prompt_len}, {gen_len}): non-finite logits")
+    steps = np.asarray(gen["step_ms"][1:])  # the first step pays the first calls
+    cache_bytes = (2 * cfg.num_layers * batch * (prompt_len + gen_len + 8)
+                   * cfg.num_kv_heads * cfg.hd * 2)
+    row = {"batch": batch, "prompt": prompt_len, "generated": gen_len, "wall_s": wall,
+           "first_step_ms": gen["step_ms"][0],
+           "step_ms_median": float(np.median(steps)),
+           "step_ms_p90": float(np.percentile(steps, 90)),
+           "tokens_per_s": batch * 1e3 / float(np.median(steps)),
+           "bound_ms": 1e3 * (nbytes + cache_bytes) / HBM_BYTES_PER_S,
+           "cache_bytes": cache_bytes,
+           "tokens_head": toks[0, :8].tolist()}
+    return gen, row
+
+
+def _lm_profile(api, params, batch: int, steps: int = 3, what: str = "lm") -> dict:
     """Kernels and device-busy time of ``steps`` decode steps at ``batch``
     (a fresh cache, after two warm steps) from ``torch.profiler``, beside
     the host wall of the same steps: the device's idle share."""
@@ -2769,7 +2822,7 @@ def _lm_profile(api, params, batch: int, steps: int = 3) -> dict:
     with torch.inference_mode():
         for _ in range(2):
             step()
-        return _device_profile(step, steps, f"lm profile, batch {batch}", batch=batch)
+        return _device_profile(step, steps, f"{what} profile, batch {batch}", batch=batch)
 
 
 def phase_lm(report: dict) -> None:
@@ -2780,7 +2833,6 @@ def phase_lm(report: dict) -> None:
 
     from repro_torch.configs import ARCHS, ShapeConfig
     from repro_torch.kernels import counters
-    from repro_torch.launch.serve import greedy_generate
     from repro_torch.models import build_model
     from repro_torch.runtime.sharding import _map_leaves, materialize, param_bytes, param_count
 
@@ -2804,33 +2856,14 @@ def phase_lm(report: dict) -> None:
     # (a) greedy generation at full width and depth
     runs = []
     for batch, prompt_len, gen_len in LM_RUNS:
-        t0 = time.perf_counter()
-        gen = greedy_generate(LM_ARCH, smoke=False, batch=batch, prompt_len=prompt_len,
-                              gen_len=gen_len, seed=SEED, device="cuda", params=params)
-        wall = time.perf_counter() - t0
+        gen, row = _lm_generate("lm", LM_ARCH, cfg, params, batch, prompt_len, gen_len, nbytes)
         toks, logits = gen["generated"], gen["logits"]
-        if toks.shape != (batch, gen_len) or not ((toks >= 0) & (toks < cfg.vocab_size)).all():
-            fail(f"lm generation ({batch}, {prompt_len}, {gen_len}): tokens out of range")
-        if not bool(torch.isfinite(logits).all()):
-            fail(f"lm generation ({batch}, {prompt_len}, {gen_len}): non-finite logits")
-        steps = np.asarray(gen["step_ms"][1:])  # the first step pays the first calls
-        cache_bytes = (2 * cfg.num_layers * batch * (prompt_len + gen_len + 8)
-                       * cfg.num_kv_heads * cfg.hd * 2)
-        row = {"batch": batch, "prompt": prompt_len, "generated": gen_len, "wall_s": wall,
-               "first_step_ms": gen["step_ms"][0],
-               "step_ms_median": float(np.median(steps)),
-               "step_ms_p90": float(np.percentile(steps, 90)),
-               "tokens_per_s": batch * 1e3 / float(np.median(steps)),
-               # the least a step can take: every weight and the whole cache
-               # read once from HBM
-               "bound_ms": 1e3 * (nbytes + cache_bytes) / HBM_BYTES_PER_S,
-               "weight_bound_ms": 1e3 * nbytes / HBM_BYTES_PER_S,
-               "tokens_head": toks[0, :8].tolist()}
+        row["weight_bound_ms"] = 1e3 * nbytes / HBM_BYTES_PER_S
         runs.append(row)
         log(f"lm generate batch {batch} prompt {prompt_len} gen {gen_len}: step median "
             f"{row['step_ms_median']:.3f} ms p90 {row['step_ms_p90']:.3f} ms (first "
             f"{row['first_step_ms']:.1f}), {row['tokens_per_s']:.1f} tokens/s, bound "
-            f"{row['bound_ms']:.3f} ms; wall {wall:.2f} s")
+            f"{row['bound_ms']:.3f} ms; wall {row['wall_s']:.2f} s")
     out["generate"] = runs
     out["peak_bytes"] = torch.cuda.max_memory_allocated()
     out["profile"] = _lm_profile(api, params, LM_RUNS[-1][0])
@@ -3195,6 +3228,202 @@ def phase_train(report: dict) -> None:
     report["train"] = out
 
 
+# ---------------------------------------------------------------------------
+# phase 16: the MoE family's serving path (plain PyTorch ops, no ring kernel)
+# ---------------------------------------------------------------------------
+
+MOE_ARCH = "qwen3-moe-30b-a3b"
+# (b): LM_CUT's 2-layer cut at full width (128 experts, top-8), float32 with
+# TF32 off: a prefill of MOE_PREFILL tokens through the cache, then
+# MOE_DECODE cached steps, at each batch of MOE_BATCHES (a step at batch 2
+# or 8 has C = 1: two tokens choosing one expert drop the later route)
+MOE_PREFILL = 64
+MOE_DECODE = 4
+MOE_BATCHES = (2, 8)
+# a call whose routes may differ between card and CPU: some token's K-th and
+# (K+1)-th router probabilities on the CPU within this share of the K-th
+MOE_NEAR_TIE = 1e-6
+
+
+def _route_sets(experts, kept):
+    """Each token's routes as (expert, kept) pairs sorted by expert (the
+    rank order among a token's own experts changes no bin)."""
+    order = experts.argsort(dim=1, stable=True)
+    return experts.gather(1, order), kept.gather(1, order)
+
+
+def _moe_routes(routes, steps: int, layers: int) -> dict:
+    """Routes dropped and distinct experts chosen, per decode step, from a
+    greedy run's ``recording_routes`` (``layers`` calls a step)."""
+    import torch
+
+    experts = torch.stack([r.experts for r in routes]).cpu()
+    kept = torch.stack([r.kept for r in routes]).cpu()
+    experts = experts.view(steps, layers, -1)
+    dropped = (~kept).view(steps, -1).sum(1)
+    distinct = [[int(experts[s, l].unique().numel()) for l in range(layers)] for s in range(steps)]
+    return {"dropped": dropped.tolist(), "distinct": distinct}
+
+
+def phase_moe(report: dict) -> None:
+    import dataclasses
+    import gc
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import ARCHS, ShapeConfig
+    from repro_torch.kernels import counters
+    from repro_torch.models import build_model
+    from repro_torch.models import layers as lm_layers
+    from repro_torch.models import transformer as tf_mod
+    from repro_torch.runtime.sharding import _map_leaves, materialize, param_bytes, param_count
+
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    counters.reset()
+    out: dict = {"arch": MOE_ARCH}
+    cfg = ARCHS[MOE_ARCH]
+    api = build_model(cfg)
+    nbytes, nparams = param_bytes(api.param_specs), param_count(api.param_specs)
+    moe = api.param_specs["blocks"]["l0"]["moe"]
+    experts_bytes = param_bytes({k: moe[k] for k in ("w_gate", "w_in", "w_out")})
+    one_expert = experts_bytes // (cfg.num_layers * cfg.num_experts)  # one layer's
+    out.update(params=nparams, param_bytes=nbytes, expert_bytes=experts_bytes,
+               layers=cfg.num_layers, d_model=cfg.d_model, experts=cfg.num_experts,
+               top_k=cfg.experts_per_tok, vocab=cfg.vocab_size, dtype=cfg.dtype)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = materialize(api.param_specs, SEED, device="cuda")
+    torch.cuda.synchronize()
+    out["init_s"] = time.perf_counter() - t0
+    out["init_peak_bytes"] = torch.cuda.max_memory_allocated()
+    log(f"moe {MOE_ARCH}: {nparams} parameters, {nbytes} bytes (bf16) on the card in "
+        f"{out['init_s']:.2f} s (peak {out['init_peak_bytes']} bytes)")
+
+    # (a) greedy generation at full width and depth
+    runs = []
+    for batch, prompt_len, gen_len in LM_RUNS:
+        with lm_layers.recording_routes() as routes:
+            gen, row = _lm_generate("moe", MOE_ARCH, cfg, params, batch, prompt_len, gen_len,
+                                    nbytes)
+        nsteps = prompt_len + gen_len
+        if len(routes) != nsteps * cfg.num_layers:
+            fail(f"moe generation: {len(routes)} MoE calls for {nsteps} steps")
+        r = _moe_routes(routes, nsteps, cfg.num_layers)
+        del routes
+        # the least a step can take with only the weights its routes need
+        # (all but the experts, and each layer's distinct chosen experts) and
+        # the cache read once; "bound_ms" reads every weight, as the dense
+        # dispatch does
+        active = [nbytes - experts_bytes + one_expert * sum(d) for d in r["distinct"][1:]]
+        row.update(
+            active_bound_ms=1e3 * (float(np.median(active)) + row["cache_bytes"]) / HBM_BYTES_PER_S,
+            experts_a_layer_median=float(np.median(r["distinct"][1:])),
+            dropped_per_step_median=float(np.median(r["dropped"])),
+            dropped_per_step_max=int(max(r["dropped"])),
+            routes_per_step=batch * cfg.experts_per_tok * cfg.num_layers)
+        runs.append(row)
+        log(f"moe generate batch {batch} prompt {prompt_len} gen {gen_len}: step median "
+            f"{row['step_ms_median']:.3f} ms p90 {row['step_ms_p90']:.3f} ms (first "
+            f"{row['first_step_ms']:.1f}), {row['tokens_per_s']:.1f} tokens/s; bounds: every "
+            f"weight {row['bound_ms']:.3f} ms, active weights {row['active_bound_ms']:.3f} ms "
+            f"({row['experts_a_layer_median']:.0f} experts a layer); routes dropped a step "
+            f"median {row['dropped_per_step_median']:.0f} (max {row['dropped_per_step_max']}) "
+            f"of {row['routes_per_step']}; wall {row['wall_s']:.2f} s")
+    out["generate"] = runs
+    out["peak_bytes"] = torch.cuda.max_memory_allocated()
+    out["profile"] = _lm_profile(api, params, LM_RUNS[-1][0], what="moe")
+    del params, gen
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (b) the card against the host CPU: the 2-layer cut in float32, a
+    # prefill through the cache and cached decode steps, same weights
+    prev_tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cut = dataclasses.replace(cfg, dtype="float32", **LM_CUT)
+    capi = build_model(cut)
+    K = cut.experts_per_tok
+    card = materialize(capi.param_specs, SEED, device="cuda")
+    host = _map_leaves(lambda _, t: t.cpu(), card)
+    rng = np.random.default_rng(SEED)
+    checks = []
+    worst = {"logits": 0.0, "aux": 0.0}
+    excused = dropped = 0
+    spans = [(0, MOE_PREFILL)] + [(MOE_PREFILL + i, MOE_PREFILL + i + 1) for i in range(MOE_DECODE)]
+    try:
+        for batch in MOE_BATCHES:
+            toks = torch.from_numpy(rng.integers(0, cut.vocab_size, (batch, spans[-1][1])).astype(np.int32))
+            runs_b = {}
+            for dev, p in (("cuda", card), ("cpu", host)):
+                decl = capi.cache_decl(ShapeConfig("check", spans[-1][1] + 8, batch, "decode"))
+                cache = _map_leaves(lambda _, ps: torch.zeros(
+                    ps.shape, device=dev, dtype=torch.float32 if ps.shape else ps.dtype), decl)
+                outs = []
+                t0 = time.perf_counter()
+                with torch.inference_mode(), lm_layers.recording_routes() as routes:
+                    for a, b in spans:
+                        lg, cache, aux = tf_mod.decoder_forward(
+                            p, toks[:, a:b].to(dev), cut, cache=cache, cache_len=cache["len"])
+                        outs.append((lg.cpu(), aux.cpu()))
+                if dev == "cuda":
+                    torch.cuda.synchronize()
+                runs_b[dev] = (outs, [(r.experts.cpu(), r.kept.cpu(), r.top.cpu()) for r in routes],
+                               time.perf_counter() - t0)
+            (gouts, groutes, card_s), (couts, croutes, cpu_s) = runs_b["cuda"], runs_b["cpu"]
+            for i, ((gl, ga), (cl, ca)) in enumerate(zip(gouts, couts)):
+                e_l, e_a = _lm_rel(gl, cl), _lm_rel(ga, ca)
+                worst["logits"], worst["aux"] = max(worst["logits"], e_l), max(worst["aux"], e_a)
+                if not bool(torch.isfinite(gl).all()) or e_l > LM_F32_TOL or e_a > LM_F32_TOL:
+                    fail(f"moe card vs cpu, batch {batch}, call {i}: logits rel L2 {e_l:.3e}, "
+                         f"aux {e_a:.3e} (tol {LM_F32_TOL})")
+            mismatched = 0
+            for j, ((ge, gk, _), (ce, ck, ctop)) in enumerate(zip(groutes, croutes)):
+                dropped += int((~ck).sum())
+                (ge, gk), (ce, ck) = _route_sets(ge, gk), _route_sets(ce, ck)
+                if torch.equal(ge, ce) and torch.equal(gk, ck):
+                    continue
+                mismatched += 1
+                if bool((ctop[:, K - 1] - ctop[:, K] <= MOE_NEAR_TIE * ctop[:, K - 1]).any()):
+                    excused += 1
+                    continue
+                fail(f"moe card vs cpu, batch {batch}, MoE call {j}: routes differ with no "
+                     f"near-tie (experts equal {torch.equal(ge, ce)}, drops equal {torch.equal(gk, ck)})")
+            checks.append({"batch": batch, "calls": len(spans), "moe_calls": len(croutes),
+                           "routes_differing_calls": mismatched, "card_s": card_s, "cpu_s": cpu_s})
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev_tf32
+    out["card_vs_cpu"] = {
+        "prefill": MOE_PREFILL, "decode_steps": MOE_DECODE, "batches": list(MOE_BATCHES),
+        "dtype": "float32", "tf32": False, "tol": LM_F32_TOL, "near_tie": MOE_NEAR_TIE,
+        "worst_logits_rel_l2": worst["logits"], "worst_aux_rel": worst["aux"],
+        "excused_near_ties": excused, "dropped_routes_cpu": dropped, "runs": checks,
+        "reduced": {k: f"{getattr(cfg, k)} -> {v}" for k, v in LM_CUT.items()}}
+    log(f"moe card vs cpu, float32 2-layer cut (reduced: {out['card_vs_cpu']['reduced']}), "
+        f"prefill {MOE_PREFILL} + {MOE_DECODE} steps at batch {MOE_BATCHES}: worst logits rel L2 "
+        f"{worst['logits']:.3e}, aux {worst['aux']:.3e} (tol {LM_F32_TOL}); expert ids and drop "
+        f"masks equal in every MoE call but {excused} excused near-ties; {dropped} routes dropped; "
+        + ", ".join(f"batch {c['batch']} card {c['card_s']:.2f} s cpu {c['cpu_s']:.2f} s"
+                    for c in checks))
+    if dropped == 0:
+        fail("moe card vs cpu: no route was dropped, the capacity path went unchecked")
+    del card, host
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (c) no ring kernel ran
+    out["launches"] = dict(counters.launches_by_route)
+    if any(out["launches"].values()):
+        fail(f"moe path launched ring kernels: {out['launches']}")
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"moe phase: peak {out['peak_bytes']} bytes allocated, ring launches "
+        f"{out['launches']}, {out['seconds']:.1f} s")
+    report["moe"] = out
+
+
 def _kernel_rows(report: dict, totals: dict) -> list:
     """The ``{"kernels": [...]}`` rows: one per route and one per pre-pass,
     each at its representative main-path shape (the (3, 7) tower's lift and
@@ -3339,6 +3568,7 @@ def main() -> int:
     timed(phase_calibrate)
     timed(phase_lm)
     timed(phase_train)
+    timed(phase_moe)
     timed(phase_path_calls, calls)
     report["seconds"] = time.perf_counter() - t0
     log(f"phase seconds: {json.dumps(report['phase_seconds'])}")

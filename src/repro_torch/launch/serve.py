@@ -5,6 +5,7 @@ serving over a worker pool (``--serve``), on the card unless ``--device
 cpu``::
 
     python -m repro_torch.launch.serve --device cpu --gen-len 2
+    python -m repro_torch.launch.serve --arch qwen3-moe-30b-a3b --full
     python -m repro_torch.launch.serve --coded --coded-backend pool --pool-workers 4
     python -m repro_torch.launch.serve --serve 16 --serve-batch 4 --pool-workers 8
 
@@ -276,6 +277,11 @@ def main(argv: Optional[list] = None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--arch", default="gemma2-2b", choices=sorted(ARCHS))
     ap.add_argument("--smoke", action="store_true", default=True)
+    ap.add_argument(
+        "--full", dest="smoke", action="store_false",
+        help="generate with the arch as published, at its full width and depth "
+        "(qwen3-moe-30b-a3b: 30.2 B bf16 parameters, one H100), not its smoke reduction",
+    )
     ap.add_argument("--gen-len", type=int, default=8)
     ap.add_argument("--coded", action="store_true")
     ap.add_argument(

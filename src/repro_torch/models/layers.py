@@ -1,9 +1,10 @@
-"""Shared neural layers for the dense decoder: norms, RoPE, chunked
-flash-style attention (prefill / decode) and dense MLPs — counterpart of the
-dense part of ``repro.models.layers`` (MoE and the Mamba2 SSD wait: ROADMAP
-Queue 1 items 7.2 and 7.3).  Every layer is differentiable: the training
-path takes gradients through the chunked attention's online softmax as it
-is written (a fully masked chunk contributes exact zeros, never NaN).
+"""Shared neural layers for the decoder: norms, RoPE, chunked flash-style
+attention (prefill / decode), dense MLPs and the dense-dispatch MoE —
+counterpart of ``repro.models.layers`` (the MoE's mesh dispatches wait for
+ROADMAP Queue 1 item 7.2b, the Mamba2 SSD for item 7.3).  Every layer is
+differentiable: the training path takes gradients through the chunked
+attention's online softmax as it is written (a fully masked chunk
+contributes exact zeros, never NaN).
 
 All layers are plain functions over ParamSpec-declared trees of tensors, in
 plain PyTorch ops.  The reference's dtypes follow JAX promotion; where
@@ -28,8 +29,9 @@ Division is by 0-dim tensors, not Python floats: on CUDA PyTorch turns
 """
 from __future__ import annotations
 
+import contextlib
 import functools
-from typing import Dict, Optional, Tuple
+from typing import Dict, Iterator, List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -39,8 +41,9 @@ from ..configs.base import ModelConfig
 from ..runtime.sharding import ParamSpec, shard
 
 __all__ = [
-    "NEG_INF", "apply_mlp", "apply_norm", "attention_block", "attention_specs",
-    "mlp_specs", "multihead_attention", "norm_specs", "rope", "softcap",
+    "NEG_INF", "Routing", "apply_mlp", "apply_moe", "apply_norm", "attention_block",
+    "attention_specs", "mlp_specs", "moe_specs", "multihead_attention", "norm_specs",
+    "recording_routes", "rope", "softcap",
 ]
 
 NEG_INF = -1e30
@@ -336,3 +339,120 @@ def apply_mlp(p: Dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
         h = _gelu(_mm(x, p["w_in"]))
     h = shard(h, "batch", "seq", "ffn")
     return shard(_mm(h, p["w_out"]), "batch", "residual_seq", None)
+
+
+# ---------------------------------------------------------------------------
+# MoE (scatter dispatch into (E, C + 1, d) bins + batched expert GEMMs)
+# ---------------------------------------------------------------------------
+
+
+def moe_specs(cfg: ModelConfig) -> Dict:
+    d, E, ff = cfg.d_model, cfg.num_experts, cfg.expert_d_ff
+    p = {
+        "router": ParamSpec((d, E), ("fsdp", None), torch.float32),
+        "w_gate": ParamSpec((E, d, ff), ("experts", "fsdp", "expert_ffn")),
+        "w_in": ParamSpec((E, d, ff), ("experts", "fsdp", "expert_ffn")),
+        "w_out": ParamSpec((E, ff, d), ("experts", "expert_ffn", "fsdp")),
+    }
+    if cfg.shared_experts:
+        p["shared"] = mlp_specs(cfg, d, cfg.expert_d_ff * cfg.shared_experts)
+    return p
+
+
+class Routing(NamedTuple):
+    """One ``apply_moe`` call's routing, for checks: each token's ``experts``
+    (T, K) in rank order, whether each route ``kept`` a slot in its
+    expert's bin (T, K), and the ``top`` K + 1 router probabilities (T, K + 1)
+    in descending order (how near the K-th came to a tie)."""
+
+    experts: torch.Tensor
+    kept: torch.Tensor
+    top: torch.Tensor
+
+
+_ROUTES: Optional[List[Routing]] = None
+
+
+@contextlib.contextmanager
+def recording_routes() -> Iterator[List[Routing]]:
+    """Collect a :class:`Routing` per ``apply_moe`` call made inside the
+    block, in call order (the tensors the call computed; no extra work)."""
+    global _ROUTES
+    prev, _ROUTES = _ROUTES, []
+    try:
+        yield _ROUTES
+    finally:
+        _ROUTES = prev
+
+
+def _positions(flat_e: torch.Tensor) -> torch.Tensor:
+    """Each route's rank within its expert in flat (token, rank) order: the
+    reference's running count (``cumsum(one_hot) - 1``), by a stable sort."""
+    order = torch.argsort(flat_e, stable=True)
+    sorted_e = flat_e[order]
+    first = torch.searchsorted(sorted_e, sorted_e)
+    rank = torch.arange(flat_e.numel(), device=flat_e.device) - first
+    return torch.empty_like(rank).scatter_(0, order, rank)
+
+
+def apply_moe(p: Dict, x: torch.Tensor, cfg: ModelConfig) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Top-k token-choice MoE, the reference's dense dispatch
+    (``_apply_moe_dense``) op for op.  Returns (out, aux_loss).
+
+    The float32 router's softmax picks K experts a token, ties to the lower
+    index as ``lax.top_k`` breaks them (a stable descending sort; ``topk``
+    breaks them otherwise), and the K gates are renormalised.  Each expert
+    takes C = max(1, int(T K capacity_factor / E)) routes in flat (token,
+    rank) order; the rest are dropped into an overflow row.  Every expert's
+    (C + 1, d) bin goes through its GEMMs, batched over E, and each kept
+    route's output comes back weighted by its gate (cast to the activation
+    dtype) and summed over K.  The aux loss is Switch's: E times the sum
+    over experts of the mean probability and the mean routes a token.
+
+    The reference's mesh dispatches (``_apply_moe_ep_a2a``,
+    ``_apply_moe_shardmap``) have no counterpart yet: the port has no mesh
+    (ROADMAP Queue 1 item 7.2b).
+    """
+    B, S, d = x.shape
+    E, K = cfg.num_experts, cfg.experts_per_tok
+    T = B * S
+    xt = x.reshape(T, d)
+    probs = torch.softmax(xt.float() @ p["router"].float(), dim=-1)  # (T, E)
+    top, order = torch.sort(probs, dim=-1, descending=True, stable=True)
+    experts = order[:, :K]
+    gates = top[:, :K] / top[:, :K].sum(-1, keepdim=True)
+
+    # load-balancing aux loss (Switch-style)
+    me = _div(probs.sum(0), T)
+    flat_e = experts.reshape(T * K)
+    # routes an expert, counted without a host sync (CUDA's bincount has one)
+    counts = probs.new_zeros(E).index_add_(0, flat_e, probs.new_ones(()).expand(T * K))
+    ce = _div(counts, T)
+    aux = (me * ce).sum() * E
+
+    C = max(1, int(T * K * cfg.capacity_factor / E))
+    pos = _positions(flat_e)
+    keep = pos < C
+    # flat bin rows: a kept route's own slot, a dropped one the expert's
+    # overflow row C (summed there and thrown away)
+    dst = flat_e * (C + 1) + torch.where(keep, pos, C)
+    src = xt[:, None].expand(T, K, d).reshape(T * K, d)
+    bins = torch.zeros((E * (C + 1), d), dtype=xt.dtype, device=x.device)
+    bins = bins.index_add_(0, dst, src).view(E, C + 1, d)
+    bins = shard(bins, "experts", None, None)
+    dt = bins.dtype
+    if cfg.mlp_act in ("swiglu", "geglu"):
+        act = _silu if cfg.mlp_act == "swiglu" else _gelu
+        h = act(torch.bmm(bins, p["w_gate"].to(dt))) * torch.bmm(bins, p["w_in"].to(dt))
+    else:
+        h = _gelu(torch.bmm(bins, p["w_in"].to(dt)))
+    h = shard(h, "experts", None, None)
+    out_bins = torch.bmm(h, p["w_out"].to(dt)).view(E * (C + 1), d)
+    gathered = torch.where(keep[:, None], out_bins[dst], 0.0)
+    weighted = gathered.view(T, K, d) * gates[..., None].to(dt)
+    out = weighted.sum(1).view(B, S, d)
+    if cfg.shared_experts:
+        out = out + apply_mlp(p["shared"], x, cfg)
+    if _ROUTES is not None:
+        _ROUTES.append(Routing(experts, keep.view(T, K), top[:, :K + 1]))
+    return shard(out, "batch", "seq", None), aux

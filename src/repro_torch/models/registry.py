@@ -8,8 +8,9 @@ architecture exposes
     batch_specs(shape)             -> input ParamSpec tree
     cache_decl(shape)              -> cache ParamSpec tree + scalar "len"
 
-Of the families, the dense decoder is ported; ``build_model`` raises
-``NotImplementedError`` naming the ROADMAP item each other family waits for.
+Of the families, the dense and the MoE decoder are ported; ``build_model``
+raises ``NotImplementedError`` naming the ROADMAP item each other family
+waits for.
 ``loss_fn`` is differentiable (the training path, ``launch.steps``, takes
 its gradients with ``torch.autograd``); ``prefill_fn`` and ``decode_fn``
 are called under ``torch.inference_mode()`` by the serving path.

@@ -1,14 +1,16 @@
-"""Decoder-only transformer, the dense family — counterpart of the dense part
-of ``repro.models.transformer``.
+"""Decoder-only transformer, the dense and MoE families — counterpart of the
+decoder of ``repro.models.transformer``.
 
 Layers are grouped into the config's repeating ``layer_pattern`` unit and
 their params stacked along a leading units dim (U = ``num_units(cfg)``), as
 in the reference, so that a parameter tree converts leaf for leaf: e.g.
 ``blocks/l0/attn/wq`` is (U, d, H * hd).  Where the reference scans the
 units with ``lax.scan``, a Python loop walks them, each unit under the
-config's rematerialization (``_maybe_remat``) when gradients are taken.
-``first_k_dense`` (ROADMAP Queue 1 item 7.2), patches, the encoder-decoder
-and ``build_xattn_cache`` (item 7.4) wait.
+config's rematerialization (``_maybe_remat``) when gradients are taken, and
+the MoE layers' aux losses are summed in the scan's order.  The
+``first_k_dense`` prefix (dense ``"global"`` layers before the units) runs
+unstacked, with a cache of its own.  Patches, the encoder-decoder and
+``build_xattn_cache`` wait (ROADMAP Queue 1 item 7.4).
 """
 from __future__ import annotations
 
@@ -22,10 +24,12 @@ from ..configs.base import ModelConfig
 from ..runtime.sharding import ParamSpec, shard
 from .layers import (
     apply_mlp,
+    apply_moe,
     apply_norm,
     attention_block,
     attention_specs,
     mlp_specs,
+    moe_specs,
     norm_specs,
     softcap,
 )
@@ -35,7 +39,6 @@ __all__ = ["DecoderLM", "cache_specs", "decoder_forward", "decoder_specs", "num_
 
 # the ROADMAP item each family that is not ported yet waits for
 _WAITS = {
-    "moe": "ROADMAP Queue 1 item 7.2 (MoE)",
     "ssm": "ROADMAP Queue 1 item 7.3 (ssm.py: mamba2, zamba2)",
     "hybrid": "ROADMAP Queue 1 item 7.3 (ssm.py: mamba2, zamba2)",
     "encdec": "ROADMAP Queue 1 item 7.4 (encdec and vlm)",
@@ -43,10 +46,10 @@ _WAITS = {
 }
 
 
-def _require_dense(cfg: ModelConfig) -> None:
+def _require_ported(cfg: ModelConfig) -> None:
     """Raise ``NotImplementedError`` naming the ROADMAP item ``cfg``'s family
-    waits for, unless it is the (ported) dense family."""
-    if cfg.family == "dense" and not cfg.first_k_dense and cfg.frontend is None:
+    waits for, unless it is a ported one (dense, MoE)."""
+    if cfg.family in ("dense", "moe") and cfg.frontend is None:
         return
     item = _WAITS.get(cfg.family, "ROADMAP Queue 1 item 7")
     raise NotImplementedError(
@@ -85,25 +88,34 @@ def num_units(cfg: ModelConfig) -> int:
     return layers // pat
 
 
-def _sub_block_specs(cfg: ModelConfig) -> Dict:
+def _sub_block_specs(cfg: ModelConfig, moe: bool) -> Dict:
     d = cfg.d_model
-    return {
+    p = {
         "ln_attn": norm_specs(cfg, d),
         "attn": attention_specs(cfg),
         "ln_mlp": norm_specs(cfg, d),
-        "mlp": mlp_specs(cfg, d, cfg.d_ff),
     }
+    if moe:
+        p["moe"] = moe_specs(cfg)
+    else:
+        p["mlp"] = mlp_specs(cfg, d, cfg.d_ff)
+    return p
 
 
 def decoder_specs(cfg: ModelConfig) -> Dict:
-    _require_dense(cfg)
+    _require_ported(cfg)
     d = cfg.d_model
-    unit = {f"l{i}": _sub_block_specs(cfg) for i in range(len(cfg.layer_pattern))}
-    return {
+    moe = cfg.family == "moe"
+    unit = {f"l{i}": _sub_block_specs(cfg, moe) for i in range(len(cfg.layer_pattern))}
+    specs: Dict[str, Any] = {
         "embed": ParamSpec((cfg.vocab_size, d), ("vocab", "fsdp"), init="embed", scale=0.02),
         "blocks": stack_specs(unit, num_units(cfg)),
         "ln_f": norm_specs(cfg, d),
     }
+    if cfg.first_k_dense:
+        specs["prefix"] = {f"p{i}": _sub_block_specs(cfg, moe=False)
+                           for i in range(cfg.first_k_dense)}
+    return specs
 
 
 # ---------------------------------------------------------------------------
@@ -118,7 +130,14 @@ def cache_specs(cfg: ModelConfig, batch: int, cache_len: int) -> Dict:
         "k": ParamSpec((U, batch, cache_len, KV, hd), (None, "batch", "cache_seq", "kv_heads", None)),
         "v": ParamSpec((U, batch, cache_len, KV, hd), (None, "batch", "cache_seq", "kv_heads", None)),
     }
-    return {f"l{i}": dict(kv) for i in range(len(cfg.layer_pattern))}
+    c: Dict[str, Any] = {f"l{i}": dict(kv) for i in range(len(cfg.layer_pattern))}
+    if cfg.first_k_dense:
+        pkv = {
+            "k": ParamSpec((batch, cache_len, KV, hd), ("batch", "cache_seq", "kv_heads", None)),
+            "v": ParamSpec((batch, cache_len, KV, hd), ("batch", "cache_seq", "kv_heads", None)),
+        }
+        c["prefix"] = {f"p{i}": dict(pkv) for i in range(cfg.first_k_dense)}
+    return c
 
 
 # ---------------------------------------------------------------------------
@@ -133,22 +152,31 @@ def _one_layer(
     cfg: ModelConfig,
     layer_type: str,
     lcache: Optional[Dict],
+    aux: torch.Tensor,
 ):
-    """pre-LN attention + mlp; returns (x, new_cache)."""
+    """pre-LN attention + (moe|mlp); returns (x, new_cache, aux plus the
+    layer's aux loss; a dense layer adds nothing)."""
     h, new_cache = attention_block(
         lp["attn"], apply_norm(lp["ln_attn"], x, cfg), positions, cfg,
         layer_type=layer_type, cache=lcache,
     )
     x = x + h
-    h2 = apply_mlp(lp["mlp"], apply_norm(lp["ln_mlp"], x, cfg), cfg)
-    return x + h2, new_cache
+    h2in = apply_norm(lp["ln_mlp"], x, cfg)
+    if "moe" in lp:
+        h2, a = apply_moe(lp["moe"], h2in, cfg)
+        aux = aux + a
+    else:
+        h2 = apply_mlp(lp["mlp"], h2in, cfg)
+    return x + h2, new_cache, aux
 
 
-def _unit(x: torch.Tensor, up: Dict, positions: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
-    """One repeating unit (``cfg.layer_pattern``) without a cache."""
+def _unit(x: torch.Tensor, aux: torch.Tensor, up: Dict, positions: torch.Tensor,
+          cfg: ModelConfig) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One repeating unit (``cfg.layer_pattern``) without a cache: the
+    reference's scan body, carrying (x, aux)."""
     for i, lt in enumerate(cfg.layer_pattern):
-        x, _ = _one_layer(up[f"l{i}"], x, positions, cfg, lt, None)
-    return x
+        x, _, aux = _one_layer(up[f"l{i}"], x, positions, cfg, lt, None, aux)
+    return x, aux
 
 
 def _save_dots(ctx, op, *args, **kwargs):
@@ -188,21 +216,29 @@ def decoder_forward(
     cache: Optional[Dict] = None,
     cache_len=None,
 ) -> Tuple[torch.Tensor, Optional[Dict], torch.Tensor]:
-    """Returns (logits, new_cache, aux_loss); a dense layer adds no
-    auxiliary loss, so aux_loss is 0.
+    """Returns (logits, new_cache, aux_loss): aux_loss sums the MoE layers'
+    load-balancing losses (0 for the dense family).
 
     With ``cache`` (a tree from ``cache_specs`` plus ``"len"``), the new
     tokens' k and v are written into its tensors in place and the returned
     cache holds the same tensors with ``len + S``.  ``cache_len`` (an int or
     a 0-dim tensor) is the first token's position.
     """
-    _require_dense(cfg)
+    _require_ported(cfg)
     B, S = tokens.shape
     x = params["embed"][tokens].to(cfg.adtype)
     start = 0 if cache_len is None else int(cache_len)
     x = shard(x, "batch", "residual_seq", None)
     positions = torch.arange(start, start + S, dtype=torch.int32, device=x.device)
     positions = positions[None].expand(B, S)
+
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    clen = None if cache is None else int(cache["len"])
+
+    # the unstacked prefix (e.g. kimi's first dense layer), its cache apart
+    for i in range(cfg.first_k_dense):
+        lc = None if cache is None else {**cache["prefix"][f"p{i}"], "len": clen}
+        x, _, aux = _one_layer(params["prefix"][f"p{i}"], x, positions, cfg, "global", lc, aux)
 
     units = _tree_units(params["blocks"], num_units(cfg))
     new_cache = None
@@ -211,22 +247,23 @@ def decoder_forward(
         # inference_mode there is nothing to save
         unit = _maybe_remat(_unit, cfg) if torch.is_grad_enabled() else _unit
         for up in units:
-            x = unit(x, up, positions, cfg)
+            x, aux = unit(x, aux, up, positions, cfg)
     else:
-        clen = int(cache["len"])
         new_cache = {f"l{i}": {"k": cache[f"l{i}"]["k"], "v": cache[f"l{i}"]["v"]}
                      for i in range(len(cfg.layer_pattern))}
+        if cfg.first_k_dense:
+            new_cache["prefix"] = {p: {"k": c["k"], "v": c["v"]}
+                                   for p, c in cache["prefix"].items()}
         new_cache["len"] = clen + S
         for u, up in enumerate(units):
             for i, lt in enumerate(cfg.layer_pattern):
                 lc = {"k": cache[f"l{i}"]["k"][u], "v": cache[f"l{i}"]["v"][u], "len": clen}
-                x, _ = _one_layer(up[f"l{i}"], x, positions, cfg, lt, lc)
+                x, _, aux = _one_layer(up[f"l{i}"], x, positions, cfg, lt, lc, aux)
 
     x = apply_norm(params["ln_f"], x, cfg)
     x = shard(x, "batch", "residual_seq", None)
     logits = x @ params["embed"].T.to(cfg.adtype)  # tied head
     logits = softcap(logits.float(), cfg.logit_softcap)
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     return shard(logits, "batch", "residual_seq", "vocab"), new_cache, aux
 
 
@@ -250,7 +287,7 @@ class _Tree(nn.Module):
 
 
 class DecoderLM(_Tree):
-    """The dense decoder as an ``nn.Module``: ``params`` (a tree from
+    """The decoder as an ``nn.Module``: ``params`` (a tree from
     ``materialize(decoder_specs(cfg), ...)`` or ``params_from_numpy``) held
     under the reference's paths, so that ``state_dict()`` keys are those
     paths joined by dots (``blocks.l0.attn.wq``).  ``forward`` is

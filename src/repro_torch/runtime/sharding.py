@@ -20,7 +20,13 @@ import torch
 from ..core.galois import fold_in
 from ..device import resolve_device
 
-__all__ = ["ParamSpec", "materialize", "param_bytes", "param_count", "shard"]
+__all__ = ["PIECEWISE_BYTES", "ParamSpec", "materialize", "param_bytes", "param_count", "shard"]
+
+# a leaf whose float32 draw would take more bytes than this is drawn one
+# leading slice at a time: qwen3-moe-30b-a3b's stacked experts are 38.7 GB
+# each in float32 (48 slices of 805 MB), while every gemma2-2b leaf, the
+# largest its 2.36 GB embedding, is drawn whole
+PIECEWISE_BYTES = 4 << 30
 
 
 def shard(x: torch.Tensor, *logical: Optional[str]) -> torch.Tensor:
@@ -72,8 +78,25 @@ def materialize(spec_tree, seed: int, device=None):
     is the reference's, with its std rule kept as it is: ``scale /
     sqrt(shape[0])``, which for a stacked (U, d, n) leaf is 1/sqrt(U), not
     1/sqrt(d).  The bits are not threefry's, and CPU and CUDA streams differ.
+
+    A leaf whose float32 draw would exceed ``PIECEWISE_BYTES`` is drawn one
+    leading slice at a time into the output (slice i from a generator
+    seeded ``fold_in(leaf seed, i)``, again by slices if one is still too
+    large), so no float32 temporary is larger than a slice.
     """
     device = resolve_device(device)
+
+    def draw(shape, gseed: int, std: float, dtype, out=None):
+        if 4 * int(np.prod(shape)) > PIECEWISE_BYTES and len(shape) > 1:
+            if out is None:
+                out = torch.empty(shape, dtype=dtype, device=device)
+            for i in range(shape[0]):
+                draw(shape[1:], fold_in(gseed, i), std, dtype, out[i])
+            return out
+        g = torch.Generator(device=device)
+        g.manual_seed(gseed)
+        x = torch.randn(shape, generator=g, dtype=torch.float32, device=device).mul_(std)
+        return x.to(dtype) if out is None else out.copy_(x)
 
     def init_one(path, ps: ParamSpec):
         if ps.init == "zeros":
@@ -84,10 +107,7 @@ def materialize(spec_tree, seed: int, device=None):
         std = ps.scale / np.sqrt(max(fan_in, 1))
         if ps.init == "embed":
             std = ps.scale
-        g = torch.Generator(device=device)
-        g.manual_seed(_path_seed(seed, path))
-        x = torch.randn(ps.shape, generator=g, dtype=torch.float32, device=device)
-        return (x * float(std)).to(ps.dtype)
+        return draw(ps.shape, _path_seed(seed, path), float(std), ps.dtype)
 
     return _map_leaves(init_one, spec_tree)
 
