@@ -207,7 +207,7 @@ Phases (any mismatch fails the run with a non-zero exit):
    width and depth (48 layers, d 2048, 128 experts, top-8, vocab 151936,
    bf16, 30.2 B parameters) from ``materialize`` on the card (its stacked
    experts drawn a layer at a time), seeded from ``--seed``; (a)
-   ``greedy_generate(smoke=False)`` at phase 14's ``LM_RUNS`` (every token
+   ``greedy_generate(smoke=False)`` at ``SHORT_RUNS`` (every token
    in range, every logit finite; step time median and p90, tokens/s, the
    init time, peak memory, against two bounds: every weight read once, as
    the dense dispatch reads them, and only the weights the step's routes
@@ -219,9 +219,40 @@ Phases (any mismatch fails the run with a non-zero exit):
    expert ids and drop masks equal in every MoE call but where a CPU
    top-K boundary is a near-tie (``MOE_NEAR_TIE``, counted), and at least
    one route dropped; (c) launch counts zeroed before and read after
-   (a)-(b): no ``gr_matmul`` route launched.
+   (a)-(b): no ``gr_matmul`` route launched;
+17. the MoE family's training path (plain PyTorch ops and autograd through
+   the dense dispatch; no ring kernel may launch): (a) qwen3-moe-30b-a3b at
+   full width (128 experts, top-8, vocab 151936), its depth cut to
+   ``MOE_TRAIN_LAYERS`` of 48 (2.804 B parameters), bf16, remat ``full``,
+   AdamW with float32 state, through ``launch.train.train(layers=...)`` at
+   ``MOE_TRAIN_SHAPE`` for ``MOE_TRAIN_STEPS`` steps, with phase 15's
+   training rows (model FLOPs from the active parameters) and every unit's
+   routes recorded in the forward and in its recompute, which must be
+   equal; routes dropped a step; (b) phase 16 (b)'s 2-layer float32 cut
+   (128 experts), TF32 off, on the card and on the host CPU from the same
+   weights: the loss and aux within ``LM_F32_TOL``, every gradient leaf
+   within ``TRAIN_GRAD_TOL``, the routes equal but for counted near-ties;
+   (c) launch counts zeroed before and read after (a)-(b): no ``gr_matmul``
+   route launched;
+18. the SSM family's serving and training paths (plain PyTorch ops; no
+   ring kernel may launch): (a) mamba2-370m (0.368 B parameters) and
+   zamba2-7b (6.66 B) at full width and depth, bf16, from ``materialize``
+   on the card, ``greedy_generate(smoke=False)`` at ``SHORT_RUNS`` (step time
+   median and p90, tokens/s, against a byte bound: every weight read once,
+   zamba2's shared block once more at each later application, the float32
+   SSM state and the conv history read and written, the shared block's KV
+   cache read; one profiled step, peak memory); (b) mamba2-370m training
+   at full width and depth through ``launch.train.train`` at
+   ``SSM_TRAIN_SHAPE`` for ``SSM_TRAIN_STEPS`` steps, with phase 15's
+   training rows (model FLOPs: 6 N a token plus the SSD scan's matmuls);
+   (c) each arch's float32 cut (``SSM_CUT_LAYERS``), TF32 off, on the card
+   and on the host CPU from the same weights: the prefill's logits and
+   every cached call's (S > 1 from a zero state, single steps, S > 1
+   continuing) within ``LM_F32_TOL``, the loss within it and every gradient
+   leaf within ``TRAIN_GRAD_TOL``; (d) launch counts zeroed before and read
+   after (a)-(c): no ``gr_matmul`` route launched.
 
-Phases run in the order 1-3, 5-9, 13, 12, 10, 11, 14, 15, 16, 4.  Launch counts per
+Phases run in the order 1-3, 5-9, 13, 12, 10, 11, 14, 15, 16, 17, 18, 4.  Launch counts per
 route are zeroed before each path of phases 3, 5-9, 12 and 13, read
 after it (after the elastic backend's straggler tasks have finished) and
 held against ``EXPECTED_LAUNCHES``; in phases 8-9 the master's counts are
@@ -2714,6 +2745,9 @@ def phase_calibrate(report: dict) -> None:
 LM_ARCH = "gemma2-2b"
 # (batch, prompt, generated): the reference's defaults, then the timed run
 LM_RUNS = [(2, 8, 8), (8, 64, 32)]
+# phases 16 and 18: the same batches with fewer steps at batch 8 (the
+# smoke run's 1200 s), every step's time still read from CUDA events
+SHORT_RUNS = [(2, 8, 8), (8, 16, 16)]
 # (c): sequence beyond the local window of 4096, depth and vocab cut so the
 # CPU can run the same float32 prefill; TF32 off on the card
 LM_SEQ = 4160
@@ -2743,6 +2777,7 @@ def _device_profile(step, steps: int, what: str, **row) -> dict:
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    t_call = time.perf_counter()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -2760,7 +2795,8 @@ def _device_profile(step, steps: int, what: str, **row) -> dict:
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
     row = {**row, "kernels_per_step": len(kernels) / steps,
            "device_busy_ms_per_step": busy_ms, "wall_ms_per_step": wall_ms,
-           "idle_share": 1 - busy_ms / wall_ms, "top_kernels_ms": dict(top)}
+           "idle_share": 1 - busy_ms / wall_ms, "top_kernels_ms": dict(top),
+           "seconds": time.perf_counter() - t_call}
     log(f"{what}: {row['kernels_per_step']:.0f} kernels a step, device busy "
         f"{busy_ms:.3f} of {wall_ms:.3f} ms (idle {100 * row['idle_share']:.1f}%); top "
         + ", ".join(f"{k[:40]} {v:.3f}" for k, v in top[:4]))
@@ -2768,12 +2804,14 @@ def _device_profile(step, steps: int, what: str, **row) -> dict:
 
 
 def _lm_generate(what: str, arch: str, cfg, params, batch: int, prompt_len: int,
-                 gen_len: int, nbytes: int):
+                 gen_len: int, nbytes: int, cache_bytes=None):
     """``greedy_generate(smoke=False)`` of ``arch`` on the card with
     ``params``, checked (every token in range, the last logits finite);
     returns its output and a timing row: per-step time from CUDA events
     after the first step, tokens/s, and the least a step can take with
-    every weight (``nbytes``) and the whole cache read once from HBM."""
+    every weight (``nbytes``) and the whole cache read once from HBM (a
+    decoder's KV cache, unless ``cache_bytes`` gives a step's cache
+    traffic)."""
     import numpy as np
     import torch
 
@@ -2789,8 +2827,9 @@ def _lm_generate(what: str, arch: str, cfg, params, batch: int, prompt_len: int,
     if not bool(torch.isfinite(logits).all()):
         fail(f"{what} generation ({batch}, {prompt_len}, {gen_len}): non-finite logits")
     steps = np.asarray(gen["step_ms"][1:])  # the first step pays the first calls
-    cache_bytes = (2 * cfg.num_layers * batch * (prompt_len + gen_len + 8)
-                   * cfg.num_kv_heads * cfg.hd * 2)
+    if cache_bytes is None:
+        cache_bytes = (2 * cfg.num_layers * batch * (prompt_len + gen_len + 8)
+                       * cfg.num_kv_heads * cfg.hd * 2)
     row = {"batch": batch, "prompt": prompt_len, "generated": gen_len, "wall_s": wall,
            "first_step_ms": gen["step_ms"][0],
            "step_ms_median": float(np.median(steps)),
@@ -3032,6 +3071,80 @@ def _leaf_errs(card: dict, host: dict, prefix: str = "") -> dict:
     return {prefix: _lm_rel(card.float(), host.float())}
 
 
+def _train_rows(what: str, cfg, api, run: dict, shape, flops: float, steps: int) -> dict:
+    """The training rows of a ``launch.train.train`` run on the card (its
+    return value ``run``, the config ``cfg`` it trained and ``api`` its
+    model): every loss, lr and gradient norm finite; step time (median and
+    p90 after the first), tokens/s, the model FLOPs ``flops`` a step and
+    their share of the dense bf16 peak, the peak memory; the optimizer's
+    update alone (CUDA events) on the trained state with one batch's
+    gradients, against its byte bound; one profiled step (``build_cell``'s
+    train step: kernels, device-busy time, idle share, top kernels)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.data import DataConfig, TokenPipeline
+    from repro_torch.launch.steps import build_cell, opt_config_for, value_and_grad
+    from repro_torch.optim import opt_update
+    from repro_torch.optim.optimizers import _leaves
+
+    peak = torch.cuda.max_memory_allocated()
+    hist = run["history"]
+    for h in hist:
+        if not all(np.isfinite([h["loss"], h["lr"], h["gnorm"]])):
+            fail(f"{what} step: non-finite loss, lr or gnorm {h}")
+    ms = np.asarray([h["ms"] for h in hist[1:]])
+    batch_n, seq = shape.global_batch, shape.seq_len
+    step_s = float(np.median(ms)) / 1e3
+    out = dict(history=hist, first_step_ms=hist[0]["ms"],
+               step_ms_median=float(np.median(ms)), step_ms_p90=float(np.percentile(ms, 90)),
+               tokens_per_s=batch_n * seq / step_s, model_flops_per_step=flops,
+               flops_share_of_bf16_peak=flops / step_s / BF16_FLOPS_PER_S,
+               bound_ms=1e3 * flops / BF16_FLOPS_PER_S, peak_bytes=peak)
+    lrs = [f"{h['lr']:.3e}" for h in hist]
+    log(f"{what} {cfg.name} ({cfg.num_layers} layers, {cfg.dtype}, remat {cfg.remat}) at "
+        f"{batch_n} x {seq}: losses {[round(h['loss'], 4) for h in hist]}, lr {lrs}, "
+        f"gnorm {[round(h['gnorm'], 3) for h in hist]}")
+    log(f"{what} step median {out['step_ms_median']:.1f} ms p90 {out['step_ms_p90']:.1f} ms "
+        f"(first {out['first_step_ms']:.0f}), {out['tokens_per_s']:.0f} tokens/s, "
+        f"{flops / 1e12:.2f} TFLOP a step = {100 * out['flops_share_of_bf16_peak']:.1f}% of the "
+        f"bf16 peak (bound {out['bound_ms']:.1f} ms); peak {peak} bytes")
+
+    # the optimizer's update alone, on the trained state, with one batch's gradients
+    state = run["state"]
+    pipe = TokenPipeline(DataConfig(seed=SEED + 1, source="markov"), cfg, shape)
+    batch = {k: torch.from_numpy(v).cuda() for k, v in pipe.batch_at(0).items()}
+    _, grads = value_and_grad(api.loss_fn, state["params"], batch)
+    ocfg = opt_config_for(cfg, total_steps=max(steps, 10))
+    times = []
+    for _ in range(3):
+        e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        e0.record()
+        opt_update(ocfg, grads, state["opt"], state["params"])
+        e1.record()
+        torch.cuda.synchronize()
+        times.append(e0.elapsed_time(e1))
+    # every parameter and AdamW moment read once and written once, the
+    # gradients (the parameters' dtype) read once: the update's byte bound
+    opt_bytes = (3 * sum(t.numel() * t.element_size() for t in _leaves(state["params"]))
+                 + 2 * sum(t.numel() * t.element_size() for t in _leaves(state["opt"]["mu"])))
+    out["optimizer"] = {"ms": times, "ms_median": float(np.median(times)),
+                        "bytes": opt_bytes, "bound_ms": 1e3 * opt_bytes / HBM_BYTES_PER_S,
+                        "share_of_step": float(np.median(times)) / out["step_ms_median"]}
+    log(f"{what} optimizer update alone: {[round(t, 2) for t in times]} ms (bound "
+        f"{out['optimizer']['bound_ms']:.2f} ms by bytes), "
+        f"{100 * out['optimizer']['share_of_step']:.1f}% of the step")
+    del grads
+
+    # one profiled step: build_cell's train step on the same state
+    cell = build_cell(cfg, shape)
+    out["profile"] = _device_profile(
+        lambda: cell.step_fn(state["params"], state["opt"], batch), 1,
+        f"{what} profile, {batch_n} x {seq}", batch=batch_n, seq=seq)
+    out["peak_bytes_with_profile"] = torch.cuda.max_memory_allocated()
+    return out
+
+
 def phase_train(report: dict) -> None:
     import dataclasses
     import tempfile
@@ -3043,11 +3156,10 @@ def phase_train(report: dict) -> None:
     from repro_torch.configs import ARCHS, ShapeConfig
     from repro_torch.data import DataConfig, TokenPipeline
     from repro_torch.kernels import counters
-    from repro_torch.launch.steps import build_cell, opt_config_for, value_and_grad
+    from repro_torch.launch.steps import opt_config_for, value_and_grad
     from repro_torch.launch.train import train
     from repro_torch.models import build_model
     from repro_torch.optim import opt_init, opt_update
-    from repro_torch.optim.optimizers import _leaves
     from repro_torch.runtime.sharding import _map_leaves, materialize, param_count
 
     t_phase = time.perf_counter()
@@ -3068,62 +3180,10 @@ def phase_train(report: dict) -> None:
     run = train(LM_ARCH, smoke=False, steps=TRAIN_STEPS, shape=shape, seed=SEED,
                 data_source="markov", log_every=1, device="cuda")
     wall = time.perf_counter() - t0
-    hist = run["history"]
-    for h in hist:
-        if not all(np.isfinite([h["loss"], h["lr"], h["gnorm"]])):
-            fail(f"train step: non-finite loss, lr or gnorm {h}")
-    ms = np.asarray([h["ms"] for h in hist[1:]])
     flops = _train_flops(cfg, nparams, TRAIN_BATCH, TRAIN_SEQ)
-    step_s = float(np.median(ms)) / 1e3
-    out.update(params=nparams, wall_s=wall, history=hist, first_step_ms=hist[0]["ms"],
-               step_ms_median=float(np.median(ms)), step_ms_p90=float(np.percentile(ms, 90)),
-               tokens_per_s=TRAIN_BATCH * TRAIN_SEQ / step_s, model_flops_per_step=flops,
-               flops_share_of_bf16_peak=flops / step_s / BF16_FLOPS_PER_S,
-               bound_ms=1e3 * flops / BF16_FLOPS_PER_S,
-               peak_bytes=torch.cuda.max_memory_allocated())
-    lrs = [f"{h['lr']:.3e}" for h in hist]
-    log(f"train {LM_ARCH} ({nparams} parameters, {cfg.dtype}, remat {cfg.remat}) at "
-        f"{TRAIN_BATCH} x {TRAIN_SEQ}: losses {[round(h['loss'], 4) for h in hist]}, lr {lrs}, "
-        f"gnorm {[round(h['gnorm'], 3) for h in hist]}")
-    log(f"train step median {out['step_ms_median']:.1f} ms p90 {out['step_ms_p90']:.1f} ms "
-        f"(first {out['first_step_ms']:.0f}), {out['tokens_per_s']:.0f} tokens/s, "
-        f"{flops / 1e12:.2f} TFLOP a step = {100 * out['flops_share_of_bf16_peak']:.1f}% of the "
-        f"bf16 peak (bound {out['bound_ms']:.1f} ms); peak {out['peak_bytes']} bytes; "
-        f"wall {wall:.1f} s")
-
-    # the optimizer's update alone, on the trained state, with one batch's gradients
-    state = run["state"]
-    pipe = TokenPipeline(DataConfig(seed=SEED + 1, source="markov"), cfg, shape)
-    batch = {k: torch.from_numpy(v).cuda() for k, v in pipe.batch_at(0).items()}
-    _, grads = value_and_grad(api.loss_fn, state["params"], batch)
-    ocfg = opt_config_for(cfg, total_steps=max(TRAIN_STEPS, 10))
-    times = []
-    for _ in range(3):
-        e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        e0.record()
-        opt_update(ocfg, grads, state["opt"], state["params"])
-        e1.record()
-        torch.cuda.synchronize()
-        times.append(e0.elapsed_time(e1))
-    # every parameter and AdamW moment read once and written once, the
-    # gradients (the parameters' dtype) read once: the update's byte bound
-    opt_bytes = (3 * sum(t.numel() * t.element_size() for t in _leaves(state["params"]))
-                 + 2 * sum(t.numel() * t.element_size() for t in _leaves(state["opt"]["mu"])))
-    out["optimizer"] = {"ms": times, "ms_median": float(np.median(times)),
-                        "bytes": opt_bytes, "bound_ms": 1e3 * opt_bytes / HBM_BYTES_PER_S,
-                        "share_of_step": float(np.median(times)) / out["step_ms_median"]}
-    log(f"train optimizer update alone: {[round(t, 2) for t in times]} ms (bound "
-        f"{out['optimizer']['bound_ms']:.2f} ms by bytes), "
-        f"{100 * out['optimizer']['share_of_step']:.1f}% of the step")
-    del grads
-
-    # one profiled step: build_cell's train step on the same state
-    cell = build_cell(cfg, shape)
-    out["profile"] = _device_profile(
-        lambda: cell.step_fn(state["params"], state["opt"], batch), 1,
-        f"train profile, {TRAIN_BATCH} x {TRAIN_SEQ}", batch=TRAIN_BATCH, seq=TRAIN_SEQ)
-    out["peak_bytes_with_profile"] = torch.cuda.max_memory_allocated()
-    del run, state, batch, cell
+    out.update(params=nparams, wall_s=wall,
+               **_train_rows("train", cfg, api, run, shape, flops, TRAIN_STEPS))
+    del run
     torch.cuda.empty_cache()
 
     # (b) the card against the host CPU, float32, TF32 off
@@ -3305,7 +3365,7 @@ def phase_moe(report: dict) -> None:
 
     # (a) greedy generation at full width and depth
     runs = []
-    for batch, prompt_len, gen_len in LM_RUNS:
+    for batch, prompt_len, gen_len in SHORT_RUNS:
         with lm_layers.recording_routes() as routes:
             gen, row = _lm_generate("moe", MOE_ARCH, cfg, params, batch, prompt_len, gen_len,
                                     nbytes)
@@ -3335,7 +3395,7 @@ def phase_moe(report: dict) -> None:
             f"of {row['routes_per_step']}; wall {row['wall_s']:.2f} s")
     out["generate"] = runs
     out["peak_bytes"] = torch.cuda.max_memory_allocated()
-    out["profile"] = _lm_profile(api, params, LM_RUNS[-1][0], what="moe")
+    out["profile"] = _lm_profile(api, params, SHORT_RUNS[-1][0], what="moe")
     del params, gen
     gc.collect()
     torch.cuda.empty_cache()
@@ -3422,6 +3482,424 @@ def phase_moe(report: dict) -> None:
     log(f"moe phase: peak {out['peak_bytes']} bytes allocated, ring launches "
         f"{out['launches']}, {out['seconds']:.1f} s")
     report["moe"] = out
+
+
+# ---------------------------------------------------------------------------
+# phase 17: the MoE family's training path (plain PyTorch ops, no ring kernel)
+# ---------------------------------------------------------------------------
+
+# (a): qwen3-moe-30b-a3b at full width (128 experts, top-8), its depth cut
+# from 48 to MOE_TRAIN_LAYERS layers (2.804 B parameters: with their
+# gradients and AdamW's float32 state about 34 GB, beside the float32
+# logits of 2 x 2048 tokens over a vocab of 151936, 2.5 GB), train_4k's
+# sequence and global batch cut to MOE_TRAIN_SHAPE (seq, batch)
+MOE_TRAIN_LAYERS = 4
+MOE_TRAIN_SHAPE = (2048, 2)
+MOE_TRAIN_STEPS = 4
+# (b): phase 16 (b)'s 2-layer float32 cut (128 experts), its loss, aux and
+# every gradient leaf at (seq, batch) tokens, card against CPU
+MOE_GRAD_SHAPE = (64, 2)
+
+
+def _recompute_routes(routes, units: int, steps: int):
+    """Split a ``recording_routes`` list of train steps under remat
+    ``"full"`` (each step: ``units`` forward calls, then their recomputes in
+    reverse order) into (whether every recompute routed as its forward did,
+    routes dropped a step in the forward)."""
+    import torch
+
+    same, dropped = True, []
+    for st in range(steps):
+        fwd = routes[2 * units * st:2 * units * st + units]
+        again = routes[2 * units * st + units:2 * units * (st + 1)][::-1]
+        same = same and len(again) == units and all(
+            torch.equal(a.experts, b.experts) and torch.equal(a.kept, b.kept)
+            for a, b in zip(fwd, again))
+        dropped.append(int(sum(int((~r.kept).sum()) for r in fwd)))
+    return same, dropped
+
+
+def phase_moe_train(report: dict) -> None:
+    import dataclasses
+    import gc
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import ARCHS, ShapeConfig
+    from repro_torch.data import DataConfig, TokenPipeline
+    from repro_torch.kernels import counters
+    from repro_torch.launch.steps import value_and_grad
+    from repro_torch.launch.train import train
+    from repro_torch.models import build_model
+    from repro_torch.models import layers as lm_layers
+    from repro_torch.runtime.sharding import _map_leaves, materialize, param_count
+
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    counters.reset()
+    seq, batch = MOE_TRAIN_SHAPE
+    cfg = dataclasses.replace(ARCHS[MOE_ARCH], num_layers=MOE_TRAIN_LAYERS)
+    api = build_model(cfg)
+    nparams = param_count(api.param_specs)
+    moe = api.param_specs["blocks"]["l0"]["moe"]
+    experts = param_count({k: moe[k] for k in ("w_gate", "w_in", "w_out")})
+    # a token's parameters: all but the experts, and K of each layer's E
+    active = nparams - experts + experts * cfg.experts_per_tok // cfg.num_experts
+    out: dict = {"arch": MOE_ARCH, "layers": cfg.num_layers, "params": nparams,
+                 "active_params": active, "dtype": cfg.dtype, "remat": cfg.remat,
+                 "optimizer_config": f"{cfg.optimizer} ({cfg.opt_state_dtype} state)",
+                 "seq": seq, "batch": batch, "steps": MOE_TRAIN_STEPS,
+                 "reduced": {"num_layers": f"{ARCHS[MOE_ARCH].num_layers} -> {cfg.num_layers}",
+                             "seq_len": f"4096 -> {seq}", "global_batch": f"256 -> {batch}"}}
+
+    # (a) full width, depth cut, through the user's entry point; the routes
+    # of every forward and of its recompute in the backward recorded
+    shape = ShapeConfig("train_moe_cut", seq, batch, "train")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with lm_layers.recording_routes() as routes:
+        run = train(MOE_ARCH, smoke=False, layers=MOE_TRAIN_LAYERS, steps=MOE_TRAIN_STEPS,
+                    shape=shape, seed=SEED, data_source="markov", log_every=1, device="cuda")
+    wall = time.perf_counter() - t0
+    units = cfg.num_layers  # one MoE layer a unit
+    if len(routes) != 2 * units * MOE_TRAIN_STEPS:
+        fail(f"moe train: {len(routes)} MoE calls for {MOE_TRAIN_STEPS} steps of {units} units")
+    same, dropped = _recompute_routes(routes, units, MOE_TRAIN_STEPS)
+    del routes
+    flops = _train_flops(cfg, active, batch, seq)
+    out.update(wall_s=wall, recompute_routes_equal=same, dropped_per_step=dropped,
+               routes_per_step=batch * seq * cfg.experts_per_tok * units,
+               **_train_rows("moe train", cfg, api, run, shape, flops, MOE_TRAIN_STEPS))
+    log(f"moe train routes: the recompute under remat full routed as the forward: {same}; "
+        f"routes dropped a step {dropped} of {out['routes_per_step']}")
+    if not same:
+        fail("moe train: a recompute's routes differ from its forward's")
+    del run
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["train_s"] = time.perf_counter() - t_phase
+
+    # (b) the card against the host CPU: the 2-layer float32 cut, loss, aux
+    # and every gradient leaf, TF32 off
+    cut = dataclasses.replace(ARCHS[MOE_ARCH], dtype="float32", **LM_CUT)
+    capi = build_model(cut)
+    K = cut.experts_per_tok
+    gseq, gb = MOE_GRAD_SHAPE
+    card = materialize(capi.param_specs, SEED, device="cuda")
+    host = _map_leaves(lambda _, t: t.cpu(), card)
+    pipe = TokenPipeline(DataConfig(seed=SEED + 1, source="markov"), cut,
+                         ShapeConfig("cut", gseq, gb, "train"))
+    hbatch = {k: torch.from_numpy(v) for k, v in pipe.batch_at(0).items()}
+    cbatch = {k: v.cuda() for k, v in hbatch.items()}
+    runs = {}
+    prev_tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        for dev, p, b in (("cuda", card, cbatch), ("cpu", host, hbatch)):
+            t0 = time.perf_counter()
+            with lm_layers.recording_routes() as rr:
+                (loss, m), grads = value_and_grad(capi.loss_fn, p, b)
+                loss, aux = float(loss), float(m["aux"])
+            runs[dev] = (loss, aux, grads, rr, time.perf_counter() - t0)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev_tf32
+    (lc, ac, gcard, rc, card_s), (lh, ah, ghost, rh, cpu_s) = runs["cuda"], runs["cpu"]
+    cu = len(rc) // 2
+    same_c, _ = _recompute_routes(rc, cu, 1)
+    mismatched = excused = 0
+    for j, (a, b) in enumerate(zip(rc[:cu], rh[:cu])):
+        (ge, gk), (ce, ck) = (_route_sets(a.experts.cpu(), a.kept.cpu()),
+                              _route_sets(b.experts, b.kept))
+        if torch.equal(ge, ce) and torch.equal(gk, ck):
+            continue
+        mismatched += 1
+        if bool((b.top[:, K - 1] - b.top[:, K] <= MOE_NEAR_TIE * b.top[:, K - 1]).any()):
+            excused += 1
+            continue
+        fail(f"moe train card vs cpu, MoE call {j}: routes differ with no near-tie")
+    grad_errs = _leaf_errs(gcard, ghost)
+    loss_err, aux_err = abs(lc - lh) / abs(lh), abs(ac - ah) / abs(ah)
+    ratios = [loss_err / LM_F32_TOL, aux_err / LM_F32_TOL] + [
+        e / TRAIN_GRAD_TOL for e in grad_errs.values()]
+    out["card_vs_cpu"] = {
+        "shape": [gb, gseq], "dtype": "float32", "tf32": False, "tol": LM_F32_TOL,
+        "grad_tol": TRAIN_GRAD_TOL, "loss_card": lc, "loss_cpu": lh, "loss_rel": loss_err,
+        "aux_card": ac, "aux_cpu": ah, "aux_rel": aux_err, "grad_rel_l2": grad_errs,
+        "worst_over_tol": max(ratios), "routes_differing_calls": mismatched,
+        "excused_near_ties": excused, "dropped_routes_cpu": int(sum(int((~r.kept).sum())
+                                                                 for r in rh[:cu])),
+        "recompute_routes_equal": same_c, "card_s": card_s, "cpu_s": cpu_s,
+        "reduced": {k: f"{getattr(cfg, k)} -> {v}" for k, v in LM_CUT.items()}}
+    log(f"moe train card vs cpu, float32 2-layer cut ({cut.num_experts} experts) at {gb} x "
+        f"{gseq}: loss {lc:.6f} / {lh:.6f} (rel {loss_err:.2e}), aux {ac:.6f} / {ah:.6f} (rel "
+        f"{aux_err:.2e}) (tol {LM_F32_TOL}); worst gradient leaf "
+        f"{max(grad_errs.values()):.2e} ({max(grad_errs, key=grad_errs.get)}) (tol "
+        f"{TRAIN_GRAD_TOL}); routes differ in {mismatched} calls ({excused} near-ties), "
+        f"{out['card_vs_cpu']['dropped_routes_cpu']} dropped; recompute routes equal "
+        f"{same_c}; card {card_s:.2f} s, cpu {cpu_s:.2f} s")
+    if not np.isfinite(ratios).all() or max(ratios) > 1 or not same_c:
+        fail(f"moe train card vs cpu: an error {max(ratios):.2f} times its tolerance, "
+             f"recompute routes equal {same_c}")
+    del card, host, gcard, ghost, runs, rc, rh
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (c) no ring kernel ran
+    out["launches"] = dict(counters.launches_by_route)
+    if any(out["launches"].values()):
+        fail(f"moe train path launched ring kernels: {out['launches']}")
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"moe train phase: ring launches {out['launches']}, {out['seconds']:.1f} s")
+    report["moe_train"] = out
+
+
+# ---------------------------------------------------------------------------
+# phase 18: the SSM family's serving and training paths (plain PyTorch ops,
+# no ring kernel)
+# ---------------------------------------------------------------------------
+
+SSM_ARCHS = ("mamba2-370m", "zamba2-7b")
+# (b): mamba2-370m at full width and depth, train_4k's sequence (16 chunks
+# of 256 a layer) and its global batch cut to 2
+SSM_TRAIN_ARCH = "mamba2-370m"
+SSM_TRAIN_SHAPE = (4096, 2)
+SSM_TRAIN_STEPS = 4
+# (c): each arch's float32 cut, card against CPU: mamba2 2 layers, zamba2
+# 2 units of 6 and one tail layer (13 layers, 1.25 B parameters).  Its
+# matrices are rescaled to std 1/sqrt(fan-in), as the CPU tests draw them:
+# the std rule's 1/sqrt(U) at U = 2 makes dt reach ~150 and the
+# within-chunk cumulative decays ~3e3, whose float32 differences lose
+# ~4e-3 to summation order alone (NVIDIA H100 80GB HBM3, 700 W).  A
+# prefill of (seq, batch) tokens, cached calls of the spans' lengths (S > 1
+# from a zero state, single steps, S > 1 continuing from their state), then
+# loss_fn's gradients at (seq, batch) tokens; zamba2's shorter, for the
+# host CPU's time
+SSM_CUT_LAYERS = {"mamba2-370m": 2, "zamba2-7b": 13}
+SSM_CUT_PREFILL = {"mamba2-370m": (512, 2), "zamba2-7b": (128, 1)}
+SSM_CUT_SPANS = {"mamba2-370m": (256, 1, 1, 128, 1, 1), "zamba2-7b": (64, 1, 1, 32, 1, 1)}
+SSM_CUT_GRADS = {"mamba2-370m": (512, 2), "zamba2-7b": (64, 1)}
+
+
+def _fan_in_std(tree) -> None:
+    """Each bf16 weight matrix of a ``materialize`` draw rescaled in place
+    from the std rule's 1/sqrt(shape[0]) (1/sqrt(U) for a stacked leaf) to
+    1/sqrt(fan-in), its second-to-last dim; the embedding and the float32
+    leaves keep theirs."""
+    import torch
+
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            _fan_in_std(v)
+        elif k != "embed" and v.dtype == torch.bfloat16 and v.dim() >= 2:
+            v.mul_((v.shape[0] / v.shape[-2]) ** 0.5)
+
+
+def _ssm_step_bytes(cfg, api, batch: int, cache_len: int) -> tuple:
+    """(the weight bytes a decode step reads, the cache bytes it moves):
+    every weight once, and zamba2's shared block once more at each of its
+    applications after the first; the float32 SSM state and the conv
+    history read and written (new tensors a step), the shared block's KV
+    cache read once."""
+    from repro_torch.configs import ShapeConfig
+    from repro_torch.runtime.sharding import param_bytes
+
+    weights = param_bytes(api.param_specs)
+    if cfg.family == "hybrid":
+        weights += (cfg.num_layers // cfg.shared_attn_every - 1) * param_bytes(
+            api.param_specs["shared"])
+    decl = api.cache_decl(ShapeConfig("bound", cache_len, batch, "decode"))
+    moved = sum(2 * param_bytes(v) for k, v in decl.items()
+                if k in ("conv", "state", "tail_conv", "tail_state"))
+    kv = sum(param_bytes(v) for k, v in decl.items() if k in ("shared_k", "shared_v"))
+    return weights, moved + kv
+
+
+def _ssd_flops(cfg, batch: int, seq: int) -> float:
+    """The SSD scan's matmul FLOPs of a train step (forward and backward,
+    3x the forward's): a chunk of c tokens forms C B^T (c^2 N), the
+    intra-chunk product (c^2 H P), the carried state's output and update
+    (2 c N H P)."""
+    c = min(cfg.ssm_chunk, seq)
+    H, N, P = cfg.ssm_d_inner // cfg.ssm_head_dim, cfg.ssm_state, cfg.ssm_head_dim
+    per_chunk = 2 * c * c * (N + H * P) + 4 * c * N * H * P
+    return 3.0 * per_chunk * (seq // c) * batch * cfg.num_layers
+
+
+def phase_ssm(report: dict) -> None:
+    import dataclasses
+    import gc
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import ARCHS, ShapeConfig
+    from repro_torch.data import DataConfig, TokenPipeline
+    from repro_torch.kernels import counters
+    from repro_torch.launch.steps import value_and_grad
+    from repro_torch.launch.train import train
+    from repro_torch.models import build_model
+    from repro_torch.models import ssm as ssm_mod
+    from repro_torch.runtime.sharding import _map_leaves, materialize, param_bytes, param_count
+
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    counters.reset()
+    out: dict = {}
+
+    # (a) greedy generation at full width and depth
+    t_part = time.perf_counter()
+    for arch in SSM_ARCHS:
+        cfg = ARCHS[arch]
+        api = build_model(cfg)
+        nbytes, nparams = param_bytes(api.param_specs), param_count(api.param_specs)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        params = materialize(api.param_specs, SEED, device="cuda")
+        torch.cuda.synchronize()
+        entry = {"params": nparams, "param_bytes": nbytes, "layers": cfg.num_layers,
+                 "d_model": cfg.d_model, "d_inner": cfg.ssm_d_inner, "state": cfg.ssm_state,
+                 "vocab": cfg.vocab_size, "dtype": cfg.dtype,
+                 "init_s": time.perf_counter() - t0}
+        if cfg.family == "hybrid":
+            entry["shared_params"] = param_count(api.param_specs["shared"])
+        log(f"ssm {arch}: {nparams} parameters, {nbytes} bytes (bf16) on the card in "
+            f"{entry['init_s']:.2f} s")
+        runs = []
+        for batch, prompt_len, gen_len in SHORT_RUNS:
+            wbytes, cbytes = _ssm_step_bytes(cfg, api, batch, prompt_len + gen_len + 8)
+            gen, row = _lm_generate(f"ssm {arch}", arch, cfg, params, batch, prompt_len,
+                                    gen_len, wbytes, cache_bytes=cbytes)
+            row.update(weight_bytes_a_step=wbytes, weight_bound_ms=1e3 * nbytes / HBM_BYTES_PER_S)
+            runs.append(row)
+            log(f"ssm {arch} generate batch {batch} prompt {prompt_len} gen {gen_len}: step "
+                f"median {row['step_ms_median']:.3f} ms p90 {row['step_ms_p90']:.3f} ms (first "
+                f"{row['first_step_ms']:.1f}), {row['tokens_per_s']:.1f} tokens/s, bound "
+                f"{row['bound_ms']:.3f} ms ({wbytes} weight bytes, {cbytes} cache bytes a "
+                f"step); wall {row['wall_s']:.2f} s")
+        entry["generate"] = runs
+        entry["peak_bytes"] = torch.cuda.max_memory_allocated()
+        entry["profile"] = _lm_profile(api, params, SHORT_RUNS[-1][0], steps=1,
+                                       what=f"ssm {arch}")
+        out[arch] = entry
+        del params, gen
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    out["generate_s"] = time.perf_counter() - t_part
+
+    # (b) mamba2-370m training at full width and depth
+    t_part = time.perf_counter()
+    seq, batch = SSM_TRAIN_SHAPE
+    cfg = ARCHS[SSM_TRAIN_ARCH]
+    api = build_model(cfg)
+    nparams = param_count(api.param_specs)
+    shape = ShapeConfig("train_4k_cut", seq, batch, "train")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    run = train(SSM_TRAIN_ARCH, smoke=False, steps=SSM_TRAIN_STEPS, shape=shape, seed=SEED,
+                data_source="markov", log_every=1, device="cuda")
+    wall = time.perf_counter() - t0
+    flops = _train_flops(cfg, nparams, batch, seq) + _ssd_flops(cfg, batch, seq)
+    out["train"] = {"arch": SSM_TRAIN_ARCH, "params": nparams, "seq": seq, "batch": batch,
+                    "steps": SSM_TRAIN_STEPS, "dtype": cfg.dtype, "remat": cfg.remat,
+                    "wall_s": wall, "reduced": {"global_batch": f"256 -> {batch}"},
+                    **_train_rows("ssm train", cfg, api, run, shape, flops, SSM_TRAIN_STEPS)}
+    del run
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["train_s"] = time.perf_counter() - t_part
+
+    # (c) each arch's float32 cut, the card against the host CPU, TF32 off:
+    # prefill logits, every cached call's logits, loss_fn's gradients
+    checks = {}
+    prev_tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        for arch in SSM_ARCHS:
+            cut = dataclasses.replace(ARCHS[arch], dtype="float32", num_layers=SSM_CUT_LAYERS[arch])
+            capi = build_model(cut)
+            forward = ssm_mod.mamba_forward if cut.family == "ssm" else ssm_mod.zamba_forward
+            card = materialize(capi.param_specs, SEED, device="cuda")
+            _fan_in_std(card)
+            # the bf16 matrices held as float32 (exact: the values the model
+            # casts them to at every use), so no call pays the cast
+            card = _map_leaves(lambda _, t: t.float(), card)
+            host = _map_leaves(lambda _, t: t.cpu(), card)
+            pseq, pb = SSM_CUT_PREFILL[arch]
+            spans = SSM_CUT_SPANS[arch]
+            toks = torch.from_numpy(np.random.default_rng(SEED).integers(
+                0, cut.vocab_size, (pb, pseq)).astype(np.int32))
+            gseq, gb = SSM_CUT_GRADS[arch]
+            pipe = TokenPipeline(DataConfig(seed=SEED + 1, source="markov"), cut,
+                                 ShapeConfig("cut", gseq, gb, "train"))
+            gbatch = {k: torch.from_numpy(v) for k, v in pipe.batch_at(0).items()}
+            runs = {}
+            for dev, p in (("cuda", card), ("cpu", host)):
+                t0 = time.perf_counter()
+                t = toks.to(dev)
+                with torch.inference_mode():
+                    pre = forward(p, t, cut)[0].cpu()
+                    decl = capi.cache_decl(ShapeConfig("check", sum(spans) + 8, pb, "decode"))
+                    cache = _map_leaves(lambda _, ps: torch.zeros(
+                        ps.shape, device=dev, dtype=torch.float32 if ps.shape else ps.dtype),
+                        decl)
+                    calls, at = [], 0
+                    for S in spans:
+                        lg, cache = capi.decode_fn(p, cache, {"tokens": t[:, at:at + S]})
+                        calls.append(lg.cpu())
+                        at += S
+                (loss, _), grads = value_and_grad(
+                    capi.loss_fn, p, {k: v.to(dev) for k, v in gbatch.items()})
+                if dev == "cuda":
+                    torch.cuda.synchronize()
+                runs[dev] = (pre, calls, float(loss), grads, time.perf_counter() - t0)
+            (gp, gcalls, gl, gg, card_s), (hp, hcalls, hl, hg, cpu_s) = runs["cuda"], runs["cpu"]
+            pre_err = _lm_rel(gp, hp)
+            call_errs = [_lm_rel(a, b) for a, b in zip(gcalls, hcalls)]
+            loss_err = abs(gl - hl) / abs(hl)
+            grad_errs = _leaf_errs(gg, hg)
+            finite = bool(torch.isfinite(gp).all()) and all(
+                bool(torch.isfinite(c).all()) for c in gcalls)
+            ratios = ([pre_err / LM_F32_TOL, loss_err / LM_F32_TOL]
+                      + [e / LM_F32_TOL for e in call_errs]
+                      + [e / TRAIN_GRAD_TOL for e in grad_errs.values()])
+            checks[arch] = {
+                "layers": cut.num_layers, "params": param_count(capi.param_specs),
+                "prefill": [pb, pseq], "spans": list(spans), "grad_shape": [gb, gseq],
+                "prefill_rel_l2": pre_err, "call_rel_l2": call_errs, "loss_card": gl,
+                "loss_cpu": hl, "loss_rel": loss_err, "grad_rel_l2": grad_errs,
+                "worst_over_tol": max(ratios), "finite": finite, "card_s": card_s,
+                "cpu_s": cpu_s,
+                "reduced": {"num_layers": f"{ARCHS[arch].num_layers} -> {cut.num_layers}"}}
+            log(f"ssm {arch} card vs cpu, float32 {cut.num_layers}-layer cut: prefill "
+                f"{pb} x {pseq} rel L2 {pre_err:.3e}; cached calls {list(spans)} "
+                f"worst {max(call_errs):.3e} (tol {LM_F32_TOL}); loss at {gb} x {gseq} "
+                f"{gl:.6f} / {hl:.6f} (rel {loss_err:.2e}); worst gradient leaf "
+                f"{max(grad_errs.values()):.2e} ({max(grad_errs, key=grad_errs.get)}) (tol "
+                f"{TRAIN_GRAD_TOL}); card {card_s:.2f} s, cpu {cpu_s:.2f} s")
+            if not finite or not np.isfinite(ratios).all() or max(ratios) > 1:
+                fail(f"ssm {arch} card vs cpu: an error {max(ratios):.2f} times its tolerance "
+                     f"(finite {finite})")
+            del card, host, runs, gg, hg
+            gc.collect()
+            torch.cuda.empty_cache()
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev_tf32
+    out["card_vs_cpu"] = checks
+
+    # (d) no ring kernel ran
+    out["launches"] = dict(counters.launches_by_route)
+    if any(out["launches"].values()):
+        fail(f"ssm path launched ring kernels: {out['launches']}")
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"ssm phase: ring launches {out['launches']}, {out['seconds']:.1f} s")
+    report["ssm"] = out
 
 
 def _kernel_rows(report: dict, totals: dict) -> list:
@@ -3569,6 +4047,8 @@ def main() -> int:
     timed(phase_lm)
     timed(phase_train)
     timed(phase_moe)
+    timed(phase_moe_train)
+    timed(phase_ssm)
     timed(phase_path_calls, calls)
     report["seconds"] = time.perf_counter() - t0
     log(f"phase seconds: {json.dumps(report['phase_seconds'])}")

@@ -6,6 +6,7 @@ cpu``::
 
     python -m repro_torch.launch.serve --device cpu --gen-len 2
     python -m repro_torch.launch.serve --arch qwen3-moe-30b-a3b --full
+    python -m repro_torch.launch.serve --arch zamba2-7b --full
     python -m repro_torch.launch.serve --coded --coded-backend pool --pool-workers 4
     python -m repro_torch.launch.serve --serve 16 --serve-batch 4 --pool-workers 8
 
@@ -51,7 +52,9 @@ def greedy_generate(
     The prompt, ``batch`` x ``prompt_len`` tokens from
     ``np.random.default_rng(seed)``, is fed token by token through
     ``decode_fn`` (exercising the cache writes), then each next token is
-    the argmax of the last logits.  ``params`` takes a converted tree
+    the argmax of the last logits.  Each step goes on with the cache
+    ``decode_fn`` returned: a decoder's is its input, written in place; an
+    SSM's ``conv`` and ``state`` are new tensors.  ``params`` takes a converted tree
     (``models.convert.params_from_numpy``); left at None the weights are
     ``materialize``'s draw from ``seed`` on ``device``.
 
@@ -280,7 +283,8 @@ def main(argv: Optional[list] = None) -> int:
     ap.add_argument(
         "--full", dest="smoke", action="store_false",
         help="generate with the arch as published, at its full width and depth "
-        "(qwen3-moe-30b-a3b: 30.2 B bf16 parameters, one H100), not its smoke reduction",
+        "(qwen3-moe-30b-a3b: 30.2 B bf16 parameters, zamba2-7b: 6.66 B, one H100), "
+        "not its smoke reduction",
     )
     ap.add_argument("--gen-len", type=int, default=8)
     ap.add_argument("--coded", action="store_true")

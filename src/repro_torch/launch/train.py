@@ -13,9 +13,14 @@ Behaviors (held against the reference in ``tests/test_torch_train*.py``):
 Mesh placement (the reference's ``mesh`` argument and its axis rules) waits
 for ROADMAP Queue 1 item 7.6.
 
-Usage (the smoke configs run on the CPU; without ``--device cpu`` on the card):
+Usage (the smoke configs run on the CPU; without ``--device cpu`` on the card,
+without ``--smoke`` at the published widths, ``--layers`` cutting the depth):
   PYTHONPATH=src python -m repro_torch.launch.train --arch gemma2-2b --smoke \\
       --steps 20 --device cpu --ckpt-dir /tmp/ck --ckpt-every 10
+  PYTHONPATH=src python -m repro_torch.launch.train --arch mamba2-370m \\
+      --steps 4 --batch 2 --seq 4096
+  PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3-moe-30b-a3b \\
+      --layers 4 --steps 4 --batch 2 --seq 2048
 """
 from __future__ import annotations
 
@@ -62,10 +67,12 @@ def train(
     seed: int = 0,
     data_source: str = "markov",
     lr: float = 3e-4,
+    layers: Optional[int] = None,
     device=None,
 ) -> Dict[str, Any]:
-    """Train ``arch`` (its ``.smoke()`` reduction unless ``smoke=False``) up
-    to step ``steps`` on ``device`` (default: the card).
+    """Train ``arch`` (its ``.smoke()`` reduction unless ``smoke=False``; its
+    depth cut to ``layers`` if given) up to step ``steps`` on ``device``
+    (default: the card).
 
     Returns ``losses`` (one float a step run here), ``state`` (``params``,
     ``opt``, ``step``: tensors on ``device``), ``config``, and ``history``:
@@ -74,6 +81,8 @@ def train(
     work)."""
     device = resolve_device(device)
     cfg = ARCHS[arch].smoke() if smoke else ARCHS[arch]
+    if layers is not None:
+        cfg = dataclasses.replace(cfg, num_layers=layers)
     shape = shape or (smoke_shape("train") if smoke else SHAPES["train_4k"])
     api = build_model(cfg)
     ocfg = opt_config_for(cfg, total_steps=max(steps, 10))
@@ -148,12 +157,25 @@ def main(argv=None) -> int:
     ap.add_argument("--ckpt-every", type=int, default=0)
     ap.add_argument("--resume", action="store_true")
     ap.add_argument("--compress-grads", action="store_true")
+    ap.add_argument("--layers", type=int, default=None,
+                    help="cut the depth to this many layers (widths stay as published)")
+    ap.add_argument("--batch", type=int, default=None,
+                    help="global batch (default: the shape's: 2 smoke, 256 train_4k)")
+    ap.add_argument("--seq", type=int, default=None,
+                    help="sequence length (default: the shape's: 64 smoke, 4096 train_4k)")
     ap.add_argument("--device", default=None, help="cpu, or a CUDA device (default: the card)")
     args = ap.parse_args(argv)
+    shape = None
+    if args.batch is not None or args.seq is not None:
+        base = smoke_shape("train") if args.smoke else SHAPES["train_4k"]
+        shape = ShapeConfig(base.name, args.seq or base.seq_len, args.batch or base.global_batch,
+                            "train")
     out = train(
         args.arch,
         smoke=args.smoke,
         steps=args.steps,
+        shape=shape,
+        layers=args.layers,
         ckpt_dir=args.ckpt_dir,
         ckpt_every=args.ckpt_every,
         resume=args.resume,

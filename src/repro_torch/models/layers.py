@@ -1,10 +1,12 @@
-"""Shared neural layers for the decoder: norms, RoPE, chunked flash-style
-attention (prefill / decode), dense MLPs and the dense-dispatch MoE —
-counterpart of ``repro.models.layers`` (the MoE's mesh dispatches wait for
-ROADMAP Queue 1 item 7.2b, the Mamba2 SSD for item 7.3).  Every layer is
-differentiable: the training path takes gradients through the chunked
-attention's online softmax as it is written (a fully masked chunk
-contributes exact zeros, never NaN).
+"""Shared neural layers: norms, RoPE, chunked flash-style attention
+(prefill / decode), dense MLPs, the dense-dispatch MoE and the Mamba2 SSD
+block — counterpart of ``repro.models.layers`` (the MoE's mesh dispatches
+wait for ROADMAP Queue 1 item 7.2b).  Every layer is differentiable: the
+training path takes gradients through the chunked attention's online
+softmax as it is written (a fully masked chunk contributes exact zeros,
+never NaN), through the MoE's bins (a dropped route's gradient is zero)
+and through the SSD's chunked scan (its causal mask is applied in log
+space before the ``exp``, so no ``inf`` reaches a gradient).
 
 All layers are plain functions over ParamSpec-declared trees of tensors, in
 plain PyTorch ops.  The reference's dtypes follow JAX promotion; where
@@ -22,7 +24,8 @@ PyTorch would differ, the cast is written out:
 * norms and RoPE compute in f32 and cast back;
 * GELU is the tanh approximation (``jax.nn.gelu``'s default) and SiLU is
   ``x * sigmoid(x)``, both op for op as JAX and XLA write them: in bf16
-  every op rounds, where PyTorch's fused ``F.gelu``/``F.silu`` round once.
+  every op rounds, where PyTorch's fused ``F.gelu``/``F.silu`` round once;
+  the sigmoid's gradient is the logistic's own, as JAX's is.
 
 Division is by 0-dim tensors, not Python floats: on CUDA PyTorch turns
 ``x / c`` into ``x * (1 / c)``, which is not the quotient.
@@ -41,9 +44,9 @@ from ..configs.base import ModelConfig
 from ..runtime.sharding import ParamSpec, shard
 
 __all__ = [
-    "NEG_INF", "Routing", "apply_mlp", "apply_moe", "apply_norm", "attention_block",
-    "attention_specs", "mlp_specs", "moe_specs", "multihead_attention", "norm_specs",
-    "recording_routes", "rope", "softcap",
+    "NEG_INF", "Routing", "apply_mlp", "apply_moe", "apply_norm", "apply_ssd",
+    "attention_block", "attention_specs", "mlp_specs", "moe_specs", "multihead_attention",
+    "norm_specs", "recording_routes", "rope", "softcap", "ssd_specs",
 ]
 
 NEG_INF = -1e30
@@ -324,10 +327,28 @@ def _gelu(x: torch.Tensor) -> torch.Tensor:
     return x * cdf
 
 
+class _Logistic(torch.autograd.Function):
+    """``lax.logistic``: its value as XLA expands it, ``1 / (1 + exp(-x))``
+    op for op, and its own derivative, ``g s (1 - s)``.  Autograd through
+    the expansion would multiply a zero by ``exp(-x) = inf`` wherever
+    ``x < -88`` and return NaN, where the reference's gradient is 0."""
+
+    @staticmethod
+    def forward(ctx, x):
+        s = 1 / (1 + torch.exp(-x))
+        ctx.save_for_backward(s)
+        return s
+
+    @staticmethod
+    def backward(ctx, g):
+        (s,) = ctx.saved_tensors
+        return g * s * (1 - s)
+
+
 def _silu(x: torch.Tensor) -> torch.Tensor:
-    """``jax.nn.silu(x)``, op for op: XLA expands its logistic into
-    ``1 / (1 + exp(-x))``."""
-    return x * (1 / (1 + torch.exp(-x)))
+    """``jax.nn.silu(x)`` = ``x * logistic(x)``, op for op (see
+    :class:`_Logistic`)."""
+    return x * _Logistic.apply(x)
 
 
 def apply_mlp(p: Dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
@@ -433,6 +454,10 @@ def apply_moe(p: Dict, x: torch.Tensor, cfg: ModelConfig) -> Tuple[torch.Tensor,
     C = max(1, int(T * K * cfg.capacity_factor / E))
     pos = _positions(flat_e)
     keep = pos < C
+    if _ROUTES is not None:
+        # recorded before the experts run: a recompute under non-reentrant
+        # checkpointing stops once the backward has what it saved
+        _ROUTES.append(Routing(experts, keep.view(T, K), top[:, :K + 1].detach()))
     # flat bin rows: a kept route's own slot, a dropped one the expert's
     # overflow row C (summed there and thrown away)
     dst = flat_e * (C + 1) + torch.where(keep, pos, C)
@@ -453,6 +478,150 @@ def apply_moe(p: Dict, x: torch.Tensor, cfg: ModelConfig) -> Tuple[torch.Tensor,
     out = weighted.sum(1).view(B, S, d)
     if cfg.shared_experts:
         out = out + apply_mlp(p["shared"], x, cfg)
-    if _ROUTES is not None:
-        _ROUTES.append(Routing(experts, keep.view(T, K), top[:, :K + 1]))
     return shard(out, "batch", "seq", None), aux
+
+
+# ---------------------------------------------------------------------------
+# Mamba2 SSD
+# ---------------------------------------------------------------------------
+
+
+def ssd_specs(cfg: ModelConfig) -> Dict:
+    d = cfg.d_model
+    di = cfg.ssm_d_inner
+    N = cfg.ssm_state
+    H = di // cfg.ssm_head_dim
+    conv_dim = di + 2 * N
+    return {
+        "in_proj": ParamSpec((d, 2 * di + 2 * N + H), ("fsdp", "ffn")),
+        "conv_w": ParamSpec((cfg.ssm_conv, conv_dim), ("conv", None)),
+        "A_log": ParamSpec((H,), (None,), torch.float32, "zeros"),
+        "D": ParamSpec((H,), (None,), torch.float32, "ones"),
+        "dt_bias": ParamSpec((H,), (None,), torch.float32, "zeros"),
+        "out_norm": {"scale": ParamSpec((di,), (None,), torch.float32, "ones")},
+        "out_proj": ParamSpec((di, d), ("ffn", "fsdp")),
+    }
+
+
+def _ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, Bm: torch.Tensor,
+              Cm: torch.Tensor, chunk: int,
+              state0: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Chunked state-space dual scan, the reference's ``_ssd_scan`` op for
+    op.  x: (B, L, H, P); dt: (B, L, H) float32; A: (H,) (negative decay
+    rates); Bm, Cm: (B, L, N).  Returns (y: (B, L, H, P), final state (B, H,
+    N, P) float32).
+
+    The reference scans the chunks with ``lax.scan``.  Only the carried
+    state depends on the chunks before, so every chunk's own terms (the
+    intra-chunk output, its state increment, its decays) are computed for
+    all chunks at once, a loop over the chunks carries the state (a
+    multiply and an add a chunk), and the carried states' outputs are one
+    product over all chunks: each element is the reference's arithmetic,
+    in as few launches as the recurrence allows.  The intra-chunk weights,
+    the carried state and the increments' tails are cast to x's dtype where
+    the reference casts them; the state stays float32.
+    """
+    Bsz, L, H, Pd = x.shape
+    N = Bm.shape[-1]
+    nc = L // chunk
+    if nc * chunk != L:
+        raise ValueError(f"chunk {chunk} does not divide the length {L}")
+    xr = x.reshape(Bsz, nc, chunk, H, Pd)
+    dtr = dt.reshape(Bsz, nc, chunk, H)
+    Br = Bm.reshape(Bsz, nc, chunk, N)
+    Cr = Cm.reshape(Bsz, nc, chunk, N)
+    cum = torch.cumsum(dtr * A, dim=2)  # within-chunk cumulative log decay (negative)
+    # intra-chunk: y[i] = sum_{j<=i} C_i.B_j exp(cum_i - cum_j) dt_j x_j,
+    # masked in log space before the exp (no inf, no NaN gradient)
+    Lmat = cum[:, :, :, None, :] - cum[:, :, None, :, :]  # (B, nc, i, j, H)
+    causal = torch.ones((chunk, chunk), dtype=torch.bool, device=x.device).tril()
+    decay = torch.exp(torch.where(causal[:, :, None], Lmat, NEG_INF))
+    cb = _einsum("bzin,bzjn->bzij", Cr, Br)
+    w = cb[..., None] * decay * dtr[:, :, None, :, :]
+    y_intra = _einsum("bzijh,bzjhp->bzihp", w.to(x.dtype), xr)
+    # each chunk's increment to the state: sum_j exp(cum_end - cum_j) dt_j B_j x_j^T
+    tail = torch.exp(cum[:, :, -1:, :] - cum) * dtr  # (B, nc, c, H)
+    dBx = _einsum("bzjnh,bzjhp->bzhnp", Br[..., None] * tail.to(x.dtype)[:, :, :, None, :], xr)
+    grow = torch.exp(cum[:, :, -1])  # (B, nc, H): the chunk's whole decay
+    # the carried state, chunk by chunk: S' = S exp(sum dA) + dBx
+    state = (torch.zeros((Bsz, H, N, Pd), dtype=torch.float32, device=x.device)
+             if state0 is None else state0)
+    carried = []  # the state each chunk starts from
+    for c in range(nc):
+        carried.append(state)
+        state = state * grow[:, c, :, None, None].to(state.dtype) + dBx[:, c]
+    # inter-chunk: y_i += C_i . state * exp(cum_i)
+    y_inter = _einsum("bzin,bzhnp->bzihp", Cr, torch.stack(carried, 1).to(Cr.dtype))
+    y = y_intra + y_inter * torch.exp(cum)[..., None].to(x.dtype)
+    return y.reshape(Bsz, L, H, Pd), state
+
+
+def _scan_chunk(cfg: ModelConfig, L: int) -> int:
+    """``min(ssm_chunk, L)`` halved until it divides ``L``."""
+    chunk = min(cfg.ssm_chunk, L)
+    while L % chunk:
+        chunk //= 2
+    return max(chunk, 1)
+
+
+def apply_ssd(
+    p: Dict,
+    x: torch.Tensor,
+    cfg: ModelConfig,
+    cache: Optional[Dict] = None,
+) -> Tuple[torch.Tensor, Optional[Dict]]:
+    """Mamba2 block, the reference's ``apply_ssd``: in projection, causal
+    depthwise conv (with its ``K - 1`` rows of history), SiLU, the SSD, the
+    skip ``D``, the gated RMS norm (eps 1e-6) and the out projection.
+
+    ``cache = {"conv": (B, K-1, conv_dim), "state": (B, H, N, P) float32}``.
+    Without one the chunked scan runs from a zero state; with one and
+    ``S > 1`` it continues from ``cache["state"]``; at ``S == 1`` it is the
+    one-step float32 recurrence.  With a cache the returned one holds new
+    tensors (the cache is not written): ``conv`` is the last ``K - 1`` rows
+    of the history in its promoted dtype (a bf16 history meeting float32
+    activations is float32 from then on, as ``concatenate`` promotes it).
+    """
+    B, S, d = x.shape
+    di, N = cfg.ssm_d_inner, cfg.ssm_state
+    H = di // cfg.ssm_head_dim
+    Pd = cfg.ssm_head_dim
+    proj = _mm(x, p["in_proj"])  # (B, S, 2 di + 2 N + H)
+    z, xbc, dt_raw = torch.split(proj, [di, di + 2 * N, H], dim=-1)
+    dt = F.softplus(dt_raw.float() + p["dt_bias"])  # (B, S, H)
+    A = -torch.exp(p["A_log"])  # (H,) negative
+
+    Kc = cfg.ssm_conv
+    w = p["conv_w"].to(x.dtype)
+    if cache is None:
+        hist = F.pad(xbc, (0, 0, Kc - 1, 0))
+    else:
+        hdt = torch.promote_types(cache["conv"].dtype, xbc.dtype)
+        hist = torch.cat([cache["conv"].to(hdt), xbc.to(hdt)], dim=1)  # (B, K-1+S, cd)
+    conv = sum(hist[:, i:i + S] * w[i] for i in range(Kc))
+    conv = _silu(conv)
+    xs, Bm, Cm = torch.split(conv, [di, N, N], dim=-1)
+    xh = shard(xs.reshape(B, S, H, Pd), "batch", "seq", "ssm_heads", None)
+
+    new_cache = None
+    if cache is None or S > 1:
+        # a prefill, from a zero state or continuing from the cached one
+        y, state = _ssd_scan(xh, dt, A, Bm, Cm, _scan_chunk(cfg, S),
+                             None if cache is None else cache["state"])
+    else:
+        # single-step recurrence (S == 1 decode)
+        dA1 = torch.exp(dt[:, 0] * A)  # (B, H)
+        dBx = (dt[:, 0, :, None] * Bm[:, 0, None, :].float())[..., None] \
+            * xh[:, 0, :, None, :].float()  # (B, H, N, P)
+        state = cache["state"] * dA1[:, :, None, None] + dBx
+        y = torch.einsum("bn,bhnp->bhp", Cm[:, 0].float(), state)[:, None].to(x.dtype)
+    if cache is not None:
+        new_cache = {"conv": hist[:, -(Kc - 1):], "state": state}
+    y = y + xh * p["D"][None, None, :, None].to(x.dtype)
+    y = y.reshape(B, S, di)
+    # gated RMS norm then out projection
+    yf = y.float() * _silu(z.float())
+    var = yf.square().mean(-1, keepdim=True)
+    yf = yf * torch.rsqrt(var + 1e-6) * p["out_norm"]["scale"]
+    out = _mm(yf.to(x.dtype), p["out_proj"])
+    return shard(out, "batch", "seq", None), new_cache

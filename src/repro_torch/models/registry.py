@@ -8,9 +8,10 @@ architecture exposes
     batch_specs(shape)             -> input ParamSpec tree
     cache_decl(shape)              -> cache ParamSpec tree + scalar "len"
 
-Of the families, the dense and the MoE decoder are ported; ``build_model``
-raises ``NotImplementedError`` naming the ROADMAP item each other family
-waits for.
+Of the families, the dense and the MoE decoder, mamba2 (``ssm``) and
+zamba2 (``hybrid``) are ported; ``build_model`` raises
+``NotImplementedError`` naming the ROADMAP item the encoder-decoder and
+the VLM wait for (7.4).
 ``loss_fn`` is differentiable (the training path, ``launch.steps``, takes
 its gradients with ``torch.autograd``); ``prefill_fn`` and ``decode_fn``
 are called under ``torch.inference_mode()`` by the serving path.
@@ -24,6 +25,7 @@ import torch
 
 from ..configs.base import ModelConfig, ShapeConfig
 from ..runtime.sharding import ParamSpec
+from . import ssm as ssm_mod
 from . import transformer as tf_mod
 
 __all__ = ["AUX_WEIGHT", "ModelAPI", "build_model", "cross_entropy"]
@@ -98,6 +100,67 @@ def _build_decoder_family(cfg: ModelConfig) -> ModelAPI:
     )
 
 
+def _build_mamba(cfg: ModelConfig) -> ModelAPI:
+    specs = ssm_mod.mamba_specs(cfg)
+
+    def loss_fn(params, batch):
+        logits, _, _ = ssm_mod.mamba_forward(params, batch["tokens"], cfg)
+        loss, ntok = cross_entropy(logits, batch["labels"])
+        return loss, {"ce": loss, "ntok": ntok}
+
+    def prefill_fn(params, batch):
+        logits, _, _ = ssm_mod.mamba_forward(params, batch["tokens"], cfg)
+        return logits[:, -1:]
+
+    def decode_fn(params, cache, batch):
+        """One step; returns a new cache (``conv`` and ``state`` replaced)."""
+        logits, new_cache, _ = ssm_mod.mamba_forward(params, batch["tokens"], cfg, cache=cache)
+        return logits, new_cache
+
+    def cache_decl(shape: ShapeConfig):
+        return ssm_mod.mamba_cache_specs(cfg, shape.global_batch)
+
+    return ModelAPI(
+        cfg, specs, loss_fn, prefill_fn, decode_fn,
+        lambda s: _lm_batch_specs(cfg, s), cache_decl,
+    )
+
+
+def _build_zamba(cfg: ModelConfig) -> ModelAPI:
+    specs = ssm_mod.zamba_specs(cfg)
+
+    def loss_fn(params, batch):
+        logits, _, _ = ssm_mod.zamba_forward(params, batch["tokens"], cfg)
+        loss, ntok = cross_entropy(logits, batch["labels"])
+        return loss, {"ce": loss, "ntok": ntok}
+
+    def prefill_fn(params, batch):
+        logits, _, _ = ssm_mod.zamba_forward(params, batch["tokens"], cfg)
+        return logits[:, -1:]
+
+    def decode_fn(params, cache, batch):
+        """One step; the SSD layers' ``conv`` and ``state`` come back new,
+        the shared block's k and v are written into ``cache`` in place."""
+        logits, new_cache, _ = ssm_mod.zamba_forward(
+            params, batch["tokens"], cfg, cache=cache, cache_len=cache["len"]
+        )
+        return logits, new_cache
+
+    def cache_decl(shape: ShapeConfig):
+        decl = ssm_mod.zamba_cache_specs(cfg, shape.global_batch, shape.seq_len)
+        decl["len"] = ParamSpec((), (), torch.int32, "zeros")
+        return decl
+
+    return ModelAPI(
+        cfg, specs, loss_fn, prefill_fn, decode_fn,
+        lambda s: _lm_batch_specs(cfg, s), cache_decl,
+    )
+
+
 def build_model(cfg: ModelConfig) -> ModelAPI:
+    if cfg.family == "ssm":
+        return _build_mamba(cfg)
+    if cfg.family == "hybrid":
+        return _build_zamba(cfg)
     # decoder_specs raises NotImplementedError for the families not ported yet
     return _build_decoder_family(cfg)

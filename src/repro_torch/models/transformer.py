@@ -39,8 +39,6 @@ __all__ = ["DecoderLM", "cache_specs", "decoder_forward", "decoder_specs", "num_
 
 # the ROADMAP item each family that is not ported yet waits for
 _WAITS = {
-    "ssm": "ROADMAP Queue 1 item 7.3 (ssm.py: mamba2, zamba2)",
-    "hybrid": "ROADMAP Queue 1 item 7.3 (ssm.py: mamba2, zamba2)",
     "encdec": "ROADMAP Queue 1 item 7.4 (encdec and vlm)",
     "vlm": "ROADMAP Queue 1 item 7.4 (encdec and vlm)",
 }
@@ -48,8 +46,9 @@ _WAITS = {
 
 def _require_ported(cfg: ModelConfig) -> None:
     """Raise ``NotImplementedError`` naming the ROADMAP item ``cfg``'s family
-    waits for, unless it is a ported one (dense, MoE)."""
-    if cfg.family in ("dense", "moe") and cfg.frontend is None:
+    waits for, unless it is a ported one (dense, MoE, and the SSM and hybrid
+    families of ``models.ssm``)."""
+    if cfg.family in ("dense", "moe", "ssm", "hybrid") and cfg.frontend is None:
         return
     item = _WAITS.get(cfg.family, "ROADMAP Queue 1 item 7")
     raise NotImplementedError(
@@ -208,6 +207,12 @@ def _maybe_remat(fn: Callable, cfg: ModelConfig) -> Callable:
     return lambda *args: checkpoint(fn, *args, **kw)
 
 
+def _remat_if_grad(fn: Callable, cfg: ModelConfig) -> Callable:
+    """``fn`` under the config's remat where a backward will run: under
+    ``no_grad`` or ``inference_mode`` there is nothing to save."""
+    return _maybe_remat(fn, cfg) if torch.is_grad_enabled() else fn
+
+
 def decoder_forward(
     params: Dict,
     tokens: torch.Tensor,  # (B, S) int32
@@ -243,9 +248,7 @@ def decoder_forward(
     units = _tree_units(params["blocks"], num_units(cfg))
     new_cache = None
     if cache is None:
-        # remat only where a backward will run: under no_grad or
-        # inference_mode there is nothing to save
-        unit = _maybe_remat(_unit, cfg) if torch.is_grad_enabled() else _unit
+        unit = _remat_if_grad(_unit, cfg)
         for up in units:
             x, aux = unit(x, aux, up, positions, cfg)
     else:

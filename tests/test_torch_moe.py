@@ -53,6 +53,8 @@ import repro.models.layers as RL
 import repro.models.transformer as RT
 from repro.launch.serve import greedy_generate as ref_generate
 from repro.models import build_model as ref_build
+from repro.models.registry import AUX_WEIGHT
+from repro.models.registry import cross_entropy as ref_ce
 from repro.runtime import sharding as RS
 
 import repro_torch.configs as TC
@@ -69,6 +71,7 @@ ROUTE_AGREE = 0.9
 MOE = ["qwen3-moe-30b-a3b", "kimi-k2-1t-a32b"]
 DTYPES = ["float32", "bfloat16"]
 SEQ = 80
+CACHE_LEN = 24  # greedy_generate's cache: prompt 8 + gen 8 + 8
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -131,6 +134,18 @@ def model(arch, dtype):
         _MODELS[key] = (rcfg, tcfg, ref_build(rcfg), build_model(tcfg), pn,
                         params_from_numpy(pn, "cpu"))
     return _MODELS[key]
+
+
+_DECODES = {}
+
+
+def ref_decode(arch, dtype):
+    """The reference's jitted ``decode_fn`` for ``model(arch, dtype)``, one
+    a model: the bf16 one (the smoke config as published) is compiled once
+    for the decode and the generation tests, which share its cache shape."""
+    if (arch, dtype) not in _DECODES:
+        _DECODES[arch, dtype] = jax.jit(model(arch, dtype)[2].decode_fn)
+    return _DECODES[arch, dtype]
 
 
 # ---------------------------------------------------------------------------
@@ -261,12 +276,13 @@ def test_convert_is_bit_exact():
 def _moe_case(dtype, act, shared, cf, rng_seed=5):
     rcfg, tcfg = _cfgs("qwen3-moe-30b-a3b", dtype, mlp_act=act, shared_experts=shared,
                        capacity_factor=cf, experts_per_tok=3)
-    p = jax.tree.map(np.asarray, RS.materialize(RL.moe_specs(rcfg), jax.random.PRNGKey(rng_seed)))
-    # experts at 1/sqrt(fan-in) so their activations reach GELU's curved
-    # range; the router at 1/sqrt(d), its logits O(1)
-    p = _fan_in({"moe": p})["moe"]
-    p["router"] = (p["router"] / np.sqrt(rcfg.d_model)).astype(np.float32)
+    # drawn with numpy: experts at 1/sqrt(fan-in) so their activations
+    # reach GELU's curved range; the router at 1/d, its logits O(1)
     rng = np.random.default_rng(rng_seed)
+    p = RS._map_leaves(lambda path, ps: np.asarray(jnp.asarray(
+        rng.standard_normal(ps.shape) / (rcfg.d_model if path[-1] == "router"
+                                         else np.sqrt(ps.shape[-2])), ps.dtype)),
+        RL.moe_specs(rcfg))
     x = (rng.standard_normal((2, 9, rcfg.d_model)) * 2).astype(np.float32)
     x = np.asarray(jnp.asarray(x, jnp.bfloat16 if dtype == "bfloat16" else jnp.float32))
     return rcfg, tcfg, p, x
@@ -335,11 +351,15 @@ def test_prefill_and_loss(arch, dtype):
     toks, labels = _tokens(2, SEQ), _tokens(2, SEQ, seed=9)
     labels[1, :3] = -1
     batch = {"tokens": jnp.asarray(toks), "labels": jnp.asarray(labels)}
-    with ref_routes() as rr:  # one program: the forward, then loss_fn's
-        (rlog, _, raux), (rtotal, rm) = jax.jit(
-            lambda p, b: (RT.decoder_forward(p, b["tokens"], rcfg), rapi.loss_fn(p, b)))(pn, batch)
+
+    def ref(p, b):  # the forward, then loss_fn's body on its logits and aux
+        logits, _, aux = RT.decoder_forward(p, b["tokens"], rcfg)
+        ce, ntok = ref_ce(logits, b["labels"])
+        return logits, aux, ce + AUX_WEIGHT * aux, {"ce": ce, "aux": aux, "ntok": ntok}
+
+    with ref_routes() as rr:
+        rlog, raux, rtotal, rm = jax.jit(ref)(pn, batch)
         rlog = np.asarray(rlog)
-        del rr[len(rr) // 2:]  # loss_fn's forward routes again
     with TL.recording_routes() as tr:
         logits, cache, aux = TT.decoder_forward(tp, torch.from_numpy(toks), tcfg)
     assert cache is None and logits.dtype == torch.float32 and logits.shape == rlog.shape
@@ -369,12 +389,12 @@ def test_decode_steps(arch, dtype):
     step's logits and routes, and the caches at the end."""
     rcfg, tcfg, rapi, tapi, pn, tp = model(arch, dtype)
     steps = 12
-    decl = rapi.cache_decl(RC.ShapeConfig("s", steps + 8, 2, "decode"))
+    decl = rapi.cache_decl(RC.ShapeConfig("s", CACHE_LEN, 2, "decode"))
     cdt = jnp.float32 if dtype == "float32" else None
     rc = jax.tree.map(lambda ps: jnp.zeros(ps.shape, cdt if cdt and ps.shape else ps.dtype),
                       decl, is_leaf=lambda x: isinstance(x, RS.ParamSpec))
     tc = cache_from_numpy(jax.tree.map(np.asarray, rc), "cpu")
-    decode = jax.jit(rapi.decode_fn)
+    decode = ref_decode(arch, dtype)
     toks = _tokens(2, steps, seed=1)
     held, drops, diverged = 0, 0, False
     for i in range(steps):
@@ -421,7 +441,7 @@ def test_greedy_generate_matches_reference(arch):
     are held by ``test_decode_steps``: under the reference's std rule
     kimi-k2's bf16 steps differ by 5.5% before any route does (see the
     module docstring)."""
-    rapi = ref_build(RC.ARCHS[arch].smoke())
+    rapi = model(arch, "bfloat16")[2]  # the smoke config as published
     params = draw(arch)
     out = ref_generate(arch, seed=0)
     tp = params_from_numpy(params, "cpu")
@@ -430,11 +450,11 @@ def test_greedy_generate_matches_reference(arch):
     assert bool(torch.isfinite(got["logits"]).all())
     seq = np.concatenate([got["prompt"], out["generated"]], axis=1).astype(np.int32)
     tapi = build_model(TC.ARCHS[arch].smoke())
-    decl = rapi.cache_decl(RC.ShapeConfig("serve", 24, 2, "decode"))
+    decl = rapi.cache_decl(RC.ShapeConfig("serve", CACHE_LEN, 2, "decode"))
     rc = jax.tree.map(lambda ps: jnp.zeros(ps.shape, ps.dtype), decl,
                       is_leaf=lambda x: isinstance(x, RS.ParamSpec))
     tc = cache_from_numpy(jax.tree.map(np.asarray, rc), "cpu")
-    decode = jax.jit(rapi.decode_fn)
+    decode = ref_decode(arch, "bfloat16")
     same_until, rows, agree = seq.shape[1], [], []
     for t in range(seq.shape[1]):
         with ref_routes() as rr:
