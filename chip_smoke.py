@@ -250,9 +250,33 @@ Phases (any mismatch fails the run with a non-zero exit):
    every cached call's (S > 1 from a zero state, single steps, S > 1
    continuing) within ``LM_F32_TOL``, the loss within it and every gradient
    leaf within ``TRAIN_GRAD_TOL``; (d) launch counts zeroed before and read
-   after (a)-(c): no ``gr_matmul`` route launched.
+   after (a)-(c): no ``gr_matmul`` route launched;
+19. the encoder-decoder and VLM families' serving and training paths
+   (plain PyTorch ops; no ring kernel may launch): seamless-m4t-medium
+   (0.616 B parameters, a 12-layer encoder and a 12-layer decoder with
+   cross-attention) and internvl2-2b (1.702 B, 256 patches ahead of the
+   text) at full width and depth, bf16, from ``materialize`` on the card;
+   (a) the real serving path at ``XV_BATCHES``: seamless's
+   ``encoder_forward`` over ``XV_FRAMES`` frames from ``with_frontend``,
+   ``build_xattn_cache`` into the ``xkv`` entry of a cache from
+   ``cache_decl`` and a prompt prefilled into the cache in one
+   ``decoder_forward`` call; internvl2's patches and prompt prefilled in
+   one call; then ``XV_STEPS`` greedy ``decode_fn`` steps (encoder, cross
+   cache, prefill and step times from CUDA events, tokens/s, against a
+   byte bound: the decoder's weights, the KV and cross K/V caches read
+   once; a profiled stretch of steps; peak memory), and
+   ``greedy_generate(smoke=False)``, the CLI's path, at ``SHORT_RUNS[0]``;
+   (b) each trained through ``launch.train.train`` at ``XV_TRAIN_SHAPE``
+   (seamless: 1024 source frames; internvl2: 256 patches ahead of the
+   text) for ``XV_TRAIN_STEPS`` steps, with phase 15's training rows; (c)
+   each arch's float32 2-layer cut (the encoder's too), TF32 off, on the
+   card and on the host CPU from the same weights: the encoder output and
+   the cross K/V, the prefill's logits and every cached step's within
+   ``XV_F32_TOL``, the loss within it and every gradient leaf within
+   ``XV_GRAD_TOL``; (d) launch counts zeroed before and read after
+   (a)-(c): no ``gr_matmul`` route launched.
 
-Phases run in the order 1-3, 5-9, 13, 12, 10, 11, 14, 15, 16, 17, 18, 4.  Launch counts per
+Phases run in the order 1-3, 5-9, 13, 12, 10, 11, 14, 15, 16, 17, 18, 19, 4.  Launch counts per
 route are zeroed before each path of phases 3, 5-9, 12 and 13, read
 after it (after the elastic backend's straggler tasks have finished) and
 held against ``EXPECTED_LAUNCHES``; in phases 8-9 the master's counts are
@@ -2772,14 +2796,16 @@ def _lm_rel(a, b) -> float:
 def _device_profile(step, steps: int, what: str, **row) -> dict:
     """Kernels and device-busy time of ``steps`` calls of ``step()`` from
     ``torch.profiler``, beside the host wall of the same calls: the
-    device's idle share.  ``row`` names the run."""
+    device's idle share.  ``row`` names the run.  Only the device's
+    activity is traced: the host's ops would add an event each for the
+    profiler to process, and nothing here reads them."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     t_call = time.perf_counter()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(steps):
             step()
@@ -3113,7 +3139,8 @@ def _train_rows(what: str, cfg, api, run: dict, shape, flops: float, steps: int)
     # the optimizer's update alone, on the trained state, with one batch's gradients
     state = run["state"]
     pipe = TokenPipeline(DataConfig(seed=SEED + 1, source="markov"), cfg, shape)
-    batch = {k: torch.from_numpy(v).cuda() for k, v in pipe.batch_at(0).items()}
+    batch = {k: torch.from_numpy(v).cuda()
+             for k, v in pipe.with_frontend(pipe.batch_at(0), 0).items()}
     _, grads = value_and_grad(api.loss_fn, state["params"], batch)
     ocfg = opt_config_for(cfg, total_steps=max(steps, 10))
     times = []
@@ -3902,6 +3929,394 @@ def phase_ssm(report: dict) -> None:
     report["ssm"] = out
 
 
+# ---------------------------------------------------------------------------
+# phase 19: the encoder-decoder and VLM families' serving and training paths
+# (plain PyTorch ops, no ring kernel)
+# ---------------------------------------------------------------------------
+
+XV_ENCDEC, XV_VLM = "seamless-m4t-medium", "internvl2-2b"
+XV_ARCHS = (XV_ENCDEC, XV_VLM)
+# (a) the real serving path at each batch: seamless encodes XV_FRAMES
+# frames, fills its cross cache and prefills a prompt of
+# XV_PROMPT[seamless] tokens into the cache in one call; internvl2 prefills
+# its 256 patches and XV_PROMPT[internvl2] tokens in one call; then
+# XV_STEPS greedy decode steps, each timed by CUDA events
+XV_BATCHES = (2, 8)
+XV_FRAMES = 512
+XV_PROMPT = {XV_ENCDEC: 16, XV_VLM: 64}
+XV_STEPS = 32
+XV_PROFILE_STEPS = 2  # profiled steps continuing the batch-8 cache
+# (b) training at full width and depth: train_4k's sequence, its batch cut
+# from 256 to 2 (seamless: 1024 source frames; internvl2: the 256 patches
+# ahead of the 4096 text tokens); one warm-up step and three timed
+XV_TRAIN_SHAPE = (4096, 2)
+XV_TRAIN_STEPS = 4
+# (c) float32 cuts, card against CPU: 2 decoder layers (and 2 encoder
+# layers), the published widths and vocabularies, the matrices at std
+# 1/sqrt(fan-in) as the CPU tests draw them (the std rule's 1/sqrt(U) at U
+# = 2 makes every matrix ~30x larger).  seamless: XV_CUT_FRAMES frames,
+# internvl2: its 256 patches; a prompt of XV_CUT_PROMPT tokens prefilled
+# into the cache in one call, then XV_CUT_STEPS cached steps fed fixed
+# tokens; loss_fn's gradients at XV_CUT_GRADS (seq, batch) text tokens
+XV_CUT_LAYERS = 2
+XV_CUT_FRAMES = 128
+XV_CUT_PROMPT = 32
+XV_CUT_STEPS = 8
+XV_CUT_GRADS = (128, 2)
+# relative L2: logits, encoder outputs, cross K/V and the loss (float32,
+# TF32 off: summation order only); every gradient leaf
+XV_F32_TOL = 1e-5
+XV_GRAD_TOL = 2e-3
+
+
+def _xv_decode_weight_bytes(cfg, specs) -> int:
+    """The weights a decode step reads: all but the encoder (its work is
+    done before the first step) and the patch projection (the prompt's)."""
+    from repro_torch.runtime.sharding import param_bytes
+
+    skip = {k: specs[k] for k in ("encoder", "frontend_proj") if k in specs}
+    return param_bytes(specs) - param_bytes(skip)
+
+
+def _xv_train_flops(cfg, specs, batch: int, seq: int) -> float:
+    """Model FLOPs of one train step of ``batch`` x ``seq`` text tokens,
+    without the recompute: 6 N a token for every matmul by the parameters
+    that token meets (the tied head included), and 12 L H hd a (query, key)
+    pair for the attention (QK^T and PV, forward and backward).  The VLM's
+    decoder sees 256 patches ahead of the text (``frontend_proj`` only
+    them); the encoder-decoder's encoder and its cross K/V projections see
+    the source frames, its cross-attention pairs every text token with
+    every frame."""
+    from repro_torch.models.registry import _src_len
+    from repro_torch.runtime.sharding import param_count
+
+    hh = cfg.num_heads * cfg.hd
+    if cfg.family == "vlm":
+        fp = param_count(specs["frontend_proj"])
+        S = seq + cfg.frontend_len
+        return (6.0 * (param_count(specs) - fp) * batch * S + 6.0 * fp * batch * cfg.frontend_len
+                + 12.0 * cfg.num_layers * hh * S * S * batch)
+    src = _src_len(cfg, seq)
+    enc = param_count(specs["encoder"])
+    xkv = sum(param_count(specs["blocks"][f"l{i}"]["xattn"][w])
+              for i in range(len(cfg.layer_pattern)) for w in ("wk", "wv"))
+    dec = param_count(specs) - enc - xkv
+    return (6.0 * dec * batch * seq + 6.0 * (enc + xkv) * batch * src
+            + 12.0 * hh * batch * (cfg.num_layers * (seq * seq + seq * src)
+                                   + cfg.encoder_layers * src * src))
+
+
+def _xv_serve(arch: str, cfg, api, params, batch: int, pipe_cls, dcfg) -> tuple:
+    """seamless: ``encoder_forward`` over XV_FRAMES frames from
+    ``with_frontend``, ``build_xattn_cache`` into the ``xkv`` entry of a cache
+    from ``cache_decl``, the prompt prefilled into the cache in one
+    ``decoder_forward`` call; internvl2: its patches and the prompt
+    prefilled in one call; then XV_STEPS greedy ``decode_fn`` steps.  Every
+    stage timed by CUDA events; checked: tokens in range, logits finite,
+    the cache's length.  Returns (timing row, the cache after the steps,
+    the last tokens)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import ShapeConfig
+    from repro_torch.models import transformer as tf_mod
+    from repro_torch.optim.optimizers import _leaves
+    from repro_torch.runtime.sharding import _map_leaves
+
+    prompt_len = XV_PROMPT[arch]
+    seq = XV_FRAMES * cfg.src_ratio if cfg.family == "encdec" else prompt_len
+    pipe = pipe_cls(dcfg, cfg, ShapeConfig("serve", seq, batch, "prefill"))
+    raw = pipe.with_frontend(pipe.batch_at(0), 0)
+    prompt = torch.from_numpy(raw["tokens"][:, :prompt_len].copy()).cuda()
+    decl = api.cache_decl(ShapeConfig("serve", cfg.frontend_len + prompt_len + XV_STEPS + 8,
+                                      batch, "decode"))
+    cache = _map_leaves(lambda _, ps: torch.zeros(ps.shape, dtype=ps.dtype, device="cuda"), decl)
+    ev = [torch.cuda.Event(enable_timing=True)]
+    row: dict = {"batch": batch, "prompt": prompt_len, "steps": XV_STEPS}
+    kw = {}
+    toks = []
+    with torch.inference_mode():
+        ev[0].record()
+        if cfg.family == "encdec":
+            frames = torch.from_numpy(raw["frames"]).cuda()
+            enc_out = tf_mod.encoder_forward(params, frames, cfg)
+            ev.append(torch.cuda.Event(enable_timing=True))
+            ev[-1].record()
+            cache["xkv"] = tf_mod.build_xattn_cache(params, enc_out, cfg)
+            ev.append(torch.cuda.Event(enable_timing=True))
+            ev[-1].record()
+            row["frames"] = list(frames.shape)
+        else:
+            kw["patches"] = torch.from_numpy(raw["patches"]).cuda()
+            row["patches"] = list(kw["patches"].shape)
+        logits, cache, _ = tf_mod.decoder_forward(params, prompt, cfg, cache=cache,
+                                                  cache_len=cache["len"], **kw)
+        ev.append(torch.cuda.Event(enable_timing=True))
+        ev[-1].record()
+        for _ in range(XV_STEPS):
+            nxt = logits[:, -1].argmax(-1).to(torch.int32)[:, None]
+            toks.append(nxt)
+            logits, cache = api.decode_fn(params, cache, {"tokens": nxt})
+            ev.append(torch.cuda.Event(enable_timing=True))
+            ev[-1].record()
+        torch.cuda.synchronize()
+        gen = torch.cat(toks, dim=1).cpu().numpy()
+    ms = [a.elapsed_time(b) for a, b in zip(ev, ev[1:])]
+    if cfg.family == "encdec":
+        row["encoder_ms"], row["xattn_cache_ms"] = ms[0], ms[1]
+        ms = ms[2:]
+    steps = np.asarray(ms[2:])  # the first step pays its first calls
+    if not ((gen >= 0) & (gen < cfg.vocab_size)).all() or not bool(torch.isfinite(logits).all()):
+        fail(f"xv {arch} serve batch {batch}: tokens out of range or logits not finite")
+    if cache["len"] != cfg.frontend_len + prompt_len + XV_STEPS:
+        fail(f"xv {arch} serve batch {batch}: cache length {cache['len']}")
+    wbytes = _xv_decode_weight_bytes(cfg, api.param_specs)
+    cbytes = sum(t.numel() * t.element_size()
+                 for t in _leaves({k: v for k, v in cache.items() if k != "len"}))
+    row.update(prefill_ms=ms[0], first_step_ms=ms[1], step_ms=ms[1:],
+               step_ms_median=float(np.median(steps)), step_ms_p90=float(np.percentile(steps, 90)),
+               tokens_per_s=batch * 1e3 / float(np.median(steps)), weight_bytes=wbytes,
+               cache_bytes=cbytes, bound_ms=1e3 * (wbytes + cbytes) / HBM_BYTES_PER_S,
+               tokens_head=gen[0, :8].tolist())
+    enc = (f"encoder {row['encoder_ms']:.2f} ms over {row['frames']} frames, cross cache "
+           f"{row['xattn_cache_ms']:.2f} ms, " if cfg.family == "encdec"
+           else f"patches {row['patches']}, ")
+    log(f"xv {arch} serve batch {batch}: {enc}prefill of {prompt_len} tokens {row['prefill_ms']:.2f}"
+        f" ms; {XV_STEPS} steps median {row['step_ms_median']:.3f} ms p90 "
+        f"{row['step_ms_p90']:.3f} ms (first {row['first_step_ms']:.1f}), "
+        f"{row['tokens_per_s']:.1f} tokens/s, bound {row['bound_ms']:.3f} ms ({wbytes} weight "
+        f"bytes, {cbytes} cache bytes a step)")
+    return row, cache, toks[-1]
+
+
+def _xv_cut_run(arch: str, cut, capi, p, dev: str, inputs: dict) -> dict:
+    """The float32 cut on ``dev``: (encoder output and cross K/V,) the
+    prompt prefilled into a float32 cache in one call, XV_CUT_STEPS cached
+    steps fed ``inputs["fed"]``, and loss_fn's loss and gradients."""
+    import torch
+
+    from repro_torch.configs import ShapeConfig
+    from repro_torch.launch.steps import value_and_grad
+    from repro_torch.models import transformer as tf_mod
+    from repro_torch.runtime.sharding import _map_leaves
+
+    out: dict = {}
+    t0 = time.perf_counter()
+    def to(x):
+        if isinstance(x, dict):
+            return {k: to(v) for k, v in x.items()}
+        return [to(v) for v in x] if isinstance(x, list) else x.to(dev)
+
+    on = to(inputs)
+    with torch.inference_mode():
+        decl = capi.cache_decl(ShapeConfig("check", cut.frontend_len + XV_CUT_PROMPT
+                                           + XV_CUT_STEPS + 8, 2, "decode"))
+        cache = _map_leaves(lambda _, ps: torch.zeros(
+            ps.shape, device=dev, dtype=torch.float32 if ps.shape else ps.dtype), decl)
+        kw = {}
+        if cut.family == "encdec":
+            enc = tf_mod.encoder_forward(p, on["frames"], cut)
+            cache["xkv"] = tf_mod.build_xattn_cache(p, enc, cut)
+            out["enc_out"] = enc.cpu()
+            out["xkv"] = _map_leaves(lambda _, t: t.cpu(), cache["xkv"])
+        else:
+            kw["patches"] = on["patches"]
+        lg, cache, _ = tf_mod.decoder_forward(p, on["prompt"], cut, cache=cache,
+                                              cache_len=cache["len"], **kw)
+        calls = [lg.cpu()]
+        for tok in on["fed"]:
+            lg, cache = capi.decode_fn(p, cache, {"tokens": tok})
+            calls.append(lg.cpu())
+        out["calls"] = calls
+    (loss, m), grads = value_and_grad(capi.loss_fn, p, on["grad_batch"])
+    if dev == "cuda":
+        torch.cuda.synchronize()
+    out.update(loss=float(loss), ce=float(m["ce"]), grads=grads, s=time.perf_counter() - t0)
+    return out
+
+
+def phase_encdec_vlm(report: dict) -> None:
+    import dataclasses
+    import gc
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import ARCHS, ShapeConfig
+    from repro_torch.data import DataConfig, TokenPipeline
+    from repro_torch.kernels import counters
+    from repro_torch.launch.train import train
+    from repro_torch.models import build_model
+    from repro_torch.optim.optimizers import _leaves
+    from repro_torch.runtime.sharding import _map_leaves, materialize, param_bytes, param_count
+
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    counters.reset()
+    out: dict = {}
+    dcfg = DataConfig(seed=SEED + 1, source="markov")
+
+    # (a) serving at full width and depth: the real path at each batch, one
+    # profiled stretch of batch-8 steps, and greedy_generate (the CLI's path)
+    t_part = time.perf_counter()
+    for arch in XV_ARCHS:
+        cfg = ARCHS[arch]
+        api = build_model(cfg)
+        nbytes, nparams = param_bytes(api.param_specs), param_count(api.param_specs)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        params = materialize(api.param_specs, SEED, device="cuda")
+        torch.cuda.synchronize()
+        entry = {"params": nparams, "param_bytes": nbytes, "layers": cfg.num_layers,
+                 "d_model": cfg.d_model, "heads": [cfg.num_heads, cfg.num_kv_heads],
+                 "vocab": cfg.vocab_size, "dtype": cfg.dtype,
+                 "init_s": time.perf_counter() - t0}
+        if cfg.family == "encdec":
+            entry["encoder_params"] = param_count(api.param_specs["encoder"])
+            entry["encoder_layers"] = cfg.encoder_layers
+        log(f"xv {arch}: {nparams} parameters, {nbytes} bytes (bf16) on the card in "
+            f"{entry['init_s']:.2f} s")
+        runs = []
+        for batch in XV_BATCHES:
+            row, cache, last = _xv_serve(arch, cfg, api, params, batch, TokenPipeline, dcfg)
+            runs.append(row)
+        entry["serve"] = runs
+        state = {"cache": cache, "tok": last}
+
+        def step():
+            _, state["cache"] = api.decode_fn(params, state["cache"], {"tokens": state["tok"]})
+
+        with torch.inference_mode():
+            entry["profile"] = _device_profile(step, XV_PROFILE_STEPS,
+                                               f"xv {arch} profile, batch {XV_BATCHES[-1]}",
+                                               batch=XV_BATCHES[-1])
+        del cache, state
+        b, pl, gl = SHORT_RUNS[0]
+        decl = api.cache_decl(ShapeConfig("serve", pl + gl + 8, b, "decode"))
+        gen, row = _lm_generate(f"xv {arch}", arch, cfg, params, b, pl, gl,
+                                _xv_decode_weight_bytes(cfg, api.param_specs),
+                                cache_bytes=param_bytes({k: v for k, v in decl.items()
+                                                         if k != "len"}))
+        entry["greedy_generate"] = row
+        log(f"xv {arch} greedy_generate (the CLI's path) batch {b} prompt {pl} gen {gl}: step "
+            f"median {row['step_ms_median']:.3f} ms, tokens {row['tokens_head']}")
+        entry["peak_bytes"] = torch.cuda.max_memory_allocated()
+        log(f"xv {arch} serving peak {entry['peak_bytes']} bytes allocated")
+        out[arch] = entry
+        del params, gen
+        gc.collect()
+        torch.cuda.empty_cache()
+    out["serve_s"] = time.perf_counter() - t_part
+
+    # (b) training at full width and depth through launch.train.train
+    t_part = time.perf_counter()
+    seq, batch = XV_TRAIN_SHAPE
+    shape = ShapeConfig("train_4k_cut", seq, batch, "train")
+    for arch in XV_ARCHS:
+        cfg = ARCHS[arch]
+        api = build_model(cfg)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        run = train(arch, smoke=False, steps=XV_TRAIN_STEPS, shape=shape, seed=SEED,
+                    data_source="markov", log_every=1, device="cuda")
+        wall = time.perf_counter() - t0
+        flops = _xv_train_flops(cfg, api.param_specs, batch, seq)
+        out[arch]["train"] = {
+            "params": param_count(api.param_specs), "seq": seq, "batch": batch,
+            "steps": XV_TRAIN_STEPS, "dtype": cfg.dtype, "remat": cfg.remat, "wall_s": wall,
+            "reduced": {"global_batch": f"256 -> {batch}"},
+            **_train_rows(f"xv {arch} train", cfg, api, run, shape, flops, XV_TRAIN_STEPS)}
+        del run
+        gc.collect()
+        torch.cuda.empty_cache()
+    out["train_s"] = time.perf_counter() - t_part
+
+    # (c) each arch's float32 cut, the card against the host CPU, TF32 off
+    t_part = time.perf_counter()
+    checks = {}
+    prev_tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        for arch in XV_ARCHS:
+            full = ARCHS[arch]
+            cut = dataclasses.replace(full, dtype="float32", num_layers=XV_CUT_LAYERS,
+                                      encoder_layers=min(full.encoder_layers, XV_CUT_LAYERS))
+            capi = build_model(cut)
+            card = materialize(capi.param_specs, SEED, device="cuda")
+            _fan_in_std(card)
+            # the bf16 matrices held as float32 (exact: the values the model
+            # casts them to at every use)
+            card = _map_leaves(lambda _, t: t.float(), card)
+            host = _map_leaves(lambda _, t: t.cpu(), card)
+            rng = np.random.default_rng(SEED)
+            gseq, gb = XV_CUT_GRADS
+            gpipe = TokenPipeline(dcfg, cut, ShapeConfig("cut", gseq, gb, "train"))
+            inputs = {
+                "prompt": torch.from_numpy(rng.integers(0, cut.vocab_size, (2, XV_CUT_PROMPT))
+                                           .astype(np.int32)),
+                "fed": [torch.from_numpy(rng.integers(0, cut.vocab_size, (2, 1)).astype(np.int32))
+                        for _ in range(XV_CUT_STEPS)],
+                "grad_batch": {k: torch.from_numpy(v) for k, v in
+                               gpipe.with_frontend(gpipe.batch_at(0), 0).items()}}
+            spipe = TokenPipeline(dcfg, cut, ShapeConfig(
+                "cut", XV_CUT_FRAMES * cut.src_ratio, 2, "prefill"))
+            raw = spipe.with_frontend(spipe.batch_at(0), 0)
+            key = "frames" if cut.family == "encdec" else "patches"
+            inputs[key] = torch.from_numpy(raw[key])
+            g = _xv_cut_run(arch, cut, capi, card, "cuda", inputs)
+            h = _xv_cut_run(arch, cut, capi, host, "cpu", inputs)
+            errs = {"prefill": _lm_rel(g["calls"][0], h["calls"][0]),
+                    "steps": max(_lm_rel(a, b) for a, b in zip(g["calls"][1:], h["calls"][1:])),
+                    "loss": abs(g["loss"] - h["loss"]) / abs(h["loss"])}
+            if cut.family == "encdec":
+                errs["enc_out"] = _lm_rel(g["enc_out"], h["enc_out"])
+                errs.update({f"xkv{k}": v for k, v in _leaf_errs(g["xkv"], h["xkv"]).items()})
+            grad_errs = _leaf_errs(g["grads"], h["grads"])
+            finite = all(bool(torch.isfinite(c).all()) for c in g["calls"]) and all(
+                bool(torch.isfinite(t).all()) for t in _leaves(g["grads"]))
+            ratios = ([e / XV_F32_TOL for e in errs.values()]
+                      + [e / XV_GRAD_TOL for e in grad_errs.values()])
+            checks[arch] = {
+                "layers": cut.num_layers, "encoder_layers": cut.encoder_layers,
+                "params": param_count(capi.param_specs), key: list(inputs[key].shape),
+                "prompt": XV_CUT_PROMPT, "steps": XV_CUT_STEPS, "grad_shape": [gb, gseq],
+                "rel_l2": errs, "grad_rel_l2": grad_errs, "loss_card": g["loss"],
+                "loss_cpu": h["loss"], "worst_over_tol": max(ratios), "finite": finite,
+                "card_s": g["s"], "cpu_s": h["s"],
+                "reduced": {"num_layers": f"{full.num_layers} -> {cut.num_layers}",
+                            "encoder_layers": f"{full.encoder_layers} -> {cut.encoder_layers}",
+                            "dtype": "bfloat16 -> float32"}}
+            worst_grad = max(grad_errs, key=grad_errs.get)
+            log(f"xv {arch} card vs cpu, float32 {cut.num_layers}-layer cut: "
+                + ", ".join(f"{k} {v:.2e}" for k, v in errs.items())
+                + f" (tol {XV_F32_TOL}); loss {g['loss']:.6f} / {h['loss']:.6f}; worst gradient "
+                f"leaf {grad_errs[worst_grad]:.2e} ({worst_grad}) (tol {XV_GRAD_TOL}); card "
+                f"{g['s']:.2f} s, cpu {h['s']:.2f} s")
+            if not finite or not np.isfinite(ratios).all() or max(ratios) > 1:
+                fail(f"xv {arch} card vs cpu: an error {max(ratios):.2f} times its tolerance "
+                     f"(finite {finite})")
+            del card, host, g, h
+            gc.collect()
+            torch.cuda.empty_cache()
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev_tf32
+    out["card_vs_cpu"] = checks
+    out["card_vs_cpu_s"] = time.perf_counter() - t_part
+
+    # (d) no ring kernel ran
+    out["launches"] = dict(counters.launches_by_route)
+    if any(out["launches"].values()):
+        fail(f"encdec/vlm path launched ring kernels: {out['launches']}")
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"encdec/vlm phase: ring launches {out['launches']}, serve {out['serve_s']:.1f} s, "
+        f"train {out['train_s']:.1f} s, card vs cpu {out['card_vs_cpu_s']:.1f} s, "
+        f"{out['seconds']:.1f} s")
+    report["encdec_vlm"] = out
+
+
 def _kernel_rows(report: dict, totals: dict) -> list:
     """The ``{"kernels": [...]}`` rows: one per route and one per pre-pass,
     each at its representative main-path shape (the (3, 7) tower's lift and
@@ -4049,6 +4464,7 @@ def main() -> int:
     timed(phase_moe)
     timed(phase_moe_train)
     timed(phase_ssm)
+    timed(phase_encdec_vlm)
     timed(phase_path_calls, calls)
     report["seconds"] = time.perf_counter() - t0
     log(f"phase seconds: {json.dumps(report['phase_seconds'])}")

@@ -7,6 +7,7 @@ cpu``::
     python -m repro_torch.launch.serve --device cpu --gen-len 2
     python -m repro_torch.launch.serve --arch qwen3-moe-30b-a3b --full
     python -m repro_torch.launch.serve --arch zamba2-7b --full
+    python -m repro_torch.launch.serve --arch seamless-m4t-medium --full
     python -m repro_torch.launch.serve --coded --coded-backend pool --pool-workers 4
     python -m repro_torch.launch.serve --serve 16 --serve-batch 4 --pool-workers 8
 
@@ -284,7 +285,8 @@ def main(argv: Optional[list] = None) -> int:
         "--full", dest="smoke", action="store_false",
         help="generate with the arch as published, at its full width and depth "
         "(qwen3-moe-30b-a3b: 30.2 B bf16 parameters, zamba2-7b: 6.66 B, one H100), "
-        "not its smoke reduction",
+        "not its smoke reduction; as in the reference, an encoder-decoder's "
+        "cross cache stays zeros and a VLM gets no patches",
     )
     ap.add_argument("--gen-len", type=int, default=8)
     ap.add_argument("--coded", action="store_true")

@@ -21,6 +21,12 @@ without ``--smoke`` at the published widths, ``--layers`` cutting the depth):
       --steps 4 --batch 2 --seq 4096
   PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3-moe-30b-a3b \\
       --layers 4 --steps 4 --batch 2 --seq 2048
+  PYTHONPATH=src python -m repro_torch.launch.train --arch internvl2-2b \\
+      --steps 4 --batch 2 --seq 4096
+
+The encoder-decoder's and the VLM's batches carry their stub frames or
+patches (``TokenPipeline.with_frontend``): seamless-m4t-medium encodes
+seq / 4 frames, internvl2-2b puts 256 patches ahead of the seq text tokens.
 """
 from __future__ import annotations
 

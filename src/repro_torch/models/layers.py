@@ -254,6 +254,7 @@ def attention_block(
     layer_type: str = "global",
     causal: bool = True,
     cache: Optional[Dict] = None,
+    xattn_kv: Optional[Tuple[torch.Tensor, torch.Tensor, torch.Tensor]] = None,
 ) -> Tuple[torch.Tensor, Optional[Dict]]:
     """Full attention sublayer: projections + rope + (cached) attention.
 
@@ -261,22 +262,30 @@ def attention_block(
     new k and v are written into the cache tensors in place (the reference
     donates its cache to the step, so the old one is gone there too); the
     returned dict holds the same tensors and ``len + S``.
+
+    xattn_kv: precomputed ``(k, v, kpos)`` for cross-attention, taken as
+    given: only q is projected, without RoPE (with ``qk_norm`` only q is
+    normalized), and no cache is written.
     """
     B, S, d = x.shape
     H, KV, hd = cfg.num_heads, cfg.num_kv_heads, cfg.hd
     q = _mm(x, p["wq"]).reshape(B, S, H, hd)
-    k = _mm(x, p["wk"]).reshape(B, S, KV, hd)
-    v = _mm(x, p["wv"]).reshape(B, S, KV, hd)
-    q, k = _qk_normalize(p, q, k, cfg)
-    q = rope(q, positions, cfg.rope_theta)
-    k = rope(k, positions, cfg.rope_theta)
-    kpos = positions
+    if xattn_kv is None:
+        k = _mm(x, p["wk"]).reshape(B, S, KV, hd)
+        v = _mm(x, p["wv"]).reshape(B, S, KV, hd)
+        q, k = _qk_normalize(p, q, k, cfg)
+        q = rope(q, positions, cfg.rope_theta)
+        k = rope(k, positions, cfg.rope_theta)
+        kpos = positions
+    else:
+        k, v, kpos = xattn_kv
+        q, _ = _qk_normalize(p, q, q, cfg)
     q = shard(q, "batch", "q_seq", "heads", None)
     k = shard(k, "batch", "kv_seq", "kv_heads", None)
     v = shard(v, "batch", "kv_seq", "kv_heads", None)
 
     new_cache = None
-    if cache is not None:
+    if cache is not None and xattn_kv is None:
         ck, cv = cache["k"], cache["v"]
         T = ck.shape[1]
         start = int(cache["len"])

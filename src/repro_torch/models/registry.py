@@ -8,10 +8,9 @@ architecture exposes
     batch_specs(shape)             -> input ParamSpec tree
     cache_decl(shape)              -> cache ParamSpec tree + scalar "len"
 
-Of the families, the dense and the MoE decoder, mamba2 (``ssm``) and
-zamba2 (``hybrid``) are ported; ``build_model`` raises
-``NotImplementedError`` naming the ROADMAP item the encoder-decoder and
-the VLM wait for (7.4).
+Every family is ported: the dense and the MoE decoder, the VLM (patch
+embeddings ahead of the text), the encoder-decoder, mamba2 (``ssm``) and
+zamba2 (``hybrid``).
 ``loss_fn`` is differentiable (the training path, ``launch.steps``, takes
 its gradients with ``torch.autograd``); ``prefill_fn`` and ``decode_fn``
 are called under ``torch.inference_mode()`` by the serving path.
@@ -69,17 +68,63 @@ def _lm_batch_specs(cfg: ModelConfig, shape: ShapeConfig) -> Dict:
     return {"tokens": ParamSpec((B, 1), ("batch", None), torch.int32)}
 
 
+def _vlm_batch_specs(cfg: ModelConfig, shape: ShapeConfig) -> Dict:
+    base = _lm_batch_specs(cfg, shape)
+    if shape.kind in ("train", "prefill"):
+        B = shape.global_batch
+        P = cfg.frontend_len
+        S_text = shape.seq_len - P
+        base["tokens"] = ParamSpec((B, S_text), ("batch", "seq"), torch.int32)
+        if "labels" in base:
+            base["labels"] = ParamSpec((B, S_text), ("batch", "seq"), torch.int32)
+        base["patches"] = ParamSpec((B, P, cfg.frontend_dim), ("batch", None, None), torch.float32)
+    return base
+
+
+def _src_len(cfg: ModelConfig, seq_len: int) -> int:
+    """An encoder-decoder's source frames for ``seq_len`` target tokens."""
+    return max(seq_len // cfg.src_ratio, 16)
+
+
+def _encdec_batch_specs(cfg: ModelConfig, shape: ShapeConfig) -> Dict:
+    B, S = shape.global_batch, shape.seq_len
+    base = _lm_batch_specs(cfg, shape)
+    if shape.kind in ("train", "prefill"):
+        base["frames"] = ParamSpec((B, _src_len(cfg, S), cfg.frontend_dim),
+                                   ("batch", "seq", None), torch.float32)
+    return base
+
+
 def _build_decoder_family(cfg: ModelConfig) -> ModelAPI:
     specs = tf_mod.decoder_specs(cfg)
+    is_vlm = cfg.family == "vlm"
+    is_encdec = cfg.family == "encdec"
+
+    def frontend_kw(params, batch) -> Dict:
+        """decoder_forward's keywords for the batch's frontend input: the
+        VLM's patches, or the encoder-decoder's encoder output and source
+        positions."""
+        if is_vlm:
+            return {"patches": batch["patches"]}
+        if is_encdec:
+            enc_out = tf_mod.encoder_forward(params, batch["frames"], cfg)
+            B, Ssrc = enc_out.shape[:2]
+            src = torch.arange(Ssrc, dtype=torch.int32, device=enc_out.device)
+            return {"enc_out": enc_out, "src_positions": src[None].expand(B, Ssrc)}
+        return {}
 
     def loss_fn(params, batch):
-        logits, _, aux = tf_mod.decoder_forward(params, batch["tokens"], cfg)
+        logits, _, aux = tf_mod.decoder_forward(params, batch["tokens"], cfg,
+                                                **frontend_kw(params, batch))
+        if is_vlm:
+            logits = logits[:, cfg.frontend_len:]
         loss, ntok = cross_entropy(logits, batch["labels"])
         total = loss + AUX_WEIGHT * aux
         return total, {"ce": loss, "aux": aux, "ntok": ntok}
 
     def prefill_fn(params, batch):
-        logits, _, _ = tf_mod.decoder_forward(params, batch["tokens"], cfg)
+        logits, _, _ = tf_mod.decoder_forward(params, batch["tokens"], cfg,
+                                              **frontend_kw(params, batch))
         return logits[:, -1:]
 
     def decode_fn(params, cache, batch):
@@ -90,13 +135,17 @@ def _build_decoder_family(cfg: ModelConfig) -> ModelAPI:
         return logits, new_cache
 
     def cache_decl(shape: ShapeConfig):
-        decl = tf_mod.cache_specs(cfg, shape.global_batch, shape.seq_len)
+        src_len = _src_len(cfg, shape.seq_len) if is_encdec else 0
+        decl = tf_mod.cache_specs(cfg, shape.global_batch, shape.seq_len, src_len=src_len)
         decl["len"] = ParamSpec((), (), torch.int32, "zeros")
         return decl
 
+    bspecs = (
+        _vlm_batch_specs if is_vlm else _encdec_batch_specs if is_encdec else _lm_batch_specs
+    )
     return ModelAPI(
         cfg, specs, loss_fn, prefill_fn, decode_fn,
-        lambda s: _lm_batch_specs(cfg, s), cache_decl,
+        lambda s: bspecs(cfg, s), cache_decl,
     )
 
 
@@ -162,5 +211,4 @@ def build_model(cfg: ModelConfig) -> ModelAPI:
         return _build_mamba(cfg)
     if cfg.family == "hybrid":
         return _build_zamba(cfg)
-    # decoder_specs raises NotImplementedError for the families not ported yet
     return _build_decoder_family(cfg)

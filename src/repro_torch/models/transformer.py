@@ -1,5 +1,5 @@
-"""Decoder-only transformer, the dense and MoE families — counterpart of the
-decoder of ``repro.models.transformer``.
+"""Decoder-only transformer (dense, MoE, the VLM's patch prefix) and the
+encoder-decoder — counterpart of ``repro.models.transformer``.
 
 Layers are grouped into the config's repeating ``layer_pattern`` unit and
 their params stacked along a leading units dim (U = ``num_units(cfg)``), as
@@ -9,8 +9,11 @@ units with ``lax.scan``, a Python loop walks them, each unit under the
 config's rematerialization (``_maybe_remat``) when gradients are taken, and
 the MoE layers' aux losses are summed in the scan's order.  The
 ``first_k_dense`` prefix (dense ``"global"`` layers before the units) runs
-unstacked, with a cache of its own.  Patches, the encoder-decoder and
-``build_xattn_cache`` wait (ROADMAP Queue 1 item 7.4).
+unstacked, with a cache of its own.  A VLM's patches, projected by
+``frontend_proj``, go ahead of the text tokens.  The encoder-decoder's
+bidirectional encoder (``encoder_forward``) feeds every decoder layer's
+cross-attention, its K and V computed from the encoder output or read from
+the cache's ``xkv`` entry (``build_xattn_cache``).
 """
 from __future__ import annotations
 
@@ -23,6 +26,8 @@ from torch import nn
 from ..configs.base import ModelConfig
 from ..runtime.sharding import ParamSpec, shard
 from .layers import (
+    _einsum,
+    _mm,
     apply_mlp,
     apply_moe,
     apply_norm,
@@ -34,25 +39,8 @@ from .layers import (
     softcap,
 )
 
-__all__ = ["DecoderLM", "cache_specs", "decoder_forward", "decoder_specs", "num_units",
-           "stack_specs"]
-
-# the ROADMAP item each family that is not ported yet waits for
-_WAITS = {
-    "encdec": "ROADMAP Queue 1 item 7.4 (encdec and vlm)",
-    "vlm": "ROADMAP Queue 1 item 7.4 (encdec and vlm)",
-}
-
-
-def _require_ported(cfg: ModelConfig) -> None:
-    """Raise ``NotImplementedError`` naming the ROADMAP item ``cfg``'s family
-    waits for, unless it is a ported one (dense, MoE, and the SSM and hybrid
-    families of ``models.ssm``)."""
-    if cfg.family in ("dense", "moe", "ssm", "hybrid") and cfg.frontend is None:
-        return
-    item = _WAITS.get(cfg.family, "ROADMAP Queue 1 item 7")
-    raise NotImplementedError(
-        f"{cfg.name}: the {cfg.family} family is not ported yet; it waits for {item}")
+__all__ = ["DecoderLM", "build_xattn_cache", "cache_specs", "decoder_forward",
+           "decoder_specs", "encoder_forward", "num_units", "stack_specs"]
 
 
 # ---------------------------------------------------------------------------
@@ -102,7 +90,6 @@ def _sub_block_specs(cfg: ModelConfig, moe: bool) -> Dict:
 
 
 def decoder_specs(cfg: ModelConfig) -> Dict:
-    _require_ported(cfg)
     d = cfg.d_model
     moe = cfg.family == "moe"
     unit = {f"l{i}": _sub_block_specs(cfg, moe) for i in range(len(cfg.layer_pattern))}
@@ -114,6 +101,19 @@ def decoder_specs(cfg: ModelConfig) -> Dict:
     if cfg.first_k_dense:
         specs["prefix"] = {f"p{i}": _sub_block_specs(cfg, moe=False)
                            for i in range(cfg.first_k_dense)}
+    if cfg.frontend == "patch":
+        specs["frontend_proj"] = ParamSpec((cfg.frontend_dim, d), ("frontend", "fsdp"))
+    if cfg.family == "encdec":
+        enc_unit = {"l0": _sub_block_specs(cfg, moe=False)}
+        specs["encoder"] = {
+            "blocks": stack_specs(enc_unit, cfg.encoder_layers),
+            "ln_f": norm_specs(cfg, d),
+            "frontend_proj": ParamSpec((cfg.frontend_dim, d), ("frontend", "fsdp")),
+        }
+        for i in range(len(cfg.layer_pattern)):
+            unit[f"l{i}"]["ln_xattn"] = norm_specs(cfg, d)
+            unit[f"l{i}"]["xattn"] = attention_specs(cfg)
+        specs["blocks"] = stack_specs(unit, num_units(cfg))
     return specs
 
 
@@ -122,20 +122,28 @@ def decoder_specs(cfg: ModelConfig) -> Dict:
 # ---------------------------------------------------------------------------
 
 
-def cache_specs(cfg: ModelConfig, batch: int, cache_len: int) -> Dict:
+def cache_specs(cfg: ModelConfig, batch: int, cache_len: int, src_len: int = 0) -> Dict:
+    """The KV cache's declaration; an encoder-decoder's also holds the
+    cross-attention K and V of ``src_len`` source positions (``xkv``)."""
     KV, hd = cfg.num_kv_heads, cfg.hd
     U = num_units(cfg)
-    kv = {
-        "k": ParamSpec((U, batch, cache_len, KV, hd), (None, "batch", "cache_seq", "kv_heads", None)),
-        "v": ParamSpec((U, batch, cache_len, KV, hd), (None, "batch", "cache_seq", "kv_heads", None)),
-    }
-    c: Dict[str, Any] = {f"l{i}": dict(kv) for i in range(len(cfg.layer_pattern))}
+    L = len(cfg.layer_pattern)
+
+    def kv(n):
+        return {name: ParamSpec((U, batch, n, KV, hd),
+                                (None, "batch", "cache_seq", "kv_heads", None))
+                for name in ("k", "v")}
+
+    c: Dict[str, Any] = {f"l{i}": kv(cache_len) for i in range(L)}
     if cfg.first_k_dense:
         pkv = {
             "k": ParamSpec((batch, cache_len, KV, hd), ("batch", "cache_seq", "kv_heads", None)),
             "v": ParamSpec((batch, cache_len, KV, hd), ("batch", "cache_seq", "kv_heads", None)),
         }
         c["prefix"] = {f"p{i}": dict(pkv) for i in range(cfg.first_k_dense)}
+    if cfg.family == "encdec":
+        # cross-attention K/V computed once from the encoder output
+        c["xkv"] = {f"l{i}": kv(src_len) for i in range(L)}
     return c
 
 
@@ -152,14 +160,22 @@ def _one_layer(
     layer_type: str,
     lcache: Optional[Dict],
     aux: torch.Tensor,
+    xattn_kv=None,
 ):
-    """pre-LN attention + (moe|mlp); returns (x, new_cache, aux plus the
-    layer's aux loss; a dense layer adds nothing)."""
+    """pre-LN attention (+ cross-attention over ``xattn_kv``) + (moe|mlp);
+    returns (x, new_cache, aux plus the layer's aux loss; a dense layer adds
+    nothing)."""
     h, new_cache = attention_block(
         lp["attn"], apply_norm(lp["ln_attn"], x, cfg), positions, cfg,
         layer_type=layer_type, cache=lcache,
     )
     x = x + h
+    if xattn_kv is not None:
+        hx, _ = attention_block(
+            lp["xattn"], apply_norm(lp["ln_xattn"], x, cfg), positions, cfg,
+            layer_type="global", causal=False, xattn_kv=xattn_kv,
+        )
+        x = x + hx
     h2in = apply_norm(lp["ln_mlp"], x, cfg)
     if "moe" in lp:
         h2, a = apply_moe(lp["moe"], h2in, cfg)
@@ -169,12 +185,26 @@ def _one_layer(
     return x + h2, new_cache, aux
 
 
+def _enc_xkv(lp: Dict, enc_out: torch.Tensor, src_positions: torch.Tensor, cfg: ModelConfig):
+    """A layer's cross-attention (k, v, kpos) from the encoder output."""
+    B = enc_out.shape[0]
+    KV, hd = cfg.num_kv_heads, cfg.hd
+    k = _mm(enc_out, lp["xattn"]["wk"]).reshape(B, -1, KV, hd)
+    v = _mm(enc_out, lp["xattn"]["wv"]).reshape(B, -1, KV, hd)
+    return k, v, src_positions
+
+
 def _unit(x: torch.Tensor, aux: torch.Tensor, up: Dict, positions: torch.Tensor,
-          cfg: ModelConfig) -> Tuple[torch.Tensor, torch.Tensor]:
+          cfg: ModelConfig, enc_out: Optional[torch.Tensor] = None,
+          src_positions: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, torch.Tensor]:
     """One repeating unit (``cfg.layer_pattern``) without a cache: the
-    reference's scan body, carrying (x, aux)."""
+    reference's scan body, carrying (x, aux); an encoder-decoder's layers
+    attend to ``enc_out`` (its cross K/V recomputed with the unit under
+    remat, as the reference's are)."""
     for i, lt in enumerate(cfg.layer_pattern):
-        x, _, aux = _one_layer(up[f"l{i}"], x, positions, cfg, lt, None, aux)
+        lp = up[f"l{i}"]
+        xkv = None if enc_out is None else _enc_xkv(lp, enc_out, src_positions, cfg)
+        x, _, aux = _one_layer(lp, x, positions, cfg, lt, None, aux, xkv)
     return x, aux
 
 
@@ -220,6 +250,9 @@ def decoder_forward(
     *,
     cache: Optional[Dict] = None,
     cache_len=None,
+    patches: Optional[torch.Tensor] = None,  # (B, P, frontend_dim) for VLM
+    enc_out: Optional[torch.Tensor] = None,  # (B, Ssrc, d) for enc-dec
+    src_positions: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, Optional[Dict], torch.Tensor]:
     """Returns (logits, new_cache, aux_loss): aux_loss sums the MoE layers'
     load-balancing losses (0 for the dense family).
@@ -228,11 +261,22 @@ def decoder_forward(
     tokens' k and v are written into its tensors in place and the returned
     cache holds the same tensors with ``len + S``.  ``cache_len`` (an int or
     a 0-dim tensor) is the first token's position.
+
+    ``patches`` (VLM) are projected by ``frontend_proj`` and go ahead of the
+    text, so the logits cover P + S positions.  An encoder-decoder's
+    cross-attention reads K/V computed from ``enc_out`` at ``src_positions``
+    when it is given, else the cache's ``xkv`` at positions 0..Ssrc-1.
     """
-    _require_ported(cfg)
     B, S = tokens.shape
     x = params["embed"][tokens].to(cfg.adtype)
     start = 0 if cache_len is None else int(cache_len)
+    if patches is not None:
+        pe = _mm(patches.to(cfg.adtype), params["frontend_proj"]).to(cfg.adtype)
+        x = torch.cat([pe, x], dim=1)
+        S = x.shape[1]
+    encdec = cfg.family == "encdec"
+    if encdec and enc_out is None and cache is None:
+        raise ValueError(f"{cfg.name}: the decoder needs enc_out or a cache with xkv")
     x = shard(x, "batch", "residual_seq", None)
     positions = torch.arange(start, start + S, dtype=torch.int32, device=x.device)
     positions = positions[None].expand(B, S)
@@ -250,24 +294,76 @@ def decoder_forward(
     if cache is None:
         unit = _remat_if_grad(_unit, cfg)
         for up in units:
-            x, aux = unit(x, aux, up, positions, cfg)
+            x, aux = unit(x, aux, up, positions, cfg, enc_out, src_positions)
     else:
         new_cache = {f"l{i}": {"k": cache[f"l{i}"]["k"], "v": cache[f"l{i}"]["v"]}
                      for i in range(len(cfg.layer_pattern))}
         if cfg.first_k_dense:
             new_cache["prefix"] = {p: {"k": c["k"], "v": c["v"]}
                                    for p, c in cache["prefix"].items()}
+        if encdec:
+            new_cache["xkv"] = cache["xkv"]
+            if enc_out is None:  # decode: the cached cross K/V
+                Ssrc = cache["xkv"]["l0"]["k"].shape[2]
+                kpos = torch.arange(Ssrc, dtype=torch.int32, device=x.device)[None].expand(B, Ssrc)
         new_cache["len"] = clen + S
         for u, up in enumerate(units):
             for i, lt in enumerate(cfg.layer_pattern):
+                lp = up[f"l{i}"]
                 lc = {"k": cache[f"l{i}"]["k"][u], "v": cache[f"l{i}"]["v"][u], "len": clen}
-                x, _, aux = _one_layer(up[f"l{i}"], x, positions, cfg, lt, lc, aux)
+                xkv = None
+                if encdec:
+                    if enc_out is not None:
+                        xkv = _enc_xkv(lp, enc_out, src_positions, cfg)
+                    else:
+                        xc = cache["xkv"][f"l{i}"]
+                        xkv = (xc["k"][u], xc["v"][u], kpos)
+                x, _, aux = _one_layer(lp, x, positions, cfg, lt, lc, aux, xkv)
 
     x = apply_norm(params["ln_f"], x, cfg)
     x = shard(x, "batch", "residual_seq", None)
     logits = x @ params["embed"].T.to(cfg.adtype)  # tied head
     logits = softcap(logits.float(), cfg.logit_softcap)
     return shard(logits, "batch", "residual_seq", "vocab"), new_cache, aux
+
+
+def _enc_unit(x: torch.Tensor, lp: Dict, positions: torch.Tensor,
+              cfg: ModelConfig) -> torch.Tensor:
+    """One encoder layer: bidirectional self-attention, then the MLP."""
+    h, _ = attention_block(
+        lp["attn"], apply_norm(lp["ln_attn"], x, cfg), positions, cfg,
+        layer_type="global", causal=False,
+    )
+    x = x + h
+    return x + apply_mlp(lp["mlp"], apply_norm(lp["ln_mlp"], x, cfg), cfg)
+
+
+def encoder_forward(params: Dict, frames: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """Bidirectional encoder over stub frame embeddings (B, Ssrc, fdim),
+    each layer under the config's remat when gradients are taken."""
+    enc = params["encoder"]
+    x = _mm(frames.to(cfg.adtype), enc["frontend_proj"]).to(cfg.adtype)
+    B, S, _ = x.shape
+    positions = torch.arange(S, dtype=torch.int32, device=x.device)[None].expand(B, S)
+    unit = _remat_if_grad(_enc_unit, cfg)
+    for up in _tree_units(enc["blocks"], cfg.encoder_layers):
+        x = unit(x, up["l0"], positions, cfg)
+    return apply_norm(enc["ln_f"], x, cfg)
+
+
+def build_xattn_cache(params: Dict, enc_out: torch.Tensor, cfg: ModelConfig) -> Dict:
+    """Precompute every unit's cross-attention K/V for decode: ``{"l<i>":
+    {"k", "v"}}``, each (U, B, Ssrc, KV, hd), the cache's ``xkv`` entry."""
+    B = enc_out.shape[0]
+    KV, hd = cfg.num_kv_heads, cfg.hd
+    out = {}
+    for i in range(len(cfg.layer_pattern)):
+        xp = params["blocks"][f"l{i}"]["xattn"]
+        out[f"l{i}"] = {
+            name: _einsum("bsd,udk->ubsk", enc_out, xp[w]).reshape(xp[w].shape[0], B, -1, KV, hd)
+            for name, w in (("k", "wk"), ("v", "wv"))
+        }
+    return out
 
 
 class _Tree(nn.Module):
@@ -302,8 +398,16 @@ class DecoderLM(_Tree):
         super().__init__(params, requires_grad)
         self.cfg = cfg
 
-    def forward(self, tokens: torch.Tensor, cache: Optional[Dict] = None):
+    def forward(self, tokens: torch.Tensor, cache: Optional[Dict] = None, *,
+                patches: Optional[torch.Tensor] = None,
+                enc_out: Optional[torch.Tensor] = None,
+                src_positions: Optional[torch.Tensor] = None):
         return decoder_forward(
             self.tree(), tokens, self.cfg, cache=cache,
             cache_len=None if cache is None else cache["len"],
+            patches=patches, enc_out=enc_out, src_positions=src_positions,
         )
+
+    def encode(self, frames: torch.Tensor) -> torch.Tensor:
+        """An encoder-decoder's :func:`encoder_forward` on ``frames``."""
+        return encoder_forward(self.tree(), frames, self.cfg)

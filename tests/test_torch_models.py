@@ -143,25 +143,33 @@ import dataclasses, numpy as np, torch
 import repro_torch.configs as TC
 from repro_torch.models import build_model
 from repro_torch.runtime import sharding as TS
-cfg = dataclasses.replace(TC.ARCHS["gemma2-2b"].smoke(), d_model=512, d_ff=1024)
-specs = build_model(cfg).param_specs
-p = TS.materialize(specs, 7, device="cpu")
-again = dict(TS._leaf_paths(TS.materialize(specs, 7, device="cpu")))
-other = dict(TS._leaf_paths(TS.materialize(specs, 8, device="cpu")))
-for (path, ps), (_, x) in zip(TS._leaf_paths(specs), TS._leaf_paths(p)):
-    assert tuple(x.shape) == ps.shape and x.dtype == ps.dtype, path
-    assert torch.equal(x, again[path]), path
-    if ps.init in ("ones", "zeros"):
-        assert torch.all(x == (1 if ps.init == "ones" else 0)), path
-        continue
-    assert not torch.equal(x, other[path]), path
-    # std = scale / sqrt(shape[0]): for a stacked leaf that is U = 1, not d
-    want = 0.02 if ps.init == "embed" else 1 / np.sqrt(ps.shape[0])
-    assert abs(x.float().std().item() / want - 1) < 0.01, path
-    assert abs(x.float().mean().item()) < 0.01 * want, path
-# every leaf draws its own stream
-wq, wk = p["blocks"]["l0"]["attn"]["wq"], p["blocks"]["l0"]["attn"]["wk"]
-assert not torch.equal(wq[..., : wk.shape[-1]], wk)
+# gemma2-2b, and the encoder-decoder's and the VLM's own leaves (encoder/...,
+# frontend_proj, xattn, ln_xattn)
+for arch in ("gemma2-2b", "seamless-m4t-medium", "internvl2-2b"):
+    cfg = dataclasses.replace(TC.ARCHS[arch].smoke(), d_model=512, d_ff=1024,
+                              frontend_dim=256 if TC.ARCHS[arch].frontend_dim else 0)
+    specs = build_model(cfg).param_specs
+    p = TS.materialize(specs, 7, device="cpu")
+    again = dict(TS._leaf_paths(TS.materialize(specs, 7, device="cpu")))
+    other = dict(TS._leaf_paths(TS.materialize(specs, 8, device="cpu")))
+    for (path, ps), (_, x) in zip(TS._leaf_paths(specs), TS._leaf_paths(p)):
+        assert tuple(x.shape) == ps.shape and x.dtype == ps.dtype, path
+        assert torch.equal(x, again[path]), path
+        if ps.init in ("ones", "zeros"):
+            assert torch.all(x == (1 if ps.init == "ones" else 0)), path
+            continue
+        assert not torch.equal(x, other[path]), path
+        # std = scale / sqrt(shape[0]): for a stacked leaf that is 1/sqrt(U), not d
+        want = 0.02 if ps.init == "embed" else 1 / np.sqrt(ps.shape[0])
+        assert abs(x.float().std().item() / want - 1) < 0.01, path
+        assert abs(x.float().mean().item()) < 0.01 * want, path
+    # every leaf draws its own stream
+    wq, wk = p["blocks"]["l0"]["attn"]["wq"], p["blocks"]["l0"]["attn"]["wk"]
+    assert not torch.equal(wq[..., : wk.shape[-1]], wk)
+    if cfg.family == "encdec":
+        assert not torch.equal(p["blocks"]["l0"]["xattn"]["wq"], p["blocks"]["l0"]["attn"]["wq"])
+        assert not torch.equal(p["encoder"]["frontend_proj"][:, :128],
+                               p["encoder"]["blocks"]["l0"]["attn"]["wq"][0, :256])
 print("ok")
 """
 
@@ -413,11 +421,17 @@ def test_other_dense_archs(what, arch, dtype):
         assert worst <= (F32_STEP if dtype == "float32" else BF16_MODEL), worst
 
 
-@pytest.mark.parametrize("arch", ["seamless-m4t-medium", "internvl2-2b"])
-def test_unported_families_name_their_roadmap_item(arch):
-    cfg = TC.ARCHS[arch]
-    item = {"encdec": "7.4", "vlm": "7.4"}[cfg.family]
-    with pytest.raises(NotImplementedError, match=rf"ROADMAP Queue 1 item {item}"):
-        build_model(cfg)
-    with pytest.raises(NotImplementedError, match=cfg.family):
-        TT.decoder_specs(cfg.smoke())
+def test_build_model_builds_every_arch():
+    """``build_model`` builds every arch of the registry at the smoke size,
+    its parameters, caches and batches declared as the reference declares
+    them."""
+    for arch in TC.ARCHS:
+        rapi, tapi = ref_build(RC.ARCHS[arch].smoke()), build_model(TC.ARCHS[arch].smoke())
+        assert tapi.cfg.family == RC.ARCHS[arch].family
+        assert TS.param_count(tapi.param_specs) == RS.param_count(rapi.param_specs), arch
+        for kind in ("train", "prefill", "decode"):
+            r, t = RC.smoke_shape(kind), TC.smoke_shape(kind)
+            assert [(p, s.shape) for p, s in TS._leaf_paths(tapi.cache_decl(t))] == \
+                [(p, s.shape) for p, s in RS._leaf_paths(rapi.cache_decl(r))], (arch, kind)
+            assert [(p, s.shape) for p, s in TS._leaf_paths(tapi.batch_specs(t))] == \
+                [(p, s.shape) for p, s in RS._leaf_paths(rapi.batch_specs(r))], (arch, kind)
