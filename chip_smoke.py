@@ -274,9 +274,30 @@ Phases (any mismatch fails the run with a non-zero exit):
    the cross K/V, the prefill's logits and every cached step's within
    ``XV_F32_TOL``, the loss within it and every gradient leaf within
    ``XV_GRAD_TOL``; (d) launch counts zeroed before and read after
-   (a)-(c): no ``gr_matmul`` route launched.
+   (a)-(c): no ``gr_matmul`` route launched;
+20. the LM substrate on a device mesh (plain PyTorch ops, DTensor and gloo
+   collectives; no ring kernel may launch): this process rank 0 and 7
+   spawned ranks on the card in one gloo default group, meshed
+   ``MESH_SHAPE`` (2, 4) ("data", "model"); qwen3-moe-30b-a3b at full
+   width (bf16) cut to ``MESH_LAYERS`` layers: (a) ``train(mesh=...)``
+   for ``MESH_TRAIN_STEPS`` steps at ``MESH_TRAIN_SHAPE`` under
+   ``rules_for`` (every MoE layer on the ``_apply_moe_ep_a2a`` island),
+   then ``MESH_DECODE``'s cached ``decode_fn`` steps under the decode rules
+   (the ``_apply_moe_shardmap`` island): each island must run, warm step
+   times with and without the mesh, collectives a step, routes dropped by
+   shard, peak memory a rank; (b) the cut in float32, TF32 off, every
+   token routed to every expert (K = E: no discontinuity to flip), mesh
+   against one device from the same weights: loss and aux within
+   ``LM_F32_TOL``, every gradient leaf (gathered) within
+   ``TRAIN_GRAD_TOL``, ``MESH_F32_DECODE`` cached steps' logits (a
+   float32 cache) within ``LM_F32_TOL``; (c) ``pipelined_apply`` over a
+   4-rank ``"pod"`` mesh equal to the sequential stack, ``compressed_psum``
+   equal to the host's dequantization; (d) the dry-run of
+   ``MESH_DRYRUN`` in a subprocess (256 fake ranks): ``ok``, fitting the
+   H100's 80 GB; (e) launch counts of every rank: no ``gr_matmul`` route
+   launched.
 
-Phases run in the order 1-3, 5-9, 13, 12, 10, 11, 14, 15, 16, 17, 18, 19, 4.  Launch counts per
+Phases run in the order 1-3, 5-9, 13, 12, 10, 11, 14, 15, 16, 17, 18, 19, 20, 4.  Launch counts per
 route are zeroed before each path of phases 3, 5-9, 12 and 13, read
 after it (after the elastic backend's straggler tasks have finished) and
 held against ``EXPECTED_LAUNCHES``; in phases 8-9 the master's counts are
@@ -4418,6 +4439,564 @@ def _kernel_rows(report: dict, totals: dict) -> list:
     ]
 
 
+# ---------------------------------------------------------------------------
+# phase 20: the LM substrate on a device mesh (plain PyTorch ops and DTensor;
+# no ring kernel)
+# ---------------------------------------------------------------------------
+
+# 8 ranks on this card (this process rank 0, 7 spawned) in one gloo default
+# group, meshed (2, 4) ("data", "model")
+MESH_WORLD = 8
+MESH_SHAPE = ((2, 4), ("data", "model"))
+MESH_ARCH = "qwen3-moe-30b-a3b"
+MESH_LAYERS = 2
+MESH_TRAIN_SHAPE = (2048, 2)       # (seq, global batch): the a2a island
+MESH_TRAIN_STEPS = 3
+MESH_DECODE = (8, 8, 16)           # (batch, cached steps, cache slots): the shardmap island
+MESH_F32_DECODE = 4
+MESH_F32_SHAPE = (256, 2)          # (seq, batch) of (b)'s gradients: the a2a island
+# (b) routes every token to every expert (K = E = 128, capacity factor 1:
+# C = T K / E = T, nothing dropped).  Top-8 routing is discontinuous: the
+# mesh's float32 sums in another order move a router probability by ~1e-5
+# (relative), and at 2 x 512 tokens that flipped 10 of 2,048 (token, layer)
+# top-8 choices at the std rule, 34 with the routers 16x more peaked
+# (NVIDIA H100 80GB HBM3, 700 W); a flipped token's gradients and logits
+# are not comparable.  With K = E there is no choice to flip, and the
+# islands, their collectives and every gradient are held exactly as
+# routed; (a) runs the published top-8 routing
+PIPE_MESH_RANKS = 4
+PIPE_SHAPE = (8, 8, 16, 4)         # (layers, batch, width, microbatches)
+MESH_CPSUM_N = 4096
+MESH_TIMEOUT_S = 600
+# the dry-run's production cell, run in a subprocess (256 fake ranks)
+MESH_DRYRUN = ("qwen3-moe-30b-a3b", "decode_32k", "single")
+
+
+def _mesh_routes(routes) -> dict:
+    """Calls by island and routes dropped (summed over the calls) by shard."""
+    calls: dict = {}
+    dropped: dict = {}
+    for r in routes:
+        calls[r.route] = calls.get(r.route, 0) + 1
+        key = ",".join(f"{a}={i}" for a, i in (r.shard or {}).items())
+        dropped[key] = dropped.get(key, 0) + int((~r.kept).sum())
+    return {"calls": calls, "dropped_by_shard": dropped}
+
+
+def _routed_sets(calls, layers: int, rows: int, shard_rows):
+    """Each of the first ``layers`` MoE calls' expert sets, sorted, as one
+    (rows, K) tensor a layer in global token order: ``calls`` holds every
+    rank's recorded (shard, experts) pairs, ``shard_rows(shard, T)`` the
+    global rows of a shard's T tokens (None: a shard whose routes another
+    rank's copy already gave)."""
+    import torch
+
+    out = []
+    for layer in range(layers):
+        K = calls[0][layer][1].shape[1]
+        glob = torch.full((rows, K), -1, dtype=torch.int64)
+        for rank_calls in calls:
+            shard, experts = rank_calls[layer]
+            idx = shard_rows(shard, experts.shape[0])
+            if idx is not None:
+                glob[idx] = experts.sort(dim=1).values.long()
+        out.append(glob)
+    return out
+
+
+def _route_flips(mesh_sets, solo_routes, K: int):
+    """(tokens routed differently, how many of them at a near-tie of the
+    K-th and (K+1)-th probabilities) over the layers, the mesh's sets
+    against one device's ``Routing`` records."""
+    import torch
+
+    diff = ties = 0
+    for glob, r in zip(mesh_sets, solo_routes):
+        solo = r.experts.cpu().sort(dim=1).values.long()
+        bad = (glob != solo).any(dim=1)
+        top = r.top.cpu()
+        if top.shape[1] > K:  # with K = E there is no (K+1)-th to tie with
+            tie = top[:, K - 1] - top[:, K] <= MOE_NEAR_TIE * top[:, K - 1]
+        else:
+            tie = torch.zeros_like(bad)
+        diff += int(bad.sum())
+        ties += int((bad & tie).sum())
+    return diff, ties
+
+
+def _gather_to_rank0(tree, rank: int):
+    """Every DTensor leaf gathered whole (a collective, leaf by leaf), kept
+    on rank 0 only: the other ranks drop each leaf at once."""
+    from repro_torch.runtime.sharding import full_tree
+
+    if isinstance(tree, dict):
+        return {k: _gather_to_rank0(v, rank) for k, v in tree.items()}
+    full = full_tree(tree)
+    return full if rank == 0 else None
+
+
+def _mesh_body(rank: int, device: str, small: bool) -> dict:
+    """One rank's share of phase 20 ((a)-(c)); every rank runs it alike."""
+    import dataclasses
+    import gc
+    import statistics
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.configs import ARCHS, ShapeConfig, smoke_shape
+    from repro_torch.data import DataConfig, TokenPipeline
+    from repro_torch.kernels import counters
+    from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.launch.steps import recording, rules_for, value_and_grad
+    from repro_torch.launch.train import train
+    from repro_torch.models import build_model
+    from repro_torch.models import layers as lm_layers
+    from repro_torch.optim import compressed_psum
+    from repro_torch.optim.compression import quantize_ef
+    from repro_torch.runtime import collectives as coll
+    from repro_torch.runtime.pipeline import pipelined_apply
+    from repro_torch.runtime.sharding import (_map_leaves, axis_rules, distribute_tree, full_tree,
+                                              materialize)
+
+    cuda = device == "cuda"
+    counters.reset()
+    out: dict = {"rank": rank, "part_s": {}}
+    t_part = time.perf_counter()
+
+    def part(name):  # host seconds of each part, for the phase's budget
+        nonlocal t_part
+        now = time.perf_counter()
+        out["part_s"][name] = now - t_part
+        t_part = now
+
+    mesh = make_debug_mesh(*MESH_SHAPE, device=device)
+    base = ARCHS[MESH_ARCH].smoke() if small else dataclasses.replace(
+        ARCHS[MESH_ARCH], num_layers=MESH_LAYERS)
+    seq, batch = (64, 2) if small else MESH_TRAIN_SHAPE
+    shape = ShapeConfig("mesh_train", seq, batch, "train")
+    api = build_model(base)
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize()
+
+    def release():
+        gc.collect()
+        if cuda:
+            torch.cuda.empty_cache()
+        dist.barrier()
+
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    # (a) train(mesh=...): the a2a island; collectives counted op by op
+    overrides = {"num_layers": base.num_layers} if not small else None
+    with lm_layers.recording_routes() as routes, recording(memory=False) as rec:
+        run = train(MESH_ARCH, smoke=small, steps=MESH_TRAIN_STEPS, shape=shape, seed=SEED,
+                    data_source="markov", log_every=0, device=device, mesh=mesh,
+                    overrides=overrides)
+    ms = [h["ms"] for h in run["history"]]
+    out["train"] = {
+        "losses": run["losses"], "step_ms": ms, "warm_step_ms_median": statistics.median(ms[1:]),
+        "collectives_per_step": {k: {"count": v["count"] / MESH_TRAIN_STEPS,
+                                     "bytes": v["bytes"] / MESH_TRAIN_STEPS}
+                                 for k, v in rec.coll.items()},
+        # host seconds inside the collectives (gloo blocks the caller; a
+        # CUDA operand's wait covers the kernels queued before it)
+        "collective_s": rec.comm_s, "collective_share": rec.comm_s / (sum(ms) / 1e3),
+        "rules": rules_for(base, shape), **_mesh_routes(routes)}
+    if not np.isfinite(run["losses"]).all():
+        raise RuntimeError(f"mesh train: a loss is not finite: {run['losses']}")
+    params = full_tree(run["state"]["params"])
+    del run
+    part("train")
+    # decode under the decode rules: the shardmap island
+    dbatch, dsteps, slots = MESH_DECODE
+    dshape = ShapeConfig("mesh_decode", slots, dbatch, "decode")
+    drules = rules_for(base, dshape)
+    decl = api.cache_decl(dshape)
+    dparams = distribute_tree(params, api.param_specs, mesh, drules)
+    cache = distribute_tree(_map_leaves(lambda _, ps: torch.zeros(ps.shape, dtype=ps.dtype,
+                                                                  device=device), decl),
+                            decl, mesh, drules)
+    cache["len"] = 0
+    gen = torch.Generator(device="cpu")
+    gen.manual_seed(SEED + 20)
+    toks = torch.randint(0, base.vocab_size, (dbatch, dsteps), generator=gen,
+                         dtype=torch.int32).to(device)
+    walls = []
+    with axis_rules(mesh, drules), torch.no_grad(), lm_layers.recording_routes() as droutes:
+        for t in range(dsteps):
+            sync()
+            t0 = time.perf_counter()
+            logits, cache = api.decode_fn(dparams, cache, {"tokens": toks[:, t:t + 1]})
+            logits = full_tree(logits)
+            sync()
+            walls.append(1e3 * (time.perf_counter() - t0))
+    if not torch.isfinite(logits).all():
+        raise RuntimeError("mesh decode: a logit is not finite")
+    out["decode"] = {"step_ms": walls, "warm_step_ms_median": statistics.median(walls[1:]),
+                     "rules": drules, **_mesh_routes(droutes)}
+    del dparams, cache, params
+    out["peak_bytes"] = torch.cuda.max_memory_allocated() if cuda else None
+    # the same training without a mesh, on rank 0 alone: the others give
+    # their cached blocks back to the card first, and wait
+    release()
+    if rank == 0:
+        solo = train(MESH_ARCH, smoke=small, steps=MESH_TRAIN_STEPS, shape=shape, seed=SEED,
+                     data_source="markov", log_every=0, device=device, overrides=overrides)
+        sms = [h["ms"] for h in solo["history"]]
+        out["train_no_mesh"] = {"losses": solo["losses"], "step_ms": sms,
+                                "warm_step_ms_median": statistics.median(sms[1:])}
+        del solo
+    release()
+
+    part("decode_and_no_mesh_train")
+    # (b) float32, TF32 off, no drops: the mesh against one device from the
+    # same weights: loss, aux, every gradient leaf, the decode logits
+    cut = dataclasses.replace(base, dtype="float32", experts_per_tok=base.num_experts,
+                              capacity_factor=1.0)
+    capi = build_model(cut)
+    prev_tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        p32 = materialize(capi.param_specs, SEED + 1, device)
+        gseq, gbatch = (64, 2) if small else MESH_F32_SHAPE
+        gshape = ShapeConfig("mesh_f32", gseq, gbatch, "train")
+        pipe = TokenPipeline(DataConfig(seed=SEED + 2, source="markov"), cut, gshape)
+        b32 = {k: torch.from_numpy(v).to(device) for k, v in pipe.batch_at(0).items()}
+        trules = rules_for(cut, gshape)
+        dp = distribute_tree(p32, capi.param_specs, mesh, trules)
+        db = distribute_tree(b32, capi.batch_specs(gshape), mesh, trules)
+        with axis_rules(mesh, trules), lm_layers.recording_routes() as froutes:
+            (lm, mm), gm = value_and_grad(capi.loss_fn, dp, db)
+        lm, am = float(full_tree(lm)), float(full_tree(mm["aux"]))
+        gm = _gather_to_rank0(gm, rank)
+        L = cut.num_layers  # the forward's calls come first, the recompute's after
+        tcalls = [None] * dist.get_world_size()
+        dist.all_gather_object(tcalls, [(r.shard, r.experts.cpu()) for r in froutes[:L]])
+        del dp, db
+        dlog = []
+        dshape32 = ShapeConfig("mesh_f32_decode", slots, dbatch, "decode")
+        drules32 = rules_for(cut, dshape32)
+        decl32 = capi.cache_decl(dshape32)
+        dp = distribute_tree(p32, capi.param_specs, mesh, drules32)
+        # a float32 cache (the declaration's is bf16): the probabilities' cast
+        # to the cache's dtype would round in bf16 sums taken in two orders
+        c = distribute_tree(_map_leaves(lambda _, ps: torch.zeros(ps.shape, dtype=torch.float32,
+                                                                  device=device), decl32),
+                            decl32, mesh, drules32)
+        c["len"] = 0
+        with axis_rules(mesh, drules32), torch.no_grad(), lm_layers.recording_routes() as dr:
+            for t in range(MESH_F32_DECODE):
+                lg, c = capi.decode_fn(dp, c, {"tokens": toks[:, t:t + 1]})
+                dlog.append(full_tree(lg))
+        dcalls = [None] * dist.get_world_size()
+        dist.all_gather_object(dcalls, [(r.shard, r.experts.cpu()) for r in dr])
+        del dp, c
+        if rank != 0:
+            del p32, b32, gm
+        release()
+        if rank == 0:
+            K = cut.experts_per_tok
+            with lm_layers.recording_routes() as sr:
+                (l0, m0), g0 = value_and_grad(capi.loss_fn, p32, b32)
+            l0, a0 = float(l0), float(m0["aux"])
+            nb, nm = dict(zip(MESH_SHAPE[1], MESH_SHAPE[0]))["data"], dict(
+                zip(MESH_SHAPE[1], MESH_SHAPE[0]))["model"]
+            bl, sl = gbatch // nb, gseq // nm
+
+            def train_rows(shard, T):  # the a2a island: batch rows by data, seq by model
+                b0, s0 = shard["data"] * bl, shard["model"] * sl
+                return torch.tensor([(b0 + i // sl) * gseq + s0 + i % sl for i in range(T)])
+
+            t_diff, t_ties = _route_flips(_routed_sets(tcalls, L, gbatch * gseq, train_rows),
+                                          sr[:L], K)
+            c0 = _map_leaves(lambda _, ps: torch.zeros(ps.shape, dtype=torch.float32,
+                                                       device=device), decl32)
+            c0["len"] = 0
+            errs, d_diff, d_ties = [], 0, 0
+            dbl = dbatch // nb
+
+            def decode_rows(shard, T):  # the shardmap island: rows by data, alike by model
+                return None if shard["model"] else torch.arange(T) + shard["data"] * dbl
+
+            with torch.no_grad(), lm_layers.recording_routes() as sdr:
+                for t in range(MESH_F32_DECODE):
+                    lg0, c0 = capi.decode_fn(p32, c0, {"tokens": toks[:, t:t + 1]})
+                    step = [calls[t * L:(t + 1) * L] for calls in dcalls]
+                    diff, ties = _route_flips(_routed_sets(step, L, dbatch, decode_rows),
+                                              sdr[t * L:(t + 1) * L], K)
+                    d_diff, d_ties = d_diff + diff, d_ties + ties
+                    if d_diff:  # a flipped route changes the cache: later steps differ
+                        break
+                    errs.append(_lm_rel(dlog[t].float(), lg0.float()))
+            grad_errs = _leaf_errs(gm, g0) if not t_diff else {}
+            out["f32"] = {
+                "shape": [gbatch, gseq], "loss_mesh": lm, "loss_one_device": l0,
+                "loss_rel": abs(lm - l0) / abs(l0), "aux_mesh": am, "aux_one_device": a0,
+                "aux_rel": abs(am - a0) / abs(a0), "grad_rel_l2": grad_errs,
+                "decode_logits_rel_l2": errs, "tol": LM_F32_TOL, "grad_tol": TRAIN_GRAD_TOL,
+                "experts_per_token": K, "capacity_factor": cut.capacity_factor,
+                "dropped": sum(int((~r.kept).sum()) for r in froutes),
+                "routes": _mesh_routes(froutes)["calls"],
+                "train_route_flips": t_diff, "train_near_ties": t_ties,
+                "decode_route_flips": d_diff, "decode_near_ties": d_ties}
+            del g0, gm, p32, b32
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev_tf32
+    dist.barrier()
+
+    part("float32")
+    # (c) pipelined_apply and compressed_psum over a 4-rank "pod" mesh
+    from torch.distributed.device_mesh import DeviceMesh
+
+    pmesh = DeviceMesh(device, list(range(PIPE_MESH_RANKS)), mesh_dim_names=("pod",))
+    if rank < PIPE_MESH_RANKS:
+        L, B, D, M = PIPE_SHAPE
+        g = torch.Generator(device="cpu")
+        g.manual_seed(SEED + 21)
+        Ws = (torch.randn((L, D, D), generator=g) * 0.1).to(device)
+        x = torch.randn((B, D), generator=g).to(device)
+
+        def stage_fn(ws, h):
+            for w in ws:
+                h = torch.tanh(h @ w)
+            return h
+
+        y = pipelined_apply(stage_fn, Ws, x, pmesh, axis="pod", microbatches=M).to_local()
+        pipe_err = float((y - stage_fn(Ws, x)).abs().max())
+        gs = [torch.randn(MESH_CPSUM_N, generator=g) for _ in range(PIPE_MESH_RANKS)]
+        with coll.host_staging(pmesh):
+            mean, _ = compressed_psum(gs[rank].to(device), torch.zeros(MESH_CPSUM_N, device=device),
+                                      "pod", pmesh)
+        if rank == 0:
+            qs, scales = zip(*[quantize_ef(gi, torch.zeros_like(gi))[:2] for gi in gs])
+            host = torch.tensordot(torch.stack(scales), torch.stack(qs).float(),
+                                   dims=([0], [0])) / PIPE_MESH_RANKS
+            out["pipeline"] = {"shape": list(PIPE_SHAPE), "ranks": PIPE_MESH_RANKS,
+                               "max_abs_err": pipe_err}
+            out["compressed_psum"] = {"n": MESH_CPSUM_N, "ranks": PIPE_MESH_RANKS,
+                                      "max_abs_err_vs_host": float((mean.cpu() - host).abs().max()),
+                                      "max_abs_err_vs_mean": float(
+                                          (mean.cpu() - torch.stack(gs).mean(0)).abs().max())}
+    dist.barrier()
+    part("pipeline")
+    out["launches"] = dict(counters.launches_by_route)
+    return out
+
+
+def _mesh_rank(rank: int, world: int, port: int, device: str, small: bool, q) -> None:
+    """A spawned rank of phase 20: joins the group, runs ``_mesh_body``, and
+    reports its summary (or its traceback) on ``q``."""
+    import traceback
+
+    try:
+        q.put((rank, "ok", _mesh_group_run(rank, world, port, device, small)))
+    except BaseException:
+        q.put((rank, "error", traceback.format_exc()[-3000:]))
+        raise
+
+
+def _mesh_group_run(rank: int, world: int, port: int, device: str, small: bool) -> dict:
+    import datetime
+
+    import torch
+    import torch.distributed as dist
+
+    torch.set_num_threads(1)
+    if device == "cuda":
+        torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}", rank=rank,
+                            world_size=world, timeout=datetime.timedelta(seconds=300))
+    try:
+        out = _mesh_body(rank, device, small)
+        dist.barrier()
+        return out
+    finally:
+        dist.destroy_process_group()
+
+
+def run_mesh_ranks(device: str = "cuda", small: bool = False) -> list:
+    """Phase 20's (a)-(c) on ``MESH_WORLD`` ranks: this process rank 0, the
+    rest spawned; returns every rank's summary, rank 0's first.  A rank that
+    fails fails the run."""
+    import multiprocessing as mp
+    import socket
+    import traceback
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    ctx = mp.get_context("spawn")
+    q = ctx.Queue()
+    procs = [ctx.Process(target=_mesh_rank, args=(r, MESH_WORLD, port, device, small, q),
+                         daemon=True) for r in range(1, MESH_WORLD)]
+    for p in procs:
+        p.start()
+    try:
+        try:
+            mine = _mesh_group_run(0, MESH_WORLD, port, device, small)
+        except BaseException:
+            # a rank that failed first leaves the others a closed connection:
+            # report the ranks' own errors before rank 0's
+            mine_tb, others = traceback.format_exc()[-2000:], []
+            deadline = time.time() + 20
+            while time.time() < deadline:
+                try:
+                    r, status, payload = q.get(timeout=1)
+                except Exception:
+                    if not any(p.is_alive() for p in procs):
+                        break
+                    continue
+                if status != "ok":
+                    others.append(f"rank {r}:\n{payload[-2500:]}")
+            others.sort(key=lambda e: "Connection closed" in e)  # the root cause first
+            fail("mesh ranks failed:\n" + "\n".join(others[:2]) + f"\nrank 0:\n{mine_tb}")
+        results = {0: mine}
+        deadline = time.time() + MESH_TIMEOUT_S
+        while len(results) < MESH_WORLD and time.time() < deadline:
+            r, status, payload = q.get(timeout=max(deadline - time.time(), 1))
+            if status != "ok":
+                fail(f"mesh rank {r} failed:\n{payload}")
+            results[r] = payload
+        for p in procs:
+            p.join(timeout=60)
+        bad = [p.exitcode for p in procs if p.exitcode != 0]
+        if len(results) < MESH_WORLD or bad:
+            fail(f"mesh ranks: {len(results)} of {MESH_WORLD} reported, exit codes {bad}")
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join()
+    return [results[r] for r in range(MESH_WORLD)]
+
+
+def phase_mesh(report: dict) -> None:
+    import gc
+    import os
+    import subprocess
+
+    import torch
+
+    from repro_torch.kernels import counters
+
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    counters.reset()
+    # (d) the production dry-run cell, in a subprocess beside the ranks
+    arch, shape, mesh_kind = MESH_DRYRUN
+    art = ROOT / "build" / "dryrun_torch"
+    env = {**os.environ, "PYTHONPATH": str(SRC), "REPRO_TORCH_DRYRUN_DIR": str(art),
+           "CUDA_VISIBLE_DEVICES": ""}
+    t_dry = time.perf_counter()
+    dry = subprocess.Popen([sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch,
+                            "--shape", shape, "--mesh", mesh_kind, "--force"], env=env,
+                           stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    try:
+        ranks = run_mesh_ranks("cuda")
+    finally:
+        dry_out, _ = dry.communicate(timeout=MESH_TIMEOUT_S)
+    dry_s = time.perf_counter() - t_dry
+    r0 = ranks[0]
+    out: dict = {"arch": MESH_ARCH, "mesh": dict(zip(MESH_SHAPE[1], MESH_SHAPE[0])),
+                 "world": MESH_WORLD, "backend": "gloo (ranks sharing one card)",
+                 "reduced": {"num_layers": f"48 -> {MESH_LAYERS}",
+                             "seq_len": f"4096 -> {MESH_TRAIN_SHAPE[0]}",
+                             "global_batch": f"256 -> {MESH_TRAIN_SHAPE[1]}"}}
+    tr, de = r0["train"], r0["decode"]
+    out["train"] = tr
+    out["train_no_mesh"] = r0["train_no_mesh"]
+    out["decode"] = de
+    out["peak_bytes_by_rank"] = [r["peak_bytes"] for r in ranks]
+    calls, dropped = {}, {"train": {}, "decode": {}}
+    for r in ranks:
+        for part in ("train", "decode"):
+            for k, v in r[part]["calls"].items():
+                calls[k] = calls.get(k, 0) + v
+            dropped[part].update(r[part]["dropped_by_shard"])
+    out["island_calls_all_ranks"] = calls
+    out["dropped_by_shard"] = dropped  # routes dropped over the run, by the shard that routed them
+    out["part_s"] = r0["part_s"]
+    log(f"mesh parts (rank 0, s): {json.dumps(r0['part_s'])}")
+    log(f"mesh (a): {MESH_ARCH} {MESH_LAYERS} layers on {out['mesh']}: train losses "
+        f"{tr['losses']}, warm step {tr['warm_step_ms_median']:.1f} ms (no mesh, one device "
+        f"{out['train_no_mesh']['warm_step_ms_median']:.1f} ms); collectives a step (rank 0) "
+        f"{json.dumps(tr['collectives_per_step'])}, {100 * tr['collective_share']:.1f}% of the "
+        f"steps' wall inside them; decode warm step "
+        f"{de['warm_step_ms_median']:.1f} ms; island calls {calls}; routes dropped by shard "
+        f"{json.dumps(dropped)}; peak bytes by rank {out['peak_bytes_by_rank']}")
+    for island in ("ep_a2a", "shardmap"):
+        if calls.get(island, 0) < 1:
+            fail(f"mesh: the {island} island never ran ({calls})")
+    f32 = r0["f32"]
+    out["f32"] = f32
+    ratios = [f32["loss_rel"] / LM_F32_TOL, f32["aux_rel"] / LM_F32_TOL] + [
+        e / LM_F32_TOL for e in f32["decode_logits_rel_l2"]] + [
+        e / TRAIN_GRAD_TOL for e in f32["grad_rel_l2"].values()]
+    worst = sorted(f32["grad_rel_l2"].items(), key=lambda kv: -kv[1])[:3]
+    # routing is discontinuous: the mesh's float32 sums in another order may
+    # flip a token whose K-th and (K+1)-th probabilities tie; such a token's
+    # gradients and later decode steps are not comparable (phases 16-17's
+    # rule), any other flip fails
+    log(f"mesh (b): routes differ for {f32['train_route_flips']} training tokens "
+        f"({f32['train_near_ties']} near-ties) and {f32['decode_route_flips']} decode tokens "
+        f"({f32['decode_near_ties']} near-ties); gradients held: {not f32['train_route_flips']}; "
+        f"decode steps held: {len(f32['decode_logits_rel_l2'])} of {MESH_F32_DECODE}")
+    if (f32["train_route_flips"] != f32["train_near_ties"]
+            or f32["decode_route_flips"] != f32["decode_near_ties"]):
+        fail("mesh (b): a route differs from one device's where no near-tie explains it")
+    if not f32["decode_logits_rel_l2"]:
+        fail("mesh (b): the first decode step's routes already differ")
+    log(f"mesh (b): float32 (TF32 off, K = E = {f32['experts_per_token']}, cf "
+        f"{f32['capacity_factor']}, {f32['dropped']} dropped) mesh vs one device: loss rel "
+        f"{f32['loss_rel']:.2e}, aux rel "
+        f"{f32['aux_rel']:.2e}, decode logits rel {max(f32['decode_logits_rel_l2']):.2e} (tol "
+        f"{LM_F32_TOL}); worst gradient leaves {worst} (tol {TRAIN_GRAD_TOL}); routes "
+        f"{f32['routes']}")
+    if not all(x == x for x in ratios) or max(ratios) > 1:
+        fail(f"mesh (b): an error {max(ratios):.2f} times its tolerance")
+    out["pipeline"], out["compressed_psum"] = r0["pipeline"], r0["compressed_psum"]
+    log(f"mesh (c): pipelined_apply vs sequential max abs err {r0['pipeline']['max_abs_err']:.2e}; "
+        f"compressed_psum vs the host's tensordot {r0['compressed_psum']['max_abs_err_vs_host']:.2e}"
+        f" (vs the true mean {r0['compressed_psum']['max_abs_err_vs_mean']:.2e})")
+    if r0["pipeline"]["max_abs_err"] > 1e-5 or r0["compressed_psum"]["max_abs_err_vs_host"] > 1e-6:
+        fail("mesh (c): the pipeline or compressed_psum disagrees")
+    # (d) the dry-run cell
+    path = art / f"{arch}__{shape}__{mesh_kind}.json"
+    if dry.returncode != 0 or not path.is_file():
+        fail(f"mesh (d): the dry-run of {MESH_DRYRUN} failed:\n{dry_out[-3000:]}")
+    rec = json.loads(path.read_text())
+    if rec.get("status") != "ok":
+        fail(f"mesh (d): dry-run status {rec.get('status')}: {rec.get('error')}")
+    if not rec["fits_hbm"]:  # 5.1 GiB a device by the host's dry-run
+        fail(f"mesh (d): {arch} x {shape} needs {rec['bytes_per_device'] / 2**30:.1f} GiB a "
+             "device, past the H100's 80 GB")
+    out["dryrun"] = {k: rec[k] for k in ("arch", "shape", "mesh", "chips", "lower_s",
+                                         "bytes_per_device", "fits_hbm", "collectives",
+                                         "collective_counts", "roofline", "memory")}
+    out["dryrun"]["subprocess_s"] = dry_s
+    t = rec["roofline"]
+    log(f"mesh (d): dry-run {arch} x {shape} x {mesh_kind} ({rec['chips']} fake ranks): ok in "
+        f"{rec['lower_s']} s (subprocess {dry_s:.1f} s); {rec['bytes_per_device'] / 2**30:.2f} "
+        f"GiB a device (fits the H100's 80 GB: {rec['fits_hbm']}); collectives "
+        f"{json.dumps(rec['collectives'])}; roofline t_compute {t['t_compute_s']:.3g} s, "
+        f"t_memory {t['t_memory_s']:.3g} s, t_collective {t['t_collective_s']:.3g} s, dominant "
+        f"{t['dominant']} ({rec['device']})")
+    # (e) no ring kernel on any rank
+    launches = {r["rank"]: r["launches"] for r in ranks}
+    launches["phase"] = dict(counters.launches_by_route)
+    out["launches"] = launches
+    if any(any(v.values()) for v in launches.values()):
+        fail(f"mesh path launched ring kernels: {launches}")
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"mesh phase: ring launches none, {out['seconds']:.1f} s")
+    report["mesh"] = out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--report", type=Path, default=ROOT / "build" / "chip_smoke.json",
@@ -4465,6 +5044,7 @@ def main() -> int:
     timed(phase_moe_train)
     timed(phase_ssm)
     timed(phase_encdec_vlm)
+    timed(phase_mesh)
     timed(phase_path_calls, calls)
     report["seconds"] = time.perf_counter() - t0
     log(f"phase seconds: {json.dumps(report['phase_seconds'])}")

@@ -9,8 +9,10 @@ written to ``step_<k>.tmp`` and published with ``os.replace``.  bf16 leaves
 are stored as their 16-bit patterns with manifest dtype ``"bfloat16"``, so
 either package restores what the other wrote, bit for bit, and neither numpy
 nor the port needs ``ml_dtypes``.  Data-pipeline state is just the step
-integer (deterministic replay).  Placement on a mesh waits for the mesh
-slice (ROADMAP Queue 1 item 7.6): ``restore`` puts every leaf on one device.
+integer (deterministic replay).  ``restore`` puts every leaf on one device;
+``runtime.elastic.elastic_restore`` places the params on a mesh, and
+``launch.train`` under a mesh gathers its DTensors to full tensors before
+``save``, so the format stays mesh-agnostic.
 """
 from __future__ import annotations
 

@@ -10,8 +10,14 @@ Behaviors (held against the reference in ``tests/test_torch_train*.py``):
     whichever package wrote it, and continues
   * optional int8 gradient compression with error feedback (--compress-grads)
 
-Mesh placement (the reference's ``mesh`` argument and its axis rules) waits
-for ROADMAP Queue 1 item 7.6.
+Under a mesh (``mesh=``, a ``DeviceMesh`` over an initialized default group,
+every rank calling ``train`` alike) the parameters, the AdamW state and the
+error-feedback buffers are DTensors placed per ``sharding_tree``, each batch
+is sharded on the batch axes, and the step runs under
+``axis_rules(mesh, rules_for(cfg, shape))``: the MoE layers take their
+expert-parallel islands.  Losses come back as floats; checkpoints are
+gathered to full tensors and written by the mesh's first rank, in the
+reference's format.
 
 Usage (the smoke configs run on the CPU; without ``--device cpu`` on the card,
 without ``--smoke`` at the published widths, ``--layers`` cutting the depth):
@@ -43,20 +49,29 @@ from ..configs import ARCHS, SHAPES, ShapeConfig, smoke_shape
 from ..data import DataConfig, TokenPipeline
 from ..device import resolve_device
 from ..models import build_model
-from ..optim import OptConfig, compress_tree, init_ef, opt_init, opt_update
-from ..runtime.sharding import materialize
-from .steps import opt_config_for, value_and_grad
+from ..optim import OptConfig, compress_tree, init_ef, opt_init, opt_state_specs, opt_update
+from ..runtime.sharding import axis_rules, distribute_tree, full_tree, materialize
+from .steps import opt_config_for, rules_for, value_and_grad
 
 __all__ = ["main", "make_train_state", "train"]
 
 
-def make_train_state(api, ocfg: OptConfig, seed: int = 0, device=None) -> Dict[str, Any]:
+def make_train_state(api, ocfg: OptConfig, seed: int = 0, device=None, mesh=None,
+                     rules=None) -> Dict[str, Any]:
     """Parameters drawn from ``seed`` (``materialize``) and a fresh optimizer
-    state, on ``device`` (default: the card)."""
+    state, on ``device`` (default: the card); on ``mesh`` the parameters
+    are DTensors placed per ``sharding_tree`` under ``rules``, and the
+    state takes their placements."""
     device = resolve_device(device)
     params = materialize(api.param_specs, seed, device)
+    if mesh is not None:
+        params = distribute_tree(params, api.param_specs, mesh, rules)
     return {"params": params, "opt": opt_init(ocfg, params),
             "step": torch.zeros((), dtype=torch.int32, device=device)}
+
+
+def _scalar(x) -> float:
+    return float(full_tree(x)) if torch.is_tensor(x) else float(x)
 
 
 def train(
@@ -75,25 +90,35 @@ def train(
     lr: float = 3e-4,
     layers: Optional[int] = None,
     device=None,
+    mesh=None,
+    overrides: Optional[Dict[str, Any]] = None,
 ) -> Dict[str, Any]:
     """Train ``arch`` (its ``.smoke()`` reduction unless ``smoke=False``; its
-    depth cut to ``layers`` if given) up to step ``steps`` on ``device``
+    depth cut to ``layers`` if given, other config fields replaced by
+    ``overrides``) up to step ``steps`` on ``device``
     (default: the card).
 
     Returns ``losses`` (one float a step run here), ``state`` (``params``,
     ``opt``, ``step``: tensors on ``device``), ``config``, and ``history``:
     a dict a step of its ``loss``, ``lr``, ``gnorm`` and host wall ``ms``
     (the loss is read back every step, so a step's wall covers its device
-    work)."""
+    work).  On ``mesh`` the state's tensors are DTensors (``full_tree``
+    gathers them)."""
     device = resolve_device(device)
+    if mesh is not None and torch.device(mesh.device_type).type != device.type:
+        raise ValueError(f"mesh on {mesh.device_type}, device {device}")
     cfg = ARCHS[arch].smoke() if smoke else ARCHS[arch]
     if layers is not None:
         cfg = dataclasses.replace(cfg, num_layers=layers)
+    if overrides:
+        cfg = dataclasses.replace(cfg, **overrides)
     shape = shape or (smoke_shape("train") if smoke else SHAPES["train_4k"])
     api = build_model(cfg)
     ocfg = opt_config_for(cfg, total_steps=max(steps, 10))
     ocfg = dataclasses.replace(ocfg, lr=lr, warmup_steps=min(20, max(steps // 10, 1)))
     pipe = TokenPipeline(DataConfig(seed=seed + 1, source=data_source), cfg, shape)
+    rules = rules_for(cfg, shape) if mesh is not None else None
+    writer = mesh is None or mesh.get_rank() == mesh.mesh.flatten()[0].item()
 
     def step_fn(state, batch, ef):
         (loss, _), grads = value_and_grad(api.loss_fn, state["params"], batch)
@@ -104,19 +129,21 @@ def train(
         return dict(loss=loss, **om), ef
 
     ck = Checkpointer(ckpt_dir) if ckpt_dir else None
+    place = (lambda tree, specs: tree) if mesh is None else (
+        lambda tree, specs: distribute_tree(tree, specs, mesh, rules))
     state = None
     start_step = 0
     if resume and ck and ck.latest_step() is not None:
         restored = ck.restore(device=device)
         start_step = int(restored["meta"]["step"])
         state = {
-            "params": restored["params"],
-            "opt": restored["opt"],
+            "params": place(restored["params"], api.param_specs),
+            "opt": place(restored["opt"], opt_state_specs(ocfg, api.param_specs)),
             "step": torch.tensor(start_step, dtype=torch.int32, device=device),
         }
         print(f"[train] resumed from step {start_step}")
     if state is None:
-        state = make_train_state(api, ocfg, seed, device)
+        state = make_train_state(api, ocfg, seed, device, mesh, rules)
 
     ef = init_ef(state["params"]) if compress_grads else None
 
@@ -127,10 +154,12 @@ def train(
         t_step = time.perf_counter()
         raw = pipe.with_frontend(pipe.batch_at(s), s)
         batch = {k: torch.from_numpy(v).to(device) for k, v in raw.items()}
-        metrics, ef = step_fn(state, batch, ef)
-        losses.append(float(metrics["loss"]))
-        history.append({"loss": losses[-1], "lr": float(metrics["lr"]),
-                        "gnorm": float(metrics["gnorm"]),
+        batch = place(batch, api.batch_specs(shape))
+        with axis_rules(mesh, rules):
+            metrics, ef = step_fn(state, batch, ef)
+        losses.append(_scalar(metrics["loss"]))
+        history.append({"loss": losses[-1], "lr": _scalar(metrics["lr"]),
+                        "gnorm": _scalar(metrics["gnorm"]),
                         "ms": 1e3 * (time.perf_counter() - t_step)})
         if log_every and (s + 1) % log_every == 0:
             dt = (time.time() - t0) / max(s + 1 - start_step, 1)
@@ -140,15 +169,10 @@ def train(
                 f"({dt*1e3:.0f} ms/step)"
             )
         if ck and ckpt_every and (s + 1) % ckpt_every == 0:
-            ck.save(
-                s + 1,
-                {
-                    "params": state["params"],
-                    "opt": state["opt"],
-                    "meta": {"step": np.asarray(s + 1)},
-                },
-                blocking=False,
-            )
+            # every rank gathers (a collective); the first one writes
+            tree = full_tree({"params": state["params"], "opt": state["opt"]})
+            if writer:
+                ck.save(s + 1, {**tree, "meta": {"step": np.asarray(s + 1)}}, blocking=False)
     if ck:
         ck.wait()
     return {"losses": losses, "state": state, "config": cfg, "history": history}

@@ -1,7 +1,10 @@
 """Shared neural layers: norms, RoPE, chunked flash-style attention
-(prefill / decode), dense MLPs, the dense-dispatch MoE and the Mamba2 SSD
-block — counterpart of ``repro.models.layers`` (the MoE's mesh dispatches
-wait for ROADMAP Queue 1 item 7.2b).  Every layer is differentiable: the
+(prefill / decode), dense MLPs, the MoE (the dense dispatch, and under a
+mesh the expert-parallel all-to-all island or the replicated-token island,
+``local_map`` bodies over the mesh's sub-groups) and the Mamba2 SSD block
+— counterpart of ``repro.models.layers``.  Under an ``axis_rules`` mesh
+every layer runs on DTensors, and ``shard`` sets their layouts as the
+reference's sharding constraints do.  Every layer is differentiable: the
 training path takes gradients through the chunked attention's online
 softmax as it is written (a fully masked chunk contributes exact zeros,
 never NaN), through the MoE's bins (a dropped route's gradient is zero)
@@ -41,12 +44,14 @@ import torch
 import torch.nn.functional as F
 
 from ..configs.base import ModelConfig
-from ..runtime.sharding import ParamSpec, shard
+from ..runtime import collectives as coll
+from ..runtime.sharding import (ParamSpec, contiguous_strides, current_mesh, current_rules,
+                                entry_axes, mesh_sizes, shard, shard_map, spec_for)
 
 __all__ = [
     "NEG_INF", "Routing", "apply_mlp", "apply_moe", "apply_norm", "apply_ssd",
-    "attention_block", "attention_specs", "mlp_specs", "moe_specs", "multihead_attention",
-    "norm_specs", "recording_routes", "rope", "softcap", "ssd_specs",
+    "attention_block", "attention_specs", "embed_lookup", "mlp_specs", "moe_specs",
+    "multihead_attention", "norm_specs", "recording_routes", "rope", "softcap", "ssd_specs",
 ]
 
 NEG_INF = -1e30
@@ -65,7 +70,123 @@ def _div(x: torch.Tensor, c: float) -> torch.Tensor:
 def _einsum(eq: str, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """``jnp.einsum``'s promotion: an f32 query meets a bf16 cache as f32."""
     dt = torch.promote_types(a.dtype, b.dtype)
-    return torch.einsum(eq, a.to(dt), b.to(dt))
+    return _ein(eq, a.to(dt), b.to(dt))
+
+
+def _ein(eq: str, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``torch.einsum(eq, a, b)``; on DTensors ``_dt_einsum``."""
+    if _is_dtensor(a) or _is_dtensor(b):
+        return _dt_einsum(eq, a, b)
+    return torch.einsum(eq, a, b)
+
+
+def _dt_einsum(eq: str, a, b):
+    """A two-operand einsum of DTensors computed on the local shards.
+
+    For each mesh axis the operands are brought to one sharded letter (the
+    one either is sharded on; where they are sharded on different letters,
+    the cheaper choice: the elements of the operand gathered on that axis,
+    plus the output's if the kept letter is summed over), the other
+    operand is split on that letter too where it has it (a local slice),
+    and the local einsum runs.  A letter the output keeps stays sharded; a
+    contracted one is summed over its axis (``collectives.psum``; in
+    float32 for 16-bit operands, rounded once after the sum).  An
+    operand replicated on an axis where the work is split receives a
+    partial gradient there.  DTensor's own einsum flattens sharded dims
+    into strided shards, which torch 2.11 refuses for the attention's
+    products and which cost a graph search on a 3-axis mesh."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+
+    ins, out = eq.split("->")
+    la, lb = ins.split(",")
+    mesh = (a if isinstance(a, DTensor) else b).device_mesh
+    a, b = (t if isinstance(t, DTensor) else DTensor.from_local(
+        t, mesh, [Replicate()] * mesh.ndim, run_check=False) for t in (a, b))
+
+    def unpartial(t):
+        if any(q.is_partial() for q in t.placements):
+            return t.redistribute(mesh, [Replicate() if q.is_partial() else q
+                                         for q in t.placements])
+        return t
+
+    a, b = unpartial(a), unpartial(b)
+    size = dict(zip(la, a.shape))
+    size.update(zip(lb, b.shape))
+    n_out = int(np.prod([size[c] for c in out]))
+
+    def cost(letter, gathered):  # elements gathered, plus the output if it is summed
+        return gathered.numel() + (0 if letter in out else n_out)
+
+    pa, pb, po, summed = [], [], [], []
+    for m, (qa, qb) in enumerate(zip(a.placements, b.placements)):
+        xa = la[qa.dim] if isinstance(qa, Shard) else None
+        xb = lb[qb.dim] if isinstance(qb, Shard) else None
+        if xa and xb and xa != xb:
+            if cost(xa, b) <= cost(xb, a):
+                xb = None
+            else:
+                xa = None
+        letter = xa or xb
+        if letter is None:
+            pa.append(Replicate())
+            pb.append(Replicate())
+            po.append(Replicate())
+            continue
+        pa.append(Shard(la.index(letter)) if letter in la else Replicate())
+        pb.append(Shard(lb.index(letter)) if letter in lb else Replicate())
+        if letter in out:
+            po.append(Shard(out.index(letter)))
+        else:
+            po.append(Replicate())
+            summed.append(m)
+    a = a if tuple(a.placements) == tuple(pa) else a.redistribute(mesh, pa)
+    b = b if tuple(b.placements) == tuple(pb) else b.redistribute(mesh, pb)
+    split = [any(isinstance(q, Shard) for q in qs) for qs in zip(pa, pb)]
+
+    def grad_pl(pl):
+        return [Partial() if isinstance(q, Replicate) and split[m] else q
+                for m, q in enumerate(pl)]
+
+    la_t = a.to_local(grad_placements=grad_pl(pa))
+    lb_t = b.to_local(grad_placements=grad_pl(pb))
+    names = list(mesh.mesh_dim_names)
+    if summed and a.dtype.itemsize < 4:
+        # a split contraction in a 16-bit dtype: the partial sums in float32
+        # and rounded once after the psum, as the unsplit product rounds
+        dt = torch.promote_types(a.dtype, b.dtype)
+        res = coll.psum(torch.einsum(eq, la_t.float(), lb_t.float()), mesh,
+                        [names[m] for m in summed]).to(dt)
+    else:
+        res = torch.einsum(eq, la_t, lb_t)
+        if summed:
+            res = coll.psum(res, mesh, [names[m] for m in summed])
+    shape = torch.Size([size[c] for c in out])
+    return DTensor.from_local(res.contiguous(), mesh, po, run_check=False, shape=shape,
+                              stride=contiguous_strides(shape))
+
+
+def embed_lookup(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
+    """``table[tokens]``.  A DTensor table split over its vocabulary (the
+    ``"vocab"`` rule) is read in a ``shard_map`` island: each rank looks
+    up the tokens that fall in its slice (zeros for the rest) and one psum
+    over the vocabulary's axes completes the rows, where a plain index
+    would gather the whole table on every rank."""
+    if not _is_dtensor(table):
+        return table[tokens]
+    mesh = table.device_mesh
+    tspec = spec_for(table.shape, ("vocab", None), mesh, current_rules())
+    kspec = spec_for(tokens.shape, ("batch", None), mesh, current_rules())
+    vocab_axes, batch_axes = entry_axes(tspec[0]), entry_axes(kspec[0])
+
+    def body(tab, tok):
+        V = tab.shape[0]
+        local = tok.long() - coll.flat_index(mesh, vocab_axes) * V  # this rank's slice
+        mine = (local >= 0) & (local < V)
+        rows = tab[local.clamp(0, V - 1)] * mine[..., None].to(tab.dtype)
+        return coll.psum(rows, mesh, vocab_axes)
+
+    return shard_map(mesh, body, ((kspec[0], None, None),), (table, tokens),
+                     in_specs=(tspec, kspec), split_axes=batch_axes + vocab_axes)
 
 
 def _const(c: float, dtype: torch.dtype) -> float:
@@ -75,8 +196,23 @@ def _const(c: float, dtype: torch.dtype) -> float:
 
 def _mm(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """``x @ w`` with the reference's promotion: a bf16 weight meets an f32
-    activation as f32."""
-    return x @ w.to(x.dtype)
+    activation as f32.
+
+    On DTensors it is ``_dt_einsum``: ``matmul`` would flatten B and S into
+    one dim, and with both sharded (batch and Megatron-SP seq) DTensor's
+    layout for that dim is a strided shard, which it can neither plan
+    quickly nor under the dry-run's fake tensors."""
+    w = w.to(x.dtype)
+    if _is_dtensor(x) or _is_dtensor(w):
+        lead = "abc"[:x.ndim - 1]
+        return _dt_einsum(f"{lead}y,yz->{lead}z", x, w)
+    return x @ w
+
+
+def _is_dtensor(x) -> bool:
+    from torch.distributed.tensor import DTensor
+
+    return isinstance(x, DTensor)
 
 
 # ---------------------------------------------------------------------------
@@ -201,7 +337,7 @@ def multihead_attention(
     B, Sq, H, hd = x_q.shape
     _, Sk, KV, _ = k.shape
     G = H // KV
-    q = x_q.reshape(B, Sq, KV, G, hd) * _const(hd ** -0.5, x_q.dtype)
+    q = _unflatten(x_q, 2, (KV, G)) * _const(hd ** -0.5, x_q.dtype)
 
     if Sq <= 8:
         s = _einsum("bqkgh,bskh->bkgqs", q, k).float()
@@ -211,7 +347,7 @@ def multihead_attention(
         m = s.amax(-1, keepdim=True)
         pexp = torch.where(s <= NEG_INF * 0.5, 0.0, torch.exp(s - m))
         l = pexp.sum(-1, keepdim=True)
-        out = torch.einsum("bkgqs,bskh->bkgqh", (pexp / l.clamp_min(1e-30)).to(v.dtype), v)
+        out = _ein("bkgqs,bskh->bkgqh", (pexp / l.clamp_min(1e-30)).to(v.dtype), v)
         return out.movedim(3, 1).reshape(B, Sq, H, hd)
 
     # keys shorter than a chunk take one chunk of their own length: the
@@ -223,9 +359,11 @@ def multihead_attention(
         k = F.pad(k, (0, 0, 0, 0, 0, pad))
         v = F.pad(v, (0, 0, 0, 0, 0, pad))
         kpos = F.pad(kpos, (0, pad), value=FAR)
-    m_run = torch.full((B, KV, G, Sq), NEG_INF, dtype=torch.float32, device=q.device)
-    l_run = torch.zeros((B, KV, G, Sq), dtype=torch.float32, device=q.device)
-    acc = torch.zeros((B, KV, G, Sq, hd), dtype=v.dtype, device=q.device)
+    # the running max, sum and output start as the first chunk's: from the
+    # reference's NEG_INF, 0 and 0 the first update gives exactly these
+    # (max(NEG_INF, s) = s, 0 * alpha + x = x), and no tensor is made
+    # outside the data's own layout
+    m_run = l_run = acc = None
     for c in range(nchunks):
         blk = slice(c * kv_chunk, (c + 1) * kv_chunk)
         kb, vb, pb = k[:, blk], v[:, blk], kpos[:, blk]
@@ -233,16 +371,68 @@ def multihead_attention(
         s = softcap(s, attn_softcap)
         mask = _chunk_mask(qpos, pb, layer_type, window, causal)  # (B, Sq, C)
         s = torch.where(mask[:, None, None], s, NEG_INF)
-        m_new = torch.maximum(m_run, s.amax(-1))
-        alpha = torch.exp(m_run - m_new)
+        m_new = s.amax(-1) if m_run is None else torch.maximum(m_run, s.amax(-1))
         # fully-masked chunks: exp(NEG_INF - NEG_INF) would be 1 — force 0
         pexp = torch.where(s <= NEG_INF * 0.5, 0.0, torch.exp(s - m_new[..., None]))
-        l_run = l_run * alpha + pexp.sum(-1)
-        upd = torch.einsum("bkgqc,bckh->bkgqh", pexp.to(vb.dtype), vb)
-        acc = acc * alpha[..., None].to(acc.dtype) + upd
+        upd = _ein("bkgqc,bckh->bkgqh", pexp.to(vb.dtype), vb)
+        if m_run is None:
+            l_run, acc = pexp.sum(-1), upd
+        else:
+            alpha = torch.exp(m_run - m_new)
+            l_run = l_run * alpha + pexp.sum(-1)
+            acc = acc * alpha[..., None].to(acc.dtype) + upd
         m_run = m_new
     out = acc / l_run.clamp_min(1e-30)[..., None].to(acc.dtype)
     return out.movedim(3, 1).reshape(B, Sq, H, hd)  # (B,KV,G,Sq,hd) -> (B,Sq,H,hd)
+
+
+def _unflatten(t: torch.Tensor, dim: int, sizes: Tuple[int, ...]) -> torch.Tensor:
+    """``t`` with dim ``dim`` split into ``sizes``.  A DTensor split on that
+    dim finer than ``sizes[0]`` (a 16-way split of 4 heads) is gathered on
+    it first: DTensor cannot view a shard boundary that falls inside the
+    outer dim, where GSPMD relayouts."""
+    if _is_dtensor(t):
+        from torch.distributed.tensor import Replicate, Shard
+
+        split = [i for i, q in enumerate(t.placements) if isinstance(q, Shard) and q.dim == dim]
+        if sizes[0] % int(np.prod([t.device_mesh.size(i) for i in split])):
+            t = t.redistribute(t.device_mesh, [Replicate() if i in split else q
+                                               for i, q in enumerate(t.placements)])
+    return t.unflatten(dim, sizes)
+
+
+def _split_heads(t: torch.Tensor, n: int, hd: int) -> torch.Tensor:
+    """(B, S, n hd) -> (B, S, n, hd)."""
+    return _unflatten(t, t.ndim - 1, (n, hd))
+
+
+def _write_slots(dst: torch.Tensor, src: torch.Tensor, start: int) -> None:
+    """``dst[:, start:start + S] = src`` in place.  On a DTensor cache whose
+    slot dim is sharded (``cache_seq``), ``src`` is brought to the cache's
+    layout with that dim whole, and each rank writes the slots its own
+    shard holds (the reference's ``dynamic_update_slice``)."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+
+    S = src.shape[1]
+    if not isinstance(dst, DTensor):
+        dst[:, start:start + S] = src
+        return
+    mesh = dst.device_mesh
+    want = tuple(Replicate() if isinstance(q, Shard) and q.dim == 1 else q for q in dst.placements)
+    src = src if isinstance(src, DTensor) else DTensor.from_local(
+        src, mesh, [Replicate()] * mesh.ndim, run_check=False)
+    src_l = src.redistribute(mesh, want).to_local()
+    dst_l = dst.to_local()
+    # the shard's first slot: dim 1 is split evenly (spec_for's rule) by
+    # each of its mesh axes in turn, the mesh's outer axis first
+    n, off = dst.shape[1], 0
+    for i, q in enumerate(dst.placements):
+        if isinstance(q, Shard) and q.dim == 1:
+            n //= mesh.size(i)
+            off += mesh.get_local_rank(i) * n
+    lo, hi = max(start, off), min(start + S, off + n)
+    if lo < hi:
+        dst_l[:, lo - off:hi - off] = src_l[:, lo - start:hi - start]
 
 
 def attention_block(
@@ -269,10 +459,10 @@ def attention_block(
     """
     B, S, d = x.shape
     H, KV, hd = cfg.num_heads, cfg.num_kv_heads, cfg.hd
-    q = _mm(x, p["wq"]).reshape(B, S, H, hd)
+    q = _split_heads(_mm(x, p["wq"]), H, hd)
     if xattn_kv is None:
-        k = _mm(x, p["wk"]).reshape(B, S, KV, hd)
-        v = _mm(x, p["wv"]).reshape(B, S, KV, hd)
+        k = _split_heads(_mm(x, p["wk"]), KV, hd)
+        v = _split_heads(_mm(x, p["wv"]), KV, hd)
         q, k = _qk_normalize(p, q, k, cfg)
         q = rope(q, positions, cfg.rope_theta)
         k = rope(k, positions, cfg.rope_theta)
@@ -291,8 +481,8 @@ def attention_block(
         start = int(cache["len"])
         if start + S > T:
             raise ValueError(f"cache of {T} slots cannot take tokens {start}..{start + S - 1}")
-        ck[:, start:start + S] = k.to(ck.dtype)
-        cv[:, start:start + S] = v.to(cv.dtype)
+        _write_slots(ck, k.to(ck.dtype), start)
+        _write_slots(cv, v.to(cv.dtype), start)
         new_cache = {"k": ck, "v": cv, "len": start + S}
         k, v = ck, cv
         slots = torch.arange(T, dtype=torch.int32, device=x.device)
@@ -393,11 +583,16 @@ class Routing(NamedTuple):
     """One ``apply_moe`` call's routing, for checks: each token's ``experts``
     (T, K) in rank order, whether each route ``kept`` a slot in its
     expert's bin (T, K), and the ``top`` K + 1 router probabilities (T, K + 1)
-    in descending order (how near the K-th came to a tie)."""
+    in descending order (how near the K-th came to a tie).  A mesh
+    dispatch records its own shard's tokens, with ``route`` the island
+    (``"ep_a2a"`` or ``"shardmap"``; ``"dense"`` otherwise) and ``shard``
+    the rank's coordinates, ``{axis: index}``."""
 
     experts: torch.Tensor
     kept: torch.Tensor
     top: torch.Tensor
+    route: str = "dense"
+    shard: Optional[Dict[str, int]] = None
 
 
 _ROUTES: Optional[List[Routing]] = None
@@ -415,9 +610,10 @@ def recording_routes() -> Iterator[List[Routing]]:
         _ROUTES = prev
 
 
-def _positions(flat_e: torch.Tensor) -> torch.Tensor:
+def _local_positions(flat_e: torch.Tensor) -> torch.Tensor:
     """Each route's rank within its expert in flat (token, rank) order: the
-    reference's running count (``cumsum(one_hot) - 1``), by a stable sort."""
+    reference's running count (``cumsum(one_hot) - 1``, and its
+    ``_local_positions``), by a stable sort."""
     order = torch.argsort(flat_e, stable=True)
     sorted_e = flat_e[order]
     first = torch.searchsorted(sorted_e, sorted_e)
@@ -426,8 +622,210 @@ def _positions(flat_e: torch.Tensor) -> torch.Tensor:
 
 
 def apply_moe(p: Dict, x: torch.Tensor, cfg: ModelConfig) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Top-k token-choice MoE, the reference's dense dispatch
-    (``_apply_moe_dense``) op for op.  Returns (out, aux_loss).
+    """Top-k token-choice MoE.  Returns (out, aux_loss).
+
+    Under a mesh with a ``"model"`` axis, on the reference's conditions
+    (``rules["experts"] == "model"``, ``E % tp == 0``, batch axes present
+    and dividing B), it routes through an explicit island:
+    ``_apply_moe_ep_a2a`` when the residual stream is seq-sharded over
+    ``"model"`` (and ``tp`` divides S), else ``_apply_moe_shardmap``.
+    Otherwise it is the dense dispatch (``_apply_moe_dense``), which under
+    a mesh runs replicated on every rank.
+    """
+    mesh = current_mesh()
+    if mesh is None:
+        return _apply_moe_dense(p, x, cfg)
+    sizes = mesh_sizes(mesh)
+    if "model" in sizes:
+        rules = current_rules()
+        tp = sizes["model"]
+        if rules.get("experts") == "model" and cfg.num_experts % tp == 0:
+            batch_axes = tuple(a for a in ("pod", "data") if a in sizes)
+            bsz = int(np.prod([sizes[a] for a in batch_axes])) if batch_axes else 1
+            if batch_axes and x.shape[0] % bsz == 0:
+                # seq-sharded residual -> expert-parallel all-to-all island;
+                # else the replicated-token island (decode)
+                if rules.get("residual_seq") == "model" and x.shape[1] % tp == 0:
+                    return _apply_moe_ep_a2a(p, x, cfg, mesh, batch_axes)
+                return _apply_moe_shardmap(p, x, cfg, mesh, batch_axes)
+    return shard_map(mesh, _apply_moe_dense, (None, None), (p, x, cfg), replicated=True)
+
+
+def _moe_route(xt: torch.Tensor, router: torch.Tensor, K: int):
+    """The float32 router's softmax, its top K by a stable descending sort
+    (ties to the lower index, as ``lax.top_k``) and the renormalised gates:
+    (probs, top (T, K + 1), experts (T, K), gates (T, K))."""
+    probs = torch.softmax(xt.float() @ router.float(), dim=-1)  # (T, E)
+    top, order = torch.sort(probs, dim=-1, descending=True, stable=True)
+    experts = order[:, :K]
+    gates = top[:, :K] / top[:, :K].sum(-1, keepdim=True)
+    return probs, top[:, :K + 1], experts, gates
+
+
+def _moe_balance(probs: torch.Tensor, flat_e: torch.Tensor):
+    """Switch's (me, ce): the mean probability and the mean routes a token
+    of each expert, over this call's T tokens."""
+    T, E = probs.shape
+    # routes an expert, counted without a host sync (CUDA's bincount has one)
+    counts = probs.new_zeros(E).index_add_(0, flat_e, probs.new_ones(()).expand(flat_e.numel()))
+    return _div(probs.sum(0), T), _div(counts, T)
+
+
+def _expert_ffn(bins: torch.Tensor, wg, wi, wo, cfg: ModelConfig) -> torch.Tensor:
+    """The experts' GEMMs, batched over the (E, C, d) bins."""
+    dt = bins.dtype
+    if cfg.mlp_act in ("swiglu", "geglu"):
+        act = _silu if cfg.mlp_act == "swiglu" else _gelu
+        h = act(torch.bmm(bins, wg.to(dt))) * torch.bmm(bins, wi.to(dt))
+    else:
+        h = _gelu(torch.bmm(bins, wi.to(dt)))
+    return torch.bmm(h, wo.to(dt))
+
+
+def _shared_ffn(xt: torch.Tensor, shared, cfg: ModelConfig) -> torch.Tensor:
+    """The shared expert on (T, d) tokens: (gate, in, out) weights, whole
+    or this rank's slice of the hidden dim."""
+    sg, si, so = shared
+    if cfg.mlp_act == "swiglu":
+        hs = _silu(_mm(xt, sg)) * _mm(xt, si)
+    elif cfg.mlp_act == "geglu":
+        hs = _gelu(_mm(xt, sg)) * _mm(xt, si)
+    else:
+        hs = _gelu(_mm(xt, si))
+    return _mm(hs, so)
+
+
+def _shared_weights(p: Dict):
+    sp = p["shared"]
+    return (sp["w_gate"] if "w_gate" in sp else sp["w_in"], sp["w_in"], sp["w_out"])
+
+
+def _record(route: str, mesh, experts, keep, top):
+    if _ROUTES is not None:
+        coords = {a: coll.axis_index(mesh, a) for a in mesh.mesh_dim_names}
+        _ROUTES.append(Routing(experts, keep, top.detach(), route, coords))
+
+
+def _batch_entry(batch_axes):
+    return batch_axes if len(batch_axes) > 1 else batch_axes[0]
+
+
+def _apply_moe_ep_a2a(p: Dict, x: torch.Tensor, cfg: ModelConfig, mesh,
+                      batch_axes) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Expert-parallel MoE with explicit all-to-all dispatch (GShard-style),
+    the reference's island as a ``local_map`` body.
+
+    Tokens are sharded over the batch axes and over ``"model"`` (seq); each
+    shard routes its own tokens, scatters them into per-expert send bins of
+    the per-shard capacity Cs = max(1, int(T_local K cf / E)) (an overflow
+    row swallows the rest), exchanges them with the expert owners by an
+    all-to-all over ``"model"``, runs its El = E / tp experts' GEMMs, and
+    reverses the exchange.  ``me``/``ce`` are averaged over the batch axes
+    and ``"model"``.  The shared expert is replicated: every rank serves
+    its own tokens whole (a psum of partial products would mix different
+    ranks' tokens).
+    """
+    B, S, d = x.shape
+    E, K = cfg.num_experts, cfg.experts_per_tok
+    tp = mesh_sizes(mesh)["model"]
+    El = E // tp
+    red = tuple(batch_axes) + ("model",)
+
+    def body(xl, router, wg, wi, wo, shared):
+        Bl, Sl, _ = xl.shape
+        T = Bl * Sl
+        xt = xl.reshape(T, d)
+        probs, top, experts, gates = _moe_route(xt, router, K)
+        flat_e = experts.reshape(T * K)
+        me, ce = _moe_balance(probs, flat_e)
+        aux = (coll.pmean(me, mesh, red) * coll.pmean(ce, mesh, red)).sum() * E
+
+        pos = _local_positions(flat_e)
+        Cs = max(1, int(T * K * cfg.capacity_factor / E))  # per-source capacity
+        ok = pos < Cs
+        _record("ep_a2a", mesh, experts, ok.view(T, K), top)
+        dst = torch.where(ok, flat_e * Cs + pos, E * Cs)
+        src = xt[:, None].expand(T, K, d).reshape(T * K, d)
+        send = torch.zeros((E * Cs + 1, d), dtype=xt.dtype, device=xt.device)
+        send = send.index_add(0, dst, src)[:E * Cs]          # (tp El Cs, d)
+        recv = coll.all_to_all(send, mesh, "model")
+        bins = recv.view(tp, El, Cs, d).transpose(0, 1).reshape(El, tp * Cs, d)
+        outb = _expert_ffn(bins, wg, wi, wo, cfg)            # (El, tp Cs, d)
+        back = outb.view(El, tp, Cs, d).transpose(0, 1).reshape(tp * El * Cs, d)
+        ret = coll.all_to_all(back, mesh, "model")           # (E Cs, d)
+        ret = torch.cat([ret, ret.new_zeros(1, d)])
+        weighted = ret[dst].view(T, K, d) * gates[..., None].to(ret.dtype)
+        out = weighted.sum(1)  # (T, d): complete locally
+        if shared is not None:
+            out = out + _shared_ffn(xt, shared, cfg)
+        return out.view(Bl, Sl, d), aux
+
+    bspec = (_batch_entry(batch_axes), "model", None)
+    espec = ("model", None, None)
+    shared = _shared_weights(p) if cfg.shared_experts else None
+    sspec = ((None, None),) * 3 if shared is not None else None
+    return shard_map(mesh, body, (bspec, None),
+                   (x, p["router"], p["w_gate"], p["w_in"], p["w_out"], shared),
+                   in_specs=(bspec, (None, None), espec, espec, espec, sspec))
+
+
+def _apply_moe_shardmap(p: Dict, x: torch.Tensor, cfg: ModelConfig, mesh,
+                        batch_axes) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Explicit MoE, the reference's replicated-token island as a
+    ``local_map`` body: tokens sharded over the batch axes and replicated
+    over ``"model"``; each model rank routes the local tokens (capacity
+    C = max(1, int(T_local K cf / E))) to its own slab of El = E / tp
+    experts, and one psum over ``"model"`` (in the activation dtype: a
+    bf16 payload) combines the expert and shared-FFN partials, the shared
+    expert's hidden dim split over ``"model"``.  ``me``/``ce`` are averaged
+    over the batch axes; the aux loss, alike on every model rank, counts
+    once in the gradients."""
+    B, S, d = x.shape
+    E, K = cfg.num_experts, cfg.experts_per_tok
+    tp = mesh_sizes(mesh)["model"]
+    El = E // tp
+
+    def body(xl, router, wg, wi, wo, shared):
+        m = coll.axis_index(mesh, "model")
+        Bl = xl.shape[0]
+        T = Bl * S
+        xt = xl.reshape(T, d)
+        probs, top, experts, gates = _moe_route(xt, router, K)
+        flat_e = experts.reshape(T * K)
+        me, ce = _moe_balance(probs, flat_e)
+        me, ce = coll.pmean(me, mesh, batch_axes), coll.pmean(ce, mesh, batch_axes)
+        aux = coll.grad_scale((me * ce).sum() * E, 1.0 / tp)
+
+        pos = _local_positions(flat_e)
+        C = max(1, int(T * K * cfg.capacity_factor / E))
+        _record("shardmap", mesh, experts, (pos < C).view(T, K), top)
+        local_e = flat_e - m * El
+        ok = (local_e >= 0) & (local_e < El) & (pos < C)
+        dst = torch.where(ok, local_e.clamp(0, El - 1) * C + pos, El * C)
+        src = xt[:, None].expand(T, K, d).reshape(T * K, d)
+        bins = torch.zeros((El * C + 1, d), dtype=xt.dtype, device=xt.device)
+        bins = bins.index_add(0, dst, src)[:El * C].view(El, C, d)
+        out_bins = _expert_ffn(bins, wg, wi, wo, cfg).reshape(El * C, d)
+        out_bins = torch.cat([out_bins, out_bins.new_zeros(1, d)])  # masked rows hit 0
+        weighted = out_bins[dst].view(T, K, d) * gates[..., None].to(out_bins.dtype)
+        part = weighted.sum(1)  # (T, d)
+        if shared is not None:
+            part = part + _shared_ffn(xt, shared, cfg)
+        out = coll.psum(part.to(xl.dtype), mesh, "model")  # bf16 payload
+        return out.view(Bl, S, d), aux
+
+    bspec = (_batch_entry(batch_axes), None, None)
+    espec = ("model", None, None)
+    shared = _shared_weights(p) if cfg.shared_experts else None
+    sspec = ((None, "model"), (None, "model"), ("model", None)) if shared is not None else None
+    return shard_map(mesh, body, (bspec, None),
+                   (x, p["router"], p["w_gate"], p["w_in"], p["w_out"], shared),
+                   in_specs=(bspec, (None, None), espec, espec, espec, sspec))
+
+
+def _apply_moe_dense(p: Dict, x: torch.Tensor,
+                     cfg: ModelConfig) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The reference's dense dispatch (``_apply_moe_dense``) op for op.
 
     The float32 router's softmax picks K experts a token, ties to the lower
     index as ``lax.top_k`` breaks them (a stable descending sort; ``topk``
@@ -438,35 +836,23 @@ def apply_moe(p: Dict, x: torch.Tensor, cfg: ModelConfig) -> Tuple[torch.Tensor,
     route's output comes back weighted by its gate (cast to the activation
     dtype) and summed over K.  The aux loss is Switch's: E times the sum
     over experts of the mean probability and the mean routes a token.
-
-    The reference's mesh dispatches (``_apply_moe_ep_a2a``,
-    ``_apply_moe_shardmap``) have no counterpart yet: the port has no mesh
-    (ROADMAP Queue 1 item 7.2b).
     """
     B, S, d = x.shape
     E, K = cfg.num_experts, cfg.experts_per_tok
     T = B * S
     xt = x.reshape(T, d)
-    probs = torch.softmax(xt.float() @ p["router"].float(), dim=-1)  # (T, E)
-    top, order = torch.sort(probs, dim=-1, descending=True, stable=True)
-    experts = order[:, :K]
-    gates = top[:, :K] / top[:, :K].sum(-1, keepdim=True)
-
-    # load-balancing aux loss (Switch-style)
-    me = _div(probs.sum(0), T)
+    probs, top, experts, gates = _moe_route(xt, p["router"], K)
     flat_e = experts.reshape(T * K)
-    # routes an expert, counted without a host sync (CUDA's bincount has one)
-    counts = probs.new_zeros(E).index_add_(0, flat_e, probs.new_ones(()).expand(T * K))
-    ce = _div(counts, T)
+    me, ce = _moe_balance(probs, flat_e)  # load-balancing aux loss (Switch-style)
     aux = (me * ce).sum() * E
 
     C = max(1, int(T * K * cfg.capacity_factor / E))
-    pos = _positions(flat_e)
+    pos = _local_positions(flat_e)
     keep = pos < C
     if _ROUTES is not None:
         # recorded before the experts run: a recompute under non-reentrant
         # checkpointing stops once the backward has what it saved
-        _ROUTES.append(Routing(experts, keep.view(T, K), top[:, :K + 1].detach()))
+        _ROUTES.append(Routing(experts, keep.view(T, K), top.detach()))
     # flat bin rows: a kept route's own slot, a dropped one the expert's
     # overflow row C (summed there and thrown away)
     dst = flat_e * (C + 1) + torch.where(keep, pos, C)
@@ -474,16 +860,9 @@ def apply_moe(p: Dict, x: torch.Tensor, cfg: ModelConfig) -> Tuple[torch.Tensor,
     bins = torch.zeros((E * (C + 1), d), dtype=xt.dtype, device=x.device)
     bins = bins.index_add_(0, dst, src).view(E, C + 1, d)
     bins = shard(bins, "experts", None, None)
-    dt = bins.dtype
-    if cfg.mlp_act in ("swiglu", "geglu"):
-        act = _silu if cfg.mlp_act == "swiglu" else _gelu
-        h = act(torch.bmm(bins, p["w_gate"].to(dt))) * torch.bmm(bins, p["w_in"].to(dt))
-    else:
-        h = _gelu(torch.bmm(bins, p["w_in"].to(dt)))
-    h = shard(h, "experts", None, None)
-    out_bins = torch.bmm(h, p["w_out"].to(dt)).view(E * (C + 1), d)
+    out_bins = _expert_ffn(bins, p.get("w_gate"), p["w_in"], p["w_out"], cfg).view(E * (C + 1), d)
     gathered = torch.where(keep[:, None], out_bins[dst], 0.0)
-    weighted = gathered.view(T, K, d) * gates[..., None].to(dt)
+    weighted = gathered.view(T, K, d) * gates[..., None].to(out_bins.dtype)
     out = weighted.sum(1).view(B, S, d)
     if cfg.shared_experts:
         out = out + apply_mlp(p["shared"], x, cfg)
@@ -623,7 +1002,7 @@ def apply_ssd(
         dBx = (dt[:, 0, :, None] * Bm[:, 0, None, :].float())[..., None] \
             * xh[:, 0, :, None, :].float()  # (B, H, N, P)
         state = cache["state"] * dA1[:, :, None, None] + dBx
-        y = torch.einsum("bn,bhnp->bhp", Cm[:, 0].float(), state)[:, None].to(x.dtype)
+        y = _ein("bn,bhnp->bhp", Cm[:, 0].float(), state)[:, None].to(x.dtype)
     if cache is not None:
         new_cache = {"conv": hist[:, -(Kc - 1):], "state": state}
     y = y + xh * p["D"][None, None, :, None].to(x.dtype)

@@ -33,7 +33,12 @@ AUX_WEIGHT = 0.01
 
 
 def cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Masked CE; labels < 0 are ignored.  logits (B,S,V) f32, labels (B,S)."""
+    """Masked CE; labels < 0 are ignored.  logits (B,S,V) f32, labels (B,S).
+    DTensor logits take ``_vocab_parallel_ce``."""
+    from torch.distributed.tensor import DTensor
+
+    if isinstance(logits, DTensor):
+        return _vocab_parallel_ce(logits, labels)
     mask = (labels >= 0).float()
     safe = labels.clamp_min(0).long()
     logz = torch.logsumexp(logits, dim=-1)
@@ -41,6 +46,45 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> Tuple[torch.Ten
     nll = (logz - gold) * mask
     denom = mask.sum().clamp_min(1.0)
     return nll.sum() / denom, denom
+
+
+def _vocab_parallel_ce(logits, labels) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``cross_entropy`` of DTensor logits without gathering them: a
+    ``shard_map`` island over logits split on the batch axes and the
+    vocabulary (the ``"vocab"`` rule), the labels on the batch axes.  Each
+    rank takes its vocabulary slice's max (all-reduced, held constant: the
+    log-sum-exp's gradient does not depend on it), its sum of exponentials
+    and the gold logits that fall in its slice, each psum'd over the
+    vocabulary's axes; the masked NLL and the token count are psum'd over
+    the batch axes."""
+    from ..runtime import collectives as coll
+    from ..runtime.sharding import current_rules, entry_axes, shard_map, spec_for
+
+    mesh = logits.device_mesh
+    lspec = spec_for(logits.shape, ("batch", None, "vocab"), mesh, current_rules())
+    yspec = spec_for(labels.shape, ("batch", None), mesh, current_rules())
+    vocab_axes, batch_axes = entry_axes(lspec[2]), entry_axes(lspec[0])
+
+    def body(lg, y):
+        V = lg.shape[-1]
+        off = coll.flat_index(mesh, vocab_axes) * V  # this rank's slice of the vocabulary
+        m = coll.pmax(lg.detach().amax(-1), mesh, vocab_axes)
+        se = coll.psum(torch.exp(lg - m[..., None]).sum(-1), mesh, vocab_axes)
+        logz = m + torch.log(se)
+        mask = (y >= 0).float()
+        safe = y.clamp_min(0).long()
+        mine = (safe >= off) & (safe < off + V)
+        idx = (safe - off).clamp(0, V - 1)
+        gold = coll.psum(torch.where(mine, torch.take_along_dim(lg, idx[..., None], dim=-1)[..., 0],
+                                     0.0), mesh, vocab_axes)
+        nll = coll.psum(((logz - gold) * mask).sum(), mesh, batch_axes)
+        denom = coll.psum(mask.sum(), mesh, batch_axes)
+        return nll, denom
+
+    nll, denom = shard_map(mesh, body, (None, None), (logits, labels), in_specs=(lspec, yspec),
+                           split_axes=batch_axes + vocab_axes)
+    denom = denom.clamp_min(1.0)
+    return nll / denom, denom
 
 
 @dataclasses.dataclass

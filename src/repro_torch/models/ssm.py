@@ -26,6 +26,7 @@ from .layers import (
     apply_ssd,
     attention_block,
     attention_specs,
+    embed_lookup,
     mlp_specs,
     norm_specs,
     softcap,
@@ -38,7 +39,7 @@ __all__ = ["mamba_cache_specs", "mamba_forward", "mamba_specs", "zamba_cache_spe
 
 
 def _embed(params: Dict, tokens: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
-    return shard(params["embed"][tokens].to(cfg.adtype), "batch", "seq", None)
+    return shard(embed_lookup(params["embed"], tokens).to(cfg.adtype), "batch", "seq", None)
 
 
 def _ssd_layer(lp: Dict, x: torch.Tensor, cfg: ModelConfig,
@@ -106,7 +107,7 @@ def mamba_forward(
             states.append(nc["state"])
         new_cache = {"conv": torch.stack(convs), "state": torch.stack(states)}
     x = apply_norm(params["ln_f"], x, cfg)
-    logits = x @ params["embed"].T.to(cfg.adtype)
+    logits = _mm(x, params["embed"].T.to(cfg.adtype))
     logits = softcap(logits.float(), cfg.logit_softcap)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     return shard(logits, "batch", "seq", "vocab"), new_cache, aux
@@ -271,6 +272,6 @@ def zamba_forward(
             new_cache["tail_conv"] = torch.stack(tconvs)
             new_cache["tail_state"] = torch.stack(tstates)
     x = apply_norm(params["ln_f"], x, cfg)
-    logits = x @ params["embed"].T.to(cfg.adtype)
+    logits = _mm(x, params["embed"].T.to(cfg.adtype))
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     return shard(logits, "batch", "seq", "vocab"), new_cache, aux

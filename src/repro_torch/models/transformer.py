@@ -24,7 +24,7 @@ import torch
 from torch import nn
 
 from ..configs.base import ModelConfig
-from ..runtime.sharding import ParamSpec, shard
+from ..runtime.sharding import ParamSpec, replicate_like, shard
 from .layers import (
     _einsum,
     _mm,
@@ -33,6 +33,7 @@ from .layers import (
     apply_norm,
     attention_block,
     attention_specs,
+    embed_lookup,
     mlp_specs,
     moe_specs,
     norm_specs,
@@ -268,7 +269,7 @@ def decoder_forward(
     when it is given, else the cache's ``xkv`` at positions 0..Ssrc-1.
     """
     B, S = tokens.shape
-    x = params["embed"][tokens].to(cfg.adtype)
+    x = embed_lookup(params["embed"], tokens).to(cfg.adtype)
     start = 0 if cache_len is None else int(cache_len)
     if patches is not None:
         pe = _mm(patches.to(cfg.adtype), params["frontend_proj"]).to(cfg.adtype)
@@ -279,7 +280,7 @@ def decoder_forward(
         raise ValueError(f"{cfg.name}: the decoder needs enc_out or a cache with xkv")
     x = shard(x, "batch", "residual_seq", None)
     positions = torch.arange(start, start + S, dtype=torch.int32, device=x.device)
-    positions = positions[None].expand(B, S)
+    positions = shard(replicate_like(positions[None].expand(B, S), x), "batch", "residual_seq")
 
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     clen = None if cache is None else int(cache["len"])
@@ -322,7 +323,7 @@ def decoder_forward(
 
     x = apply_norm(params["ln_f"], x, cfg)
     x = shard(x, "batch", "residual_seq", None)
-    logits = x @ params["embed"].T.to(cfg.adtype)  # tied head
+    logits = _mm(x, params["embed"].T.to(cfg.adtype))  # tied head
     logits = softcap(logits.float(), cfg.logit_softcap)
     return shard(logits, "batch", "residual_seq", "vocab"), new_cache, aux
 

@@ -1,7 +1,7 @@
-"""Optimizers and gradient compression — counterpart of ``repro.optim``
-(``compressed_psum`` waits for the shard_map pipeline, ROADMAP Queue 1 item
-7.5)."""
-from .compression import compress_tree, dequantize, init_ef, quantize_ef
+"""Optimizers and gradient compression — counterpart of ``repro.optim``:
+AdamW and Adafactor over trees of tensors (DTensors under a mesh), int8
+error-feedback compression, and ``compressed_psum`` for shard_map bodies."""
+from .compression import compress_tree, compressed_psum, dequantize, init_ef, quantize_ef
 from .optimizers import (
     OptConfig,
     adafactor_init,
@@ -18,6 +18,6 @@ from .optimizers import (
 
 __all__ = [
     "OptConfig", "adafactor_init", "adafactor_update", "adamw_init", "adamw_update",
-    "clip_by_global_norm", "compress_tree", "dequantize", "global_norm", "init_ef",
-    "opt_init", "opt_state_specs", "opt_update", "quantize_ef", "schedule",
+    "clip_by_global_norm", "compress_tree", "compressed_psum", "dequantize", "global_norm",
+    "init_ef", "opt_init", "opt_state_specs", "opt_update", "quantize_ef", "schedule",
 ]

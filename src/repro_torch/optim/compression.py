@@ -1,10 +1,9 @@
 """Gradient compression — counterpart of ``repro.optim.compression``: int8
 quantization with error feedback (EF-SGD style), applied to a gradient tree
-as quantize -> dequantize with a persistent float32 error-feedback buffer.
-
-The reference's ``compressed_psum`` (an int8-payload all-reduce inside
-``shard_map``) belongs to its shard_map pipeline and waits with it (ROADMAP
-Queue 1 item 7.5).
+as quantize -> dequantize with a persistent float32 error-feedback buffer
+(the train step's path, on DTensors under a mesh), plus ``compressed_psum``,
+the int8-payload mean over a mesh axis for ``shard_map`` bodies, which
+actually moves the int8 values and their float32 scales across the axis.
 """
 from __future__ import annotations
 
@@ -14,7 +13,7 @@ import torch
 
 from .optimizers import _div, _zip_map
 
-__all__ = ["compress_tree", "dequantize", "init_ef", "quantize_ef"]
+__all__ = ["compress_tree", "compressed_psum", "dequantize", "init_ef", "quantize_ef"]
 
 
 def quantize_ef(
@@ -44,5 +43,27 @@ def compress_tree(grads, ef_tree):
 
 
 def init_ef(grads_like):
-    return _zip_map(lambda g: torch.zeros(g.shape, dtype=torch.float32, device=g.device),
+    return _zip_map(lambda g: torch.zeros_like(g, dtype=torch.float32,
+                                                memory_format=torch.contiguous_format),
                     grads_like)
+
+
+def compressed_psum(g: torch.Tensor, ef: torch.Tensor, axis: str, mesh=None):
+    """int8-payload mean across the mesh ``axis`` (inside a ``shard_map``
+    body; ``mesh`` defaults to the ``axis_rules`` one).
+
+    Each rank quantizes ``g + ef`` (``quantize_ef``), the int8 values and
+    the float32 scales are all-gathered, and every rank dequantizes them
+    exactly: ``tensordot(scales, qs) / n``, the reference's order.  The
+    reference's int32 ``psum`` and scale ``pmax`` are dead code there (their
+    results are deleted) and are not issued.  Returns (mean, new_ef)."""
+    from ..runtime import collectives as coll
+    from ..runtime.sharding import current_mesh
+
+    mesh = mesh if mesh is not None else current_mesh()
+    q, scale, new_ef = quantize_ef(g, ef)
+    n = coll.axis_size(mesh, axis)
+    scales = coll.all_gather(scale, mesh, axis)  # (n,)
+    qs = coll.all_gather(q, mesh, axis)  # (n, ...): exact dequantization
+    mean = _div(torch.tensordot(scales, qs.float(), dims=([0], [0])), n)
+    return mean, new_ef

@@ -128,9 +128,10 @@ def _dq8(q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
 
 def adamw_init(cfg: OptConfig, params):
     def one(p):
-        # distinct buffers for m and v: each is written in place
+        # distinct buffers for m and v: each is written in place (zeros_like
+        # keeps a DTensor parameter's placements: no full-size buffer)
         def z(dt):
-            return torch.zeros(p.shape, dtype=dt, device=p.device)
+            return torch.zeros_like(p, dtype=dt, memory_format=torch.contiguous_format)
 
         if cfg.state_dtype == "bfloat16":
             return {"m": z(torch.bfloat16), "v": z(torch.bfloat16)}

@@ -1,19 +1,18 @@
 """Elastic scaling — counterpart of ``repro.runtime.elastic``: restore any
-checkpoint onto this process's device (``elastic_restore``) and re-chunk a
-batch across a changing pool (``replan_batch``).
+checkpoint onto any mesh, or onto one device (``elastic_restore``), and
+re-chunk a batch across a changing pool (``replan_batch``).
 
 The checkpoint format is placement-agnostic (host-gathered full arrays plus
 the data step for deterministic replay), so a checkpoint written by either
-package, on any mesh, restores here.  Placing the restored leaves on a mesh
-(the reference's ``sharding_tree``) waits for the mesh slice (ROADMAP Queue
-1 item 7.6).
+package, on any mesh or none, restores here: growing or shrinking the mesh
+is a restore with new placements (``sharding_tree``).
 """
 from __future__ import annotations
 
 from typing import Dict, Optional
 
 from ..checkpoint import Checkpointer
-from .sharding import _leaf_paths
+from .sharding import _leaf_paths, distribute_tree
 
 __all__ = ["elastic_restore", "replan_batch"]
 
@@ -21,13 +20,20 @@ __all__ = ["elastic_restore", "replan_batch"]
 def elastic_restore(
     ckpt: Checkpointer,
     param_specs: Dict,
-    device=None,
+    mesh=None,
+    rules: Optional[Dict] = None,
     step: Optional[int] = None,
+    device=None,
 ) -> Dict:
     """Load the checkpoint at ``step`` (default: the latest) onto ``device``
-    (default: the card), whatever wrote it, and check that its ``params``
-    hold every leaf of ``param_specs`` at the declared shape and dtype
-    (``ValueError`` otherwise).  Returns the whole restored tree."""
+    (default: the card; a mesh's own device type when ``mesh`` is given),
+    whatever wrote it, and check that its ``params`` hold every leaf of
+    ``param_specs`` at the declared shape and dtype (``ValueError``
+    otherwise).  On ``mesh`` the params are DTensors placed per
+    ``sharding_tree(param_specs, mesh, rules)`` (every rank reads the
+    files and keeps its shard).  Returns the whole restored tree."""
+    if mesh is not None and device is None:
+        device = mesh.device_type
     tree = ckpt.restore(step=step, device=device)
     params = tree.get("params")
     if params is None:
@@ -42,6 +48,8 @@ def elastic_restore(
             raise ValueError(
                 f"checkpoint params {'/'.join(path)}: {tuple(leaf.shape)} {leaf.dtype}, "
                 f"the specs declare {tuple(ps.shape)} {ps.dtype}")
+    if mesh is not None:
+        tree["params"] = distribute_tree(params, param_specs, mesh, rules)
     return tree
 
 

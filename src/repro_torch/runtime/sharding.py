@@ -1,18 +1,30 @@
-"""Parameter declaration for the LM plane — counterpart of
-``repro.runtime.sharding``, the part one card needs.
+"""Logical-axis sharding for the LM plane — counterpart of
+``repro.runtime.sharding``.
+
+Model code annotates tensors with *logical* axis names; a rules table maps
+them to the axes of a ``torch.distributed.device_mesh.DeviceMesh``.
+``spec_for`` gives the reference's ``PartitionSpec`` entries as a tuple
+(``None``, an axis name, or a tuple of names), dropping trailing mesh axes
+until the dimension divides (the replication fallback), and
+``placements_for`` turns such a tuple into DTensor placements.  Under an
+``axis_rules(mesh, rules)`` block, parameters, optimizer state and batches
+are DTensors (``distribute_tree``), the counterpart of GSPMD's
+``NamedSharding``s: ``shard(x, *logical)`` redistributes a DTensor to its
+logical layout (GSPMD's sharding constraint), plain tensors that meet
+DTensors count as replicated, and outside a mesh ``shard`` is the identity.
 
 Params are declared as ``ParamSpec`` trees (shape, logical axes, init):
 nested dicts whose leaves are specs, walked in the reference's order, so
-that ``materialize`` turns the same declaration into tensors and
-``param_count``/``param_bytes`` size it without allocating.  The logical
-axis names are kept for the mesh slice; ``spec_for``, ``shape_structs``,
-``sharding_tree`` and ``axis_rules`` wait for it (ROADMAP Queue 1 item 7.6).
+the same declaration yields real tensors (``materialize``), the placements
+tree (``sharding_tree``) and fake DTensor stand-ins for the dry-run
+(``shape_structs``, no allocation).
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import hashlib
-from typing import Any, Callable, Optional, Tuple
+from typing import Any, Callable, Dict, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -20,7 +32,13 @@ import torch
 from ..core.galois import fold_in
 from ..device import resolve_device
 
-__all__ = ["PIECEWISE_BYTES", "ParamSpec", "materialize", "param_bytes", "param_count", "shard"]
+__all__ = [
+    "DEFAULT_RULES", "PIECEWISE_BYTES", "ParamSpec", "axis_rules", "current_mesh",
+    "distribute_tree", "entry_axes", "full_tree", "materialize", "mesh_sizes", "param_bytes",
+    "param_count",
+    "placements_for", "replicate_like", "shape_structs", "shard", "shard_map", "sharding_tree",
+    "spec_for",
+]
 
 # a leaf whose float32 draw would take more bytes than this is drawn one
 # leading slice at a time: qwen3-moe-30b-a3b's stacked experts are 38.7 GB
@@ -29,11 +47,203 @@ __all__ = ["PIECEWISE_BYTES", "ParamSpec", "materialize", "param_bytes", "param_
 PIECEWISE_BYTES = 4 << 30
 
 
+# ---------------------------------------------------------------------------
+# rules + context
+# ---------------------------------------------------------------------------
+
+# default logical->physical rules; None = replicated
+DEFAULT_RULES: Dict[str, Union[None, str, Tuple[str, ...]]] = {
+    "batch": ("pod", "data"),
+    "seq": None,                # set to "model" for context-parallel shapes
+    "q_seq": None,              # attention-internal query-seq layout
+    "residual_seq": None,       # residual-stream seq layout (Megatron-SP)
+    "kv_seq": None,             # attention-internal key/value-seq layout
+    "cache_seq": None,          # decode KV-cache sequence axis
+    "embed": None,
+    "heads": "model",
+    "kv_heads": "model",
+    "qkv": "model",             # flattened head*dim projections
+    "ffn": "model",
+    "experts": "model",
+    "expert_ffn": None,
+    "vocab": "model",
+    "fsdp": "data",             # weight "row" dim when FSDP is on
+    "frontend": None,
+    "conv": None,
+    "state": None,              # SSM state dim
+    "ssm_heads": "model",
+}
+
+
+class _Ctx:
+    """The active mesh and rules.  Process-wide, not thread-local as the
+    reference's: on the card autograd runs the backward (and a remat unit's
+    recompute, which routes its MoE layers again) on a thread of its own,
+    which must see the mesh the forward saw."""
+
+    def __init__(self):
+        self.mesh = None
+        self.rules: Dict[str, Any] = dict(DEFAULT_RULES)
+
+
+_CTX = _Ctx()
+
+
+@contextlib.contextmanager
+def axis_rules(mesh, rules: Optional[Dict[str, Any]] = None):
+    """Activate sharding annotations inside the block (no-op mesh=None).
+
+    Under a ``DeviceMesh`` the block also runs under DTensor's
+    ``implicit_replication``: a plain tensor that meets a DTensor (a
+    position ramp, a mask, a zero accumulator) counts as replicated, as an
+    unannotated constant does under GSPMD; and on the card under
+    ``collectives.host_staging``, gloo's transport for its all-gathers."""
+    old = (_CTX.mesh, _CTX.rules)
+    _CTX.mesh = mesh
+    merged = dict(DEFAULT_RULES)
+    if rules:
+        merged.update(rules)
+    _CTX.rules = merged
+    try:
+        if mesh is not None and hasattr(mesh, "mesh_dim_names"):
+            from torch.distributed.tensor.experimental import implicit_replication
+
+            from .collectives import host_staging
+
+            with implicit_replication(), host_staging(mesh):
+                yield
+        else:
+            yield
+    finally:
+        _CTX.mesh, _CTX.rules = old
+
+
+def current_mesh():
+    return _CTX.mesh
+
+
+def current_rules() -> Dict[str, Any]:
+    return _CTX.rules
+
+
+def mesh_sizes(mesh) -> Dict[str, int]:
+    """``{axis name: size}`` of a ``DeviceMesh`` (or of any object whose
+    ``.shape`` is already such a dict, as a JAX ``Mesh``'s is)."""
+    shape = mesh.shape
+    if isinstance(shape, dict):
+        return dict(shape)
+    return dict(zip(mesh.mesh_dim_names, (int(n) for n in shape)))
+
+
+def _axes_of(name: Optional[str], rules) -> Tuple[str, ...]:
+    if name is None:
+        return ()
+    rule = rules.get(name, None)
+    if rule is None:
+        return ()
+    if isinstance(rule, str):
+        return (rule,)
+    return tuple(rule)
+
+
+def spec_for(
+    shape: Sequence[int],
+    logical: Sequence[Optional[str]],
+    mesh=None,
+    rules: Optional[Dict[str, Any]] = None,
+) -> Tuple:
+    """The reference's PartitionSpec for ``shape`` under logical names, as a
+    tuple of entries, with its divisibility fallback (drop trailing mesh
+    axes until the dim divides); a mesh axis is used by one dim at most."""
+    mesh = mesh if mesh is not None else _CTX.mesh
+    rules = rules if rules is not None else _CTX.rules
+    if mesh is None:
+        return (None,) * len(shape)
+    if len(shape) != len(logical):
+        raise ValueError(f"shape {tuple(shape)} and logical {tuple(logical)} differ in rank")
+    sizes = mesh_sizes(mesh)
+    used: set = set()
+    out = []
+    for dim, name in zip(shape, logical):
+        axes = [a for a in _axes_of(name, rules) if a in sizes and a not in used]
+        # shrink until divisible
+        while axes:
+            total = int(np.prod([sizes[a] for a in axes]))
+            if dim % total == 0:
+                break
+            axes = axes[:-1]
+        if axes:
+            used.update(axes)
+            out.append(tuple(axes) if len(axes) > 1 else axes[0])
+        else:
+            out.append(None)
+    return tuple(out)
+
+
+def placements_for(spec: Tuple, mesh) -> Tuple:
+    """DTensor placements of a ``spec_for`` tuple: ``Shard(dim)`` on every
+    mesh axis the dim's entry names, ``Replicate()`` on the others.  A dim
+    split over several axes (``("pod", "data")``) is split in the mesh's
+    axis order, pod outermost, as a PartitionSpec splits it."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    names = list(mesh.mesh_dim_names)
+    out: list = [Replicate()] * len(names)
+    for dim, entry in enumerate(spec):
+        for a in entry_axes(entry):
+            out[names.index(a)] = Shard(dim)
+    return tuple(out)
+
+
+def entry_axes(entry) -> Tuple[str, ...]:
+    """The mesh axes of one ``spec_for`` entry."""
+    return () if entry is None else (entry,) if isinstance(entry, str) else tuple(entry)
+
+
+def local_shape(shape: Sequence[int], spec: Tuple, mesh) -> Tuple[int, ...]:
+    """The shape of one rank's shard of ``shape`` under ``spec``."""
+    sizes = mesh_sizes(mesh)
+    return tuple(dim // int(np.prod([sizes[a] for a in entry_axes(entry)]))
+                 for dim, entry in zip(shape, spec))
+
+
+def contiguous_strides(shape: Sequence[int]) -> Tuple[int, ...]:
+    """A contiguous tensor's strides for ``shape``."""
+    out, n = [], 1
+    for dim in reversed(tuple(shape)):
+        out.append(n)
+        n *= max(int(dim), 1)
+    return tuple(reversed(out))
+
+
+def replicate_like(t: torch.Tensor, ref: torch.Tensor) -> torch.Tensor:
+    """``t``, a plain tensor every rank holds whole, as a replicated DTensor
+    on ``ref``'s mesh when ``ref`` is a DTensor (so that ``shard`` can
+    split it without a copy); else ``t`` as it is."""
+    from torch.distributed.tensor import DTensor, Replicate
+
+    if isinstance(ref, DTensor) and not isinstance(t, DTensor):
+        return DTensor.from_local(t, ref.device_mesh, [Replicate()] * ref.device_mesh.ndim,
+                                  run_check=False)
+    return t
+
+
 def shard(x: torch.Tensor, *logical: Optional[str]) -> torch.Tensor:
-    """Sharding constraint by logical names: the identity.  The reference's
-    is a no-op outside an ``axis_rules`` mesh context too, and the port has
-    no mesh yet."""
-    return x
+    """Sharding constraint by logical names: under an ``axis_rules`` mesh a
+    DTensor is redistributed to the placements ``spec_for`` gives (a
+    partial sum is reduced, a dim gathered or split); a plain tensor, or
+    any tensor outside a mesh, is returned as it is."""
+    mesh = _CTX.mesh
+    if mesh is None:
+        return x
+    from torch.distributed.tensor import DTensor
+
+    if not isinstance(x, DTensor):
+        return x
+    want = placements_for(spec_for(x.shape, logical, mesh, _CTX.rules), mesh)
+    if tuple(x.placements) == want:
+        return x
+    return x.redistribute(x.device_mesh, want)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -118,3 +328,157 @@ def param_count(spec_tree) -> int:
 
 def param_bytes(spec_tree) -> int:
     return sum(int(np.prod(ps.shape)) * ps.dtype.itemsize for _, ps in _leaf_paths(spec_tree))
+
+
+def _as_dtensor(t, mesh):
+    """A DTensor as it is; a plain tensor as the full value, replicated."""
+    from torch.distributed.tensor import DTensor, Replicate
+
+    if isinstance(t, DTensor) or not torch.is_tensor(t):
+        return t
+    return DTensor.from_local(t, mesh, [Replicate()] * mesh.ndim, run_check=False)
+
+
+def _grad_placements(pl):
+    """An island input's gradient placements: the input's, with every
+    replicated mesh axis partial (each rank's gradient is its summand)."""
+    from torch.distributed.tensor import Partial, Replicate
+
+    return tuple(Partial() if isinstance(q, Replicate) else q for q in pl)
+
+
+def shard_map(mesh, body, out_specs, args, in_specs=None, replicated=False, split_axes=None):
+    """The reference's ``shard_map(body, mesh, in_specs, out_specs)(*args)``
+    as a ``local_map``: ``args`` may nest dicts, lists and tuples; tensor arguments
+    (``spec_for`` tuples in ``in_specs``, None for replicated) are
+    redistributed to their specs' placements (plain ones
+    taken as replicated) and ``body`` runs on the local shards; each
+    output is a DTensor with its spec's placements.  With ``replicated``
+    every tensor argument is gathered whole and every rank computes the
+    same result (input gradients then replicated too); else each input's
+    gradient is partial over the axes it is replicated on."""
+    from torch.distributed.tensor.experimental import local_map
+
+    flat = []
+
+    class Arg(int):  # a tensor argument's place in ``flat``
+        pass
+
+    def walk(t, spec):
+        if isinstance(t, dict):
+            return {k: walk(v, None if spec is None else spec[k]) for k, v in t.items()}
+        if isinstance(t, (list, tuple)):
+            return type(t)(walk(v, None if spec is None else spec[i]) for i, v in enumerate(t))
+        if torch.is_tensor(t):
+            flat.append((t, spec))
+            return Arg(len(flat) - 1)
+        return t
+
+    skel = [walk(a, None if in_specs is None else in_specs[i]) for i, a in enumerate(args)]
+    tensors = [_as_dtensor(t, mesh) for t, _ in flat]
+    in_pl = tuple(placements_for((None,) * t.ndim if sp is None else sp, mesh)
+                  for t, (_, sp) in zip(tensors, flat))
+    names = list(mesh.mesh_dim_names)
+    split = set(names if split_axes is None else split_axes)
+    grad_pl = in_pl if replicated else tuple(
+        tuple(_grad_placements([q])[0] if names[m] in split else q for m, q in enumerate(pl))
+        for pl in in_pl)
+    out_pl = tuple(placements_for(sp, mesh) if sp is not None else
+                   placements_for((), mesh) for sp in out_specs)
+
+    def rebuild(node, locs):
+        if isinstance(node, dict):
+            return {k: rebuild(v, locs) for k, v in node.items()}
+        if isinstance(node, (list, tuple)):
+            return type(node)(rebuild(v, locs) for v in node)
+        if isinstance(node, Arg):
+            return locs[node]
+        return node
+
+    def local(*locs):
+        return body(*[rebuild(n, locs) for n in skel])
+
+    # one output's placements as a list: a tuple would read as one an output
+    fn = local_map(local, out_placements=out_pl if len(out_pl) > 1 else list(out_pl[0]),
+                   in_placements=in_pl, in_grad_placements=grad_pl, device_mesh=mesh,
+                   redistribute_inputs=True)
+    return fn(*tensors)
+
+
+def _rules_or_default(rules):
+    """``rules`` over DEFAULT_RULES (a cell's ``rules_for`` is overrides)."""
+    return {**DEFAULT_RULES, **(rules or {})}
+
+
+def sharding_tree(spec_tree, mesh, rules=None):
+    """The DTensor placements of every leaf (the reference's NamedSharding
+    pytree)."""
+    rules = _rules_or_default(rules)
+    return _map_leaves(
+        lambda path, ps: placements_for(spec_for(ps.shape, ps.logical, mesh, rules), mesh),
+        spec_tree)
+
+
+def distribute_tree(tree, spec_tree, mesh, rules=None):
+    """Place a tree of full tensors (every rank holding the same values) on
+    ``mesh`` as DTensors with ``sharding_tree``'s placements.  Each rank
+    keeps its own shard of its own copy: nothing is sent.  A leaf of
+    ``tree`` that ``spec_tree`` lacks (a step counter) stays as it is."""
+    from torch.distributed.tensor import DTensor, distribute_tensor
+
+    placements = sharding_tree(spec_tree, mesh, rules)
+
+    def place(t, pl):
+        if isinstance(t, dict):
+            return {k: place(v, pl[k]) if isinstance(pl, dict) and k in pl else v
+                    for k, v in t.items()}
+        dt = distribute_tensor(t, mesh, pl, src_data_rank=None)
+        loc = dt.to_local()
+        if loc.untyped_storage().data_ptr() != t.untyped_storage().data_ptr():
+            return dt
+        # a shard that is a view of the full tensor would keep it alive
+        return DTensor.from_local(loc.clone(), mesh, pl, run_check=False,
+                                  shape=dt.shape, stride=dt.stride())
+
+    return place(tree, placements)
+
+
+def full_tree(tree):
+    """Every DTensor leaf of ``tree`` gathered to a full plain tensor (a
+    collective: every rank calls it; on the card through
+    ``collectives.host_staging``)."""
+    from torch.distributed.tensor import DTensor
+
+    from .collectives import host_staging
+
+    if isinstance(tree, dict):
+        return {k: full_tree(v) for k, v in tree.items()}
+    if not isinstance(tree, DTensor):
+        return tree
+    with host_staging(tree.device_mesh):
+        return tree.full_tensor()
+
+
+def shape_structs(spec_tree, mesh, rules=None, fake_mode=None, device="cpu"):
+    """Dry-run stand-ins, no allocation: under ``fake_mode`` (a
+    ``FakeTensorMode``, made here when None) each leaf is a fake tensor of
+    its declared shape and dtype, and on a mesh a DTensor of that global
+    shape whose local shard is ``spec_for``'s."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    fake_mode = fake_mode or FakeTensorMode()
+    rules = _rules_or_default(rules)
+
+    def one(path, ps: ParamSpec):
+        with fake_mode:
+            if mesh is None:
+                return torch.empty(ps.shape, dtype=ps.dtype, device=device)
+            from torch.distributed.tensor import DTensor
+
+            spec = spec_for(ps.shape, ps.logical, mesh, rules)
+            loc = torch.empty(local_shape(ps.shape, spec, mesh), dtype=ps.dtype, device=device)
+            return DTensor.from_local(loc, mesh, placements_for(spec, mesh), run_check=False,
+                                      shape=torch.Size(ps.shape),
+                                      stride=contiguous_strides(ps.shape))
+
+    return _map_leaves(one, spec_tree)

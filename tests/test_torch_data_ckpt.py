@@ -154,21 +154,21 @@ def test_elastic_restore_onto_cpu_and_its_refusals(tmp_path):
     params = materialize(api.param_specs, 0, "cpu")
     ck = Checkpointer(str(tmp_path), keep=5)
     ck.save(2, {"params": params, "meta": {"step": np.asarray(2)}})
-    tree = elastic_restore(ck, api.param_specs, "cpu")
+    tree = elastic_restore(ck, api.param_specs, device="cpu")
     _same_tree(tree["params"], params)
     assert int(tree["meta"]["step"]) == 2
     # a leaf whose shape or dtype is not the declared one
     bad = dict(params, embed=params["embed"][:-1])
     ck.save(3, {"params": bad})
     with pytest.raises(ValueError, match="embed"):
-        elastic_restore(ck, api.param_specs, "cpu")
+        elastic_restore(ck, api.param_specs, device="cpu")
     bad = dict(params, embed=params["embed"].float())
     ck.save(4, {"params": bad})
     with pytest.raises(ValueError, match="embed"):
-        elastic_restore(ck, api.param_specs, "cpu", step=4)
+        elastic_restore(ck, api.param_specs, device="cpu", step=4)
     missing = dict(params)
     del missing["ln_f"]
     ck.save(5, {"params": missing})
     with pytest.raises(ValueError, match="ln_f"):
-        elastic_restore(ck, api.param_specs, "cpu")
-    _same_tree(elastic_restore(ck, api.param_specs, "cpu", step=2)["params"], params)
+        elastic_restore(ck, api.param_specs, device="cpu")
+    _same_tree(elastic_restore(ck, api.param_specs, device="cpu", step=2)["params"], params)

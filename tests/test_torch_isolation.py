@@ -43,7 +43,10 @@ def test_every_module_imports_without_jax_or_repro():
               "repro_torch.optim.compression", "repro_torch.data", "repro_torch.data.pipeline",
               "repro_torch.checkpoint", "repro_torch.checkpoint.checkpoint",
               "repro_torch.launch.steps", "repro_torch.launch.train",
-              "repro_torch.examples.train_lm"):
+              "repro_torch.examples.train_lm", "repro_torch.launch.mesh",
+              "repro_torch.launch.dryrun", "repro_torch.launch.costmodel",
+              "repro_torch.launch.comm_analysis", "repro_torch.launch.roofline",
+              "repro_torch.runtime.pipeline", "repro_torch.runtime.collectives"):
         assert m in mods, m
     code = (
         "import sys, importlib\n"
@@ -218,8 +221,29 @@ def test_training_path_defaults_to_cuda_and_raises_without_it(monkeypatch, tmp_p
             build()
     state = train.make_train_state(api, opt_config_for(cfg), device="cpu")
     ck.save(1, {"params": state["params"]})
-    assert elastic_restore(ck, api.param_specs, "cpu")["params"]["embed"].device.type == "cpu"
+    assert elastic_restore(ck, api.param_specs, device="cpu")["params"]["embed"].device.type == "cpu"
     assert state["opt"]["step"].device.type == "cpu"
+
+
+def test_mesh_entry_points_default_to_cuda_and_raise_without_it(monkeypatch):
+    """The meshes are made on the card's device type unless the caller asks
+    for the CPU, and raise without a card before touching any process
+    group; the dry-run refuses to start beside an initialized group."""
+    _without_cuda(monkeypatch)
+    import torch.distributed as dist
+
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_debug_mesh, make_production_mesh
+
+    for build in (lambda: make_debug_mesh(), lambda: make_production_mesh(),
+                  lambda: make_production_mesh(multi_pod=True)):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            build()
+    with pytest.raises(RuntimeError, match="initialized default process group"):
+        make_debug_mesh(device="cpu")
+    monkeypatch.setattr(dist, "is_initialized", lambda: True)
+    with pytest.raises(RuntimeError, match="already up"):
+        dryrun.fake_group(8)
 
 
 def test_chip_smoke_refuses_without_a_card(tmp_path):
