@@ -5,7 +5,9 @@ For each cell it records what the reference records, where the port has a
 counterpart:
   * ``memory``: the arguments' local-shard bytes and the temporaries' peak
     (``launch.steps.lower_cell``'s high-water of live bytes a rank), their
-    sum ``bytes_per_device`` and ``fits_hbm`` against the H100's 80 GB
+    sum ``bytes_per_device`` and ``fits_hbm`` against the H100's 80 GB;
+    ``fits_hbm_basis`` says what that peak counts (eager tensors, no
+    compiler's fusion: not XLA's ``memory_analysis``)
   * ``cost``: a rank's FLOPs and bytes accessed, counted op by op
   * ``collectives``: every collective the step issued, result bytes by kind
   * ``roofline``: ``comm_analysis.roofline_terms`` on the H100's constants
@@ -46,6 +48,12 @@ ART_DIR = os.environ.get(
     "REPRO_TORCH_DRYRUN_DIR",
     os.path.join(os.path.dirname(__file__), "..", "..", "..", "artifacts", "dryrun_torch"),
 )
+
+
+# what ``fits_hbm`` weighs, written into every record
+FITS_BASIS = ("eager peak of live tensors a rank: every temporary held from the op that "
+              "makes it to its last use, nothing fused or rematerialized by a compiler; "
+              "an upper bound beside XLA's memory_analysis, not comparable with it")
 
 
 def fake_group(world: int) -> None:
@@ -104,6 +112,7 @@ def run_cell(arch: str, shape_name: str, mesh_kind: str, force: bool = False, me
             roofline=terms,
             bytes_per_device=per_dev,
             fits_hbm=bool(per_dev <= HBM_BYTES),
+            fits_hbm_basis=FITS_BASIS,
         )
         print(
             f"[ok] {arch} {shape_name} {mesh_kind}: lower={low.seconds:.1f}s "

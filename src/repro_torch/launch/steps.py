@@ -22,6 +22,7 @@ import time
 from typing import Any, Callable, Dict, Tuple
 
 import torch
+from torch.utils._python_dispatch import TorchDispatchMode
 
 from ..configs.base import ModelConfig, ShapeConfig
 from ..models import ModelAPI, build_model
@@ -222,93 +223,99 @@ def _storage_key(t: torch.Tensor):
     return t.untyped_storage()._cdata
 
 
-class _Recorder:
-    """A dispatch mode over the local ops of a fake run: it lets DTensor
+class _Recorder(TorchDispatchMode):
+    """A dispatch mode over the local ops of a run: it lets DTensor
     desugar first (``NotImplemented`` for DTensor types), skips DTensor's
     own shape propagation (global-shape ops, flagged by
     ``_marking_propagation``), and counts
     FLOPs (``torch.utils.flop_counter``'s registry), bytes accessed (the
     operands and results of every op that is not a view), collectives (the
     ``_c10d_functional`` ops: count and result bytes) and the high-water
-    of live bytes (each new storage counted until its last tensor dies)."""
+    of live bytes (each new storage counted until its last tensor dies).
 
-    def __new__(cls, fake_mode):
-        from torch.utils._python_dispatch import TorchDispatchMode
+    On a real run with the card in use, every collective (its issue or its
+    wait) starts after a ``torch.cuda.synchronize()``: ``sync_s`` is the
+    host time those syncs take (device work queued before the collective)
+    and ``comm_s`` the host time inside the collective calls after them
+    (the transport, and the wait for the other ranks to arrive)."""
 
-        class Mode(TorchDispatchMode):
-            def __init__(self):
-                super().__init__()
-                self.fake_mode = fake_mode
-                self.flops = 0.0
-                self.bytes = 0.0
-                self.propagating = 0
-                self.track_memory = True
-                self.comm_s = 0.0
-                self.coll: Dict[str, Dict[str, float]] = {}
-                self.live = 0
-                self.peak = 0
-                self._seen: Dict[int, int] = {}
+    def __init__(self, fake_mode=None):
+        super().__init__()
+        self.fake_mode = fake_mode
+        self.flops = 0.0
+        self.bytes = 0.0
+        self.propagating = 0
+        self.track_memory = True
+        self.comm_s = 0.0
+        self.sync_s = 0.0
+        self.coll: Dict[str, Dict[str, float]] = {}
+        self.live = 0
+        self.peak = 0
+        self._seen: Dict[int, int] = {}
 
-            def hold(self, t: torch.Tensor) -> None:
-                import weakref
+    def hold(self, t: torch.Tensor) -> None:
+        import weakref
 
-                key = _storage_key(t)
-                if key in self._seen:
-                    self._seen[key] += 1
-                else:
-                    self._seen[key] = 1
-                    self.live += t.untyped_storage().nbytes()
-                    self.peak = max(self.peak, self.live)
-                nbytes = t.untyped_storage().nbytes()
-                weakref.finalize(t, self._drop, key, nbytes)
+        key = _storage_key(t)
+        if key in self._seen:
+            self._seen[key] += 1
+        else:
+            self._seen[key] = 1
+            self.live += t.untyped_storage().nbytes()
+            self.peak = max(self.peak, self.live)
+        nbytes = t.untyped_storage().nbytes()
+        weakref.finalize(t, self._drop, key, nbytes)
 
-            def _drop(self, key, nbytes):
-                n = self._seen.get(key, 0) - 1
-                if n <= 0:
-                    self._seen.pop(key, None)
-                    self.live -= nbytes
-                else:
-                    self._seen[key] = n
+    def _drop(self, key, nbytes):
+        n = self._seen.get(key, 0) - 1
+        if n <= 0:
+            self._seen.pop(key, None)
+            self.live -= nbytes
+        else:
+            self._seen[key] = n
 
-            def __torch_dispatch__(self, func, types, args=(), kwargs=None):
-                from torch._guards import active_fake_mode
-                from torch.distributed.tensor import DTensor
-                from torch.utils.flop_counter import flop_registry
-                from torch.utils._pytree import tree_leaves
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        from torch._guards import active_fake_mode
+        from torch.distributed.tensor import DTensor
+        from torch.utils._pytree import tree_leaves
+        from torch.utils.flop_counter import flop_registry
 
-                if any(issubclass(t, DTensor) for t in types):
-                    return NotImplemented
-                kwargs = kwargs or {}
-                ns, name = func.namespace, func._overloadpacket.__name__
-                ns = "_c10d_functional" if ns == "_c10d_functional_autograd" else ns
-                if ns == "_c10d_functional" and name == "wait_tensor" and self.fake_mode:
-                    return args[0]  # the fake wait makes a new tensor; a real one does not
-                t0 = time.perf_counter()
-                out = func(*args, **kwargs)
-                if ns == "_c10d_functional":  # a collective's issue or its wait
-                    self.comm_s += time.perf_counter() - t0
-                if self.propagating or active_fake_mode() is not self.fake_mode:
-                    return out  # DTensor's global-shape propagation, not a rank's work
-                if ns == "_c10d_functional" and name in _COLLECTIVE_KINDS:
-                    rec = self.coll.setdefault(_COLLECTIVE_KINDS[name], {"count": 0, "bytes": 0.0})
-                    rec["count"] += 1
-                    rec["bytes"] += sum(t.numel() * t.element_size()
-                                        for t in tree_leaves(out) if torch.is_tensor(t))
-                fn = flop_registry.get(func._overloadpacket)
-                if fn is not None:
-                    self.flops += fn(*args, **kwargs, out_val=out)
-                if not func.is_view:  # XLA's "bytes accessed": operands and results
-                    self.bytes += sum(t.numel() * t.element_size()
-                                      for t in tree_leaves((args, kwargs, out))
-                                      if torch.is_tensor(t))
-                if self.track_memory:
-                    for t in tree_leaves(out):
-                        if (torch.is_tensor(t) and not isinstance(t, DTensor)
-                                and t.device.type != "meta"):
-                            self.hold(t)
-                return out
-
-        return Mode()
+        if any(issubclass(t, DTensor) for t in types):
+            return NotImplemented
+        kwargs = kwargs or {}
+        ns, name = func.namespace, func._overloadpacket.__name__
+        ns = "_c10d_functional" if ns == "_c10d_functional_autograd" else ns
+        comm = ns == "_c10d_functional"  # a collective's issue or its wait
+        if comm and name == "wait_tensor" and self.fake_mode:
+            return args[0]  # the fake wait makes a new tensor; a real one does not
+        if comm and self.fake_mode is None and torch.cuda.is_initialized():
+            t0 = time.perf_counter()
+            torch.cuda.synchronize()
+            self.sync_s += time.perf_counter() - t0
+        t0 = time.perf_counter()
+        out = func(*args, **kwargs)
+        if comm:
+            self.comm_s += time.perf_counter() - t0
+        if self.propagating or active_fake_mode() is not self.fake_mode:
+            return out  # DTensor's global-shape propagation, not a rank's work
+        if comm and name in _COLLECTIVE_KINDS:
+            rec = self.coll.setdefault(_COLLECTIVE_KINDS[name], {"count": 0, "bytes": 0.0})
+            rec["count"] += 1
+            rec["bytes"] += sum(t.numel() * t.element_size()
+                                for t in tree_leaves(out) if torch.is_tensor(t))
+        fn = flop_registry.get(func._overloadpacket)
+        if fn is not None:
+            self.flops += fn(*args, **kwargs, out_val=out)
+        if not func.is_view:  # XLA's "bytes accessed": operands and results
+            self.bytes += sum(t.numel() * t.element_size()
+                              for t in tree_leaves((args, kwargs, out))
+                              if torch.is_tensor(t))
+        if self.track_memory:
+            for t in tree_leaves(out):
+                if (torch.is_tensor(t) and not isinstance(t, DTensor)
+                        and t.device.type != "meta"):
+                    self.hold(t)
+        return out
 
 
 @contextlib.contextmanager
@@ -345,7 +352,8 @@ def _marking_propagation(rec):
 def recording(fake_mode=None, memory: bool = True):
     """Count a rank's local ops inside the block: yields the recorder,
     whose ``flops``, ``bytes``, ``coll`` (kind -> count and result bytes),
-    ``comm_s`` (host seconds inside the collectives and their waits) and,
+    ``sync_s`` and ``comm_s`` (host seconds in the device syncs before the
+    collectives and inside the collectives after them) and,
     with ``memory``, ``peak`` (live bytes of the tensors made inside) are
     read after.  ``fake_mode`` is the dry-run's; None counts a real
     run."""

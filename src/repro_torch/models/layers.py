@@ -586,13 +586,16 @@ class Routing(NamedTuple):
     in descending order (how near the K-th came to a tie).  A mesh
     dispatch records its own shard's tokens, with ``route`` the island
     (``"ep_a2a"`` or ``"shardmap"``; ``"dense"`` otherwise) and ``shard``
-    the rank's coordinates, ``{axis: index}``."""
+    the rank's coordinates, ``{axis: index}``.  ``probs`` (T, E) are the
+    router's probabilities, so that two runs' routes can be told apart from
+    the sums that moved them."""
 
     experts: torch.Tensor
     kept: torch.Tensor
     top: torch.Tensor
     route: str = "dense"
     shard: Optional[Dict[str, int]] = None
+    probs: Optional[torch.Tensor] = None
 
 
 _ROUTES: Optional[List[Routing]] = None
@@ -700,10 +703,10 @@ def _shared_weights(p: Dict):
     return (sp["w_gate"] if "w_gate" in sp else sp["w_in"], sp["w_in"], sp["w_out"])
 
 
-def _record(route: str, mesh, experts, keep, top):
+def _record(route: str, mesh, experts, keep, top, probs):
     if _ROUTES is not None:
         coords = {a: coll.axis_index(mesh, a) for a in mesh.mesh_dim_names}
-        _ROUTES.append(Routing(experts, keep, top.detach(), route, coords))
+        _ROUTES.append(Routing(experts, keep, top.detach(), route, coords, probs.detach()))
 
 
 def _batch_entry(batch_axes):
@@ -743,7 +746,7 @@ def _apply_moe_ep_a2a(p: Dict, x: torch.Tensor, cfg: ModelConfig, mesh,
         pos = _local_positions(flat_e)
         Cs = max(1, int(T * K * cfg.capacity_factor / E))  # per-source capacity
         ok = pos < Cs
-        _record("ep_a2a", mesh, experts, ok.view(T, K), top)
+        _record("ep_a2a", mesh, experts, ok.view(T, K), top, probs)
         dst = torch.where(ok, flat_e * Cs + pos, E * Cs)
         src = xt[:, None].expand(T, K, d).reshape(T * K, d)
         send = torch.zeros((E * Cs + 1, d), dtype=xt.dtype, device=xt.device)
@@ -798,7 +801,7 @@ def _apply_moe_shardmap(p: Dict, x: torch.Tensor, cfg: ModelConfig, mesh,
 
         pos = _local_positions(flat_e)
         C = max(1, int(T * K * cfg.capacity_factor / E))
-        _record("shardmap", mesh, experts, (pos < C).view(T, K), top)
+        _record("shardmap", mesh, experts, (pos < C).view(T, K), top, probs)
         local_e = flat_e - m * El
         ok = (local_e >= 0) & (local_e < El) & (pos < C)
         dst = torch.where(ok, local_e.clamp(0, El - 1) * C + pos, El * C)
@@ -852,7 +855,7 @@ def _apply_moe_dense(p: Dict, x: torch.Tensor,
     if _ROUTES is not None:
         # recorded before the experts run: a recompute under non-reentrant
         # checkpointing stops once the backward has what it saved
-        _ROUTES.append(Routing(experts, keep.view(T, K), top.detach()))
+        _ROUTES.append(Routing(experts, keep.view(T, K), top.detach(), probs=probs.detach()))
     # flat bin rows: a kept route's own slot, a dropped one the expert's
     # overflow row C (summed there and thrown away)
     dst = flat_e * (C + 1) + torch.where(keep, pos, C)

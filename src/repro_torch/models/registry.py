@@ -23,7 +23,7 @@ from typing import Callable, Dict, Tuple
 import torch
 
 from ..configs.base import ModelConfig, ShapeConfig
-from ..runtime.sharding import ParamSpec
+from ..runtime.sharding import ParamSpec, replicate_like, shard
 from . import ssm as ssm_mod
 from . import transformer as tf_mod
 
@@ -50,20 +50,25 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> Tuple[torch.Ten
 
 def _vocab_parallel_ce(logits, labels) -> Tuple[torch.Tensor, torch.Tensor]:
     """``cross_entropy`` of DTensor logits without gathering them: a
-    ``shard_map`` island over logits split on the batch axes and the
-    vocabulary (the ``"vocab"`` rule), the labels on the batch axes.  Each
-    rank takes its vocabulary slice's max (all-reduced, held constant: the
-    log-sum-exp's gradient does not depend on it), its sum of exponentials
-    and the gold logits that fall in its slice, each psum'd over the
-    vocabulary's axes; the masked NLL and the token count are psum'd over
-    the batch axes."""
+    ``shard_map`` island over the logits in the layout they arrive in
+    (split on the batch, sequence and vocabulary dims as the rules left
+    them: moving a split from one dim to another would gather a whole dim
+    of them on every rank), the labels split alike.  Each rank takes its
+    vocabulary slice's max (all-reduced, held constant: the log-sum-exp's
+    gradient does not depend on it), its sum of exponentials and the gold
+    logits that fall in its slice, each psum'd over the vocabulary's axes;
+    the masked NLL and the token count are psum'd over the batch and
+    sequence axes."""
     from ..runtime import collectives as coll
-    from ..runtime.sharding import current_rules, entry_axes, shard_map, spec_for
+    from ..runtime.sharding import current_rules, entry_axes, shard_map, spec_for, spec_of
 
     mesh = logits.device_mesh
-    lspec = spec_for(logits.shape, ("batch", None, "vocab"), mesh, current_rules())
-    yspec = spec_for(labels.shape, ("batch", None), mesh, current_rules())
-    vocab_axes, batch_axes = entry_axes(lspec[2]), entry_axes(lspec[0])
+    lspec = spec_of(logits)
+    if lspec is None:  # a partial sum: reduced on the way in
+        lspec = spec_for(logits.shape, ("batch", None, "vocab"), mesh, current_rules())
+    yspec = lspec[:2]
+    vocab_axes = entry_axes(lspec[2])
+    token_axes = entry_axes(lspec[0]) + entry_axes(lspec[1])
 
     def body(lg, y):
         V = lg.shape[-1]
@@ -77,14 +82,38 @@ def _vocab_parallel_ce(logits, labels) -> Tuple[torch.Tensor, torch.Tensor]:
         idx = (safe - off).clamp(0, V - 1)
         gold = coll.psum(torch.where(mine, torch.take_along_dim(lg, idx[..., None], dim=-1)[..., 0],
                                      0.0), mesh, vocab_axes)
-        nll = coll.psum(((logz - gold) * mask).sum(), mesh, batch_axes)
-        denom = coll.psum(mask.sum(), mesh, batch_axes)
+        nll = coll.psum(((logz - gold) * mask).sum(), mesh, token_axes)
+        denom = coll.psum(mask.sum(), mesh, token_axes)
         return nll, denom
 
     nll, denom = shard_map(mesh, body, (None, None), (logits, labels), in_specs=(lspec, yspec),
-                           split_axes=batch_axes + vocab_axes)
+                           split_axes=token_axes + vocab_axes)
     denom = denom.clamp_min(1.0)
     return nll / denom, denom
+
+
+def _last_position(logits: torch.Tensor) -> torch.Tensor:
+    """``logits[:, -1:]``.  DTensor logits split on the sequence are read in
+    a ``shard_map`` island (the last shard's last row, psum'd over the
+    sequence's axes), where a plain slice would gather the whole sequence
+    of logits on every rank."""
+    from torch.distributed.tensor import DTensor
+
+    from ..runtime import collectives as coll
+    from ..runtime.sharding import entry_axes, shard_map, spec_of
+
+    spec = spec_of(logits) if isinstance(logits, DTensor) else None
+    seq_axes = entry_axes(spec[1]) if spec is not None else ()
+    if not seq_axes:
+        return logits[:, -1:]
+    mesh = logits.device_mesh
+
+    def body(lg):
+        last = coll.flat_index(mesh, seq_axes) == coll.axis_size(mesh, seq_axes) - 1
+        row = lg[:, -1:]
+        return coll.psum(row if last else torch.zeros_like(row), mesh, seq_axes)
+
+    return shard_map(mesh, body, ((spec[0], None, spec[2]),), (logits,), in_specs=(spec,))
 
 
 @dataclasses.dataclass
@@ -154,22 +183,32 @@ def _build_decoder_family(cfg: ModelConfig) -> ModelAPI:
             enc_out = tf_mod.encoder_forward(params, batch["frames"], cfg)
             B, Ssrc = enc_out.shape[:2]
             src = torch.arange(Ssrc, dtype=torch.int32, device=enc_out.device)
-            return {"enc_out": enc_out, "src_positions": src[None].expand(B, Ssrc)}
+            src = shard(replicate_like(src[None].expand(B, Ssrc), enc_out), "batch", None)
+            return {"enc_out": enc_out, "src_positions": src}
         return {}
 
     def loss_fn(params, batch):
+        from torch.distributed.tensor import DTensor
+
         logits, _, aux = tf_mod.decoder_forward(params, batch["tokens"], cfg,
                                                 **frontend_kw(params, batch))
-        if is_vlm:
+        labels = batch["labels"]
+        if is_vlm and isinstance(logits, DTensor):
+            # the patch positions' labels masked, where slicing them off the
+            # logits would gather the sequence on every rank
+            pad = torch.full((labels.shape[0], cfg.frontend_len), -1, dtype=labels.dtype,
+                             device=labels.device)
+            labels = torch.cat([shard(replicate_like(pad, labels), "batch", None), labels], dim=1)
+        elif is_vlm:
             logits = logits[:, cfg.frontend_len:]
-        loss, ntok = cross_entropy(logits, batch["labels"])
+        loss, ntok = cross_entropy(logits, labels)
         total = loss + AUX_WEIGHT * aux
         return total, {"ce": loss, "aux": aux, "ntok": ntok}
 
     def prefill_fn(params, batch):
         logits, _, _ = tf_mod.decoder_forward(params, batch["tokens"], cfg,
                                               **frontend_kw(params, batch))
-        return logits[:, -1:]
+        return _last_position(logits)
 
     def decode_fn(params, cache, batch):
         """One step; writes the new k and v into ``cache`` in place."""
@@ -203,7 +242,7 @@ def _build_mamba(cfg: ModelConfig) -> ModelAPI:
 
     def prefill_fn(params, batch):
         logits, _, _ = ssm_mod.mamba_forward(params, batch["tokens"], cfg)
-        return logits[:, -1:]
+        return _last_position(logits)
 
     def decode_fn(params, cache, batch):
         """One step; returns a new cache (``conv`` and ``state`` replaced)."""
@@ -229,7 +268,7 @@ def _build_zamba(cfg: ModelConfig) -> ModelAPI:
 
     def prefill_fn(params, batch):
         logits, _, _ = ssm_mod.zamba_forward(params, batch["tokens"], cfg)
-        return logits[:, -1:]
+        return _last_position(logits)
 
     def decode_fn(params, cache, batch):
         """One step; the SSD layers' ``conv`` and ``state`` come back new,

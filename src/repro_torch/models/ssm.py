@@ -18,7 +18,7 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 
 from ..configs.base import ModelConfig
-from ..runtime.sharding import ParamSpec, shard
+from ..runtime.sharding import ParamSpec, replicate_like, shard
 from .layers import (
     _mm,
     apply_mlp,
@@ -229,7 +229,7 @@ def zamba_forward(
     x0 = _embed(params, tokens, cfg)
     start = 0 if cache_len is None else int(cache_len)
     positions = torch.arange(start, start + S, dtype=torch.int32, device=x0.device)
-    positions = positions[None].expand(B, S)
+    positions = shard(replicate_like(positions[None].expand(B, S), x0), "batch", "residual_seq")
     shared = params["shared"]
     units = _tree_units(params["blocks"], U)
 

@@ -37,7 +37,7 @@ __all__ = [
     "distribute_tree", "entry_axes", "full_tree", "materialize", "mesh_sizes", "param_bytes",
     "param_count",
     "placements_for", "replicate_like", "shape_structs", "shard", "shard_map", "sharding_tree",
-    "spec_for",
+    "spec_for", "spec_of",
 ]
 
 # a leaf whose float32 draw would take more bytes than this is drawn one
@@ -97,7 +97,8 @@ def axis_rules(mesh, rules: Optional[Dict[str, Any]] = None):
     ``implicit_replication``: a plain tensor that meets a DTensor (a
     position ramp, a mask, a zero accumulator) counts as replicated, as an
     unannotated constant does under GSPMD; and on the card under
-    ``collectives.host_staging``, gloo's transport for its all-gathers."""
+    ``collectives.host_staging``, gloo's transport for its all-gathers.
+    It also installs ``_agreeing_pointwise`` (once, process-wide)."""
     old = (_CTX.mesh, _CTX.rules)
     _CTX.mesh = mesh
     merged = dict(DEFAULT_RULES)
@@ -110,12 +111,84 @@ def axis_rules(mesh, rules: Optional[Dict[str, Any]] = None):
 
             from .collectives import host_staging
 
+            _agreeing_pointwise()
             with implicit_replication(), host_staging(mesh):
                 yield
         else:
             yield
     finally:
         _CTX.mesh, _CTX.rules = old
+
+
+def _agreeing_pointwise() -> None:
+    """Answer DTensor's sharding question for a pointwise op directly when
+    its operands' splits agree, as torch 2.11's ``pointwise_strategy`` did.
+
+    From torch 2.12 DTensor expands a pointwise op's one-mesh-dim rules to
+    every combination over the mesh's dims and prices each, some 10^3
+    candidates an op on a 3-axis mesh (~0.3 s an op the first time it meets
+    a shape).  Where no operand holds a partial sum and each mesh dim
+    splits at most one output dim (of the same size in every operand that
+    splits it), the cheapest layout is that split, with an operand
+    replicated on the dim (or broadcast along it) sliced locally; an
+    in-place op must keep its own layout.  Those cases get that one
+    strategy; every other case, and older torch, keeps DTensor's own."""
+    try:
+        import torch.distributed.tensor._sharding_prop as sp
+        from torch.distributed.tensor._dtensor_spec import DTensorSpec, TensorMeta
+        from torch.distributed.tensor._op_schema import OpSpec, OpStrategy
+        from torch.distributed.tensor.placement_types import Replicate, Shard
+    except ImportError:
+        return
+    expand = getattr(sp, "_expand_single_dim_strategy_to_mesh", None)
+    if expand is None or getattr(expand, "agreeing_pointwise", False):
+        return
+
+    def layout(op, mesh, args, kwargs, out_meta):
+        if (torch.Tag.pointwise not in op.tags or not isinstance(out_meta, TensorMeta)
+                or any(isinstance(a, OpStrategy) for a in kwargs.values())):
+            return None
+        ins = [a for a in args if isinstance(a, OpStrategy)]
+        if not ins or any(len(a.strategies) != 1 for a in ins):
+            return None
+        specs = [a.strategies[0].output_spec for a in ins]
+        shape = tuple(out_meta.shape)
+        out_pl = []
+        for m in range(mesh.ndim):
+            split = None
+            for sp_ in specs:
+                q = sp_.placements[m]
+                if type(q) is Shard:
+                    d = q.dim + len(shape) - sp_.ndim  # the output's dim
+                    if sp_.shape[q.dim] != shape[d] or split not in (None, d):
+                        return None
+                    split = d
+                elif type(q) is not Replicate:
+                    return None
+            out_pl.append(Replicate() if split is None else Shard(split))
+        inplace = op.name().split("::")[1].split(".")[0].endswith("_")
+        if inplace and tuple(out_pl) != tuple(specs[0].placements):
+            return None
+        in_specs = []
+        for sp_ in specs:
+            lead = len(shape) - sp_.ndim
+            pl = [Shard(q.dim - lead) if isinstance(q, Shard) and q.dim >= lead
+                  and sp_.shape[q.dim - lead] == shape[q.dim] else Replicate() for q in out_pl]
+            in_specs.append(DTensorSpec(mesh, tuple(pl), tensor_meta=sp_.tensor_meta))
+        return OpStrategy([OpSpec(output_specs=DTensorSpec(mesh, tuple(out_pl),
+                                                           tensor_meta=out_meta),
+                                  input_specs=in_specs,
+                                  redistribute_cost=[[0.0] for _ in in_specs])])
+
+    def agreeing(mesh, op_schema, strategy_info, out_meta):
+        strategy = layout(op_schema.op, mesh, op_schema.args_schema, op_schema.kwargs_schema,
+                          out_meta)
+        if strategy is None:
+            return expand(mesh, op_schema, strategy_info, out_meta)
+        return lambda *_: strategy
+
+    agreeing.agreeing_pointwise = True
+    sp._expand_single_dim_strategy_to_mesh = agreeing
 
 
 def current_mesh():
@@ -193,6 +266,21 @@ def placements_for(spec: Tuple, mesh) -> Tuple:
         for a in entry_axes(entry):
             out[names.index(a)] = Shard(dim)
     return tuple(out)
+
+
+def spec_of(t) -> Optional[Tuple]:
+    """A DTensor's layout as ``spec_for`` entries (each dim's mesh axes in
+    the mesh's order), or None where it holds a partial sum."""
+    from torch.distributed.tensor import Shard
+
+    names = list(t.device_mesh.mesh_dim_names)
+    axes: list = [[] for _ in range(t.ndim)]
+    for m, q in enumerate(t.placements):
+        if q.is_partial():
+            return None
+        if isinstance(q, Shard):
+            axes[q.dim].append(names[m])
+    return tuple(None if not a else a[0] if len(a) == 1 else tuple(a) for a in axes)
 
 
 def entry_axes(entry) -> Tuple[str, ...]:
